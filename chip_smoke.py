@@ -1,4 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving path once on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving and training paths once on one
+NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -7,12 +8,17 @@ Phases (any failure exits non-zero; nothing is caught):
 1. The card's name and power limit; the Hopper kernels built from
    ``splade_tpu_torch/csrc`` with their ptxas register/shared-memory/spill
    report.
-2. Each kernel against its plain PyTorch version at the serving path's
-   shapes, in bf16 on the card: the fused SPLADE pool at query encode
-   (B=32, S=64) and document encode (B=32, S=256) with H=768, V=50,000 and
-   a fully padded row; the exact rescore at B=32, C=1000, M=64, T=64 over a
-   1M-document doc-major block. Times by CUDA events, the bound from the
-   shapes, and for the pool a library yardstick (torch.matmul + amax).
+2. Each kernel against its plain PyTorch version, in bf16 on the card: the
+   fused SPLADE pool forward at query encode (B=32, S=64) and document
+   encode (B=32, S=256) with H=768, V=50,000 and a fully padded row; the
+   exact rescore at B=32, C=1000, M=64, T=64 over a 1M-document doc-major
+   block; the pool's two backward kernels at the training shapes (docs
+   B=128, S=256; queries B=64, S=64), whole kernel route against whole
+   plain route: (a) small-integer inputs elementwise, (b) the model's own
+   states by norm, (c) the recompute against the forward kernel's maxima,
+   every row with its exact ties counted. Times by CUDA events, the bound
+   from the shapes and this run's matches, and a library yardstick
+   composed of cuBLAS calls where one exists.
 3. The serving path at full width (22 layers, 768 hidden, 50K vocab) with
    seeded random weights and a character-level stand-in tokenizer: a
    two-phase PostingsIndex over 1,000,000 synthetic documents plus a few
@@ -26,8 +32,20 @@ Phases (any failure exits non-zero; nothing is caught):
    single-query requests. Then one warmed search batch
    of 8 and of 32 queries per engine under torch.profiler: wall time,
    device busy time and idle share, and the kernels that take most time.
+4. The training path at full width with the canonical V33 recipe of
+   ``configs/train_v33.yaml`` (batch 64, accumulation 4, query 64, doc 256,
+   one hard negative, packed query tower, bf16 autocast, layer recompute,
+   lr 5e-5): synthetic Hangul triplets written as JSONL and read through
+   load_training_data -> TripletCollator -> Trainer. One warm-up step, then
+   3 optimizer steps through the kernels with the launch counts set to 0
+   before and read after (2 x accumulation a step for each pool kernel),
+   triplets/s, step time and peak memory; one step under torch.profiler; a
+   checkpoint resumed by a fresh Trainer that must take the same step (at
+   the schedule's learning rate for that step, above 0); one micro-batch
+   held against the plain route (pool_impl="streamed").
 
-The last two lines are the kernels' JSON and the run's JSON.
+The last three lines are the training JSON, the kernels' JSON and the
+run's JSON.
 """
 
 from __future__ import annotations
@@ -40,6 +58,7 @@ import subprocess
 import sys
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -55,6 +74,30 @@ RESCORE_TOL = 1e-4   # the reference's own rescore tolerance
 # document's largest weight): f32 sum order alone gives about 1e-6, and a
 # dropped bias or a wrong term in a score moves it by far more than 1e-4
 SERVE_RTOL = 1e-4
+# backward kernels vs plain versions. (a) exact inputs: only the order of
+# f32 sums differs (about 1e-7 of a tensor's largest value). (b) model
+# states: a near-tie may pick another argmax in the two routes and move one
+# W row; norm-relative. (c) with g_pre = 1, sum_s dh[b] = sum_v n[b,v] W[v]
+# with n the count of positions that reach the maximum (1, or more at an
+# exact f32 tie): once each row's ties are counted, only f32 sum order is
+# left (about 1e-6), while one column lost or added moves the row by about
+# 1/sqrt(V) (4.5e-3 at V=50,000). Tie candidates: positions whose f32
+# score is within RECOMPUTE_TIE_RTOL of the column's best (the two sum
+# orders differ by about 1e-6 of it).
+BWD_EXACT_RTOL = 1e-5
+BWD_NORM_RTOL = 1e-2
+RECOMPUTE_RTOL = 1e-3
+RECOMPUTE_TIE_RTOL = 1e-4
+# training, kernel route vs plain route on one micro-batch from the same
+# parameters and bf16-exact embedding: the backbone is shared, the pool's
+# products are exact in both, only f32 sum order (and a rare near-tie's
+# argmax) differs, then bf16 autocast rounds the backward; dropping dbias
+# or losing the argmax moves a gradient by about 1
+TRAIN_RTOL = 1e-3
+TRAIN_GRAD_RTOL = 2e-2
+# resume: the kernels and the step are deterministic, so the resumed step
+# should be bitwise; anything beyond f32 noise is a fault
+RESUME_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -290,6 +333,245 @@ def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
+def _pool_routes(torch, h, w, bias, mask, gout):
+    """(kernel route, plain route) gradients (dh, dw, dbias) of
+    sum(pooled * gout): forward kernel -> backward kernels through the
+    autograd.Function, and plain forward -> plain backward, on f32 copies
+    of the same values (so the gradients come back in f32)."""
+    from splade_tpu_torch.ops.fused_splade import (fold_cotangent,
+                                                   fused_splade_bwd_plain,
+                                                   fused_splade_pool,
+                                                   fused_splade_pool_plain)
+
+    leaves = [t.float().clone().requires_grad_() for t in (h, w, bias)]
+    pooled, _ = fused_splade_pool(*leaves, mask)
+    (pooled * gout).sum().backward()
+    got = [t.grad for t in leaves]
+    with torch.no_grad():
+        hf, wf, bf = (t.float() for t in (h, w, bias))
+        m, _ = fused_splade_pool_plain(hf, wf, bf, mask)
+        g_pre = fold_cotangent(gout, m)
+        dh, dw = fused_splade_bwd_plain(hf, wf, bf, mask, m, g_pre)
+    return got, [dh, dw, g_pre.sum(0)]
+
+
+def recompute_check(torch, h, w, bias, mask, m, dh1) -> dict:
+    """Check (c): ``dh1`` is the dh kernel's output for the forward
+    kernel's maxima ``m`` and g_pre = 1 on every row with a valid position
+    (0 on a padded row, as ``fold_cotangent`` makes it there). Each column
+    of a valid row sends its W row to every position whose recomputed
+    score equals m, so
+    ``sum_s dh1[b] - sum_v W[v]`` must be a whole, non-negative count of
+    W rows of columns where the row has a tie. Tie candidates come from f32
+    scores (positions within RECOMPUTE_TIE_RTOL of the column's best);
+    their counts are fitted by least squares, and what remains must be
+    within RECOMPUTE_RTOL of |sum_v W[v]| in every valid row. A recompute
+    that misses m loses a W row (a count of -1), one that matches elsewhere
+    adds one the candidates cannot explain. Padded rows must be zero."""
+    hf, wf = h.float(), w.float()
+    bf = bias.float() if bias is not None else torch.zeros_like(wf[:, 0])
+    valid = mask > 0
+    rows = valid.any(1)
+    want = wf.sum(0)
+    scale = float(want.norm())
+    resid = (dh1.float().sum(1) - want).double().cpu()
+    raw = resid.norm(dim=1) / scale
+    worst, ties, tied_rows, counts_ok = 0.0, 0, 0, True
+    share = []  # the most columns one position of a row holds the maximum of
+    for b in torch.nonzero(rows).flatten().tolist():
+        s = hf[b][valid[b]] @ wf.T + bf
+        best = s.amax(0)
+        share.append(float(torch.bincount(s.argmax(0)).max()) / s.shape[1])
+        near = s >= best - RECOMPUTE_TIE_RTOL * best.abs().clamp_min(1.0)
+        extra = near.sum(0) - 1  # the most extra matches a column can hold
+        cand = torch.nonzero(extra > 0).flatten()
+        r = resid[b]
+        if 0 < cand.numel() < wf.shape[1]:
+            A = wf[cand].double().cpu().T
+            fit = torch.linalg.lstsq(A, r[:, None]).solution[:, 0]
+            n = fit.round()
+            counts_ok &= bool((fit - n).abs().max() <= 0.1 and (n >= 0).all()
+                              and (n <= extra[cand].cpu()).all())
+            r = r - A @ n
+            ties += int(n.sum())
+            tied_rows += int(n.sum() > 0)
+        elif cand.numel():
+            counts_ok = False                         # more candidates than H
+        worst = max(worst, float(r.norm()) / scale)
+    padded_zero = float(dh1[~rows].abs().sum()) == 0.0
+    return dict(rows=int(rows.sum()), tied_rows=tied_rows, ties=ties,
+                worst_before_ties=float(raw[rows.cpu()].max()) if rows.any()
+                else 0.0, worst=worst, counts_ok=counts_ok,
+                padded_zero=padded_zero,
+                top_position_share=dict(mean=float(np.mean(share)),
+                                        max=float(np.max(share)))
+                if share else None,
+                ok=counts_ok and padded_zero and worst <= RECOMPUTE_RTOL)
+
+
+def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
+    """The backward kernels at one training shape, held against the plain
+    versions: (a) small-integer inputs, where every score is exact in f32
+    in any order and exact ties are common, elementwise; (b) the model's
+    own states, by norm (near-ties may pick another argmax); (c) with
+    g_pre = 1 the dh kernel must send each column's W row to the forward
+    kernel's argmax. Then the times of both C entries, the plain backward,
+    a cuBLAS composition and the bound."""
+    from splade_tpu_torch.ops import _cuda
+    from splade_tpu_torch.ops.fused_splade import (dh_vocab_splits,
+                                                   fold_cotangent,
+                                                   fused_splade_bwd_dh,
+                                                   fused_splade_bwd_plain,
+                                                   fused_splade_maxima,
+                                                   fused_splade_pool_plain)
+
+    enc = tok(hangul_texts(rng, B, S), max_length=S)
+    ids = torch.from_numpy(enc["input_ids"]).cuda()
+    mask = torch.from_numpy(enc["attention_mask"]).cuda()
+    lens = torch.from_numpy(rng.integers(1, S + 1, B)).cuda()
+    mask = mask * (torch.arange(S, device="cuda")[None] < lens[:, None])
+    mask[-1] = 0                                  # a fully padded row
+    with torch.no_grad():
+        h = model.mlm.head_transform(model.mlm.encode(ids, mask)).contiguous()
+    w, bias_p = model.mlm.decoder_weights()
+    w, bias = w.detach(), bias_p.detach().float().contiguous()
+    H = h.shape[-1]
+    gen = torch.Generator(device="cuda").manual_seed(B * S)
+    gout = torch.randn((B, V), device="cuda", generator=gen)
+    names = ("dh", "dw", "dbias")
+
+    # (a) exactly representable inputs
+    ints = lambda *shape: torch.randint(-2, 3, shape, device="cuda",
+                                        generator=gen).float()
+    got, want = _pool_routes(torch, ints(B, S, H), ints(V, H), ints(V),
+                             mask, gout)
+    abs_a = {n: float((g - r).abs().max()) for n, g, r in zip(names, got, want)}
+    err_a = {n: abs_a[n] / float(r.abs().max()) for n, r in zip(names, want)}
+    padded_zero = float(got[0][-1].abs().max()) == 0.0
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    # (b) the model's states
+    got, want = _pool_routes(torch, h, w, bias, mask, gout)
+    err_b = {n: float((g - r).norm() / r.norm())
+             for n, g, r in zip(names, got, want)}
+    padded_zero = padded_zero and float(got[0][-1].abs().max()) == 0.0
+    del got, want
+    # (c) the recompute equals the forward kernel's maxima
+    with torch.no_grad():
+        m_k, _ = fused_splade_maxima(h, w, bias, mask)
+        ones = (mask.sum(1, keepdim=True) > 0).float().expand_as(m_k)
+        dh1 = fused_splade_bwd_dh(h, w, bias, mask, m_k, ones)
+        rc = recompute_check(torch, h, w, bias, mask, m_k, dh1)
+    del dh1
+    share = rc["top_position_share"]
+    log(f"  pool backward B={B} S={S}: (a) exact inputs max err "
+        + ", ".join(f"{n} {e:.2e}" for n, e in err_a.items())
+        + f" (tol {BWD_EXACT_RTOL} of each tensor's largest value); (b) "
+        "model states norm err " + ", ".join(f"{n} {e:.2e}"
+                                            for n, e in err_b.items())
+        + f" (tol {BWD_NORM_RTOL}); (c) recompute over {rc['rows']} rows: "
+        f"{rc['ties']} exact ties in {rc['tied_rows']} rows (counts sound: "
+        f"{rc['counts_ok']}), worst row {rc['worst_before_ties']:.2e} before "
+        f"and {rc['worst']:.2e} after the ties (tol {RECOMPUTE_RTOL}); "
+        f"padded row zero and finite: {padded_zero and finite}; the position "
+        f"holding most of a row's maxima holds {share['mean']:.1%} of the "
+        f"columns on average, {share['max']:.1%} at most")
+    if not (max(err_a.values()) <= BWD_EXACT_RTOL
+            and max(err_b.values()) <= BWD_NORM_RTOL
+            and rc["ok"] and padded_zero and finite):
+        raise SystemExit(f"fused pool backward kernels disagree (B={B}, S={S})")
+
+    # times: the C entries alone on prepared operands, with the forward
+    # kernel's maxima and with maxima no score reaches (the recompute and
+    # the scan without a row added), and the forward kernel beside them
+    lib = _cuda.library()
+    maskf = mask.float().contiguous()
+    g_pre = fold_cotangent(gout, m_k).contiguous()
+    never = torch.full_like(m_k, float("inf"))
+    splits = dh_vocab_splits(B, S, V)
+    dh_out = torch.empty((splits, B, S, H), dtype=torch.float32,
+                         device="cuda")
+    dw_out = torch.empty((V, H), dtype=torch.float32, device="cuda")
+
+    def entry(name, out, maxima):
+        fn = getattr(lib, name)
+        extra = [splits] if name.endswith("_dh") else []
+
+        def run():
+            _cuda.check(fn(
+                h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
+                maxima.data_ptr(), g_pre.data_ptr(), out.data_ptr(), B, S, H,
+                V, *extra, torch.cuda.current_stream().cuda_stream), name)
+            if splits > 1 and extra:
+                out.sum(0)  # the wrapper's ordered sum of the splits
+        return run
+
+    hf, wf = h.float(), w.float()
+    m_p, _ = fused_splade_pool_plain(hf, wf, bias, maskf)
+    g_p = fold_cotangent(gout, m_p)
+    valid = maskf > 0
+
+    def library(which):
+        # timing yardstick only: bf16 cuBLAS logits, eq/where, bf16 GEMM
+        logits = torch.matmul(h.view(B * S, H), w.T).view(B, S, V)
+        eq = (logits.float() + bias == m_k[:, None, :]) & valid[:, :, None]
+        G = torch.where(eq, g_pre[:, None, :], 0.0).to(torch.bfloat16)
+        if which == "dh":
+            return torch.matmul(G, w)
+        return torch.matmul(G.view(B * S, V).T, h.view(B * S, H))
+
+    with torch.no_grad():
+        out = {}
+        for name, buf in (("dh", dh_out), ("dw", dw_out)):
+            c_name = f"splade_fused_pool_bwd_{name}"
+            out[name] = dict(
+                ms=cuda_ms(torch, entry(c_name, buf, m_k), iters=5, warmup=1),
+                no_match_ms=cuda_ms(torch, entry(c_name, buf, never), iters=3,
+                                    warmup=1),
+                library_ms=cuda_ms(torch, lambda: library(name), iters=3,
+                                   warmup=1))
+        fwd_ms = cuda_ms(torch, lambda: fused_splade_maxima(h, w, bias, mask),
+                         iters=5, warmup=1)
+        plain_ms = cuda_ms(torch, lambda: fused_splade_bwd_plain(
+            hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)
+    nvalid = float(maskf.sum())
+    matches = float((g_pre != 0).sum())  # one a (b, v), ties aside
+    # the function's own work: the recompute, 2*valid*H*V bf16 operations
+    # on the tensor cores, plus one f32 row of H multiply-adds a match on
+    # the CUDA cores (their times added); bytes: inputs once, output once.
+    # Beside it, the TPU kernels' convention: the recompute plus a dense
+    # G @ W (or G^T @ h) contraction, 4*valid*H*V bf16 operations
+    recompute_ops = 2.0 * nvalid * H * V
+    add_ops = 2.0 * matches * H
+    ops_ms = (recompute_ops / H100_BF16_FLOPS + add_ops / H100_FP32_OPS) * 1e3
+    shared = h.numel() * 2 + w.numel() * 2 + V * 4 + B * S * 4 + 2 * B * V * 4
+    result = {}
+    for name, out_bytes in (("dh", B * S * H * 4), ("dw", V * H * 4)):
+        bytes_ms = (shared + out_bytes) / H100_BYTES * 1e3
+        bound_ms, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
+                              else (bytes_ms, "bytes"))
+        result[name] = dict(
+            shape=f"B={B} S={S} H={H} V={V}",
+            max_abs_err=abs_a[name],  # check (a): kernel vs plain route
+            err_exact=err_a[name], err_norm=err_b[name], recompute=rc,
+            ms=out[name]["ms"], no_match_ms=out[name]["no_match_ms"],
+            forward_ms=fwd_ms, plain_ms=plain_ms,
+            plain_computes="dh and dw together",
+            library_ms=out[name]["library_ms"], bound_ms=bound_ms,
+            bound_by=bound_by, matches=matches,
+            bound_dense_contraction_ms=bound(
+                shared + out_bytes, 2 * recompute_ops, H100_BF16_FLOPS)[0])
+        log(f"  pool backward {name} B={B} S={S}: kernel "
+            f"{out[name]['ms']:.3f} ms ({out[name]['no_match_ms']:.3f} ms "
+            f"with maxima nothing reaches; forward kernel {fwd_ms:.3f} ms), "
+            f"plain (dh+dw) {plain_ms:.3f} ms, library "
+            f"{out[name]['library_ms']:.3f} ms, bound {bound_ms:.3f} ms "
+            f"({bound_by}: {recompute_ops:.3e} bf16 FLOP over {nvalid:.0f} "
+            f"valid tokens + {add_ops:.3e} f32 FLOP over {matches:.0f} "
+            f"matches; dense-contraction convention "
+            f"{result[name]['bound_dense_contraction_ms']:.3f} ms)")
+    return result
+
+
 # ------------------------------------------------------------ phase 3
 def _http(addr, method, path, payload=None):
     conn = http.client.HTTPConnection(*addr, timeout=600)
@@ -390,20 +672,18 @@ def drive(name: str, engine, model, queries, doc_text: str) -> dict:
     return summary
 
 
-def profile_batch(torch, name: str, engine, queries) -> dict:
-    """Where one warmed search batch of len(queries) at k=100 spends its
-    time: host wall clock (to a synchronize) against the union of the
-    device's kernel and copy intervals in a torch.profiler trace, and the
-    kernels that take most device time."""
+def device_profile(torch, fn) -> dict:
+    """Host wall clock of ``fn()`` ended by a synchronize, against the union
+    of the device's kernel and copy intervals in a torch.profiler trace,
+    and the device items that take most time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    engine.search_batch(queries, k=100)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine.search_batch(queries, k=100)
+        fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
@@ -414,19 +694,29 @@ def profile_batch(torch, name: str, engine, queries) -> dict:
         end_us = max(end_us, end)
         by_name[kname] = by_name.get(kname, 0.0) + (end - start)
     if not spans:
-        log(f"  {name} B={len(queries)}: wall {wall_ms:.2f} ms; the profiler "
-            "saw no device activity, device time not measured")
-        return dict(batch=len(queries), wall_ms=wall_ms, device_busy_ms=None)
+        return dict(wall_ms=wall_ms, device_busy_ms=None)
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    out = dict(batch=len(queries), wall_ms=wall_ms,
-               device_busy_ms=busy_us / 1e3,
-               device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
-               device_ops=len(spans),
-               top_kernels_ms={k[:60]: v / 1e3 for k, v in top})
-    log(f"  {name} B={len(queries)} k=100 batch: wall {wall_ms:.2f} ms, device "
-        f"busy {busy_us / 1e3:.2f} ms (idle {out['device_idle_share']:.0%}) "
-        f"over {len(spans)} device ops; top: "
-        + ", ".join(f"{k[:40]} {v / 1e3:.3f}" for k, v in top[:5]))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
+                device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
+                device_ops=len(spans),
+                top_kernels_ms={k[:60]: v / 1e3 for k, v in top})
+
+
+def profile_batch(torch, name: str, engine, queries) -> dict:
+    """Where one warmed search batch of len(queries) at k=100 spends its
+    time (device_profile)."""
+    engine.search_batch(queries, k=100)
+    out = dict(batch=len(queries), **device_profile(
+        torch, lambda: engine.search_batch(queries, k=100)))
+    if out["device_busy_ms"] is None:
+        log(f"  {name} B={len(queries)}: wall {out['wall_ms']:.2f} ms; the "
+            "profiler saw no device activity, device time not measured")
+        return out
+    top = list(out["top_kernels_ms"].items())
+    log(f"  {name} B={len(queries)} k=100 batch: wall {out['wall_ms']:.2f} ms, "
+        f"device busy {out['device_busy_ms']:.2f} ms (idle "
+        f"{out['device_idle_share']:.0%}) over {out['device_ops']} device ops; "
+        "top: " + ", ".join(f"{k[:40]} {v:.3f}" for k, v in top[:5]))
     return out
 
 
@@ -497,6 +787,298 @@ def compare_served(name, served, plain) -> None:
         f"{worst:.2e}, tol {SERVE_RTOL})")
 
 
+# ------------------------------------------------------------ phase 4
+def v33_recipe() -> dict:
+    """The canonical V33 recipe of configs/train_v33.yaml, built in code
+    (the card machine may lack PyYAML); tests/test_torch_chip_smoke.py holds
+    it equal to the file."""
+    return {
+        "model": {"name": "skt/A.X-Encoder-base", "dtype": "bfloat16",
+                  "remat": True},
+        "loss": {"lambda_q": 0.01, "lambda_d": 0.003, "temperature": 1.0,
+                 "flops_warmup_steps": 20000, "lambda_initial_ratio": 0.1},
+        "data": {"train_files": ["data/v29.0/train_*.jsonl"],
+                 "val_files": ["data/v29.0/val.jsonl"], "batch_size": 64,
+                 "query_max_length": 64, "doc_max_length": 256},
+        "training": {"num_epochs": 25, "learning_rate": 5.0e-5,
+                     "weight_decay": 0.01, "warmup_ratio": 0.06,
+                     "gradient_clip": 1.0, "gradient_accumulation_steps": 4,
+                     "output_dir": "outputs/train_v33", "seed": 42},
+    }
+
+
+def synth_triplets(rng, n: int, doc_words=(100, 129)) -> list:
+    """Hangul (query, positive, negative) triplets: queries of 4-16 words
+    (8-32 tokens of the character stand-in tokenizer), documents of
+    doc_words words (two syllables each: most of 256 positions filled)."""
+    def words(lo, hi):
+        return hangul_texts(rng, 1, int(rng.integers(lo, hi)))[0]
+
+    return [{"query": words(4, 17), "positive": words(*doc_words),
+             "negative": words(*doc_words)} for _ in range(n)]
+
+
+def compare_train_routes(torch, model, cfg, micro, step: int) -> dict:
+    """One micro-batch through the kernel route and through the plain route
+    (pool_impl 'streamed', autograd through the streamed maxima) from the
+    same parameters: loss, the gradients' global norm and every parameter's
+    gradient (norm-relative) must agree. The tied embedding is first rounded
+    to bf16 values in place, so that the kernels' bf16 operands and the
+    streamed path's f32 ones hold the same numbers; the two routes then
+    differ by the order of f32 sums (and the rare argmax a near-tie flips),
+    where a dropped dbias or a backward that finds no argmax moves a
+    gradient by its whole size."""
+    from splade_tpu_torch.train.trainer import compute_autocast, make_loss_fn
+
+    with torch.no_grad():
+        emb = model.mlm.decoder.weight
+        emb.copy_(emb.to(torch.bfloat16).to(emb.dtype))
+    dev = next(model.parameters()).device
+    routes = {}
+    try:
+        for impl in ("kernel", "streamed"):
+            model.pool_impl = impl
+            model.zero_grad(set_to_none=True)
+            loss, _ = make_loss_fn(
+                model, cfg.loss, 1, packed_query=cfg.model.packed_query_tower,
+                autocast=lambda: compute_autocast(cfg.model, dev))(micro, step)
+            loss.backward()
+            grads = {n: p.grad.detach().clone()
+                     for n, p in model.named_parameters() if p.grad is not None}
+            norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
+            routes[impl] = (float(loss.detach()), float(norm), grads)
+    finally:
+        model.pool_impl = "kernel"
+        model.zero_grad(set_to_none=True)
+    (k_loss, k_norm, k_grads), (p_loss, p_norm, p_grads) = (
+        routes["kernel"], routes["streamed"])
+    loss_err = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
+    norm_err = abs(k_norm - p_norm) / max(p_norm, 1e-12)
+    tensor_err = {}
+    for name in sorted(set(k_grads) | set(p_grads)):
+        if name not in k_grads or name not in p_grads:
+            tensor_err[name] = 1.0  # a gradient one route never produced
+            continue
+        ref = p_grads[name].float()
+        tensor_err[name] = float((k_grads[name].float() - ref).norm()
+                                 / ref.norm().clamp_min(1e-30))
+    worst = max(tensor_err, key=tensor_err.get)
+    out = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_rel_err=loss_err,
+               grad_norm_kernel=k_norm, grad_norm_plain=p_norm,
+               grad_norm_rel_err=norm_err, worst_tensor=worst,
+               worst_tensor_rel_err=tensor_err[worst],
+               tensors=len(tensor_err), loss_rtol=TRAIN_RTOL,
+               grad_rtol=TRAIN_GRAD_RTOL)
+    log(f"  kernel vs plain route, one micro-batch: loss {k_loss:.6f} vs "
+        f"{p_loss:.6f} (rel {loss_err:.2e}), grad_norm {k_norm:.6f} vs "
+        f"{p_norm:.6f} (rel {norm_err:.2e}), worst of {len(tensor_err)} "
+        f"gradients {worst} {tensor_err[worst]:.2e} (tol {TRAIN_RTOL} / "
+        f"{TRAIN_GRAD_RTOL})")
+    if not (loss_err <= TRAIN_RTOL and norm_err <= TRAIN_RTOL
+            and tensor_err[worst] <= TRAIN_GRAD_RTOL):
+        raise SystemExit("training: the kernel route's loss or gradients "
+                         "differ from the plain route's")
+    return out
+
+
+def _launch_counts():
+    from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_dh,
+                                                   fused_splade_bwd_dw,
+                                                   fused_splade_pool)
+
+    return {"fused_splade_pool": fused_splade_pool.launches,
+            "fused_splade_bwd_dh": fused_splade_bwd_dh.launches,
+            "fused_splade_bwd_dw": fused_splade_bwd_dw.launches}
+
+
+def _reset_launch_counts():
+    from splade_tpu_torch.ops import fused_splade
+
+    for fn in (fused_splade.fused_splade_pool, fused_splade.fused_splade_bwd_dh,
+               fused_splade.fused_splade_bwd_dw):
+        fn.launches = 0
+
+
+def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
+                model_config, steps: int = 3, device: str = "cuda",
+                doc_words=(100, 129)) -> dict:
+    """The V33 training path through the port's entry points: synthetic
+    triplets written as JSONL, load_training_data -> TripletCollator ->
+    Trainer (its dataloader, prefetcher, train step and AdamW). One warm-up
+    step, then ``steps`` optimizer steps (counted and timed), one more under
+    torch.profiler, a checkpoint resumed by a fresh Trainer that must take
+    the same step, and one micro-batch held against the plain route."""
+    import shutil
+    from pathlib import Path
+
+    from splade_tpu_torch.config import V33Config
+    from splade_tpu_torch.data import TripletCollator, load_training_data
+    from splade_tpu_torch.models.splade import SpladeEncoder
+    from splade_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                   save_checkpoint)
+    from splade_tpu_torch.train.trainer import Trainer, pin_batch, to_device
+
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    cfg_dict = json.loads(json.dumps(recipe))
+    cfg_dict["data"]["train_files"] = [str(workdir / "train_*.jsonl")]
+    cfg_dict["data"]["val_files"] = []
+    # max_steps stays 0 here: the Trainers' schedules span the recipe's
+    # whole run over these triplets (its 25 epochs, warm-up 6% of them), so
+    # every step after the first has a learning rate above 0; the run is
+    # cut by raising max_steps after construction
+    cfg_dict["training"].update(output_dir=str(workdir / "run"),
+                                log_every_n_steps=1)
+    cfg_dict["mesh"] = {"num_data": 1}
+    batch = cfg_dict["data"]["batch_size"]
+    accum = cfg_dict["training"]["gradient_accumulation_steps"]
+    n = batch * accum * (steps + 3)  # warm-up, measured, profiled, resumed
+    t0 = time.perf_counter()
+    with open(workdir / "train_000.jsonl", "w", encoding="utf-8") as f:
+        for row in synth_triplets(rng, n, doc_words):
+            f.write(json.dumps(row, ensure_ascii=False) + "\n")
+    data = load_training_data(cfg_dict["data"]["train_files"])
+
+    def new_trainer(model_seed):
+        cfg = V33Config.from_dict(json.loads(json.dumps(cfg_dict)))
+        collator = TripletCollator(
+            tok, query_max_length=cfg.data.query_max_length,
+            doc_max_length=cfg.data.doc_max_length,
+            num_hard_negatives=cfg.data.num_hard_negatives)
+        model = SpladeEncoder(model_config, pool_impl="kernel",
+                              with_token_weights=False,
+                              device=device).init_weights(model_seed)
+        return Trainer(cfg, model, data, collator, device=device)
+
+    trainer = new_trainer(seed)
+    cfg = trainer.cfg
+    enc = trainer.loader.collate_fn([data[i] for i in range(batch)])
+    fill = dict(query_tokens=float(enc["query_attention_mask"].sum(1).mean()),
+                doc_tokens=float(enc["positive_attention_mask"].sum(1).mean()))
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    log(f"  {len(data)} triplets written and loaded, mean tokens query "
+        f"{fill['query_tokens']:.1f} / doc {fill['doc_tokens']:.1f} of "
+        f"{cfg.data.query_max_length} / {cfg.data.doc_max_length}; model "
+        f"{n_params / 1e6:.1f}M params (f32 master, {cfg.model.dtype} "
+        f"compute, remat {cfg.model.remat}); set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    # warm-up step (first launches, allocator growth)
+    cfg.training.max_steps = 1
+    t0 = time.perf_counter()
+    trainer.train_epoch(1)
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    sync()
+    warmup_s = time.perf_counter() - t0
+    # the measured steps, through Trainer.train
+    cfg.training.max_steps = 1 + steps
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_launch_counts()
+    t0 = time.perf_counter()
+    state = trainer.train()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else None)
+    if state.step != 1 + steps:
+        raise SystemExit(f"training stopped at step {state.step}")
+    records = [json.loads(line) for line in
+               (workdir / "run" / "metrics.jsonl").read_text().splitlines()]
+    per_step = [{k: r[k] for k in ("step", "loss", "infonce", "nonzero_q",
+                                   "nonzero_d", "grad_norm", "lambda_q")}
+                for r in records]  # step 1 is the warm-up step
+    for r in per_step:
+        log(f"  step {r['step']}{' (warm-up)' if r['step'] == 1 else ''}: "
+            f"loss {r['loss']:.5f} infonce "
+            f"{r['infonce']:.5f} nnz(q/d) {r['nonzero_q']:.0f}/"
+            f"{r['nonzero_d']:.0f} grad_norm {r['grad_norm']:.5f}")
+    if not all(np.isfinite(r["loss"]) for r in per_step):
+        raise SystemExit("training: non-finite loss")
+    triplets = steps * batch * accum
+    per_opt_step = {k: v / steps for k, v in launches.items()}
+    log(f"  {steps} steps in {wall:.2f} s: {triplets / wall:.1f} triplets/s, "
+        f"{wall / steps * 1e3:.0f} ms a step (warm-up step {warmup_s:.1f} s); "
+        f"kernel launches a step {per_opt_step} (expected {2 * accum} each); "
+        f"peak device memory "
+        + (f"{peak_gb:.2f} GB" if peak_gb is not None else "not measured"))
+
+    # one more step: the checkpoint first, then the step under the profiler
+    ckpt = save_checkpoint(str(workdir), state, cfg, epoch=1)
+    macros = trainer._macro_batches(1, skip_macros=state.step)
+    host = next(macros)
+    macros.close()  # stops the loader's collation thread
+    dev_batch = to_device(pin_batch(host, device == "cuda"), trainer.device)
+    lr_live = state.optimizer.param_groups[0]["lr"]
+    box = {}
+    if device == "cuda":
+        prof = device_profile(torch, lambda: box.setdefault(
+            "m", trainer.step_fn(state, dev_batch)))
+        top = list(prof.get("top_kernels_ms", {}).items())
+        log(f"  one step under torch.profiler: wall {prof['wall_ms']:.1f} ms"
+            + (f", device busy {prof['device_busy_ms']:.1f} ms (idle "
+               f"{prof['device_idle_share']:.1%}) over {prof['device_ops']} "
+               "device ops; top: " + ", ".join(f"{k[:48]} {v:.2f}"
+                                              for k, v in top[:6])
+               if prof["device_busy_ms"] is not None
+               else "; the profiler saw no device activity, not measured"))
+    else:
+        box["m"] = trainer.step_fn(state, dev_batch)
+        prof = None
+    live = {k: float(v) for k, v in box["m"].items()}
+
+    # resume: a fresh Trainer from the checkpoint takes the same step. The
+    # step's learning rate is above 0 and it moves the parameters, so a
+    # fault in the restored AdamW moments or schedule would show
+    trainer.model.zero_grad(set_to_none=True)
+    fresh = new_trainer(seed + 1)
+    fresh.state, meta = load_checkpoint(ckpt, fresh.state)
+    pairs = list(zip(state.model.parameters(), fresh.state.model.parameters()))
+    with torch.no_grad():
+        moved = max(float((a - b).abs().max()) for a, b in pairs)
+    lr_resumed = fresh.state.optimizer.param_groups[0]["lr"]
+    resumed = {k: float(v) for k, v in
+               fresh.step_fn(fresh.state, dev_batch).items()}
+    bitwise = (all(torch.equal(a, b) for a, b in pairs)
+               and resumed["loss"] == live["loss"])
+    param_diff = max(float((a - b).detach().abs().max()) for a, b in pairs)
+    resume = dict(full_resume=meta["full_resume"], step=fresh.state.step,
+                  lr=lr_resumed, lr_live=lr_live,
+                  total_steps=trainer.total_steps, step_moved_params=moved,
+                  bitwise=bitwise, max_param_diff=param_diff,
+                  loss_live=live["loss"], loss_resumed=resumed["loss"])
+    log(f"  resumed from {Path(ckpt).name}: step {fresh.state.step} at lr "
+        f"{lr_resumed:.3e} (uninterrupted {lr_live:.3e}; schedule of "
+        f"{trainer.total_steps} steps), which moved the parameters by up to "
+        f"{moved:.2e}; loss {resumed['loss']:.6f} vs uninterrupted "
+        f"{live['loss']:.6f}, parameters "
+        f"{'bitwise equal' if bitwise else f'max diff {param_diff:.2e}'}"
+        f" (tol {RESUME_ATOL})")
+    if not (meta["full_resume"] and fresh.state.step == state.step
+            and lr_resumed > 0 and lr_resumed == lr_live and moved > 0
+            and param_diff <= RESUME_ATOL
+            and abs(resumed["loss"] - live["loss"])
+            <= RESUME_ATOL * max(1.0, abs(live["loss"]))):
+        raise SystemExit("training: the resumed step differs")
+    del trainer, state
+
+    # the plain route on the first micro-batch of that step
+    micro = {k: v[0] for k, v in dev_batch.items()}
+    plain = compare_train_routes(torch, fresh.model, cfg, micro,
+                                 fresh.state.step)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(recipe=recipe, model_params=n_params, triplets=len(data),
+                mean_tokens=fill, steps=per_step,
+                measured_steps=steps, wall_s=wall,
+                triplets_per_s=triplets / wall, step_ms=wall / steps * 1e3,
+                warmup_step_s=warmup_s, launches=launches,
+                launches_per_step=per_opt_step, peak_device_gb=peak_gb,
+                profile=prof, profiled_step=live, resume=resume,
+                plain_route=plain)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -557,6 +1139,11 @@ def main() -> int:
     pool_d = check_pool(torch, model, tok, rng, 32, 256)
     probe = SparseEncoderV33(model, tok, query_top_k=64, device="cuda")
     resc = check_rescore(torch, probe, rng, syn_terms, syn_vals)
+    # the backward kernels at the training shapes: docs (64 positives + 64
+    # negatives) and unpacked queries
+    bwd_d = check_pool_backward(torch, model, tok, rng, 128, 256)
+    bwd_q = check_pool_backward(torch, model, tok, rng, 64, 64)
+    torch.cuda.empty_cache()
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. the serving path
@@ -611,12 +1198,37 @@ def main() -> int:
                                                 queries[:b])
                 for name, engine in (("postings", postings), ("dense", dense))
                 for b in (8, 32)}
+    del postings, dense, index, doc_enc, probe, model
+    torch.cuda.empty_cache()
+
+    # ---- 4. training at full width
+    log("[4] training path: the canonical V33 recipe at 22L/768/50K")
+    t0 = time.perf_counter()
+    training = train_phase(
+        torch, tok, rng, Path(__file__).resolve().parent / "build"
+        / "chip_smoke_train", args.seed, v33_recipe(),
+        ModernBertConfig(remat=True))
+    train_launches = training["launches"]
+    log(f"[4] done in {time.perf_counter() - t0:.1f} s; kernel launches on "
+        f"the path {train_launches}")
+    accum = v33_recipe()["training"]["gradient_accumulation_steps"]
+    for name, n in train_launches.items():
+        if n <= 0:
+            raise SystemExit(f"kernel {name} was not launched on the "
+                             "training path")
+        if n != 2 * accum * training["measured_steps"]:
+            raise SystemExit(f"kernel {name}: {n} launches over "
+                             f"{training['measured_steps']} steps, expected "
+                             f"{2 * accum} a step")
 
     kernels = [
         dict(name="fused_splade_pool", route="cuda",
              source="splade_tpu_torch/csrc/fused_splade_fwd.cu",
              replaces="splade_tpu/ops/fused_splade.py:50",
              launches=launches["fused_splade_pool"],
+             launches_by_path={
+                 "serving": launches["fused_splade_pool"],
+                 "training": train_launches["fused_splade_pool"]},
              **{k: pool_d[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -632,9 +1244,24 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")},
              shapes=[resc]),
     ]
+    for name, line, d, q in (("fused_splade_bwd_dh", 93, bwd_d["dh"],
+                              bwd_q["dh"]),
+                             ("fused_splade_bwd_dw", 111, bwd_d["dw"],
+                              bwd_q["dw"])):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="splade_tpu_torch/csrc/fused_splade_bwd.cu",
+            replaces=f"splade_tpu/ops/fused_splade.py:{line}",
+            launches=train_launches[name],
+            launches_by_path={"training": train_launches[name]},
+            **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                 "bound_by", "library_ms")},
+            max_abs_err_all=max(d["max_abs_err"], q["max_abs_err"]),
+            shapes=[d, q]))
     log(json.dumps({"serving": serving, "batch_profiles": profiles,
                     "doc_encode_max_rel_diff": doc_encode_diff,
-                    "peak_device_gb": peak_gb,
+                    "peak_device_gb": peak_gb}))
+    log(json.dumps({"training": training,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -15,7 +15,7 @@
 // is 2*B*S*H*V = 6.3e11 FLOP against ~27 MB of unique input, so the tensor
 // cores bound it (0.64 ms at 989 TFLOP/s bf16). The design feeds them with
 // bf16 WMMA 16x16x16 products accumulated in f32, the k-loop over H staged
-// through shared memory in BK-wide slices, 8 warps each owning a 16x64
+// through shared memory in 64-wide slices, 8 warps each owning a 16x64
 // strip of the 64x128 score chunk. It is the simple first version: one
 // shared-memory stage, no TMA or wgmma pipeline (a later PR's work).
 //
@@ -23,27 +23,24 @@
 // through atomicMax on the order-preserving integer image of the float
 // (float_key); the wrapper fills the buffer with key(-1e30) and decodes it.
 // The ragged last vocab tile (50,000 is not a multiple of BN) is masked here:
-// W is never padded or copied.
+// W is never padded or copied. The score chunk comes from
+// fused_splade_tile.cuh, which the backward kernels share, so that their
+// recompute equals these scores bit for bit.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
-using namespace nvcuda;
+#include "fused_splade_tile.cuh"
 
 namespace {
 
+using splade_tile::NEG;
+using splade_tile::THREADS;
+
 constexpr int BM = 64;         // sequence rows per chunk
 constexpr int BN = 128;        // vocab columns per block
-constexpr int BK = 64;         // hidden slice staged per k-step
-constexpr int LDS = BK + 8;    // bf16 row stride in shared memory (bank pad)
-constexpr int LDC = BN + 4;    // f32 row stride of the score chunk
-constexpr int THREADS = 256;
-constexpr float NEG = -1e30f;
-
-constexpr int AB_BYTES = (BM + BN) * LDS * 2;
-constexpr int C_BYTES = BM * LDC * 4;
-constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
+using Tile = splade_tile::Chunk<BM, BN>;
+constexpr int LDC = Tile::LDC;
 
 __device__ __forceinline__ int float_key(float f) {
   int i = __float_as_int(f);
@@ -57,21 +54,14 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
                         const float* __restrict__ mask,
                         float* __restrict__ m_out, int* __restrict__ pos_key,
                         int S, int H, int V) {
-  // The score chunk (Cs) aliases the A/B staging buffers: the k-loop ends
-  // with a barrier before the chunk is stored.
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
+  __shared__ __align__(128) unsigned char smem[Tile::SMEM_BYTES];
   __shared__ float bias_s[BN];
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDS;
   float* Cs = reinterpret_cast<float*>(smem);
 
   const int b = blockIdx.y;
   const int v0 = blockIdx.x * BN;
   const int n_cols = min(BN, V - v0);
   const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int wr = warp >> 1;        // row fragment 0..3 of the 64-row chunk
-  const int wc = (warp & 1) * 4;   // first of this warp's 4 column fragments
 
   const __nv_bfloat16* hb = h + (size_t)b * S * H;
   const float* maskb = mask + (size_t)b * S;
@@ -84,51 +74,7 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
   float colmax = NEG;
 
   for (int s0 = 0; s0 < S; s0 += BM) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-    for (int k0 = 0; k0 < H; k0 += BK) {
-      // stage A [BM, BK] and B [BN, BK], 16 bytes (8 bf16) per load
-      for (int i = tid; i < BM * (BK / 8); i += THREADS) {
-        const int r = i / (BK / 8), q = i % (BK / 8);
-        const int s = s0 + r, k = k0 + q * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (s < S && k < H)
-          val = *reinterpret_cast<const uint4*>(hb + (size_t)s * H + k);
-        *reinterpret_cast<uint4*>(As + r * LDS + q * 8) = val;
-      }
-      for (int i = tid; i < BN * (BK / 8); i += THREADS) {
-        const int r = i / (BK / 8), q = i % (BK / 8);
-        const int k = k0 + q * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n_cols && k < H)
-          val = *reinterpret_cast<const uint4*>(w + (size_t)(v0 + r) * H + k);
-        *reinterpret_cast<uint4*>(Bs + r * LDS + q * 8) = val;
-      }
-      __syncthreads();
-#pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> af;
-        wmma::load_matrix_sync(af, As + (wr * 16) * LDS + kk, LDS);
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          // B = W_tile^T: W rows [v][k] read as a col-major [k, v] matrix
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> bf;
-          wmma::load_matrix_sync(bf, Bs + ((wc + j) * 16) * LDS + kk, LDS);
-          wmma::mma_sync(acc[j], af, bf, acc[j]);
-        }
-      }
-      __syncthreads();
-    }
-
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(Cs + (wr * 16) * LDC + (wc + j) * 16, acc[j],
-                              LDC, wmma::mem_row_major);
-    __syncthreads();
+    splade_tile::score_chunk<BM, BN>(hb, w, s0, S, v0, n_cols, H, smem);
 
     // column max over the valid rows of this chunk
     if (col < n_cols) {

@@ -10,9 +10,16 @@ with bias.
 
 Attention is the JAX package's plain math: QKV product, RoPE, scores in f32
 plus an additive mask (-1e30, not -inf), softmax, V product. The model
-computes in the dtype of its parameters (bf16 on the card, f32 in the
-parity tests). The head transform and the vocab projection are separate
-methods, so the SPLADE pool can fuse the projection with the seq-max.
+computes in the dtype of its parameters (bf16 when serving on the card, f32
+in the parity tests). Training keeps f32 parameters and computes in bf16
+under ``torch.autocast``, the counterpart of JAX's ``dtype: bfloat16``;
+autocast keeps the residual stream and the LayerNorm outputs in f32 where
+JAX rounds them to bf16 (ROADMAP.md §3). ``config.remat`` recomputes each
+layer in the backward pass (``torch.utils.checkpoint``); JAX's
+``dots_no_batch`` policy has no torch counterpart, so whole layers are
+recomputed, with the same numbers. The head transform and the vocab
+projection are separate methods, so the SPLADE pool can fuse the projection
+with the seq-max.
 """
 
 from __future__ import annotations
@@ -25,6 +32,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 # Large finite negative for additive masks: -inf would NaN fully masked rows
 # (padded queries whose whole window is padding) and leak into valid rows.
@@ -46,6 +54,8 @@ class ModernBertConfig:
     pad_token_id: int = 49999
     max_position_embeddings: int = 16384
     decoder_bias: bool = True
+    remat: bool = False
+    """Recompute each layer's activations in the backward pass."""
 
     @property
     def head_dim(self) -> int:
@@ -237,11 +247,14 @@ class ModernBertForMaskedLM(nn.Module):
         if positions is not None:
             g_cos, g_sin = g_cos[positions], g_sin[positions]
             l_cos, l_sin = l_cos[positions], l_sin[positions]
+        remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.model.layers):
-            if cfg.is_global_layer(i):
-                x = layer(x, pad_bias, g_cos, g_sin)
+            args = ((pad_bias, g_cos, g_sin) if cfg.is_global_layer(i)
+                    else (local_bias, l_cos, l_sin))
+            if remat:
+                x = checkpoint(layer, x, *args, use_reentrant=False)
             else:
-                x = layer(x, local_bias, l_cos, l_sin)
+                x = layer(x, *args)
         return self.model.final_norm(x)
 
     def head_transform(self, hidden: torch.Tensor) -> torch.Tensor:

@@ -4,8 +4,9 @@ At first use, every ``splade_tpu_torch/csrc/*.cu`` is compiled by ``nvcc``
 (one process per source, all started together) for ``sm_90a`` and linked
 into one shared library with a plain C interface, which is loaded with
 ``ctypes``. The library lives under ``build/splade_tpu_torch/`` at the repo
-root, named by a hash of the sources and flags, so an edited source is
-rebuilt and an unchanged one is reused. PyTorch's headers are never
+root, named by a hash of the flags, the sources and the headers they
+include (``csrc/*.cuh``), so an edited source or header is rebuilt and an
+unchanged one is reused. PyTorch's headers are never
 included: a build takes seconds, not the minutes of
 ``torch.utils.cpp_extension.load``.
 
@@ -35,6 +36,10 @@ _I = ctypes.c_int
 #: C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
     "splade_fused_pool_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "splade_fused_pool_bwd_dh": [_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P],
+    "splade_fused_pool_bwd_dw": [_P, _P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _P],
     "splade_rescore_match": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
 }
@@ -88,17 +93,26 @@ def sources() -> List[Path]:
     return sorted(CSRC.glob("*.cu"))
 
 
+def headers() -> List[Path]:
+    return sorted(CSRC.glob("*.cuh"))
+
+
+def build_tag() -> str:
+    """Hash of the flags, the sources and the headers: the library's name."""
+    digest = hashlib.sha256()
+    for flag in ARCH_FLAGS + CFLAGS:
+        digest.update(flag.encode())
+    for src in sources() + headers():
+        digest.update(src.name.encode())
+        digest.update(src.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build() -> tuple:
     """Compile and link the kernels if the hashed library is absent.
     Returns (library path, compiler log)."""
     srcs = sources()
-    digest = hashlib.sha256()
-    for flag in ARCH_FLAGS + CFLAGS:
-        digest.update(flag.encode())
-    for src in srcs:
-        digest.update(src.name.encode())
-        digest.update(src.read_bytes())
-    tag = digest.hexdigest()[:16]
+    tag = build_tag()
     out = BUILD_DIR / f"libsplade_kernels_{tag}.so"
     log_path = out.with_suffix(".log")
     if out.exists():

@@ -1,22 +1,33 @@
-"""Fused SPLADE vocabulary projection + masked seq-max (forward).
+"""Fused SPLADE vocabulary projection + masked seq-max, with its gradient.
 
-Counterpart of ``splade_tpu/ops/fused_splade.py::fused_splade_pool``:
+Counterpart of ``splade_tpu/ops/fused_splade.py::fused_splade_pool`` (a
+``jax.custom_vjp``; here a ``torch.autograd.Function``):
 
     m[b, v]      = max over valid s of ( h[b,s,:] . W[v,:] + bias[v] )
     pooled[b, v] = log1p(relu(m[b, v]))
     token_w[b,s] = log1p(relu(max_v of the same)) * mask[b, s]
 
-Kernel: ``csrc/fused_splade_fwd.cu`` replaces the Pallas ``_fwd_kernel``
-(``splade_tpu/ops/fused_splade.py:50``). It is bound by tensor-core
-operations (2·B·S·H·V FLOP, 0.64 ms at document encode on an H100) and
-keeps each [S, tile] score tile in registers and shared memory, so only
-the [B, V] and [B, S] maxima reach device memory; the ragged last vocab
-tile is masked in the kernel, so W is never padded or copied. See the
-source's note for the design.
+Forward kernel: ``csrc/fused_splade_fwd.cu`` replaces the Pallas
+``_fwd_kernel`` (``splade_tpu/ops/fused_splade.py:50``). It is bound by
+tensor-core operations (2·B·S·H·V FLOP, 0.64 ms at document encode on an
+H100) and keeps each [S, tile] score tile in registers and shared memory,
+so only the [B, V] and [B, S] maxima reach device memory; the ragged last
+vocab tile is masked in the kernel, so W is never padded or copied.
 
-On a CUDA tensor the wrapper launches the kernel or raises; on a CPU
-tensor it runs ``fused_splade_pool_plain``. This slice is forward only: the
-backward kernels come with the training slice (ROADMAP.md §2, items 2-4).
+Backward: the forward saves m (the [B, V] maxima), h, w, bias and mask, as
+``_fused_fwd`` does. Outside the kernels, as ``_fused_bwd`` does:
+``g_pre = g · 1/(1+m)`` where m > 0 else 0, ``dbias = Σ_b g_pre``, and the
+token weights' cotangent is ignored (they are monitoring-only). In the
+kernels (``csrc/fused_splade_bwd.cu``, replacing ``_bwd_dh_kernel`` at
+``fused_splade.py:93`` and ``_bwd_dw_kernel`` at ``:111``): recompute the
+score tile, ``G = 1[masked == m] · g_pre``, ``dh = G @ W_tile`` and
+``dW = Gᵀ @ h``. Ties get duplicate gradient, as in the Pallas kernels
+(autograd through ``amax``, the streamed path's gradient, splits them
+instead). dh and dW come back in the dtypes of h and w.
+
+On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors
+they run the plain versions ``fused_splade_pool_plain`` and
+``fused_splade_bwd_plain``. There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -26,7 +37,24 @@ from typing import Optional, Tuple
 import torch
 
 from splade_tpu_torch.ops import _cuda
-from splade_tpu_torch.ops.splade_pool import NEG, masked_max_streamed
+from splade_tpu_torch.ops.splade_pool import (NEG, masked_max_streamed,
+                                              masked_scores)
+
+#: vocab tile of the plain versions: the forward's maxima and the backward's
+#: recompute use the same tile, so the recomputed scores equal m bitwise
+PLAIN_TILE = 8192
+#: the backward kernels keep one row of f32 sums (up to 768 wide) a thread
+MAX_BWD_HIDDEN = 768
+#: blocks the dh kernel aims at (a few per multiprocessor of an H100): with
+#: fewer (B, 32-row chunk) pairs it splits the vocabulary to get there
+DH_TARGET_BLOCKS = 528
+
+
+def dh_vocab_splits(B: int, S: int, V: int) -> int:
+    """How many vocab splits the dh kernel runs (1 at the document batch,
+    several at the query batch); their partial sums are added in order."""
+    pairs = max(B * -(-S // 32), 1)
+    return max(1, min(-(-DH_TARGET_BLOCKS // pairs), -(-V // 128), 16))
 
 
 def float_key(x: torch.Tensor) -> torch.Tensor:
@@ -44,21 +72,47 @@ def fused_splade_pool_plain(
     h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The kernel's function in plain PyTorch, f32 products over vocab
-    tiles: (m [B, V], pos [B, S]) pre-activation maxima, invalid s -> -1e30."""
-    return masked_max_streamed(h, w, bias, mask, tile=8192)
+    """The forward kernel's function in plain PyTorch, f32 products over
+    vocab tiles: (m [B, V], pos [B, S]) pre-activation maxima, invalid
+    s -> -1e30."""
+    return masked_max_streamed(h, w, bias, mask, tile=PLAIN_TILE)
 
 
-def _launch(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+def fused_splade_bwd_plain(
+    h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+    mask: torch.Tensor, m: torch.Tensor, g_pre: torch.Tensor,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The backward kernels' arithmetic in plain PyTorch: recompute each
+    score tile as ``fused_splade_pool_plain`` computed it, ``G =
+    1[masked == m] · g_pre``, ``dh = G @ W_tile``, ``dw = Gᵀ @ h``.
+    Returns (dh [B, S, H] f32, dw [V, H] f32)."""
     B, S, H = h.shape
     V = w.shape[0]
-    if w.shape[1] != H or mask.shape != (B, S):
+    with torch.autocast(h.device.type, enabled=False):
+        x = h.to(torch.float32)
+        valid = mask.to(torch.bool)[:, :, None]
+        dh = torch.zeros((B, S, H), dtype=torch.float32, device=h.device)
+        dw = torch.empty((V, H), dtype=torch.float32, device=h.device)
+        for v0 in range(0, V, PLAIN_TILE):
+            masked = masked_scores(x, w, bias, valid, v0, PLAIN_TILE)
+            cols = slice(v0, v0 + PLAIN_TILE)
+            G = torch.where(masked == m[:, None, cols],
+                            g_pre[:, None, cols].to(torch.float32), 0.0)
+            dh += G @ w[cols].to(torch.float32)
+            dw[cols] = torch.einsum("bsv,bsh->vh", G, x)
+    return dh, dw
+
+
+def _operands(h, w, bias, mask):
+    """bf16 h and w (no copy when they already are), f32 mask and bias, on
+    h's device, checked for what the kernels take."""
+    B, S, H = h.shape
+    if w.dim() != 2 or w.shape[1] != H or mask.shape != (B, S):
         raise ValueError(f"shapes h {tuple(h.shape)}, w {tuple(w.shape)}, "
                          f"mask {tuple(mask.shape)} do not agree")
     if H % 8:
         raise ValueError(f"hidden size {H} must be a multiple of 8")
     dev = h.device
-    # bf16 operands: no copy when they already are (the serving path)
     hb = h.to(torch.bfloat16).contiguous()
     wb = w.to(torch.bfloat16).contiguous()
     for name, t in (("h", hb), ("w", wb)):
@@ -67,6 +121,14 @@ def _launch(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     maskf = mask.to(device=dev, dtype=torch.float32).contiguous()
     bias_f = (bias.to(device=dev, dtype=torch.float32).contiguous()
               if bias is not None else None)
+    return hb, wb, bias_f, maskf
+
+
+def _launch(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    hb, wb, bias_f, maskf = _operands(h, w, bias, mask)
+    B, S, H = hb.shape
+    V = wb.shape[0]
+    dev = hb.device
     m = torch.empty((B, V), dtype=torch.float32, device=dev)
     pos_key = torch.full((B, S), int(float_key(torch.tensor(NEG))),
                          dtype=torch.int32, device=dev)
@@ -82,27 +144,122 @@ def _launch(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     return m, float_from_key(pos_key)
 
 
+def _launch_bwd(entry: str, h, w, bias, mask, m, g_pre) -> torch.Tensor:
+    """One backward kernel: ``entry`` is the C function, out [B,S,H] (dh)
+    or [V,H] (dw) f32."""
+    hb, wb, bias_f, maskf = _operands(h, w, bias, mask)
+    B, S, H = hb.shape
+    V = wb.shape[0]
+    if H > MAX_BWD_HIDDEN:
+        raise ValueError(f"hidden size {H} > {MAX_BWD_HIDDEN}: the backward "
+                         "kernels keep one row of sums per thread")
+    dev = hb.device
+    m32 = m.to(device=dev, dtype=torch.float32).contiguous()
+    g32 = g_pre.to(device=dev, dtype=torch.float32).contiguous()
+    if m32.shape != (B, V) or g32.shape != (B, V):
+        raise ValueError(f"m {tuple(m.shape)} and g_pre {tuple(g_pre.shape)} "
+                         f"must be [{B}, {V}]")
+    is_dh = entry.endswith("_dh")
+    splits = dh_vocab_splits(B, S, V) if is_dh else 1
+    out = torch.zeros(((splits, B, S, H) if is_dh else (V, H)),
+                      dtype=torch.float32, device=dev)
+    if B == 0 or S == 0 or V == 0:
+        return out.sum(0) if is_dh else out
+    args = [hb.data_ptr(), wb.data_ptr(),
+            bias_f.data_ptr() if bias_f is not None else None,
+            maskf.data_ptr(), m32.data_ptr(), g32.data_ptr(), out.data_ptr(),
+            B, S, H, V]
+    if is_dh:
+        args.append(splits)
+    code = getattr(_cuda.library(), entry)(*args, _cuda.stream_ptr(hb))
+    _cuda.check(code, entry)
+    if is_dh:  # the splits' partial sums, added in a fixed order
+        return out[0] if splits == 1 else out.sum(0)
+    return out
+
+
+def fused_splade_maxima(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m [B, V], pos [B, S]) pre-activation maxima: the forward kernel on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    if h.is_cuda:
+        return _launch(h, w, bias, mask)
+    return fused_splade_pool_plain(h, w, bias, mask)
+
+
+def fused_splade_bwd_dh(h, w, bias, mask, m, g_pre) -> torch.Tensor:
+    """dh [B, S, H] f32 of the pool: the dh kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    if not h.is_cuda:
+        return fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)[0]
+    out = _launch_bwd("splade_fused_pool_bwd_dh", h, w, bias, mask, m, g_pre)
+    fused_splade_bwd_dh.launches += 1
+    return out
+
+
+def fused_splade_bwd_dw(h, w, bias, mask, m, g_pre) -> torch.Tensor:
+    """dW [V, H] f32 of the pool: the dW kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    if not h.is_cuda:
+        return fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)[1]
+    out = _launch_bwd("splade_fused_pool_bwd_dw", h, w, bias, mask, m, g_pre)
+    fused_splade_bwd_dw.launches += 1
+    return out
+
+
+def fold_cotangent(g_pooled: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """g_pre = g · d log1p(relu(m)) / dm = g / (1 + m) where m > 0, else 0."""
+    m = m.to(torch.float32)
+    return g_pooled.to(torch.float32) * torch.where(
+        m > 0, 1.0 / (1.0 + m), torch.zeros_like(m))
+
+
+class _FusedSpladePool(torch.autograd.Function):
+    """Counterpart of the ``jax.custom_vjp`` (``fused_splade.py:173-222``).
+    ``custom_fwd``/``custom_bwd`` run the backward under the forward's
+    autocast state."""
+
+    @staticmethod
+    @torch.amp.custom_fwd(device_type="cuda")
+    def forward(ctx, h, w, bias, mask):
+        m, pos = fused_splade_maxima(h, w, bias, mask)
+        ctx.save_for_backward(h, w, bias, mask, m)
+        pooled = torch.log1p(torch.relu(m))
+        token_weights = (torch.log1p(torch.relu(pos))
+                         * mask.to(device=pos.device, dtype=torch.float32))
+        ctx.mark_non_differentiable(token_weights)
+        return pooled, token_weights
+
+    @staticmethod
+    @torch.amp.custom_bwd(device_type="cuda")
+    def backward(ctx, g_pooled, _g_token_weights):
+        h, w, bias, mask, m = ctx.saved_tensors
+        g_pre = fold_cotangent(g_pooled, m)
+        dh = dw = dbias = None
+        if h.is_cuda:
+            if ctx.needs_input_grad[0]:
+                dh = fused_splade_bwd_dh(h, w, bias, mask, m, g_pre)
+            if ctx.needs_input_grad[1]:
+                dw = fused_splade_bwd_dw(h, w, bias, mask, m, g_pre)
+        elif ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
+            dh, dw = fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)
+        if bias is not None and ctx.needs_input_grad[2]:
+            dbias = g_pre.sum(0).to(bias.dtype)
+        return (dh.to(h.dtype) if ctx.needs_input_grad[0] else None,
+                dw.to(w.dtype) if ctx.needs_input_grad[1] else None,
+                dbias, None)
+
+
 def fused_splade_pool(
     h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     mask: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(pooled [B, V] f32, token_weights [B, S] f32) from h [B, S, H], tied
-    decoder w [V, H], bias [V] or None, attention mask [B, S]."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (h, w, bias)):
-        raise NotImplementedError(
-            "fused_splade_pool is forward-only in this slice: its backward "
-            "kernels are the training slice's (ROADMAP.md §2, kernels "
-            "#2-#6); call it under torch.no_grad()")
-    if h.is_cuda:
-        m, pos = _launch(h, w, bias, mask)
-    else:
-        m, pos = fused_splade_pool_plain(h, w, bias, mask)
-    pooled = torch.log1p(torch.relu(m))
-    token_weights = (torch.log1p(torch.relu(pos))
-                     * mask.to(device=pos.device, dtype=torch.float32))
-    return pooled, token_weights
+    decoder w [V, H], bias [V] or None, attention mask [B, S]. Differentiable
+    in h, w and bias; token_weights carries no gradient."""
+    return _FusedSpladePool.apply(h, w, bias, mask)
 
 
-#: kernel launches since the last reset (never counts the plain version)
+#: kernel launches since the last reset (never counts the plain versions)
 fused_splade_pool.launches = 0
+fused_splade_bwd_dh.launches = 0
+fused_splade_bwd_dw.launches = 0

@@ -33,6 +33,20 @@ def splade_pool_from_logits(
     return scores.amax(dim=1), scores.amax(dim=-1)
 
 
+def masked_scores(x: torch.Tensor, emb: torch.Tensor,
+                  bias: Optional[torch.Tensor], valid: torch.Tensor, v0: int,
+                  tile: int) -> torch.Tensor:
+    """[B, S, tile] f32 scores of vocab columns v0..v0+tile, invalid
+    positions -1e30: x [B, S, H] f32, valid [B, S, 1] bool. The one
+    expression the streamed maxima and the plain backward both evaluate, so
+    a recompute at the same tile equals the forward's scores bit for bit."""
+    w = emb[v0:v0 + tile].to(torch.float32)
+    logits = x @ w.T                                       # [B, S, tile]
+    if bias is not None:
+        logits = logits + bias[v0:v0 + tile].to(torch.float32)
+    return torch.where(valid, logits, torch.full_like(logits, NEG))
+
+
 def masked_max_streamed(
     transformed: torch.Tensor,
     emb: torch.Tensor,
@@ -41,26 +55,25 @@ def masked_max_streamed(
     tile: int = 6250,
     with_token_weights: bool = True,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Pre-activation maxima, one vocab tile at a time, in f32:
+    """Pre-activation maxima, one vocab tile at a time, in f32 (products in
+    f32 under autocast too, as JAX's ``preferred_element_type``):
     (m [B, V] = max over valid s, pos [B, S] = max over v or None)."""
     B, S, H = transformed.shape
     V = emb.shape[0]
-    x = transformed.to(torch.float32)
-    valid = attention_mask.to(torch.bool)[:, :, None]
-    m = torch.empty((B, V), dtype=torch.float32, device=transformed.device)
-    pos = (torch.full((B, S), NEG, dtype=torch.float32,
-                      device=transformed.device)
-           if with_token_weights else None)
-    for v0 in range(0, V, tile):
-        w = emb[v0:v0 + tile].to(torch.float32)
-        logits = x @ w.T                                   # [B, S, tile]
-        if bias is not None:
-            logits = logits + bias[v0:v0 + tile].to(torch.float32)
-        masked = torch.where(valid, logits,
-                             torch.full_like(logits, NEG))
-        m[:, v0:v0 + tile] = masked.amax(dim=1)
-        if pos is not None:
-            pos = torch.maximum(pos, masked.amax(dim=2))
+    dev = transformed.device
+    with torch.autocast(dev.type, enabled=False):
+        x = transformed.to(torch.float32)
+        valid = attention_mask.to(torch.bool)[:, :, None]
+        m_parts = []
+        pos = (torch.full((B, S), NEG, dtype=torch.float32, device=dev)
+               if with_token_weights else None)
+        for v0 in range(0, V, tile):
+            masked = masked_scores(x, emb, bias, valid, v0, tile)
+            m_parts.append(masked.amax(dim=1))
+            if pos is not None:  # monitoring only: no gradient, as JAX
+                pos = torch.maximum(pos, masked.amax(dim=2).detach())
+        m = (torch.cat(m_parts, dim=1) if m_parts
+             else torch.empty((B, 0), dtype=torch.float32, device=dev))
     return m, pos
 
 

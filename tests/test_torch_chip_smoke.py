@@ -3,8 +3,15 @@
 Its served-vs-plain check must pass the port's plain path and fail a
 phase-2 rescore with one wrong term (a dropped document slot, a dropped
 query term), and its document-encode check must run through the encoder.
-On the CPU both sides are plain versions, so the sound reading is the
-order difference of f32 sums (about 1e-7 relative)."""
+Its phase-4 kernel-vs-plain training comparison must pass the sound
+backward and fail one that drops dbias and one whose recompute misses the
+forward's maxima by one ulp, so that no position ties with m and none gets
+gradient. On the CPU both sides are plain versions, so the sound reading is
+the order difference of f32 sums (about 1e-7 relative). Check (c) of the
+backward kernels must count exact ties and fail a recompute that loses or
+adds a column's match. Phase 4 as a whole
+runs here too, at a tiny size, and its recipe must be
+configs/train_v33.yaml's."""
 
 import dataclasses
 import importlib.util
@@ -13,6 +20,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
 from splade_tpu_torch.models.modernbert import ModernBertConfig
@@ -88,3 +96,161 @@ def test_doc_encode_check_runs_through_the_encoder(setup):
     texts = cs.hangul_texts(np.random.default_rng(1), 10, 20)
     assert cs.compare_doc_encode(torch, enc, model, texts) <= cs.SERVE_RTOL
     assert model.pool_impl == "kernel"
+
+
+def _recompute_case():
+    """Model-like bf16 values; in row 0 position 3 repeats position 1, so
+    every column whose maximum is at position 1 has an exact tie and sends
+    its W row there twice. Row 2 is fully padded."""
+    g = torch.Generator().manual_seed(0)
+    B, S, H, V = 4, 24, 768, 3000
+    h = torch.randn(B, S, H, generator=g).to(torch.bfloat16)
+    h[0, 3] = h[0, 1]
+    w = (torch.randn(V, H, generator=g) * 0.05).to(torch.bfloat16)
+    bias = torch.randn(V, generator=g) * 0.1
+    mask = torch.ones(B, S, dtype=torch.int64)
+    mask[1, 17:] = 0
+    mask[2] = 0
+    return h, w, bias, mask
+
+
+def _lose_columns(m):
+    """a recompute that misses the maxima of every 97th column of row 1"""
+    m = m.clone()
+    m[1, ::97] = torch.nextafter(m[1, ::97], torch.tensor(np.inf))
+    return m
+
+
+def _add_a_row(dh, w):
+    dh[1, 0] += w[5].float()  # a match where no score reaches m
+
+
+@pytest.mark.parametrize("fault", [None, _lose_columns, _add_a_row],
+                         ids=["sound", "lose_columns", "add_a_row"])
+def test_recompute_check_counts_ties_and_catches_a_miss(fault):
+    """Check (c) of the backward kernels passes the plain backward, with
+    row 0's exact ties counted, and fails a recompute that loses a few
+    columns' maxima or adds a W row no tie explains."""
+    from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_dh,
+                                                   fused_splade_maxima)
+
+    cs = _load_chip_smoke()
+    h, w, bias, mask = _recompute_case()
+    m, _ = fused_splade_maxima(h, w, bias, mask)
+    m_bwd = _lose_columns(m) if fault is _lose_columns else m
+    ones = (mask.sum(1, keepdim=True) > 0).float().expand_as(m)
+    dh = fused_splade_bwd_dh(h, w, bias, mask, m_bwd, ones)
+    if fault is _add_a_row:
+        _add_a_row(dh, w)
+    out = cs.recompute_check(torch, h, w, bias, mask, m, dh)
+    if fault is not None:
+        assert not out["ok"], out
+        return
+    assert out["ok"], out
+    assert out["rows"] == 3 and out["tied_rows"] == 1
+    best = (h[0].float() @ w.float().T + bias).argmax(0)  # first of a tie
+    assert out["ties"] == int((best == 1).sum()) > 10
+    assert out["worst"] <= 1e-5 < out["worst_before_ties"]
+
+
+def test_recipe_is_configs_train_v33_yaml():
+    from splade_tpu_torch.config import V33Config, load_config
+
+    cs = _load_chip_smoke()
+    recipe = cs.v33_recipe()
+    assert recipe == yaml.safe_load((ROOT / "configs" /
+                                     "train_v33.yaml").read_text())
+    assert (V33Config.from_dict(recipe).to_dict()
+            == load_config(str(ROOT / "configs" / "train_v33.yaml")).to_dict())
+
+
+def _tiny_recipe(cs):
+    recipe = cs.v33_recipe()
+    recipe["model"]["dtype"] = "float32"
+    recipe["data"].update(batch_size=4, query_max_length=8,
+                          doc_max_length=32)
+    recipe["training"]["gradient_accumulation_steps"] = 2
+    return recipe
+
+
+@pytest.fixture(scope="module")
+def trained(tmp_path_factory):
+    """Phase 4 end to end on the CPU: tiny model, 4 triplets x accum 2."""
+    cs = _load_chip_smoke()
+    cfg = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB,
+                              remat=True)
+    out = cs.train_phase(torch, cs.CharTokenizer(), np.random.default_rng(0),
+                         tmp_path_factory.mktemp("train") / "w", 0,
+                         _tiny_recipe(cs), cfg, steps=3, device="cpu",
+                         doc_words=(6, 17))
+    return cs, cfg, out
+
+
+def test_train_phase_runs_on_the_cpu(trained):
+    _, _, out = trained
+    assert [r["step"] for r in out["steps"]] == [1, 2, 3, 4]  # 1: warm-up
+    assert all(np.isfinite(r["loss"]) for r in out["steps"])
+    assert out["resume"]["bitwise"] and out["resume"]["step"] == 5
+    # the schedule spans the recipe's 25 epochs of 6 steps, warm-up 9: the
+    # resumed step (the fifth update) runs at 4/9 of the peak rate and
+    # moves the parameters, so a lost AdamW moment would show
+    assert out["resume"]["total_steps"] == 150
+    assert out["resume"]["lr"] == pytest.approx(5e-5 * 4 / 9, rel=1e-12)
+    assert out["resume"]["step_moved_params"] > 0
+    assert out["plain_route"]["loss_rel_err"] <= 1e-5
+    assert out["launches"] == {"fused_splade_pool": 0,
+                               "fused_splade_bwd_dh": 0,
+                               "fused_splade_bwd_dw": 0}  # plain on the CPU
+    assert out["triplets"] == 4 * 2 * 6
+
+
+def _micro_and_model(cs, cfg):
+    from splade_tpu_torch.config import V33Config
+    from splade_tpu_torch.data import TripletCollator
+    from splade_tpu_torch.train.trainer import stack_microbatches
+
+    recipe = _tiny_recipe(cs)
+    vcfg = V33Config.from_dict(recipe)
+    col = TripletCollator(cs.CharTokenizer(), query_max_length=8,
+                          doc_max_length=32)
+    rows = cs.synth_triplets(np.random.default_rng(5), 4, (6, 17))
+    micro = {k: torch.from_numpy(v[0]) for k, v in
+             stack_microbatches([col(rows)]).items()}
+    model = SpladeEncoder(cfg, pool_impl="kernel", with_token_weights=False,
+                          device="cpu").init_weights(3)
+    with torch.no_grad():  # a decoder bias whose gradient path shows
+        model.mlm.decoder.bias.normal_(0, 0.3,
+                                       generator=torch.Generator().manual_seed(1))
+    return vcfg, micro, model
+
+
+def _drop_dbias(monkeypatch):
+    from splade_tpu_torch.models import splade
+
+    real = splade.fused_splade_pool
+    monkeypatch.setattr(splade, "fused_splade_pool",
+                        lambda h, w, b, m: real(h, w, b.detach(), m))
+
+
+def _miss_the_maxima(monkeypatch):
+    from splade_tpu_torch.ops import fused_splade
+
+    real = fused_splade.fused_splade_bwd_plain
+    monkeypatch.setattr(
+        fused_splade, "fused_splade_bwd_plain",
+        lambda h, w, b, mask, m, g: real(
+            h, w, b, mask, torch.nextafter(m, torch.full_like(m, np.inf)), g))
+
+
+@pytest.mark.parametrize("fault", [None, _drop_dbias, _miss_the_maxima],
+                         ids=["sound", "drop_dbias", "no_grad_at_ties"])
+def test_training_check_catches_a_wrong_backward(trained, monkeypatch, fault):
+    cs, cfg, _ = trained
+    vcfg, micro, model = _micro_and_model(cs, cfg)
+    if fault is None:
+        out = cs.compare_train_routes(torch, model, vcfg, micro, 7)
+        assert out["worst_tensor_rel_err"] <= 1e-4
+        return
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match="differ from the plain route"):
+        cs.compare_train_routes(torch, model, vcfg, micro, 7)

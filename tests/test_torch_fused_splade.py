@@ -1,10 +1,11 @@
 """The port's SPLADE pooling (splade_tpu_torch.ops.fused_splade / splade_pool
 and models.splade) against splade_tpu's on the same numpy inputs.
 
-On a CPU tensor ``fused_splade_pool`` runs its plain version; JAX's runs the
-Pallas kernel in interpret mode. Both are f32 here, so they agree within
-1e-5. The kernel itself is held against the plain version on the card
-(tests/test_torch_kernels_gpu.py)."""
+On a CPU tensor ``fused_splade_pool`` runs its plain versions, forward and
+backward; JAX's runs the Pallas kernels (custom VJP) in interpret mode.
+Both are f32 here, so values agree within 1e-5 and gradients within the
+JAX package's own 1e-4. The kernels themselves are held against the plain
+versions on the card (tests/test_torch_kernels_gpu.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -20,8 +21,14 @@ from splade_tpu.ops.splade_pool import splade_pool_streamed as jax_streamed
 from splade_tpu_torch.models.hf_port import params_from_jax
 from splade_tpu_torch.models.modernbert import ModernBertConfig
 from splade_tpu_torch.models.splade import SpladeEncoder
-from splade_tpu_torch.ops.fused_splade import (float_from_key, float_key,
-                                               fused_splade_pool)
+from splade_tpu_torch.ops.fused_splade import (dh_vocab_splits,
+                                               float_from_key, float_key,
+                                               fold_cotangent,
+                                               fused_splade_bwd_dh,
+                                               fused_splade_bwd_dw,
+                                               fused_splade_bwd_plain,
+                                               fused_splade_pool,
+                                               fused_splade_pool_plain)
 from splade_tpu_torch.ops.splade_pool import (splade_pool_from_logits,
                                               splade_pool_streamed)
 
@@ -83,12 +90,120 @@ def test_streamed_and_logits_pools_match_jax(tile, with_tw):
         np.testing.assert_allclose(t[1].numpy(), np.asarray(j[1]), **TOL)
 
 
-def test_fused_pool_refuses_grad():
-    h, w, bias, mask = (torch.from_numpy(x) for x in _case(5))
-    with pytest.raises(NotImplementedError, match="training slice"):
-        fused_splade_pool(h.requires_grad_(), w, bias, mask)
-    with torch.no_grad():  # no graph is built: allowed
-        fused_splade_pool(h, w, bias, mask)
+def _grad_case(seed=42, B=3, S=16, H=32, V=300):
+    """tests/test_fused_splade.py's inputs: V not a tile multiple, ragged
+    lengths; the last row fully padded here too."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, S, H)).astype(np.float32)
+    w = rng.normal(size=(V, H)).astype(np.float32) * 0.3
+    bias = rng.normal(size=(V,)).astype(np.float32) * 0.1
+    lengths = rng.integers(S // 2, S + 1, size=(B,))
+    lengths[-1] = 0
+    mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int32)
+    return h, w, bias, mask
+
+
+def _jax_grads(pool, h, w, bias, mask):
+    def loss(h_, w_, b_):
+        p, _ = pool(h_, w_, b_, jnp.asarray(mask))
+        return jnp.sum(jnp.sin(p) * p)
+
+    return [np.asarray(g) for g in jax.grad(loss, argnums=(0, 1, 2))(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(bias))]
+
+
+def _port_grads(pool, h, w, bias, mask):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (h, w, bias)]
+    p, tw = pool(*leaves, torch.from_numpy(mask))
+    assert not tw.requires_grad  # token weights carry no gradient
+    (torch.sin(p) * p).sum().backward()
+    return [t.grad.numpy() for t in leaves]
+
+
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def test_fused_pool_grad_matches_jax_pallas_vjp():
+    """dh, dW, dbias of the port's autograd.Function (plain backward on the
+    CPU) against the Pallas custom VJP in interpret mode and against the
+    reference-shaped logits path."""
+    case = _grad_case()
+    want = _jax_grads(lambda *a: jax_fused(*a, 128), *case)
+    ref = _jax_grads(lambda h, w, b, m: jax_from_logits(
+        jnp.einsum("bsh,vh->bsv", h, w) + b, m), *case)
+    got = _port_grads(fused_splade_pool, *case)
+    for g, j, r, name in zip(got, want, ref, ("dh", "dw", "dbias")):
+        np.testing.assert_allclose(g, j, **GRAD_TOL, err_msg=name)
+        np.testing.assert_allclose(g, r, **GRAD_TOL, err_msg=name)
+    assert np.isfinite(got[0]).all()
+    assert np.abs(got[0][-1]).max() == 0.0  # the fully padded row
+
+
+def test_fused_pool_ties_get_duplicate_gradient_as_jax():
+    """Two identical valid positions tie in every column: the kernel's
+    semantics (and Pallas's) give each the full gradient, where autograd
+    through amax (the streamed path) splits it."""
+    h, w, bias, mask = _grad_case(seed=3)
+    h[0, 1] = h[0, 0]  # exact ties in row 0
+    mask[0, :2] = 1
+    want = _jax_grads(lambda *a: jax_fused(*a, 128), h, w, bias, mask)
+    got = _port_grads(fused_splade_pool, h, w, bias, mask)
+    for g, j, name in zip(got, want, ("dh", "dw", "dbias")):
+        np.testing.assert_allclose(g, j, **GRAD_TOL, err_msg=name)
+    np.testing.assert_array_equal(got[0][0, 0], got[0][0, 1])
+    split = _port_grads(lambda *a: splade_pool_streamed(*a, tile=128),
+                        h, w, bias, mask)
+    np.testing.assert_allclose(split[0][0, 0] * 2, got[0][0, 0], rtol=1e-4,
+                               atol=1e-5)
+
+
+def test_fused_pool_grad_agrees_with_streamed_paths():
+    """Without ties, the port's streamed path (autograd) and JAX's give the
+    kernel route's gradient."""
+    case = _grad_case(seed=4)
+    got = _port_grads(fused_splade_pool, *case)
+    streamed = _port_grads(lambda *a: splade_pool_streamed(*a, tile=60),
+                           *case)
+    j_streamed = _jax_grads(lambda *a: jax_streamed(*a, tile=60), *case)
+    for g, s_, j in zip(got, streamed, j_streamed):
+        np.testing.assert_allclose(g, s_, **GRAD_TOL)
+        np.testing.assert_allclose(s_, j, **GRAD_TOL)
+
+
+def test_backward_wrappers_on_cpu_are_the_plain_version():
+    """On CPU tensors the dh/dW wrappers return the plain backward's halves
+    and count no launch; grads come back in the dtypes of h and w."""
+    h, w, bias, mask = (torch.from_numpy(x) for x in _grad_case(seed=5))
+    m, _ = fused_splade_pool_plain(h, w, bias, mask)
+    g_pre = (m > 0).float()
+    assert torch.equal(fold_cotangent(1 + m, m)[m > 0].round(), g_pre[m > 0])
+    before = (fused_splade_bwd_dh.launches, fused_splade_bwd_dw.launches)
+    dh, dw = fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)
+    assert torch.equal(fused_splade_bwd_dh(h, w, bias, mask, m, g_pre), dh)
+    assert torch.equal(fused_splade_bwd_dw(h, w, bias, mask, m, g_pre), dw)
+    assert (fused_splade_bwd_dh.launches,
+            fused_splade_bwd_dw.launches) == before
+    # g_pre = 1 where m > 0: each such column sends its W row to its argmax
+    valid = mask.sum(1) > 0
+    want = (w[None] * (m > 0)[:, :, None].float()).sum(1)
+    torch.testing.assert_close(dh.sum(1)[valid], want[valid], rtol=1e-5,
+                               atol=1e-5)
+    hb = h.to(torch.bfloat16).requires_grad_()
+    wb = w.to(torch.bfloat16).requires_grad_()
+    bias_leaf = bias.clone().requires_grad_()
+    fused_splade_pool(hb, wb, bias_leaf, mask)[0].sum().backward()
+    assert hb.grad.dtype == wb.grad.dtype == torch.bfloat16
+    assert bias_leaf.grad.dtype == torch.float32
+
+
+@pytest.mark.parametrize("B,S,V,splits", [
+    (128, 256, 50000, 1),   # the document batch fills the card alone
+    (64, 64, 50000, 5),     # the query batch: 128 (b, chunk) pairs
+    (1, 16, 300, 3),        # never more splits than vocab tiles
+    (0, 0, 10, 1),           # one vocab tile: one split
+])
+def test_dh_vocab_splits(B, S, V, splits):
+    assert dh_vocab_splits(B, S, V) == splits
 
 
 def test_float_key_orders_like_floats():

@@ -63,7 +63,10 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
     from splade_tpu_torch.ops.impact_index import ImpactIndex
     from splade_tpu_torch.ops.postings_index import PostingsIndex
     from splade_tpu_torch.serving.engine import build_engine_from_docs
+    from splade_tpu_torch.config import V33Config
     from splade_tpu_torch.serving.server import main
+    from splade_tpu_torch.train.cli import main as train_main
+    from splade_tpu_torch.train.trainer import Trainer
     from splade_tpu_torch.utils.runtime import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -72,7 +75,9 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
                  lambda: PostingsIndex(100),
                  lambda: ImpactIndex(100),
                  lambda: SpladeEncoder(cfg),
-                 lambda: build_engine_from_docs(None, None, [])):
+                 lambda: build_engine_from_docs(None, None, []),
+                 lambda: Trainer(V33Config(), None, [], None),
+                 lambda: train_main(["--config", "unused.yaml"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     with pytest.raises(RuntimeError, match="no CUDA device"):
