@@ -1,5 +1,5 @@
-"""Drive the PyTorch/CUDA port's serving and training paths once on one
-NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's serving, training and pre-training paths
+once on one NVIDIA GPU.
 
     python3 chip_smoke.py [--seed 0]
 
@@ -12,13 +12,20 @@ Phases (any failure exits non-zero; nothing is caught):
    fused SPLADE pool forward at query encode (B=32, S=64) and document
    encode (B=32, S=256) with H=768, V=50,000 and a fully padded row; the
    exact rescore at B=32, C=1000, M=64, T=64 over a 1M-document doc-major
-   block; the pool's two backward kernels at the training shapes (docs
-   B=128, S=256; queries B=64, S=64), whole kernel route against whole
+   block; the pool's kernels at the training shapes (docs B=128, S=256;
+   queries B=64, S=64): the forward wrapper against the plain forward, and
+   for the two backward kernels the whole kernel route against the whole
    plain route: (a) small-integer inputs elementwise, (b) the model's own
    states by norm, (c) the recompute against the forward kernel's maxima,
    every row with its exact ties counted. Times by CUDA events, the bound
    from the shapes and this run's matches, and a library yardstick
-   composed of cuBLAS calls where one exists.
+   composed of cuBLAS calls where one exists. The row-blocked family
+   (``ops/fused_splade_v2.py``) is held on the same inputs, at row_block 8
+   and 2, to the same checks and tolerances: forward against its plain
+   version with m and pos bitwise equal to the per-row kernel's; backward
+   checks (a), (b), (c), a repeated backward bitwise equal; its times
+   beside the per-row family's. These training shapes are the ones the
+   row-blocked pool's own path (phase 5) launches its kernels at.
 3. The serving path at full width (22 layers, 768 hidden, 50K vocab) with
    seeded random weights and a character-level stand-in tokenizer: a
    two-phase PostingsIndex over 1,000,000 synthetic documents plus a few
@@ -42,10 +49,28 @@ Phases (any failure exits non-zero; nothing is caught):
    triplets/s, step time and peak memory; one step under torch.profiler; a
    checkpoint resumed by a fresh Trainer that must take the same step (at
    the schedule's learning rate for that step, above 0); one micro-batch
-   held against the plain route (pool_impl="streamed").
+   held against the plain route (pool_impl="streamed"). The measured steps
+   run with the hang watchdog armed: it must count beats and stay quiet.
+5. MLM pre-training at full width with the recipe of
+   ``configs/pretrain_mlm.yaml`` (batch 32 x 512 tokens, accumulation 4,
+   lr 5e-5, warm-up 0.05, masking probability 0.15, bf16 autocast) on a
+   synthetic Hangul corpus written as a text shard and read through
+   read_corpus -> pack_corpus -> MLMTrainer. One run: a warm-up step, 3
+   measured steps (tokens/s, ms a step), then SIGTERM to this process: the
+   trainer must stop at a step boundary, write a checkpoint and return,
+   and the previous signal handlers are put back. The next step is taken
+   under torch.profiler by the live trainer and again by a fresh trainer
+   resumed from the checkpoint: loss and parameters must be bitwise equal.
+   Held-out evaluation; the final model saved, loaded by
+   SparseEncoderV33.from_checkpoint, held against the in-memory weights
+   cast to bf16, and served from a small dense engine. Last, the
+   row-blocked pool family's own path, its public function under autograd:
+   the pre-trained model's states, at the training shapes phase 2 held the
+   family at, pooled by fused_splade_pool_v2 with a sparsity loss, backward into the model, with the family's launch counts
+   set to 0 before and read after, held against the per-row family's route.
 
-The last three lines are the training JSON, the kernels' JSON and the
-run's JSON.
+The last four lines are the training JSON, the pre-training JSON, the
+kernels' JSON and the run's JSON.
 """
 
 from __future__ import annotations
@@ -54,6 +79,7 @@ import argparse
 import http.client
 import json
 import os
+import signal
 import subprocess
 import sys
 import threading
@@ -98,6 +124,27 @@ TRAIN_GRAD_RTOL = 2e-2
 # resume: the kernels and the step are deterministic, so the resumed step
 # should be bitwise; anything beyond f32 noise is a fault
 RESUME_ATOL = 1e-6
+# the hang watchdog's window in phases 4 and 5: far above a step and a
+# checkpoint write, so a healthy run never trips it
+WATCHDOG_S = 600.0
+# final model -> from_checkpoint vs the in-memory weights cast to bf16: the
+# same bf16 numbers through the same kernels, so the vectors should be
+# bitwise equal; held to the serving tolerance
+CHECKPOINT_RTOL = SERVE_RTOL
+# the row-blocked family's route vs the per-row family's through one model
+# backward: pooled is bitwise equal (same scores, a maximum has no order);
+# dh differs by the order in which vocab splits are added (about 1e-6), which
+# bf16 autocast then carries through 22 layers; held to the training limits
+# TRAIN_RTOL (loss, gradient norm) and TRAIN_GRAD_RTOL (each tensor)
+# row_block values the row-blocked family is held at: the default at these
+# batch sizes, and a smaller one
+V2_ROW_BLOCKS = (8, 2)
+# (B, S) of the pool at training: documents (64 positives + 64 negatives)
+# and unpacked queries. Phase 2 holds every family's forward and backward
+# wrappers against the plain versions at these shapes, and phase 5 launches
+# the row-blocked family at them (row_block 0, which resolves to
+# V2_ROW_BLOCKS[0] at both batch sizes)
+TRAIN_POOL_SHAPES = ((128, 256), (64, 64))
 
 
 def log(msg: str) -> None:
@@ -108,9 +155,14 @@ def log(msg: str) -> None:
 class CharTokenizer:
     """Deterministic character-level stand-in for the A.X-Encoder
     tokenizer (which is not in the repository): one id per non-space
-    character, ids 0-3 special, [PAD] = 0."""
+    character, ids 0-3 special, [PAD] = 0. Called with
+    ``add_special_tokens=False`` it returns unpadded id lists, as
+    ``pack_corpus`` asks of a tokenizer."""
 
     pad_token_id = 0
+    cls_token_id = 1
+    sep_token_id = 2
+    mask_token_id = 3
     all_special_ids = [0, 1, 2, 3]
 
     def __len__(self):
@@ -120,11 +172,14 @@ class CharTokenizer:
         return {"[PAD]": 0, "[CLS]": 1, "[SEP]": 2, "[MASK]": 3}
 
     def __call__(self, texts, padding="max_length", truncation=True,
-                 max_length=64, return_tensors="np"):
+                 max_length=64, return_tensors="np", add_special_tokens=True):
+        all_codes = [[4 + ord(c) % (V - 4) for c in t if not c.isspace()]
+                     for t in texts]
+        if not add_special_tokens:
+            return {"input_ids": all_codes}
         ids = np.zeros((len(texts), max_length), np.int64)
         mask = np.zeros((len(texts), max_length), np.int64)
-        for i, t in enumerate(texts):
-            codes = [4 + ord(c) % (V - 4) for c in t if not c.isspace()]
+        for i, codes in enumerate(all_codes):
             codes = codes[:max_length]
             ids[i, :len(codes)] = codes
             mask[i, :len(codes)] = 1
@@ -185,7 +240,8 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 # ------------------------------------------------------------ phase 2
 def check_pool(torch, model, tok, rng, B: int, S: int) -> dict:
     """The wrapper ``fused_splade_pool`` against its plain version at one
-    encode shape; the timed closure calls the C entry alone."""
+    encode shape; the timed closure calls the C entry alone. Then the
+    row-blocked family on the same inputs (``check_pool_v2``)."""
     from splade_tpu_torch.ops import _cuda
     from splade_tpu_torch.ops.fused_splade import (float_key,
                                                    fused_splade_pool,
@@ -255,9 +311,76 @@ def check_pool(torch, model, tok, rng, B: int, S: int) -> dict:
     log(f"  pool B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
         f"{ops:.3e} FLOP over {valid:.0f} valid tokens, {moved / 1e6:.1f} MB)")
-    return dict(shape=f"B={B} S={S} H={H} V={V}", max_abs_err=err, ms=ms,
-                plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-                library_ms=library_ms)
+    out = dict(shape=f"B={B} S={S} H={H} V={V}", max_abs_err=err, ms=ms,
+               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+               library_ms=library_ms)
+    out["v2"] = {rb: check_pool_v2(torch, h, w, bias_param, bias, mask, rb,
+                                   out, (ref_pooled, ref_tw))
+                 for rb in V2_ROW_BLOCKS}
+    return out
+
+
+def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
+                  v1: dict, ref) -> dict:
+    """The row-blocked forward at ``row_block`` on the inputs the per-row
+    kernel was just held at: the wrapper against the plain versions (the
+    per-row one's values ``ref``, within POOL_TOL), m and pos bitwise equal
+    to the per-row kernel's, a fully padded row zero, and the C entry's
+    time beside the per-row kernel's. The bound and the library yardstick
+    are the per-row kernel's: the same function on the same inputs."""
+    from splade_tpu_torch.ops import _cuda
+    from splade_tpu_torch.ops.fused_splade import (float_key,
+                                                   fused_splade_maxima)
+    from splade_tpu_torch.ops.fused_splade_v2 import (
+        fused_splade_maxima_v2, fused_splade_pool_v2,
+        fused_splade_pool_v2_plain)
+
+    B, S, H = h.shape
+    maskf = mask.float().contiguous()
+    with torch.no_grad():
+        pooled, tw = fused_splade_pool_v2(h, w, bias_param, mask, row_block)
+        m2, pos2 = fused_splade_maxima_v2(h, w, bias, mask, row_block)
+        m1, pos1 = fused_splade_maxima(h, w, bias, mask)
+        m_p, pos_p = fused_splade_pool_v2_plain(h, w, bias, maskf, row_block)
+    torch.cuda.synchronize()
+    ref_pooled, ref_tw = ref
+    err = max(float((pooled - ref_pooled).abs().max()),
+              float((tw - ref_tw).abs().max()),
+              float((pooled - torch.log1p(torch.relu(m_p))).abs().max()),
+              float((tw - torch.log1p(torch.relu(pos_p)) * maskf).abs().max()))
+    bitwise = bool(torch.equal(m2, m1) and torch.equal(pos2, pos1))
+    padded_zero = (float(pooled[-1].abs().max()) == 0.0
+                   and float(tw[-1].abs().max()) == 0.0)
+    lib = _cuda.library()
+    m = torch.empty((B, V), dtype=torch.float32, device="cuda")
+    neg_key = int(float_key(torch.tensor(-1e30)))
+    pos_key = torch.full((B, S), neg_key, dtype=torch.int32, device="cuda")
+
+    def kernel():
+        pos_key.fill_(neg_key)
+        _cuda.check(lib.splade_fused_pool_v2_fwd(
+            h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
+            m.data_ptr(), pos_key.data_ptr(), B, S, H, V, row_block,
+            torch.cuda.current_stream().cuda_stream),
+            "splade_fused_pool_v2_fwd")
+
+    with torch.no_grad():
+        ms = cuda_ms(torch, kernel, iters=20)
+        plain_ms = cuda_ms(torch, lambda: fused_splade_pool_v2_plain(
+            h, w, bias, maskf, row_block), iters=3, warmup=1)
+    log(f"  pool v2 B={B} S={S} row_block={row_block}: max |err| {err:.3e} "
+        f"(tol {POOL_TOL}), m and pos bitwise equal to the per-row "
+        f"kernel's: {bitwise}, padded row zero: {padded_zero}; kernel "
+        f"{ms:.4f} ms (per-row kernel {v1['ms']:.4f} ms), plain "
+        f"{plain_ms:.4f} ms, library {v1['library_ms']:.4f} ms, bound "
+        f"{v1['bound_ms']:.4f} ms")
+    if not (err <= POOL_TOL and bitwise and padded_zero):
+        raise SystemExit(f"row-blocked pool kernel disagrees (B={B}, S={S}, "
+                         f"row_block={row_block})")
+    return dict(shape=v1["shape"], row_block=row_block, max_abs_err=err,
+                bitwise_equal_v1=bitwise, ms=ms, v1_ms=v1["ms"],
+                plain_ms=plain_ms, bound_ms=v1["bound_ms"],
+                bound_by=v1["bound_by"], library_ms=v1["library_ms"])
 
 
 def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
@@ -333,26 +456,28 @@ def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
-def _pool_routes(torch, h, w, bias, mask, gout):
-    """(kernel route, plain route) gradients (dh, dw, dbias) of
-    sum(pooled * gout): forward kernel -> backward kernels through the
-    autograd.Function, and plain forward -> plain backward, on f32 copies
-    of the same values (so the gradients come back in f32)."""
+def _kernel_route(torch, pool, h, w, bias, mask, gout):
+    """Gradients (dh, dw, dbias) of sum(pooled * gout) through ``pool``'s
+    autograd.Function on the card: forward kernel -> backward kernels, on
+    f32 copies of the values (so the gradients come back in f32)."""
+    leaves = [t.float().clone().requires_grad_() for t in (h, w, bias)]
+    pooled, _ = pool(*leaves, mask)
+    (pooled * gout).sum().backward()
+    return [t.grad for t in leaves]
+
+
+def _plain_route(torch, h, w, bias, mask, gout):
+    """The same gradients from the plain forward and the plain backward."""
     from splade_tpu_torch.ops.fused_splade import (fold_cotangent,
                                                    fused_splade_bwd_plain,
-                                                   fused_splade_pool,
                                                    fused_splade_pool_plain)
 
-    leaves = [t.float().clone().requires_grad_() for t in (h, w, bias)]
-    pooled, _ = fused_splade_pool(*leaves, mask)
-    (pooled * gout).sum().backward()
-    got = [t.grad for t in leaves]
     with torch.no_grad():
         hf, wf, bf = (t.float() for t in (h, w, bias))
         m, _ = fused_splade_pool_plain(hf, wf, bf, mask)
         g_pre = fold_cotangent(gout, m)
         dh, dw = fused_splade_bwd_plain(hf, wf, bf, mask, m, g_pre)
-    return got, [dh, dw, g_pre.sum(0)]
+    return [dh, dw, g_pre.sum(0)]
 
 
 def recompute_check(torch, h, w, bias, mask, m, dh1) -> dict:
@@ -409,21 +534,52 @@ def recompute_check(torch, h, w, bias, mask, m, dh1) -> dict:
                 ok=counts_ok and padded_zero and worst <= RECOMPUTE_RTOL)
 
 
+def pool_families() -> dict:
+    """name -> its public pool function, its forward and dh wrappers, the
+    prefix of its backward C entries and its row_block (None for the
+    per-row family): the per-row family and the row-blocked one at each of
+    V2_ROW_BLOCKS."""
+    from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_dh,
+                                                   fused_splade_maxima,
+                                                   fused_splade_pool)
+    from splade_tpu_torch.ops.fused_splade_v2 import (fused_splade_bwd_dh_v2,
+                                                      fused_splade_maxima_v2,
+                                                      fused_splade_pool_v2)
+
+    fams = {"v1": dict(pool=fused_splade_pool, maxima=fused_splade_maxima,
+                       dh=fused_splade_bwd_dh,
+                       entry="splade_fused_pool_bwd_", row_block=None)}
+    for rb in V2_ROW_BLOCKS:
+        fams[f"v2 rb={rb}"] = dict(
+            pool=lambda *a, rb=rb: fused_splade_pool_v2(*a, rb),
+            maxima=lambda *a, rb=rb: fused_splade_maxima_v2(*a, rb),
+            dh=lambda *a, rb=rb: fused_splade_bwd_dh_v2(*a, rb),
+            entry="splade_fused_pool_v2_bwd_", row_block=rb)
+    return fams
+
+
 def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
-    """The backward kernels at one training shape, held against the plain
-    versions: (a) small-integer inputs, where every score is exact in f32
-    in any order and exact ties are common, elementwise; (b) the model's
-    own states, by norm (near-ties may pick another argmax); (c) with
-    g_pre = 1 the dh kernel must send each column's W row to the forward
-    kernel's argmax. Then the times of both C entries, the plain backward,
-    a cuBLAS composition and the bound."""
+    """The kernels of both families at one training shape (the shapes the
+    training path and the row-blocked pool's path launch them at), held
+    against the plain versions. Forward: each family's maxima wrapper
+    against the plain forward, as pooled values and token weights within
+    POOL_TOL. Backward: (a) small-integer inputs, where every score
+    is exact in f32 in any order and exact ties are common, elementwise;
+    (b) the model's own states, by norm (near-ties may pick another
+    argmax); (c) with g_pre = 1 the dh kernel must send each column's W row
+    to the per-row forward kernel's argmax; a repeated backward of the
+    row-blocked family must be bitwise equal, and its forward's maxima the
+    per-row kernel's. Then the times of all C entries on the same inputs,
+    the plain backward, a cuBLAS composition and the bound.
+    Returns {family: {"dh": ..., "dw": ...}}."""
     from splade_tpu_torch.ops import _cuda
     from splade_tpu_torch.ops.fused_splade import (dh_vocab_splits,
                                                    fold_cotangent,
-                                                   fused_splade_bwd_dh,
                                                    fused_splade_bwd_plain,
                                                    fused_splade_maxima,
                                                    fused_splade_pool_plain)
+    from splade_tpu_torch.ops.fused_splade_v2 import (dh_vocab_splits_v2,
+                                                      fused_splade_bwd_v2_plain)
 
     enc = tok(hangul_texts(rng, B, S), max_length=S)
     ids = torch.from_numpy(enc["input_ids"]).cuda()
@@ -439,74 +595,122 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(B * S)
     gout = torch.randn((B, V), device="cuda", generator=gen)
     names = ("dh", "dw", "dbias")
+    families = pool_families()
 
-    # (a) exactly representable inputs
+    # (a) exactly representable inputs, (b) the model's states: the plain
+    # route once, every family's kernel route against it
     ints = lambda *shape: torch.randint(-2, 3, shape, device="cuda",
                                         generator=gen).float()
-    got, want = _pool_routes(torch, ints(B, S, H), ints(V, H), ints(V),
-                             mask, gout)
-    abs_a = {n: float((g - r).abs().max()) for n, g, r in zip(names, got, want)}
-    err_a = {n: abs_a[n] / float(r.abs().max()) for n, r in zip(names, want)}
-    padded_zero = float(got[0][-1].abs().max()) == 0.0
-    finite = all(bool(torch.isfinite(g).all()) for g in got)
-    # (b) the model's states
-    got, want = _pool_routes(torch, h, w, bias, mask, gout)
-    err_b = {n: float((g - r).norm() / r.norm())
-             for n, g, r in zip(names, got, want)}
-    padded_zero = padded_zero and float(got[0][-1].abs().max()) == 0.0
-    del got, want
-    # (c) the recompute equals the forward kernel's maxima
+    exact = (ints(B, S, H), ints(V, H), ints(V))
+    checks = {name: {} for name in families}
+    for label, inputs in (("a", exact), ("b", (h, w, bias))):
+        want = _plain_route(torch, *inputs, mask, gout)
+        for name, fam in families.items():
+            got = _kernel_route(torch, fam["pool"], *inputs, mask, gout)
+            c = checks[name]
+            if label == "a":
+                c["abs_a"] = {n: float((g - r).abs().max())
+                              for n, g, r in zip(names, got, want)}
+                c["err_a"] = {n: c["abs_a"][n] / float(r.abs().max())
+                              for n, r in zip(names, want)}
+                c["finite"] = all(bool(torch.isfinite(g).all()) for g in got)
+                c["padded_zero"] = float(got[0][-1].abs().max()) == 0.0
+            else:
+                c["err_b"] = {n: float((g - r).norm() / r.norm())
+                              for n, g, r in zip(names, got, want)}
+                c["padded_zero"] &= float(got[0][-1].abs().max()) == 0.0
+                if fam["row_block"] is not None:  # no atomics: bitwise
+                    again = _kernel_route(torch, fam["pool"], *inputs, mask,
+                                          gout)
+                    c["repeat_bitwise"] = all(
+                        bool(torch.equal(x, y)) for x, y in zip(got, again))
+                    del again
+            del got
+        del want
+    del exact
+    # the forward at this shape: every family's maxima against the plain
+    # forward. (c) every family's recompute equals the per-row forward
+    # kernel's maxima, which the row-blocked forward's must equal bit for bit
+    maskf = mask.float().contiguous()
+    hf, wf = h.float(), w.float()
     with torch.no_grad():
+        m_p, pos_p = fused_splade_pool_plain(hf, wf, bias, maskf)
+        want_fwd = (torch.log1p(torch.relu(m_p)),
+                    torch.log1p(torch.relu(pos_p)) * maskf)
         m_k, _ = fused_splade_maxima(h, w, bias, mask)
         ones = (mask.sum(1, keepdim=True) > 0).float().expand_as(m_k)
-        dh1 = fused_splade_bwd_dh(h, w, bias, mask, m_k, ones)
-        rc = recompute_check(torch, h, w, bias, mask, m_k, dh1)
-    del dh1
-    share = rc["top_position_share"]
-    log(f"  pool backward B={B} S={S}: (a) exact inputs max err "
-        + ", ".join(f"{n} {e:.2e}" for n, e in err_a.items())
-        + f" (tol {BWD_EXACT_RTOL} of each tensor's largest value); (b) "
-        "model states norm err " + ", ".join(f"{n} {e:.2e}"
-                                            for n, e in err_b.items())
-        + f" (tol {BWD_NORM_RTOL}); (c) recompute over {rc['rows']} rows: "
-        f"{rc['ties']} exact ties in {rc['tied_rows']} rows (counts sound: "
-        f"{rc['counts_ok']}), worst row {rc['worst_before_ties']:.2e} before "
-        f"and {rc['worst']:.2e} after the ties (tol {RECOMPUTE_RTOL}); "
-        f"padded row zero and finite: {padded_zero and finite}; the position "
-        f"holding most of a row's maxima holds {share['mean']:.1%} of the "
-        f"columns on average, {share['max']:.1%} at most")
-    if not (max(err_a.values()) <= BWD_EXACT_RTOL
-            and max(err_b.values()) <= BWD_NORM_RTOL
-            and rc["ok"] and padded_zero and finite):
-        raise SystemExit(f"fused pool backward kernels disagree (B={B}, S={S})")
+        for name, fam in families.items():
+            m_f, pos_f = fam["maxima"](h, w, bias, mask)
+            got_fwd = (torch.log1p(torch.relu(m_f)),
+                       torch.log1p(torch.relu(pos_f)) * maskf)
+            checks[name]["err_fwd"] = max(
+                float((g - r).abs().max()) for g, r in zip(got_fwd, want_fwd))
+            if fam["row_block"] is not None:
+                checks[name]["m_bitwise"] = bool(torch.equal(m_f, m_k))
+            del m_f, pos_f, got_fwd
+            dh1 = fam["dh"](h, w, bias, mask, m_k, ones)
+            checks[name]["rc"] = recompute_check(torch, h, w, bias, mask,
+                                                 m_k, dh1)
+            del dh1
+        del want_fwd, pos_p
+    for name, c in checks.items():
+        rc = c["rc"]
+        share = rc["top_position_share"]
+        log(f"  pool backward {name} B={B} S={S}: forward vs plain max |err| "
+            f"{c['err_fwd']:.3e} (tol {POOL_TOL}); (a) exact inputs max err "
+            + ", ".join(f"{n} {e:.2e}" for n, e in c["err_a"].items())
+            + f" (tol {BWD_EXACT_RTOL} of each tensor's largest value); (b) "
+            "model states norm err " + ", ".join(
+                f"{n} {e:.2e}" for n, e in c["err_b"].items())
+            + f" (tol {BWD_NORM_RTOL}); (c) recompute over {rc['rows']} "
+            f"rows: {rc['ties']} exact ties in {rc['tied_rows']} rows "
+            f"(counts sound: {rc['counts_ok']}), worst row "
+            f"{rc['worst_before_ties']:.2e} before and {rc['worst']:.2e} "
+            f"after the ties (tol {RECOMPUTE_RTOL}); padded row zero and "
+            f"finite: {c['padded_zero'] and c['finite']}"
+            + (f"; repeated backward bitwise equal: {c['repeat_bitwise']}, "
+               f"forward maxima bitwise the per-row kernel's: "
+               f"{c['m_bitwise']}" if "m_bitwise" in c else
+               f"; the position holding most of a row's maxima holds "
+               f"{share['mean']:.1%} of the columns on average, "
+               f"{share['max']:.1%} at most"))
+        if not (c["err_fwd"] <= POOL_TOL
+                and max(c["err_a"].values()) <= BWD_EXACT_RTOL
+                and max(c["err_b"].values()) <= BWD_NORM_RTOL
+                and rc["ok"] and c["padded_zero"] and c["finite"]
+                and c.get("repeat_bitwise", True)
+                and c.get("m_bitwise", True)):
+            raise SystemExit(f"fused pool backward kernels ({name}) disagree "
+                             f"(B={B}, S={S})")
 
     # times: the C entries alone on prepared operands, with the forward
     # kernel's maxima and with maxima no score reaches (the recompute and
-    # the scan without a row added), and the forward kernel beside them
+    # the scan without a row added), and the forward kernel beside them.
+    # The row-blocked entries add into their output, so zeroing it is part
+    # of the call, as it is of the wrapper's
     lib = _cuda.library()
-    maskf = mask.float().contiguous()
     g_pre = fold_cotangent(gout, m_k).contiguous()
     never = torch.full_like(m_k, float("inf"))
-    splits = dh_vocab_splits(B, S, V)
-    dh_out = torch.empty((splits, B, S, H), dtype=torch.float32,
-                         device="cuda")
     dw_out = torch.empty((V, H), dtype=torch.float32, device="cuda")
 
-    def entry(name, out, maxima):
-        fn = getattr(lib, name)
-        extra = [splits] if name.endswith("_dh") else []
+    def entry(fam, which, out, maxima, splits):
+        fn = getattr(lib, fam["entry"] + which)
+        rb = fam["row_block"]
+        extra = ([] if rb is None else [rb]) + ([splits] if which == "dh"
+                                                else [])
 
         def run():
+            if rb is not None:
+                out.zero_()
             _cuda.check(fn(
                 h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
                 maxima.data_ptr(), g_pre.data_ptr(), out.data_ptr(), B, S, H,
-                V, *extra, torch.cuda.current_stream().cuda_stream), name)
-            if splits > 1 and extra:
+                V, *extra, torch.cuda.current_stream().cuda_stream),
+                fam["entry"] + which)
+            if which == "dh" and splits > 1:
                 out.sum(0)  # the wrapper's ordered sum of the splits
         return run
 
-    hf, wf = h.float(), w.float()
-    m_p, _ = fused_splade_pool_plain(hf, wf, bias, maskf)
     g_p = fold_cotangent(gout, m_p)
     valid = maskf > 0
 
@@ -520,19 +724,35 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
         return torch.matmul(G.view(B * S, V).T, h.view(B * S, H))
 
     with torch.no_grad():
-        out = {}
-        for name, buf in (("dh", dh_out), ("dw", dw_out)):
-            c_name = f"splade_fused_pool_bwd_{name}"
-            out[name] = dict(
-                ms=cuda_ms(torch, entry(c_name, buf, m_k), iters=5, warmup=1),
-                no_match_ms=cuda_ms(torch, entry(c_name, buf, never), iters=3,
-                                    warmup=1),
-                library_ms=cuda_ms(torch, lambda: library(name), iters=3,
-                                   warmup=1))
+        library_ms = {which: cuda_ms(torch, lambda: library(which), iters=3,
+                                     warmup=1) for which in ("dh", "dw")}
         fwd_ms = cuda_ms(torch, lambda: fused_splade_maxima(h, w, bias, mask),
                          iters=5, warmup=1)
-        plain_ms = cuda_ms(torch, lambda: fused_splade_bwd_plain(
-            hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)
+        plain_ms = {None: cuda_ms(torch, lambda: fused_splade_bwd_plain(
+            hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)}
+        times = {}
+        for name, fam in families.items():
+            rb = fam["row_block"]
+            splits = (dh_vocab_splits(B, S, V) if rb is None
+                      else dh_vocab_splits_v2(B, rb, V))
+            dh_out = torch.empty((splits, B, S, H), dtype=torch.float32,
+                                 device="cuda")
+            times[name] = {which: dict(
+                ms=cuda_ms(torch, entry(fam, which, buf, m_k, splits),
+                           iters=5, warmup=1),
+                no_match_ms=cuda_ms(torch, entry(fam, which, buf, never,
+                                                 splits), iters=3, warmup=1))
+                for which, buf in (("dh", dh_out), ("dw", dw_out))}
+            times[name]["splits"] = splits
+            # the family's own forward wrapper at this shape
+            times[name]["forward_ms"] = cuda_ms(
+                torch, lambda: fam["maxima"](h, w, bias, mask), iters=5,
+                warmup=1)
+            del dh_out
+            if rb is not None:
+                plain_ms[rb] = cuda_ms(
+                    torch, lambda: fused_splade_bwd_v2_plain(
+                        hf, wf, bias, maskf, m_p, g_p, rb), iters=2, warmup=1)
     nvalid = float(maskf.sum())
     matches = float((g_pre != 0).sum())  # one a (b, v), ties aside
     # the function's own work: the recompute, 2*valid*H*V bf16 operations
@@ -544,31 +764,40 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     add_ops = 2.0 * matches * H
     ops_ms = (recompute_ops / H100_BF16_FLOPS + add_ops / H100_FP32_OPS) * 1e3
     shared = h.numel() * 2 + w.numel() * 2 + V * 4 + B * S * 4 + 2 * B * V * 4
-    result = {}
-    for name, out_bytes in (("dh", B * S * H * 4), ("dw", V * H * 4)):
+    result = {name: {} for name in families}
+    for which, out_bytes in (("dh", B * S * H * 4), ("dw", V * H * 4)):
         bytes_ms = (shared + out_bytes) / H100_BYTES * 1e3
         bound_ms, bound_by = ((ops_ms, "operations") if ops_ms >= bytes_ms
                               else (bytes_ms, "bytes"))
-        result[name] = dict(
-            shape=f"B={B} S={S} H={H} V={V}",
-            max_abs_err=abs_a[name],  # check (a): kernel vs plain route
-            err_exact=err_a[name], err_norm=err_b[name], recompute=rc,
-            ms=out[name]["ms"], no_match_ms=out[name]["no_match_ms"],
-            forward_ms=fwd_ms, plain_ms=plain_ms,
-            plain_computes="dh and dw together",
-            library_ms=out[name]["library_ms"], bound_ms=bound_ms,
-            bound_by=bound_by, matches=matches,
-            bound_dense_contraction_ms=bound(
-                shared + out_bytes, 2 * recompute_ops, H100_BF16_FLOPS)[0])
-        log(f"  pool backward {name} B={B} S={S}: kernel "
-            f"{out[name]['ms']:.3f} ms ({out[name]['no_match_ms']:.3f} ms "
-            f"with maxima nothing reaches; forward kernel {fwd_ms:.3f} ms), "
-            f"plain (dh+dw) {plain_ms:.3f} ms, library "
-            f"{out[name]['library_ms']:.3f} ms, bound {bound_ms:.3f} ms "
-            f"({bound_by}: {recompute_ops:.3e} bf16 FLOP over {nvalid:.0f} "
-            f"valid tokens + {add_ops:.3e} f32 FLOP over {matches:.0f} "
-            f"matches; dense-contraction convention "
-            f"{result[name]['bound_dense_contraction_ms']:.3f} ms)")
+        dense_ms = bound(shared + out_bytes, 2 * recompute_ops,
+                         H100_BF16_FLOPS)[0]
+        for name, fam in families.items():
+            c, t = checks[name], times[name][which]
+            result[name][which] = dict(
+                shape=f"B={B} S={S} H={H} V={V}", row_block=fam["row_block"],
+                max_abs_err=c["abs_a"][which],  # (a): kernel vs plain route
+                forward_max_abs_err=c["err_fwd"],
+                err_exact=c["err_a"][which], err_norm=c["err_b"][which],
+                recompute=c["rc"], repeat_bitwise=c.get("repeat_bitwise"),
+                ms=t["ms"], no_match_ms=t["no_match_ms"],
+                v1_ms=times["v1"][which]["ms"], dh_splits=times[name]["splits"],
+                forward_ms=fwd_ms,
+                family_forward_ms=times[name]["forward_ms"],
+                plain_ms=plain_ms[fam["row_block"]],
+                plain_computes="dh and dw together",
+                library_ms=library_ms[which], bound_ms=bound_ms,
+                bound_by=bound_by, matches=matches,
+                bound_dense_contraction_ms=dense_ms)
+            log(f"  pool backward {name} {which} B={B} S={S}: kernel "
+                f"{t['ms']:.3f} ms ({t['no_match_ms']:.3f} ms with maxima "
+                f"nothing reaches; forward at this shape "
+                f"{times[name]['forward_ms']:.3f} ms, per-row {fwd_ms:.3f}), "
+                f"plain (dh+dw) {plain_ms[fam['row_block']]:.3f} ms, library "
+                f"{library_ms[which]:.3f} ms, bound {bound_ms:.3f} ms "
+                f"({bound_by}: {recompute_ops:.3e} bf16 FLOP over "
+                f"{nvalid:.0f} valid tokens + {add_ops:.3e} f32 FLOP over "
+                f"{matches:.0f} matches; dense-contraction convention "
+                f"{dense_ms:.3f} ms)")
     return result
 
 
@@ -672,6 +901,20 @@ def drive(name: str, engine, model, queries, doc_text: str) -> dict:
     return summary
 
 
+def summarize_spans(spans, n_top: int = 8):
+    """(busy microseconds, {name: ms} of the n_top largest) from device
+    spans (start_us, end_us, name) sorted by start: busy is the union of
+    the intervals; names are cut to 60 characters and kernels that then
+    share a name (template instances of one kind) are added together."""
+    busy_us, end_us, by_name = 0.0, float("-inf"), {}
+    for start, end, kname in spans:
+        busy_us += max(0.0, end - max(start, end_us))
+        end_us = max(end_us, end)
+        by_name[kname[:60]] = by_name.get(kname[:60], 0.0) + (end - start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
+    return busy_us, {k: v / 1e3 for k, v in top}
+
+
 def device_profile(torch, fn) -> dict:
     """Host wall clock of ``fn()`` ended by a synchronize, against the union
     of the device's kernel and copy intervals in a torch.profiler trace,
@@ -688,18 +931,12 @@ def device_profile(torch, fn) -> dict:
         wall_ms = (time.perf_counter() - t0) * 1e3
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
-    busy_us, end_us, by_name = 0.0, float("-inf"), {}
-    for start, end, kname in spans:
-        busy_us += max(0.0, end - max(start, end_us))
-        end_us = max(end_us, end)
-        by_name[kname] = by_name.get(kname, 0.0) + (end - start)
     if not spans:
         return dict(wall_ms=wall_ms, device_busy_ms=None)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    busy_us, top = summarize_spans(spans)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
-                device_ops=len(spans),
-                top_kernels_ms={k[:60]: v / 1e3 for k, v in top})
+                device_ops=len(spans), top_kernels_ms=top)
 
 
 def profile_batch(torch, name: str, engine, queries) -> dict:
@@ -929,7 +1166,8 @@ def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
     # every step after the first has a learning rate above 0; the run is
     # cut by raising max_steps after construction
     cfg_dict["training"].update(output_dir=str(workdir / "run"),
-                                log_every_n_steps=1)
+                                log_every_n_steps=1,
+                                watchdog_timeout_s=WATCHDOG_S)
     cfg_dict["mesh"] = {"num_data": 1}
     batch = cfg_dict["data"]["batch_size"]
     accum = cfg_dict["training"]["gradient_accumulation_steps"]
@@ -985,6 +1223,17 @@ def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
                if device == "cuda" else None)
     if state.step != 1 + steps:
         raise SystemExit(f"training stopped at step {state.step}")
+    wd = trainer._watchdog
+    wd._thread.join(timeout=5.0)
+    watchdog = dict(timeout_s=wd.timeout_s, beats=wd.beats,
+                    tripped=wd.tripped, stopped=not wd._thread.is_alive())
+    log(f"  hang watchdog armed at {wd.timeout_s:.0f} s over the measured "
+        f"steps: {wd.beats} beats (a resolved loss each logged step, the "
+        f"checkpoint write), tripped: {wd.tripped}, thread stopped after "
+        f"train(): {watchdog['stopped']}")
+    if not (wd.beats >= steps and not wd.tripped and watchdog["stopped"]):
+        raise SystemExit("training: the hang watchdog did not beat, or "
+                         "tripped, or outlived train()")
     records = [json.loads(line) for line in
                (workdir / "run" / "metrics.jsonl").read_text().splitlines()]
     per_step = [{k: r[k] for k in ("step", "loss", "infonce", "nonzero_q",
@@ -1076,7 +1325,363 @@ def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
                 warmup_step_s=warmup_s, launches=launches,
                 launches_per_step=per_opt_step, peak_device_gb=peak_gb,
                 profile=prof, profiled_step=live, resume=resume,
-                plain_route=plain)
+                plain_route=plain, watchdog=watchdog)
+
+
+# ------------------------------------------------------------ phase 5
+def mlm_recipe() -> dict:
+    """The MLM recipe of configs/pretrain_mlm.yaml, built in code (the card
+    machine may lack PyYAML); tests/test_torch_chip_smoke.py holds it equal
+    to the file."""
+    return {
+        "model_name": "skt/A.X-Encoder-base", "data_dir": "data/mlm_korean",
+        "max_length": 512, "output_dir": "outputs/pretrain_mlm", "epochs": 3,
+        "batch_size": 32, "grad_accum": 4, "lr": 5.0e-5,
+        "weight_decay": 0.01, "warmup_ratio": 0.05, "mlm_probability": 0.15,
+        "save_steps": 2000, "eval_steps": 1000, "logging_steps": 100,
+        "dataloader_workers": 4, "seed": 42, "val_fraction": 0.01,
+        "dtype": "bfloat16",
+    }
+
+
+def _sigterm_after(trainer, records: int) -> threading.Thread:
+    """A thread that sends SIGTERM to this process once the trainer has
+    logged ``records`` steps: the signal lands while a later step runs."""
+    def watch():
+        while trainer.tracker.num_records < records:
+            time.sleep(0.002)
+        os.kill(os.getpid(), signal.SIGTERM)
+
+    thread = threading.Thread(target=watch, daemon=True, name="sigterm")
+    thread.start()
+    return thread
+
+
+def v2_path(torch, mlm_model, tok, rng, autocast, shapes) -> dict:
+    """The row-blocked pool family's path: its public function under
+    autograd, on the pre-trained model, at the (B, S) phase 2 held the
+    family's wrappers at. For each (B, S) a batch of texts
+    is encoded, head-transformed, pooled by ``fused_splade_pool_v2``
+    (row_block 0: the automatic choice) and a FLOPS-style sparsity loss
+    (the squared mean activation of each vocabulary entry) is sent backward
+    into the model. The family's launch counts are set to 0 before and read
+    after. The same batches then go through the per-row family
+    (``fused_splade_pool``): the loss must agree within TRAIN_RTOL, the
+    gradients' global norm within TRAIN_RTOL and each tensor within
+    TRAIN_GRAD_RTOL."""
+    from splade_tpu_torch.ops import fused_splade_v2 as v2
+    from splade_tpu_torch.ops.fused_splade import fused_splade_pool
+
+    dev = next(mlm_model.parameters()).device
+    batches = []
+    for B, S in shapes:
+        enc = tok(hangul_texts(rng, B, max(S // 3, 2)), max_length=S)
+        batches.append((torch.from_numpy(enc["input_ids"]).to(dev),
+                        torch.from_numpy(enc["attention_mask"]).to(dev)))
+
+    def route(pool):
+        mlm_model.zero_grad(set_to_none=True)
+        total = 0.0
+        for ids, mask in batches:
+            with autocast():
+                h = mlm_model.head_transform(mlm_model.encode(ids, mask))
+                h = h.to(torch.bfloat16) if dev.type == "cuda" else h
+                w, bias = mlm_model.decoder_weights()
+                pooled, tw = pool(h, w.to(h.dtype), bias, mask)
+            loss = (pooled.mean(0) ** 2).sum()
+            loss.backward()
+            total += float(loss.detach())
+        grads = {n: p.grad.detach().clone()
+                 for n, p in mlm_model.named_parameters()
+                 if p.grad is not None}
+        norm = float(torch.sqrt(sum((g.float() ** 2).sum()
+                                    for g in grads.values())))
+        mlm_model.zero_grad(set_to_none=True)
+        return total, norm, grads, tuple(pooled.shape), tuple(tw.shape)
+
+    counters = (v2.fused_splade_pool_v2, v2.fused_splade_bwd_dh_v2,
+                v2.fused_splade_bwd_dw_v2)
+    was_training = mlm_model.training
+    mlm_model.train()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    for fn in counters:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    loss2, norm2, grads2, p_shape, tw_shape = route(v2.fused_splade_pool_v2)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if dev.type == "cuda" else None)
+    launches = {"fused_splade_pool_v2": counters[0].launches,
+                "fused_splade_bwd_dh_v2": counters[1].launches,
+                "fused_splade_bwd_dw_v2": counters[2].launches}
+    loss1, norm1, grads1, _, _ = route(fused_splade_pool)
+    mlm_model.train(was_training)
+    loss_err = abs(loss2 - loss1) / max(abs(loss1), 1e-12)
+    norm_err = abs(norm2 - norm1) / max(norm1, 1e-12)
+    tensor_err = {n: float((grads2[n].float() - g.float()).norm()
+                           / g.float().norm().clamp_min(1e-30))
+                  if n in grads2 else 1.0 for n, g in grads1.items()}
+    worst = max(tensor_err, key=tensor_err.get)
+    finite = all(bool(torch.isfinite(g).all()) for g in grads2.values())
+    last_B, last_S = shapes[-1]
+    log(f"  row-blocked pool under autograd over {len(shapes)} batches "
+        f"{list(shapes)} in {seconds:.2f} s (peak device memory {peak_gb} "
+        f"GB): launches {launches}; sparsity "
+        f"loss {loss2:.6f} vs per-row family {loss1:.6f} (rel "
+        f"{loss_err:.2e}), grad_norm {norm2:.6f} vs {norm1:.6f} (rel "
+        f"{norm_err:.2e}), worst of {len(tensor_err)} gradients {worst} "
+        f"{tensor_err[worst]:.2e} (tol {TRAIN_RTOL} / {TRAIN_GRAD_RTOL}); "
+        f"finite: {finite}")
+    if not (p_shape == (last_B, V) and tw_shape == (last_B, last_S)
+            and finite and len(grads2) == len(grads1)
+            and loss_err <= TRAIN_RTOL and norm_err <= TRAIN_RTOL
+            and tensor_err[worst] <= TRAIN_GRAD_RTOL):
+        raise SystemExit("the row-blocked pool's route differs from the "
+                         "per-row family's")
+    return dict(shapes=[list(x) for x in shapes], launches=launches,
+                seconds=seconds, peak_device_gb=peak_gb, loss=loss2,
+                loss_v1=loss1,
+                loss_rel_err=loss_err, grad_norm=norm2, grad_norm_v1=norm1,
+                grad_norm_rel_err=norm_err, worst_tensor=worst,
+                worst_tensor_rel_err=tensor_err[worst],
+                tensors=len(tensor_err))
+
+
+def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
+              model_config, steps: int = 3, device: str = "cuda",
+              n_sentences: int = 20_000, sentence_words=(12, 28),
+              v2_shapes=TRAIN_POOL_SHAPES, checkpoint_config=None
+              ) -> dict:
+    """MLM pre-training through the port's entry points: a synthetic Hangul
+    corpus written as a text shard, read_corpus -> pack_corpus ->
+    MLMTrainer. One run of train(): a warm-up step, ``steps`` measured
+    steps (timed from the trainer's own step records, each written after
+    the loss resolved on the host), then SIGTERM, which must end the run at
+    a step boundary with a checkpoint. Then the next step under the
+    profiler, the same step by a trainer resumed from the checkpoint
+    (bitwise), held-out evaluation, the final model through
+    SparseEncoderV33.from_checkpoint into a served engine, and the
+    row-blocked pool's path (``v2_path``). ``checkpoint_config`` is handed
+    to from_checkpoint (None: the architecture's widths with the
+    tokenizer's vocabulary, as a user loads a full-size model)."""
+    import shutil
+
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    from splade_tpu_torch.models.splade import SpladeEncoder
+    from splade_tpu_torch.serving.engine import build_engine_from_docs
+    from splade_tpu_torch.train.checkpoint import (find_latest_checkpoint,
+                                                   load_checkpoint,
+                                                   save_final_model)
+    from splade_tpu_torch.train.mlm import (MLMConfig, MLMTrainer,
+                                            pack_corpus, read_corpus)
+
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    (workdir / "corpus").mkdir(parents=True)
+    t0 = time.perf_counter()
+    lo, hi = sentence_words
+    cuts = rng.integers(lo, hi, n_sentences)
+    with open(workdir / "corpus" / "mlm_000.txt", "w", encoding="utf-8") as f:
+        for text, n_words in zip(hangul_texts(rng, n_sentences, hi - 1), cuts):
+            f.write(" ".join(text.split(" ")[:n_words]) + "\n")
+    cfg_dict = dict(recipe, data_dir=str(workdir / "corpus"),
+                    output_dir=str(workdir / "run"), logging_steps=1,
+                    save_steps=0, eval_steps=0,
+                    watchdog_timeout_s=WATCHDOG_S)
+    rows = pack_corpus(read_corpus(cfg_dict["data_dir"]), tok,
+                       cfg_dict["max_length"])
+
+    def new_trainer(model_seed):
+        # max_steps stays 0: the schedule spans the recipe's epochs over
+        # these rows, so every step after the first has a learning rate
+        # above 0; the run is cut by the signal
+        model = SpladeEncoder(model_config, device=device
+                              ).init_weights(model_seed).mlm
+        return MLMTrainer(MLMConfig(**cfg_dict), model, rows, tok,
+                          device=device)
+
+    trainer = new_trainer(seed)
+    cfg = trainer.cfg
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    tokens_per_step = cfg.batch_size * cfg.grad_accum * cfg.max_length
+    log(f"  {n_sentences} sentences packed into {len(rows)} rows of "
+        f"{cfg.max_length} tokens ({len(trainer.val_rows)} held out); "
+        f"{trainer.steps_per_epoch} steps an epoch of {cfg.batch_size} x "
+        f"{cfg.grad_accum} rows, schedule of {trainer.total_steps} steps; "
+        f"model {n_params / 1e6:.1f}M params (f32 master, {cfg.dtype} "
+        f"compute, remat {model_config.remat}); set-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    if trainer.total_steps < steps + 4:
+        raise SystemExit("MLM corpus too small for the run")
+
+    # one run: warm-up step, measured steps, SIGTERM during the next
+    sync = torch.cuda.synchronize if device == "cuda" else (lambda: None)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    before = {sig: signal.getsignal(sig)
+              for sig in (signal.SIGTERM, signal.SIGINT)}
+    replaced = trainer.install_preemption_handler()
+    killer = _sigterm_after(trainer, 1 + steps)
+    try:
+        t0 = time.perf_counter()
+        state = trainer.train()
+        sync()
+        run_s = time.perf_counter() - t0
+    finally:
+        for sig, handler in replaced.items():
+            signal.signal(sig, handler)
+    killer.join(timeout=30)
+    restored = {sig: signal.getsignal(sig) for sig in before} == before
+    peak_gb = (torch.cuda.max_memory_allocated() / 1e9
+               if device == "cuda" else None)
+    records = [json.loads(line) for line in
+               (workdir / "run" / "metrics.jsonl").read_text().splitlines()]
+    for r in records:
+        log(f"  step {r['step']}{' (warm-up)' if r['step'] == 1 else ''}: "
+            f"loss {r['loss']:.5f} acc {r['mlm_acc']:.4f} masked/row "
+            f"{r['masked_per_row']:.1f} at {r['time']:.2f} s")
+    ckpt = find_latest_checkpoint(str(workdir / "run"))
+    wd = trainer._watchdog
+    wd._thread.join(timeout=5.0)
+    preempt = dict(preempted=trainer._preempted, stopped_at_step=state.step,
+                   checkpoint=Path(ckpt).name if ckpt else None,
+                   handlers_restored=restored, watchdog_beats=wd.beats,
+                   watchdog_tripped=wd.tripped)
+    log(f"  SIGTERM after step {1 + steps}'s record: run returned at step "
+        f"{state.step} of {trainer.total_steps} in {run_s:.1f} s with "
+        f"checkpoint {preempt['checkpoint']}; previous signal handlers "
+        f"restored: {restored}; watchdog {wd.beats} beats, tripped "
+        f"{wd.tripped}")
+    if not (trainer._preempted and 1 + steps <= state.step
+            < trainer.total_steps and ckpt
+            and ckpt.endswith(f"step{state.step}") and restored
+            and len(records) == state.step and not wd.tripped
+            and not wd._thread.is_alive()
+            and all(np.isfinite(r["loss"]) for r in records)):
+        raise SystemExit("MLM: the run did not stop on SIGTERM at a step "
+                         "boundary with a checkpoint")
+    # the measured steps, from the trainer's own records (each written
+    # after float(loss) returned, i.e. after the card finished the step)
+    wall = records[steps]["time"] - records[0]["time"]
+    step_ms = wall / steps * 1e3
+    tokens_per_s = steps * tokens_per_step / wall
+    log(f"  {steps} steps in {wall:.2f} s: {tokens_per_s:.0f} tokens/s, "
+        f"{step_ms:.0f} ms a step of {tokens_per_step} tokens (warm-up "
+        f"step {records[0]['time']:.1f} s after the tracker's start); peak "
+        f"device memory "
+        + (f"{peak_gb:.2f} GB" if peak_gb is not None else "not measured"))
+
+    # the next step: live under the profiler, then resumed from the
+    # checkpoint by a fresh trainer; both must be bitwise equal
+    epoch = state.step // trainer.steps_per_epoch + 1
+    at = state.step - (epoch - 1) * trainer.steps_per_epoch
+    host = next(b for i, b in enumerate(trainer._epoch_batches(epoch))
+                if i == at)
+    dev_batch = {"input_ids": trainer._to_device(host["input_ids"])}
+    lr_live = state.optimizer.param_groups[0]["lr"]
+    box = {}
+    if device == "cuda":
+        prof = device_profile(torch, lambda: box.setdefault(
+            "m", trainer.step_fn(state, dev_batch)))
+        top = list(prof.get("top_kernels_ms", {}).items())
+        log(f"  one step under torch.profiler: wall {prof['wall_ms']:.1f} ms"
+            + (f", device busy {prof['device_busy_ms']:.1f} ms (idle "
+               f"{prof['device_idle_share']:.1%}) over {prof['device_ops']} "
+               "device ops; top: " + ", ".join(f"{k[:48]} {v:.2f}"
+                                              for k, v in top[:6])
+               if prof["device_busy_ms"] is not None
+               else "; the profiler saw no device activity, not measured"))
+    else:
+        box["m"] = trainer.step_fn(state, dev_batch)
+        prof = None
+    live = {k: float(v) for k, v in box["m"].items()}
+    fresh = new_trainer(seed + 1)
+    fresh.state, meta = load_checkpoint(ckpt, fresh.state)
+    pairs = list(zip(state.model.parameters(), fresh.state.model.parameters()))
+    with torch.no_grad():
+        moved = max(float((a - b).abs().max()) for a, b in pairs)
+    lr_resumed = fresh.state.optimizer.param_groups[0]["lr"]
+    resumed = {k: float(v) for k, v in
+               fresh.step_fn(fresh.state, dev_batch).items()}
+    bitwise = (all(torch.equal(a, b) for a, b in pairs)
+               and resumed == live)
+    resume = dict(full_resume=meta["full_resume"], step=fresh.state.step,
+                  lr=lr_resumed, lr_live=lr_live, step_moved_params=moved,
+                  bitwise=bitwise, loss_live=live["loss"],
+                  loss_resumed=resumed["loss"])
+    log(f"  resumed from {Path(ckpt).name}: step {fresh.state.step} at lr "
+        f"{lr_resumed:.3e} (uninterrupted {lr_live:.3e}), which moved the "
+        f"parameters by up to {moved:.2e}; loss {resumed['loss']:.6f} vs "
+        f"uninterrupted {live['loss']:.6f}; metrics and parameters bitwise "
+        f"equal: {bitwise}")
+    if not (meta["full_resume"] and fresh.state.step == state.step
+            and lr_resumed > 0 and lr_resumed == lr_live and moved > 0
+            and bitwise):
+        raise SystemExit("MLM: the resumed step differs from the "
+                         "uninterrupted one")
+    del fresh, pairs
+    evaluation = trainer.evaluate()
+    log(f"  held-out evaluation over {len(trainer.val_rows)} rows: "
+        f"{evaluation}")
+    if not (evaluation and np.isfinite(evaluation["mlm_loss"])):
+        raise SystemExit("MLM: held-out evaluation gave nothing finite")
+
+    # final model -> from_checkpoint -> the in-memory weights' vectors ->
+    # a served engine
+    final = save_final_model(str(workdir / "run"), state.model, tok,
+                             prefix="mlm.")
+    enc = SparseEncoderV33.from_checkpoint(
+        final, tok, device=device, config=checkpoint_config, query_top_k=64,
+        doc_top_k=256)
+    memory = SpladeEncoder(model_config, device=device)
+    memory.mlm.load_state_dict(state.model.state_dict())
+    mem = SparseEncoderV33(memory.to(torch.bfloat16), tok, device=device,
+                           query_top_k=64, doc_top_k=256)
+    queries = hangul_texts(rng, 8, 6)
+    docs = hangul_texts(rng, 512, 60)
+    worst = 0.0
+    for texts, length in ((queries, enc.query_max_length),
+                          (docs[:32], enc.doc_max_length)):
+        got = enc.encode_tensor(*enc.tokenize(texts, length))
+        want = mem.encode_tensor(*mem.tokenize(texts, length))
+        scale = want.abs().amax(1, keepdim=True).clamp_min(1e-6)
+        worst = max(worst, float(((got - want).abs() / scale).max()))
+        if not (got.shape == (len(texts), V)
+                and bool(torch.isfinite(got).all())):
+            raise SystemExit("MLM: the loaded model's vectors are not "
+                             "finite [B, V]")
+    log(f"  final model -> SparseEncoderV33.from_checkpoint: 8 queries and "
+        f"32 documents encode to the in-memory weights' vectors (bf16 cast "
+        f"of the same weights), max relative diff {worst:.2e} (tol "
+        f"{CHECKPOINT_RTOL})")
+    if not worst <= CHECKPOINT_RTOL:
+        raise SystemExit("MLM: from_checkpoint's vectors differ from the "
+                         "in-memory model's")
+    del mem, memory
+    engine = build_engine_from_docs(
+        enc.model, tok, [(f"doc{i}", t) for i, t in enumerate(docs)],
+        int8=True, doc_top_k=256, index_type="dense", query_top_k=64,
+        device=device)
+    served = drive("pre-trained dense", engine, enc.model, queries, docs[5])
+    del engine
+
+    v2 = v2_path(torch, state.model, tok, rng, trainer._autocast, v2_shapes)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(recipe=recipe, model_params=n_params, rows=len(rows),
+                steps=[{k: r[k] for k in ("step", "loss", "mlm_acc",
+                                          "masked_per_row", "time")}
+                       for r in records],
+                measured_steps=steps, wall_s=wall, tokens_per_s=tokens_per_s,
+                step_ms=step_ms, tokens_per_step=tokens_per_step,
+                peak_device_gb=peak_gb, remat=model_config.remat,
+                preemption=preempt, profile=prof, profiled_step=live,
+                resume=resume, evaluation=evaluation,
+                from_checkpoint_max_rel_diff=worst, served=served,
+                v2_path=v2)
 
 
 def main() -> int:
@@ -1141,8 +1746,8 @@ def main() -> int:
     resc = check_rescore(torch, probe, rng, syn_terms, syn_vals)
     # the backward kernels at the training shapes: docs (64 positives + 64
     # negatives) and unpacked queries
-    bwd_d = check_pool_backward(torch, model, tok, rng, 128, 256)
-    bwd_q = check_pool_backward(torch, model, tok, rng, 64, 64)
+    bwd_d, bwd_q = (check_pool_backward(torch, model, tok, rng, B, S)
+                    for B, S in TRAIN_POOL_SHAPES)
     torch.cuda.empty_cache()
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
 
@@ -1220,6 +1825,30 @@ def main() -> int:
             raise SystemExit(f"kernel {name}: {n} launches over "
                              f"{training['measured_steps']} steps, expected "
                              f"{2 * accum} a step")
+    torch.cuda.empty_cache()
+
+    # ---- 5. MLM pre-training at full width, and the row-blocked pool's path
+    log("[5] pre-training path: the MLM recipe at 22L/768/50K, preemption, "
+        "from_checkpoint, the row-blocked pool under autograd")
+    t0 = time.perf_counter()
+    pretraining = mlm_phase(
+        torch, tok, rng, Path(__file__).resolve().parent / "build"
+        / "chip_smoke_mlm", args.seed, mlm_recipe(), ModernBertConfig())
+    v2_launches = pretraining["v2_path"]["launches"]
+    log(f"[5] done in {time.perf_counter() - t0:.1f} s; row-blocked kernel "
+        f"launches on the path {v2_launches}")
+    # the path's launches are at shapes, and at a row_block, that phase 2
+    # held against the plain versions
+    from splade_tpu_torch.ops.fused_splade_v2 import pick_row_block
+    for B, S in pretraining["v2_path"]["shapes"]:
+        if ((B, S) not in TRAIN_POOL_SHAPES
+                or pick_row_block(B) not in V2_ROW_BLOCKS):
+            raise SystemExit(f"the row-blocked pool's path ran at B={B} "
+                             f"S={S}, which phase 2 did not hold")
+    for name, n in v2_launches.items():
+        if n != len(pretraining["v2_path"]["shapes"]):
+            raise SystemExit(f"kernel {name}: {n} launches on the "
+                             "row-blocked pool's path, expected one a batch")
 
     kernels = [
         dict(name="fused_splade_pool", route="cuda",
@@ -1234,7 +1863,8 @@ def main() -> int:
                                        "library_ms")},
              max_abs_err_all=max(pool_q["max_abs_err"],
                                  pool_d["max_abs_err"]),
-             shapes=[pool_d, pool_q]),
+             shapes=[{k: v for k, v in x.items() if k != "v2"}
+                     for x in (pool_d, pool_q)]),
         dict(name="rescore_match", route="cuda",
              source="splade_tpu_torch/csrc/rescore.cu",
              replaces="splade_tpu/ops/rescore_kernel.py:54",
@@ -1244,10 +1874,10 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")},
              shapes=[resc]),
     ]
-    for name, line, d, q in (("fused_splade_bwd_dh", 93, bwd_d["dh"],
-                              bwd_q["dh"]),
-                             ("fused_splade_bwd_dw", 111, bwd_d["dw"],
-                              bwd_q["dw"])):
+    for name, line, d, q in (("fused_splade_bwd_dh", 93, bwd_d["v1"]["dh"],
+                              bwd_q["v1"]["dh"]),
+                             ("fused_splade_bwd_dw", 111, bwd_d["v1"]["dw"],
+                              bwd_q["v1"]["dw"])):
         kernels.append(dict(
             name=name, route="cuda",
             source="splade_tpu_torch/csrc/fused_splade_bwd.cu",
@@ -1258,10 +1888,37 @@ def main() -> int:
                                  "bound_by", "library_ms")},
             max_abs_err_all=max(d["max_abs_err"], q["max_abs_err"]),
             shapes=[d, q]))
+    # the row-blocked family: the headline numbers are row_block 8 at the
+    # document shape; every shape and row_block stands under "shapes", the
+    # per-row kernel's time on the same inputs beside each ("v1_ms")
+    keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+            "library_ms")
+    rb0 = V2_ROW_BLOCKS[0]
+    for name, source, line, shapes in (
+            ("fused_splade_pool_v2", "fused_splade_v2_fwd.cu", 46,
+             [x["v2"][rb] for x in (pool_d, pool_q) for rb in V2_ROW_BLOCKS]),
+            ("fused_splade_bwd_dh_v2", "fused_splade_v2_bwd.cu", 65,
+             [x[f"v2 rb={rb}"]["dh"] for x in (bwd_d, bwd_q)
+              for rb in V2_ROW_BLOCKS]),
+            ("fused_splade_bwd_dw_v2", "fused_splade_v2_bwd.cu", 87,
+             [x[f"v2 rb={rb}"]["dw"] for x in (bwd_d, bwd_q)
+              for rb in V2_ROW_BLOCKS])):
+        assert shapes[0]["row_block"] == rb0
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"splade_tpu_torch/csrc/{source}",
+            replaces=f"splade_tpu/ops/fused_splade_v2.py:{line}",
+            launches=v2_launches[name],
+            launches_by_path={"row-blocked pool under autograd":
+                              v2_launches[name]},
+            **{k: shapes[0][k] for k in keys},
+            max_abs_err_all=max(x["max_abs_err"] for x in shapes),
+            shapes=shapes))
     log(json.dumps({"serving": serving, "batch_profiles": profiles,
                     "doc_encode_max_rel_diff": doc_encode_diff,
                     "peak_device_gb": peak_gb}))
-    log(json.dumps({"training": training,
+    log(json.dumps({"training": training}))
+    log(json.dumps({"pretraining": pretraining,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -5,8 +5,9 @@ batched encoding on the device, the banned-token mask (special tokens and
 "["/"<"-prefixed markers), documents as nonzero (indices, values) arrays
 with an optional per-doc top-k, queries truncated to their strongest
 ``query_top_k`` tokens by a top-k on the device, so only [B, k] pairs reach
-the host. ``from_checkpoint`` (the msgpack training checkpoints) comes
-with the training slice (ROADMAP.md §1).
+the host. ``from_checkpoint`` loads a training checkpoint (the port's
+``model.pt`` or the JAX package's ``model.msgpack``), ``from_hf_dir`` an
+exported HF dir, ``from_any`` whichever the path holds.
 """
 
 from __future__ import annotations
@@ -133,16 +134,38 @@ class SparseEncoderV33:
     @classmethod
     def from_any(cls, path: str, tokenizer=None,
                  **kwargs) -> "SparseEncoderV33":
-        """Load an exported HF dir (config.json + weights). Training
-        checkpoints (model.msgpack) need the training slice."""
-        if (Path(path) / "model.msgpack").exists():
-            raise NotImplementedError(
-                f"{path} is a msgpack training checkpoint: "
-                "SparseEncoderV33.from_checkpoint comes with the training "
-                "slice (ROADMAP.md §1); export it to an HF dir first")
-        enc = cls.from_hf_dir(path, tokenizer, **kwargs)
+        """Load from either artifact format: a training checkpoint dir
+        (the port's model.pt or the JAX package's model.msgpack) or an
+        exported HF dir (config.json + weights)."""
+        from splade_tpu_torch.train.checkpoint import MODEL_FILE, MSGPACK_FILE
+
+        if any((Path(path) / f).exists() for f in (MODEL_FILE, MSGPACK_FILE)):
+            enc = cls.from_checkpoint(path, tokenizer, **kwargs)
+        else:
+            enc = cls.from_hf_dir(path, tokenizer, **kwargs)
         enc.source_path = str(path)
         return enc
+
+    @classmethod
+    def from_checkpoint(cls, ckpt_dir: str, tokenizer,
+                        device: DeviceLike = None, config=None,
+                        **kwargs) -> "SparseEncoderV33":
+        """Load a training checkpoint or final-model dir into a bf16
+        ``SpladeEncoder``. The model's shape comes from the tokenizer, as in
+        the JAX package (vocab_size = len(tokenizer), its pad id), with the
+        architecture's default widths; ``config`` replaces it for a
+        checkpoint of other widths (the tests' tiny models)."""
+        from splade_tpu_torch.models.modernbert import ModernBertConfig
+        from splade_tpu_torch.models.splade import SpladeEncoder
+        from splade_tpu_torch.train.checkpoint import load_model_state
+
+        cfg = config or ModernBertConfig(vocab_size=len(tokenizer),
+                                         pad_token_id=tokenizer.pad_token_id)
+        state = load_model_state(ckpt_dir)
+        model = SpladeEncoder(cfg, device=device)
+        model.mlm.load_state_dict(state)
+        return cls(model.to(torch.bfloat16), tokenizer, device=device,
+                   **kwargs)
 
     @classmethod
     def from_hf_dir(cls, model_dir: str, tokenizer=None,

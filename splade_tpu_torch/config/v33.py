@@ -117,9 +117,10 @@ class V33TrainingConfig:
     max_steps: int = 0
     """0 = no cap; >0 caps total optimizer steps (debug/smoke runs)."""
     watchdog_timeout_s: float = 0.0
-    """>0 arms the JAX trainer's hang watchdog (train/preemption.py). The
-    port has no watchdog yet (ROADMAP.md §1): its Trainer refuses a value
-    > 0."""
+    """>0 arms the hang watchdog (train/preemption.py): the process exits
+    with code 17 when no step completes on the card within this many
+    seconds. Size it above the first step's kernel build plus checkpoint
+    and eval pauses."""
 
 
 @dataclass
@@ -129,7 +130,8 @@ class V33MeshConfig:
     data_axis: str = "data"
     num_data: int = -1
     """-1 = all devices. The port trains on one GPU: the loss's num_blocks
-    is 1, and a value > 1 is refused until DDP lands (ROADMAP.md §1)."""
+    is 1, and a value > 1 is refused until DDP lands (ROADMAP.md §1
+    item 1)."""
 
 
 @dataclass

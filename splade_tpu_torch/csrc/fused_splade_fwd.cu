@@ -34,6 +34,7 @@
 
 namespace {
 
+using splade_tile::float_key;
 using splade_tile::NEG;
 using splade_tile::THREADS;
 
@@ -41,11 +42,6 @@ constexpr int BM = 64;         // sequence rows per chunk
 constexpr int BN = 128;        // vocab columns per block
 using Tile = splade_tile::Chunk<BM, BN>;
 constexpr int LDC = Tile::LDC;
-
-__device__ __forceinline__ int float_key(float f) {
-  int i = __float_as_int(f);
-  return i >= 0 ? i : i ^ 0x7FFFFFFF;
-}
 
 __global__ void __launch_bounds__(THREADS)
 fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,

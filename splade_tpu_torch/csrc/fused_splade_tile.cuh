@@ -1,5 +1,6 @@
 // The score tile of the fused SPLADE pool, shared by its forward and backward
-// kernels (fused_splade_fwd.cu, fused_splade_bwd.cu).
+// kernels (fused_splade_fwd.cu, fused_splade_bwd.cu) and by the row-blocked
+// family (fused_splade_v2_fwd.cu, fused_splade_v2_bwd.cu).
 //
 // The backward finds each column's argmax by equality with the maxima m that
 // the forward wrote, so it must recompute every score with exactly the
@@ -10,6 +11,10 @@
 // sequence does not depend on the chunk's shape (BM rows by BN columns) or on
 // which warp owns a fragment, so the kernels may pick the chunk shape that
 // suits their accumulators while every score stays bitwise the forward's.
+// Nor does it depend on how the operands reached shared memory: score_chunk
+// stages A and B one k-step at a time, score_chunk_resident (the row-blocked
+// family) stages A the same way against a W tile that stays in shared memory
+// for its whole hidden width, and both feed the same mma_step.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -31,18 +36,24 @@ struct Chunk {
   static constexpr int PER_WARP = (BM / 16) * FRAG_COLS / (THREADS / 32);
   static_assert(PER_WARP >= 1 && FRAG_COLS % PER_WARP == 0,
                 "each warp owns fragments of one fragment row");
+  static constexpr int A_BYTES = BM * LDS * 2;
   static constexpr int AB_BYTES = (BM + BN) * LDS * 2;
   static constexpr int C_BYTES = BM * LDC * 4;
   static constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
+  // with B resident elsewhere: the A staging buffer aliased by the scores
+  static constexpr int AC_BYTES = A_BYTES > C_BYTES ? A_BYTES : C_BYTES;
 };
 
 // One BK-wide k-step of the chunk's products from the staged A and B: the
-// per-fragment sequence of mma_sync calls every score goes through.
+// per-fragment sequence of mma_sync calls every score goes through. ldb is
+// the bf16 row stride of Bs (LDS for a staged k-step, the resident tile's
+// own stride otherwise); a stride changes no product.
 template <int BM, int BN>
 __device__ __forceinline__ void mma_step(
     const __nv_bfloat16* As, const __nv_bfloat16* Bs, int fr, int fc,
     nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16, float>*
-        acc) {
+        acc,
+    int ldb = LDS) {
   using namespace nvcuda;
 #pragma unroll
   for (int kk = 0; kk < BK; kk += 16) {
@@ -54,7 +65,7 @@ __device__ __forceinline__ void mma_step(
       // B = W_tile^T: W rows [v][k] read as a col-major [k, v] matrix
       wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
                      wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, Bs + ((fc + j) * 16) * LDS + kk, LDS);
+      wmma::load_matrix_sync(bf, Bs + ((fc + j) * 16) * ldb + kk, ldb);
       wmma::mma_sync(acc[j], af, bf, acc[j]);
     }
   }
@@ -169,6 +180,103 @@ __device__ __forceinline__ void score_chunk(const __nv_bfloat16* __restrict__ hb
     wmma::store_matrix_sync(Cs + (fr * 16) * C::LDC + (fc + j) * 16, acc[j],
                             C::LDC, wmma::mem_row_major);
   __syncthreads();
+}
+
+// ---- the row-blocked family: a W tile resident in shared memory ----------
+
+// bf16 row stride of a resident W tile: the hidden width rounded up to whole
+// k-steps, plus the bank pad of LDS (a multiple of 8, so rows stay 16-byte
+// aligned and fragment pointers 32-byte aligned).
+__host__ __device__ __forceinline__ int resident_ld(int H) {
+  return (H + BK - 1) / BK * BK + 8;
+}
+
+// Bytes of a resident W tile of BN vocab rows, rounded up to 128 so that what
+// follows it in shared memory stays aligned.
+template <int BN>
+__host__ __device__ __forceinline__ int w_tile_bytes(int H) {
+  return (BN * resident_ld(H) * 2 + 127) / 128 * 128;
+}
+
+// Bring vocab rows v0..v0+n_cols of w ([V, H]) into Wt ([BN, ldb]) for their
+// whole hidden width, zeros past n_cols and past H. No barrier: the first
+// k-step of score_chunk_resident has one before any product reads Wt.
+template <int BN>
+__device__ __forceinline__ void stage_w_tile(const __nv_bfloat16* __restrict__ w,
+                                             int v0, int n_cols, int H,
+                                             __nv_bfloat16* Wt, int ldb) {
+  const int q_row = (ldb - 8) / 8;  // 16-byte slices per row
+  const __nv_bfloat16* wv = w + (size_t)v0 * H;
+  for (int i = threadIdx.x; i < BN * q_row; i += THREADS) {
+    const int r = i / q_row, k = (i % q_row) * 8;
+    *reinterpret_cast<uint4*>(Wt + r * ldb + k) = load16(wv, r, n_cols, k, H);
+  }
+}
+
+// score_chunk against a resident W tile: scores without bias of rows
+// s0..s0+BM of ``rows`` ([n_rows, H]: the flattened batch rows of one row
+// block) against the BN vocab rows held in Wt, into Cs = (float*)smem_ac, row
+// stride Chunk::LDC. Only A is staged per k-step (the next step's 16-byte
+// loads wait in registers while the current one multiplies); the products are
+// mma_step's, so every score equals score_chunk's bit for bit. smem_ac holds
+// Chunk::AC_BYTES. Barriers as score_chunk.
+template <int BM, int BN>
+__device__ __forceinline__ void score_chunk_resident(
+    const __nv_bfloat16* __restrict__ rows, int s0, int n_rows,
+    const __nv_bfloat16* Wt, int ldb, int H, unsigned char* smem_ac) {
+  using namespace nvcuda;
+  using C = Chunk<BM, BN>;
+  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem_ac);
+  float* Cs = reinterpret_cast<float*>(smem_ac);
+  const int tid = threadIdx.x;
+  const int first = (tid >> 5) * C::PER_WARP;
+  const int fr = first / C::FRAG_COLS;
+  const int fc = first % C::FRAG_COLS;
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[C::PER_WARP];
+#pragma unroll
+  for (int j = 0; j < C::PER_WARP; ++j) wmma::fill_fragment(acc[j], 0.f);
+
+  constexpr int Q = BK / 8;
+  constexpr int NA = (BM * Q + THREADS - 1) / THREADS;
+  const __nv_bfloat16* hs = rows + (size_t)s0 * H;
+  const int a_rows = n_rows - s0;
+  uint4 ra[NA];
+  auto fetch = [&](int k0) {
+#pragma unroll
+    for (int it = 0; it < NA; ++it) {
+      const int i = tid + it * THREADS;
+      ra[it] = i < BM * Q ? load16(hs, i / Q, a_rows, k0 + i % Q * 8, H)
+                          : make_uint4(0u, 0u, 0u, 0u);
+    }
+  };
+  fetch(0);
+  for (int k0 = 0; k0 < H; k0 += BK) {
+#pragma unroll
+    for (int it = 0; it < NA; ++it) {
+      const int i = tid + it * THREADS;
+      if (i < BM * Q)
+        *reinterpret_cast<uint4*>(As + (i / Q) * LDS + i % Q * 8) = ra[it];
+    }
+    __syncthreads();
+    if (k0 + BK < H) fetch(k0 + BK);  // in flight during the products
+    mma_step<BM, BN>(As, Wt + k0, fr, fc, acc, ldb);
+    __syncthreads();
+  }
+#pragma unroll
+  for (int j = 0; j < C::PER_WARP; ++j)
+    wmma::store_matrix_sync(Cs + (fr * 16) * C::LDC + (fc + j) * 16, acc[j],
+                            C::LDC, wmma::mem_row_major);
+  __syncthreads();
+}
+
+// The order-preserving int image of a float (atomicMax key) and its inverse.
+__device__ __forceinline__ int float_key(float f) {
+  const int i = __float_as_int(f);
+  return i >= 0 ? i : i ^ 0x7FFFFFFF;
+}
+
+__device__ __forceinline__ float float_from_key(int k) {
+  return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
 }
 
 }  // namespace splade_tile

@@ -10,8 +10,8 @@ unchanged one is reused. PyTorch's headers are never
 included: a build takes seconds, not the minutes of
 ``torch.utils.cpp_extension.load``.
 
-Each C entry returns ``cudaGetLastError()``; :func:`check` raises on a
-non-zero code. A failed build raises too: nothing falls back.
+Each launching C entry returns ``cudaGetLastError()``; :func:`check` raises
+on a non-zero code. A failed build raises too: nothing falls back.
 """
 
 from __future__ import annotations
@@ -42,6 +42,15 @@ SIGNATURES: Dict[str, List] = {
                                  _I, _I, _I, _I, _P],
     "splade_rescore_match": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
+    "splade_fused_pool_v2_fwd": [_P, _P, _P, _P, _P, _P,
+                                 _I, _I, _I, _I, _I, _P],
+    "splade_fused_pool_v2_bwd_dh": [_P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _I, _P],
+    "splade_fused_pool_v2_bwd_dw": [_P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _I, _P],
+    # (H, RB) -> bytes of dynamic shared memory, not an error code
+    "splade_fused_pool_v2_fwd_shared_bytes": [_I, _I],
+    "splade_fused_pool_v2_bwd_shared_bytes": [_I, _I],
 }
 
 

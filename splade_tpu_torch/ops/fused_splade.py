@@ -32,7 +32,8 @@ they run the plain versions ``fused_splade_pool_plain`` and
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -124,86 +125,104 @@ def _operands(h, w, bias, mask):
     return hb, wb, bias_f, maskf
 
 
-def _launch(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+@dataclasses.dataclass(frozen=True)
+class KernelFamily:
+    """What differs between the pool's kernel families: the per-row one of
+    this module and the row-blocked one of ``ops/fused_splade_v2.py``. The
+    launchers and the ``autograd.Function`` below serve both, so operand
+    preparation, the empty batch, the ordered sum of the dh splits and the
+    tie, dbias and autocast rules are written once."""
+
+    #: the C entries are <prefix>_fwd, <prefix>_bwd_dh and <prefix>_bwd_dw
+    prefix: str
+    #: (hb, row_block, backward) -> the ints the C entries take after V;
+    #: raises ValueError for what the kernels cannot take
+    block_args: Callable
+    #: (B, S, V, *block_args) -> vocab splits of the dh kernel
+    dh_splits: Callable
+    #: the plain versions, taking row_block as their last argument
+    plain_fwd: Callable
+    plain_bwd: Callable
+    #: "fwd" / "dh" / "dw" -> the public function whose ``launches`` counts
+    #: that kernel, filled in where those functions are defined
+    counted: Dict[str, Callable] = dataclasses.field(default_factory=dict)
+
+
+def _launch_fwd(fam: KernelFamily, h, w, bias, mask, row_block
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     hb, wb, bias_f, maskf = _operands(h, w, bias, mask)
     B, S, H = hb.shape
     V = wb.shape[0]
+    extra = fam.block_args(hb, row_block, False)
     dev = hb.device
     m = torch.empty((B, V), dtype=torch.float32, device=dev)
     pos_key = torch.full((B, S), int(float_key(torch.tensor(NEG))),
                          dtype=torch.int32, device=dev)
     if B == 0 or S == 0 or V == 0:
         return torch.full_like(m, NEG), float_from_key(pos_key)
-    code = _cuda.library().splade_fused_pool_fwd(
+    entry = fam.prefix + "_fwd"
+    code = getattr(_cuda.library(), entry)(
         hb.data_ptr(), wb.data_ptr(),
         bias_f.data_ptr() if bias_f is not None else None,
         maskf.data_ptr(), m.data_ptr(), pos_key.data_ptr(),
-        B, S, H, V, _cuda.stream_ptr(hb))
-    _cuda.check(code, "splade_fused_pool_fwd")
-    fused_splade_pool.launches += 1
+        B, S, H, V, *extra, _cuda.stream_ptr(hb))
+    _cuda.check(code, entry)
+    fam.counted["fwd"].launches += 1
     return m, float_from_key(pos_key)
 
 
-def _launch_bwd(entry: str, h, w, bias, mask, m, g_pre) -> torch.Tensor:
-    """One backward kernel: ``entry`` is the C function, out [B,S,H] (dh)
-    or [V,H] (dw) f32."""
+def _launch_bwd(fam: KernelFamily, which: str, h, w, bias, mask, m, g_pre,
+                row_block) -> torch.Tensor:
+    """One backward kernel, ``which`` "dh" (out [B,S,H]) or "dw" (out
+    [V,H]), f32. The output starts at 0: the row-blocked kernels add into
+    it."""
     hb, wb, bias_f, maskf = _operands(h, w, bias, mask)
     B, S, H = hb.shape
     V = wb.shape[0]
-    if H > MAX_BWD_HIDDEN:
-        raise ValueError(f"hidden size {H} > {MAX_BWD_HIDDEN}: the backward "
-                         "kernels keep one row of sums per thread")
+    extra = fam.block_args(hb, row_block, True)
     dev = hb.device
     m32 = m.to(device=dev, dtype=torch.float32).contiguous()
     g32 = g_pre.to(device=dev, dtype=torch.float32).contiguous()
     if m32.shape != (B, V) or g32.shape != (B, V):
         raise ValueError(f"m {tuple(m.shape)} and g_pre {tuple(g_pre.shape)} "
                          f"must be [{B}, {V}]")
-    is_dh = entry.endswith("_dh")
-    splits = dh_vocab_splits(B, S, V) if is_dh else 1
+    is_dh = which == "dh"
+    splits = fam.dh_splits(B, S, V, *extra) if is_dh else 1
     out = torch.zeros(((splits, B, S, H) if is_dh else (V, H)),
                       dtype=torch.float32, device=dev)
     if B == 0 or S == 0 or V == 0:
         return out.sum(0) if is_dh else out
-    args = [hb.data_ptr(), wb.data_ptr(),
-            bias_f.data_ptr() if bias_f is not None else None,
-            maskf.data_ptr(), m32.data_ptr(), g32.data_ptr(), out.data_ptr(),
-            B, S, H, V]
-    if is_dh:
-        args.append(splits)
-    code = getattr(_cuda.library(), entry)(*args, _cuda.stream_ptr(hb))
+    entry = f"{fam.prefix}_bwd_{which}"
+    code = getattr(_cuda.library(), entry)(
+        hb.data_ptr(), wb.data_ptr(),
+        bias_f.data_ptr() if bias_f is not None else None,
+        maskf.data_ptr(), m32.data_ptr(), g32.data_ptr(), out.data_ptr(),
+        B, S, H, V, *extra, *([splits] if is_dh else []),
+        _cuda.stream_ptr(hb))
     _cuda.check(code, entry)
+    fam.counted[which].launches += 1
     if is_dh:  # the splits' partial sums, added in a fixed order
         return out[0] if splits == 1 else out.sum(0)
     return out
 
 
-def fused_splade_maxima(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(m [B, V], pos [B, S]) pre-activation maxima: the forward kernel on a
-    CUDA tensor, its plain version on a CPU tensor."""
+def family_maxima(fam: KernelFamily, h, w, bias, mask, row_block=None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m [B, V], pos [B, S]): the family's forward kernel on a CUDA tensor,
+    its plain version on a CPU tensor."""
     if h.is_cuda:
-        return _launch(h, w, bias, mask)
-    return fused_splade_pool_plain(h, w, bias, mask)
+        return _launch_fwd(fam, h, w, bias, mask, row_block)
+    return fam.plain_fwd(h, w, bias, mask, row_block)
 
 
-def fused_splade_bwd_dh(h, w, bias, mask, m, g_pre) -> torch.Tensor:
-    """dh [B, S, H] f32 of the pool: the dh kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
-    if not h.is_cuda:
-        return fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)[0]
-    out = _launch_bwd("splade_fused_pool_bwd_dh", h, w, bias, mask, m, g_pre)
-    fused_splade_bwd_dh.launches += 1
-    return out
-
-
-def fused_splade_bwd_dw(h, w, bias, mask, m, g_pre) -> torch.Tensor:
-    """dW [V, H] f32 of the pool: the dW kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
-    if not h.is_cuda:
-        return fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)[1]
-    out = _launch_bwd("splade_fused_pool_bwd_dw", h, w, bias, mask, m, g_pre)
-    fused_splade_bwd_dw.launches += 1
-    return out
+def family_bwd(fam: KernelFamily, which: str, h, w, bias, mask, m, g_pre,
+               row_block=None) -> torch.Tensor:
+    """dh [B, S, H] or dW [V, H] f32: the family's kernel on a CUDA tensor,
+    its plain version on a CPU tensor."""
+    if h.is_cuda:
+        return _launch_bwd(fam, which, h, w, bias, mask, m, g_pre, row_block)
+    return fam.plain_bwd(h, w, bias, mask, m, g_pre,
+                         row_block)[("dh", "dw").index(which)]
 
 
 def fold_cotangent(g_pooled: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -213,16 +232,18 @@ def fold_cotangent(g_pooled: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
         m > 0, 1.0 / (1.0 + m), torch.zeros_like(m))
 
 
-class _FusedSpladePool(torch.autograd.Function):
-    """Counterpart of the ``jax.custom_vjp`` (``fused_splade.py:173-222``).
+class _FusedPool(torch.autograd.Function):
+    """Counterpart of the ``jax.custom_vjp``s (``fused_splade.py:173-222``,
+    ``fused_splade_v2.py:126-215``) over one kernel family.
     ``custom_fwd``/``custom_bwd`` run the backward under the forward's
     autocast state."""
 
     @staticmethod
     @torch.amp.custom_fwd(device_type="cuda")
-    def forward(ctx, h, w, bias, mask):
-        m, pos = fused_splade_maxima(h, w, bias, mask)
+    def forward(ctx, h, w, bias, mask, fam, row_block):
+        m, pos = family_maxima(fam, h, w, bias, mask, row_block)
         ctx.save_for_backward(h, w, bias, mask, m)
+        ctx.family = fam, row_block
         pooled = torch.log1p(torch.relu(m))
         token_weights = (torch.log1p(torch.relu(pos))
                          * mask.to(device=pos.device, dtype=torch.float32))
@@ -233,20 +254,63 @@ class _FusedSpladePool(torch.autograd.Function):
     @torch.amp.custom_bwd(device_type="cuda")
     def backward(ctx, g_pooled, _g_token_weights):
         h, w, bias, mask, m = ctx.saved_tensors
+        fam, rb = ctx.family
         g_pre = fold_cotangent(g_pooled, m)
         dh = dw = dbias = None
         if h.is_cuda:
             if ctx.needs_input_grad[0]:
-                dh = fused_splade_bwd_dh(h, w, bias, mask, m, g_pre)
+                dh = family_bwd(fam, "dh", h, w, bias, mask, m, g_pre, rb)
             if ctx.needs_input_grad[1]:
-                dw = fused_splade_bwd_dw(h, w, bias, mask, m, g_pre)
+                dw = family_bwd(fam, "dw", h, w, bias, mask, m, g_pre, rb)
         elif ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            dh, dw = fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)
+            dh, dw = fam.plain_bwd(h, w, bias, mask, m, g_pre, rb)
         if bias is not None and ctx.needs_input_grad[2]:
             dbias = g_pre.sum(0).to(bias.dtype)
         return (dh.to(h.dtype) if ctx.needs_input_grad[0] else None,
                 dw.to(w.dtype) if ctx.needs_input_grad[1] else None,
-                dbias, None)
+                dbias, None, None, None)
+
+
+def family_pool(fam: KernelFamily, h, w, bias, mask, row_block=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(pooled, token_weights) through the family's kernels, differentiable
+    in h, w and bias."""
+    return _FusedPool.apply(h, w, bias, mask, fam, row_block)
+
+
+def _per_row_args(hb, _row_block, backward: bool) -> list:
+    if backward and hb.shape[-1] > MAX_BWD_HIDDEN:
+        raise ValueError(f"hidden size {hb.shape[-1]} > {MAX_BWD_HIDDEN}: the "
+                         "backward kernels keep one row of sums per thread")
+    return []
+
+
+# the plain versions are looked up when called, not when the family is made
+PER_ROW = KernelFamily(
+    prefix="splade_fused_pool", block_args=_per_row_args,
+    dh_splits=dh_vocab_splits,
+    plain_fwd=lambda h, w, bias, mask, _rb: fused_splade_pool_plain(
+        h, w, bias, mask),
+    plain_bwd=lambda h, w, bias, mask, m, g_pre, _rb: fused_splade_bwd_plain(
+        h, w, bias, mask, m, g_pre))
+
+
+def fused_splade_maxima(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m [B, V], pos [B, S]) pre-activation maxima: the forward kernel on a
+    CUDA tensor, its plain version on a CPU tensor."""
+    return family_maxima(PER_ROW, h, w, bias, mask)
+
+
+def fused_splade_bwd_dh(h, w, bias, mask, m, g_pre) -> torch.Tensor:
+    """dh [B, S, H] f32 of the pool: the dh kernel on a CUDA tensor, the
+    plain version on a CPU tensor."""
+    return family_bwd(PER_ROW, "dh", h, w, bias, mask, m, g_pre)
+
+
+def fused_splade_bwd_dw(h, w, bias, mask, m, g_pre) -> torch.Tensor:
+    """dW [V, H] f32 of the pool: the dW kernel on a CUDA tensor, the plain
+    version on a CPU tensor."""
+    return family_bwd(PER_ROW, "dw", h, w, bias, mask, m, g_pre)
 
 
 def fused_splade_pool(
@@ -256,10 +320,13 @@ def fused_splade_pool(
     """(pooled [B, V] f32, token_weights [B, S] f32) from h [B, S, H], tied
     decoder w [V, H], bias [V] or None, attention mask [B, S]. Differentiable
     in h, w and bias; token_weights carries no gradient."""
-    return _FusedSpladePool.apply(h, w, bias, mask)
+    return family_pool(PER_ROW, h, w, bias, mask)
 
 
-#: kernel launches since the last reset (never counts the plain versions)
+#: kernel launches since the last reset, added where a kernel is launched
+#: and nowhere else (never for the plain versions or an empty batch)
 fused_splade_pool.launches = 0
 fused_splade_bwd_dh.launches = 0
 fused_splade_bwd_dw.launches = 0
+PER_ROW.counted.update(fwd=fused_splade_pool, dh=fused_splade_bwd_dh,
+                       dw=fused_splade_bwd_dw)

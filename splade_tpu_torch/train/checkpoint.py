@@ -15,8 +15,13 @@ Layout (reference: src/train/cli/train_v33_ddp.py:192-286):
   epoch 1 (how V34/V35 fine-tune from V33's final model).
 
 Every file is written to a temporary name and renamed, so a crash mid-write
-never leaves a truncated checkpoint that resume would pick up. Reading the
-JAX package's msgpack checkpoints is ROADMAP.md §1 item 2.
+never leaves a truncated checkpoint that resume would pick up.
+
+``load_model_state`` reads a model's weights from either format: the port's
+``model.pt``, or the JAX package's ``model.msgpack`` (flax msgpack) through
+``read_msgpack_params`` and ``models/hf_port.params_from_jax``. Optimizer
+state is not carried across: a msgpack checkpoint gives a model, never a
+resumed run.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import re
 from pathlib import Path
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from splade_tpu_torch.train.state import TrainState
@@ -37,6 +43,7 @@ logger = logging.getLogger(__name__)
 
 MODEL_FILE = "model.pt"
 STATE_FILE = "training_state.pt"
+MSGPACK_FILE = "model.msgpack"  # the JAX package's parameter file
 
 
 def _atomic_save(obj: Any, path: Path) -> None:
@@ -69,14 +76,94 @@ def save_checkpoint(output_dir: str, state: TrainState, cfg=None,
     return str(path)
 
 
-def save_final_model(output_dir: str, model, tokenizer=None) -> str:
-    """Final artifact (reference: train_v33_ddp.py:721-730)."""
+def save_final_model(output_dir: str, model, tokenizer=None,
+                     prefix: str = "") -> str:
+    """Final artifact (reference: train_v33_ddp.py:721-730). ``prefix`` is
+    put before every key: the MLM pre-trainer saves its bare model under
+    ``mlm.``, the name it has inside a ``SpladeEncoder``."""
     path = Path(output_dir) / "final_model"
     path.mkdir(parents=True, exist_ok=True)
-    _atomic_save(model.state_dict(), path / MODEL_FILE)
+    _atomic_save({prefix + k: v for k, v in model.state_dict().items()},
+                 path / MODEL_FILE)
     if tokenizer is not None and hasattr(tokenizer, "save_pretrained"):
         tokenizer.save_pretrained(str(path))
     return str(path)
+
+
+def _msgpack_array(data: bytes) -> np.ndarray:
+    """One flax-msgpack array leaf: msgpack of (shape, dtype name, bytes).
+    bfloat16 (which numpy lacks) is read as 16-bit words and widened to
+    float32 exactly: its bits are a float32's upper half."""
+    import msgpack
+
+    shape, name, buf = msgpack.unpackb(data, raw=True)
+    name = name.decode()
+    if name == "bfloat16":
+        words = np.frombuffer(buf, dtype=np.uint16).astype(np.uint32) << 16
+        return words.view(np.float32).reshape(shape)
+    return np.frombuffer(buf, dtype=np.dtype(name)).reshape(shape)
+
+
+def _msgpack_ext(code: int, data: bytes):
+    """flax's extension types: 1 an array, 3 a numpy scalar packed as a
+    0-d array, 2 a complex number as (real, imag)."""
+    import msgpack
+
+    if code == 1:
+        return _msgpack_array(data)
+    if code == 3:
+        return _msgpack_array(data)[()]
+    if code == 2:
+        return complex(*msgpack.unpackb(data))
+    raise ValueError(f"unknown msgpack extension type {code}")
+
+
+def _unchunk(tree):
+    """flax splits an array above 2**30 bytes into flat chunks under a
+    marker key; join them back."""
+    if not isinstance(tree, dict):
+        return tree
+    if "__msgpack_chunked_array__" in tree:
+        shape = [tree["shape"][str(i)] for i in range(len(tree["shape"]))]
+        chunks = [tree["chunks"][str(i)] for i in range(len(tree["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk(v) for k, v in tree.items()}
+
+
+def read_msgpack_params(path) -> Dict[str, Any]:
+    """A flax-msgpack file (``flax.serialization.to_bytes`` of a parameter
+    tree) as nested dicts of numpy arrays, without flax: nested maps with
+    string keys, arrays as an extension type. The ``msgpack`` package is
+    imported here only; without it this raises ImportError."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            "reading a model.msgpack checkpoint needs the 'msgpack' "
+            "package") from e
+    tree = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_msgpack_ext,
+                           raw=False, strict_map_key=False)
+    return _unchunk(tree)
+
+
+def load_model_state(ckpt_dir: str) -> Dict[str, torch.Tensor]:
+    """The weights of a checkpoint or final-model dir as a state dict of
+    ``ModernBertForMaskedLM`` (HF names, no ``mlm.`` prefix), from the
+    port's ``model.pt`` (saved from a ``SpladeEncoder`` or from the bare MLM
+    model) or from the JAX package's ``model.msgpack``."""
+    d = Path(ckpt_dir)
+    if (d / MODEL_FILE).exists():
+        state = torch.load(d / MODEL_FILE, map_location="cpu",
+                           weights_only=True)
+        if all(k.startswith("mlm.") for k in state):
+            state = {k[len("mlm."):]: v for k, v in state.items()}
+        return state
+    if (d / MSGPACK_FILE).exists():
+        from splade_tpu_torch.models.hf_port import params_from_jax
+
+        return params_from_jax(read_msgpack_params(d / MSGPACK_FILE))
+    raise FileNotFoundError(
+        f"no {MODEL_FILE} or {MSGPACK_FILE} under {ckpt_dir}")
 
 
 def _device(state: TrainState) -> torch.device:

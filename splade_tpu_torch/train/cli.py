@@ -134,6 +134,7 @@ def main(argv: Optional[list] = None) -> int:
 
     trainer = Trainer(cfg, model, train_data, collator, evaluator=evaluator,
                       output_dir=out_dir, device=device)
+    trainer.install_preemption_handler()
     ckpt = args.checkpoint
     if args.resume and not ckpt:
         ckpt = find_latest_checkpoint(out_dir)

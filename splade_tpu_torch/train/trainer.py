@@ -11,7 +11,10 @@ is computed in f32 outside it, as JAX computes it from f32 vectors.
 
 The step count lives on the host, so the loop never waits on the card
 except on log steps, where it reads the loss (and raises on a non-finite
-one). Mid-epoch resume is exact: the loader's order is a pure function of
+one), and once per half window of an armed hang watchdog
+(``train/preemption.py``). A SIGTERM or SIGINT caught by the CLI's handler
+sets ``_preempted``: the loop stops at the next step boundary, writes a
+checkpoint and returns. Mid-epoch resume is exact: the loader's order is a pure function of
 (seed, epoch) and the step draws no random numbers, so skipping the macro
 batches already consumed reproduces the uninterrupted run bitwise.
 """
@@ -30,6 +33,8 @@ import torch
 
 from splade_tpu_torch.config.v33 import V33Config, V33LossConfig
 from splade_tpu_torch.losses.v33 import v33_loss
+from splade_tpu_torch.train.preemption import (HangWatchdog, heartbeat_if_due,
+                                               install_preemption_handler)
 from splade_tpu_torch.train.state import TrainState, create_train_state
 from splade_tpu_torch.utils.logging import MetricWriter
 from splade_tpu_torch.utils.metrics import (MetricsTracker, MovingAverage,
@@ -265,15 +270,10 @@ class Trainer:
     ):
         from splade_tpu_torch.data.pipeline import create_dataloader
 
-        if cfg.training.watchdog_timeout_s > 0:
-            raise NotImplementedError(
-                "training.watchdog_timeout_s > 0: the hang watchdog "
-                "(train/preemption.py) is not ported yet (ROADMAP.md §1 "
-                "item 1)")
         if cfg.mesh.num_data > 1:
             raise NotImplementedError(
                 f"mesh.num_data {cfg.mesh.num_data}: the port trains on one "
-                "GPU; DDP with per-rank num_blocks is ROADMAP.md §1 item 4")
+                "GPU; DDP with per-rank num_blocks is ROADMAP.md §1 item 1")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.model = model.to(self.device)
@@ -301,6 +301,13 @@ class Trainer:
         self.ema_nonzero_q = MovingAverage(0.9)
         self.ema_nonzero_d = MovingAverage(0.9)
         self.start_epoch = 1
+        self._preempted = False
+        self._watchdog: Optional[HangWatchdog] = None  # armed by train()
+
+    def install_preemption_handler(self) -> dict:
+        """SIGTERM/SIGINT -> checkpoint at the next step boundary. Main
+        thread only; returns the handlers it replaced."""
+        return install_preemption_handler(self)
 
     def _macro_batches(self, epoch: int, skip_macros: int = 0
                        ) -> Iterable[Dict[str, np.ndarray]]:
@@ -337,15 +344,22 @@ class Trainer:
         cfg = self.cfg.training
         last: Dict[str, float] = {}
         samples = 0
+        wd = self._watchdog
         for host_batch in batches:
-            if cfg.max_steps and self.state.step >= cfg.max_steps:
+            if self._preempted or (cfg.max_steps
+                                   and self.state.step >= cfg.max_steps):
                 break
             metrics = self.step_fn(self.state,
                                    to_device(host_batch, self.device))
             samples += self.global_batch * self.accum
             gstep = self.state.step
+            heartbeat_if_due(wd, metrics["loss"])
             if gstep % cfg.log_every_n_steps == 0 or gstep == 1:
                 host = {k: float(v) for k, v in metrics.items()}
+                # float() waited until the card finished this step: the
+                # completed compute the watchdog's heartbeat stands for
+                if wd is not None:
+                    wd.beat()
                 if not np.isfinite(host["loss"]):
                     raise FloatingPointError(
                         f"non-finite loss at step {gstep}: {host} — "
@@ -387,20 +401,37 @@ class Trainer:
         flat["device"] = str(self.device)
         flat["global_batch"] = self.global_batch
         self.writer.hparams(flat)
-        for epoch in range(self.start_epoch, cfg.num_epochs + 1):
-            t0 = time.time()
-            self.train_epoch(epoch)
-            logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
-            if (self.evaluator is not None
-                    and epoch % cfg.eval_every_n_epochs == 0):
-                scores = self.evaluate()
-                self.writer.scalars(scores, self.state.step, prefix="eval/")
-                logger.info("eval @ epoch %d: %s", epoch, scores)
-            if epoch % cfg.save_every_n_epochs == 0 or epoch == cfg.num_epochs:
-                save_checkpoint(self.output_dir, self.state, self.cfg,
-                                epoch=epoch, best=self.tracker.best_value)
-            if cfg.max_steps and self.state.step >= cfg.max_steps:
-                break
+        # Hang watchdog: trips (hard exit for a restart supervisor) when no
+        # step COMPLETES within the window; stopped on every way out, so an
+        # exception a caller catches leaves no armed thread behind.
+        self._watchdog = HangWatchdog(cfg.watchdog_timeout_s)
+        try:
+            for epoch in range(self.start_epoch, cfg.num_epochs + 1):
+                t0 = time.time()
+                self.train_epoch(epoch)
+                logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
+                if self._preempted:
+                    save_checkpoint(self.output_dir, self.state, self.cfg,
+                                    epoch=epoch, best=self.tracker.best_value)
+                    logger.warning("preemption checkpoint written; exiting")
+                    break
+                if (self.evaluator is not None
+                        and epoch % cfg.eval_every_n_epochs == 0):
+                    scores = self.evaluate()
+                    self.writer.scalars(scores, self.state.step,
+                                        prefix="eval/")
+                    logger.info("eval @ epoch %d: %s", epoch, scores)
+                    if scores:  # only a non-empty eval ran on the card
+                        self._watchdog.beat()
+                if (epoch % cfg.save_every_n_epochs == 0
+                        or epoch == cfg.num_epochs):
+                    save_checkpoint(self.output_dir, self.state, self.cfg,
+                                    epoch=epoch, best=self.tracker.best_value)
+                    self._watchdog.beat()  # the save read the parameters
+                if cfg.max_steps and self.state.step >= cfg.max_steps:
+                    break
+        finally:
+            self._watchdog.stop()
         self.tracker.summary()
         self.writer.close()
         return self.state

@@ -11,7 +11,11 @@ the order difference of f32 sums (about 1e-7 relative). Check (c) of the
 backward kernels must count exact ties and fail a recompute that loses or
 adds a column's match. Phase 4 as a whole
 runs here too, at a tiny size, and its recipe must be
-configs/train_v33.yaml's."""
+configs/train_v33.yaml's. So does phase 5 (MLM pre-training with its
+SIGTERM, resume, from_checkpoint, served engine and the row-blocked pool's
+path), whose recipe must be configs/pretrain_mlm.yaml's, and phase 2's
+comparisons of both pool families (on the CPU every family runs its plain
+versions, so they must pass, and a faulty backward must fail)."""
 
 import dataclasses
 import importlib.util
@@ -28,6 +32,10 @@ from splade_tpu_torch.models.splade import SpladeEncoder
 from splade_tpu_torch.ops import postings_index
 from splade_tpu_torch.ops.rescore_kernel import rescore_match_plain
 from splade_tpu_torch.serving.engine import ServingEngine
+
+# tiny shapes: more intra-op threads only contend with the other test
+# workers for the host's cores
+torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parent.parent
 VOCAB = 512
@@ -98,12 +106,12 @@ def test_doc_encode_check_runs_through_the_encoder(setup):
     assert model.pool_impl == "kernel"
 
 
-def _recompute_case():
+def _recompute_case(B=4):
     """Model-like bf16 values; in row 0 position 3 repeats position 1, so
     every column whose maximum is at position 1 has an exact tie and sends
     its W row there twice. Row 2 is fully padded."""
     g = torch.Generator().manual_seed(0)
-    B, S, H, V = 4, 24, 768, 3000
+    S, H, V = 24, 768, 3000
     h = torch.randn(B, S, H, generator=g).to(torch.bfloat16)
     h[0, 3] = h[0, 1]
     w = (torch.randn(V, H, generator=g) * 0.05).to(torch.bfloat16)
@@ -254,3 +262,146 @@ def test_training_check_catches_a_wrong_backward(trained, monkeypatch, fault):
     fault(monkeypatch)
     with pytest.raises(SystemExit, match="differ from the plain route"):
         cs.compare_train_routes(torch, model, vcfg, micro, 7)
+
+
+# ---- phase 2's row-blocked checks and phase 5, on the CPU ------------------
+def _family_case():
+    g = torch.Generator().manual_seed(2)
+    B, S, H, V = 8, 12, 64, 300
+    ints = lambda *shape: torch.randint(-2, 3, shape, generator=g).float()
+    mask = (torch.arange(S)[None] < torch.tensor(
+        [12, 3, 7, 12, 1, 9, 5, 0])[:, None]).long()
+    return (ints(B, S, H), ints(V, H), ints(V), mask,
+            torch.randn(B, V, generator=g))
+
+
+@pytest.mark.parametrize("family", ["v1", "v2 rb=8", "v2 rb=2"])
+def test_pool_family_checks_run_on_the_cpu(family):
+    """Checks (a) and (c) of phase 2 for each kernel family chip_smoke.py
+    holds (the per-row one and the row-blocked one at both row_block
+    values): exact inputs agree with the plain route within BWD_EXACT_RTOL,
+    and the family's dh, fed to recompute_check, reaches the forward's
+    maxima in every valid row."""
+    from splade_tpu_torch.ops.fused_splade import fused_splade_maxima
+
+    cs = _load_chip_smoke()
+    fam = cs.pool_families()[family]
+    assert set(cs.pool_families()) == {"v1"} | {
+        f"v2 rb={rb}" for rb in cs.V2_ROW_BLOCKS}
+    h, w, bias, mask, gout = _family_case()
+    got = cs._kernel_route(torch, fam["pool"], h, w, bias, mask, gout)
+    want = cs._plain_route(torch, h, w, bias, mask, gout)
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= cs.BWD_EXACT_RTOL * float(
+            r.abs().max())
+    assert float(got[0][-1].abs().max()) == 0.0  # the fully padded row
+    again = cs._kernel_route(torch, fam["pool"], h, w, bias, mask, gout)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    hb, wb, bb, mb = _recompute_case(B=8)
+    m, _ = fused_splade_maxima(hb, wb, bb, mb)
+    ones = (mb.sum(1, keepdim=True) > 0).float().expand_as(m)
+    out = cs.recompute_check(torch, hb, wb, bb, mb, m,
+                             fam["dh"](hb, wb, bb, mb, m, ones))
+    assert out["ok"] and out["tied_rows"] == 1, out
+    lost = cs.recompute_check(torch, hb, wb, bb, mb, m,
+                              fam["dh"](hb, wb, bb, mb, _lose_columns(m),
+                                        ones))
+    assert not lost["ok"]
+
+
+def test_mlm_recipe_is_configs_pretrain_mlm_yaml():
+    from splade_tpu_torch.train.mlm import MLMConfig
+
+    cs = _load_chip_smoke()
+    path = ROOT / "configs" / "pretrain_mlm.yaml"
+    assert cs.mlm_recipe() == yaml.safe_load(path.read_text())
+    assert (MLMConfig(**cs.mlm_recipe()).to_dict()
+            == MLMConfig.load(str(path)).to_dict())
+
+
+@pytest.fixture(scope="module")
+def pretrained(tmp_path_factory):
+    """Phase 5 end to end on the CPU: a tiny model, rows of 32 tokens,
+    2 rows x accum 2 a step, f32."""
+    import signal
+
+    cs = _load_chip_smoke()
+    cfg = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB)
+    recipe = dict(cs.mlm_recipe(), max_length=32, batch_size=2, grad_accum=2,
+                  dtype="float32")
+    before = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    out = cs.mlm_phase(torch, cs.CharTokenizer(), np.random.default_rng(0),
+                       tmp_path_factory.mktemp("mlm") / "w", 0, recipe, cfg,
+                       steps=3, device="cpu", n_sentences=400,
+                       sentence_words=(6, 12), v2_shapes=((4, 16), (2, 8)),
+                       checkpoint_config=cfg)
+    after = {s: signal.getsignal(s) for s in before}
+    return out, before == after
+
+
+def test_mlm_phase_runs_on_the_cpu(pretrained):
+    out, handlers_back = pretrained
+    assert handlers_back and out["preemption"]["handlers_restored"]
+    pre = out["preemption"]
+    assert pre["preempted"] and pre["stopped_at_step"] >= 4
+    assert pre["checkpoint"] == f"checkpoint_epoch1_step{pre['stopped_at_step']}"
+    assert not pre["watchdog_tripped"] and pre["watchdog_beats"] >= 4
+    assert [r["step"] for r in out["steps"]] == list(
+        range(1, pre["stopped_at_step"] + 1))
+    assert all(np.isfinite(r["loss"]) for r in out["steps"])
+    assert out["tokens_per_step"] == 2 * 2 * 32
+    # P = round(0.15 * 30) = 4 or 5 picks a row, all rows full
+    assert out["steps"][0]["masked_per_row"] == pytest.approx(4.0, abs=1e-3)
+    assert out["resume"]["bitwise"] and out["resume"]["lr"] > 0
+    assert out["resume"]["step"] == pre["stopped_at_step"] + 1
+    assert set(out["evaluation"]) == {"mlm_loss", "mlm_acc", "perplexity"}
+    assert out["from_checkpoint_max_rel_diff"] == 0.0
+    assert out["served"]["requests"] == 16
+
+
+def test_v2_path_runs_on_the_cpu_and_counts_no_launch(pretrained):
+    out, _ = pretrained
+    v2 = out["v2_path"]
+    assert v2["launches"] == {"fused_splade_pool_v2": 0,
+                              "fused_splade_bwd_dh_v2": 0,
+                              "fused_splade_bwd_dw_v2": 0}  # plain on the CPU
+    assert v2["loss"] > 0 and v2["grad_norm"] > 0
+    assert v2["loss_rel_err"] <= 1e-5 and v2["worst_tensor_rel_err"] <= 1e-4
+
+
+def test_v2_path_catches_a_backward_that_drops_dbias(monkeypatch):
+    """The row-blocked route is held against the per-row family's: a
+    backward that loses the bias gradient must stop the run."""
+    import contextlib
+
+    from splade_tpu_torch.ops import fused_splade_v2
+
+    cs = _load_chip_smoke()
+    cfg = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB)
+    model = SpladeEncoder(cfg, device="cpu").init_weights(1).mlm
+    with torch.no_grad():
+        model.decoder.bias.normal_(0, 0.3,
+                                   generator=torch.Generator().manual_seed(1))
+    args = (torch, model, cs.CharTokenizer(), np.random.default_rng(0),
+            contextlib.nullcontext, ((4, 16),))
+    assert cs.v2_path(*args)["worst_tensor_rel_err"] <= 1e-4
+    real = fused_splade_v2.fused_splade_pool_v2
+    monkeypatch.setattr(fused_splade_v2, "fused_splade_pool_v2",
+                        lambda h, w, b, m, rb=0: real(h, w, b.detach(), m, rb))
+    with pytest.raises(SystemExit, match="differs from the per-row"):
+        cs.v2_path(*args)
+
+
+def test_profile_summary_adds_kernels_that_share_a_cut_name():
+    """Device busy time is the union of the spans, and two kernels whose
+    names agree in their first 60 characters are added together (an
+    earlier version kept only the last of them and listed the top kernels
+    out of order)."""
+    cs = _load_chip_smoke()
+    long_a = "void at::native::vectorized_elementwise_kernel<4, " + "x" * 40
+    long_b = long_a[:60] + "_another_instance"
+    spans = [(0.0, 10.0, "gemm"), (5.0, 12.0, long_a), (20.0, 50.0, long_b),
+             (50.0, 51.0, "tiny")]
+    busy, top = cs.summarize_spans(spans, n_top=2)
+    assert busy == 12.0 + 31.0
+    assert list(top.items()) == [(long_a[:60], 0.037), ("gemm", 0.010)]

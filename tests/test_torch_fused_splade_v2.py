@@ -1,0 +1,250 @@
+"""The port's row-blocked SPLADE pool (splade_tpu_torch.ops.fused_splade_v2)
+against splade_tpu's ``fused_splade_pool_v2`` on the same numpy inputs.
+
+On a CPU tensor the port runs its plain versions, forward and backward;
+JAX's runs the Pallas kernels (custom VJP) in interpret mode. Both are f32
+here: values agree within 1e-5 and gradients within the JAX package's own
+1e-4 (rtol, atol 1e-5). Against the port's per-row family the plain
+versions differ by the blocking of one f32 matmul only (1e-6); on the card
+the two kernel families are bitwise equal (tests/test_torch_kernels_gpu.py).
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from splade_tpu.ops.fused_splade_v2 import fused_splade_pool_v2 as jax_v2
+from splade_tpu_torch.ops.fused_splade import (fold_cotangent,
+                                               fused_splade_bwd_plain,
+                                               fused_splade_pool,
+                                               fused_splade_pool_plain)
+from splade_tpu_torch.ops.fused_splade_v2 import (dh_vocab_splits_v2,
+                                                  fused_splade_bwd_dh_v2,
+                                                  fused_splade_bwd_dw_v2,
+                                                  fused_splade_bwd_v2_plain,
+                                                  fused_splade_maxima_v2,
+                                                  fused_splade_pool_v2,
+                                                  fused_splade_pool_v2_plain,
+                                                  pick_row_block,
+                                                  shared_bytes)
+
+# tiny shapes: more intra-op threads only contend with the other test
+# workers for the host's cores
+torch.set_num_threads(1)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
+
+
+def _case(seed, B, S=16, H=32, V=300):
+    """tests/test_fused_splade.py's kind of inputs: V not a tile multiple,
+    ragged lengths, the last row fully padded."""
+    rng = np.random.default_rng(seed)
+    h = rng.normal(size=(B, S, H)).astype(np.float32)
+    w = rng.normal(size=(V, H)).astype(np.float32) * 0.3
+    bias = rng.normal(size=(V,)).astype(np.float32) * 0.1
+    lengths = rng.integers(S // 2, S + 1, size=(B,))
+    lengths[-1] = 0
+    mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int32)
+    return h, w, bias, mask
+
+
+def _jax_out_and_grads(h, w, bias, mask, row_block):
+    def loss(h_, w_, b_):
+        p, tw = jax_v2(h_, w_, b_, jnp.asarray(mask), 128, row_block)
+        return jnp.sum(jnp.sin(p) * p), (p, tw)
+
+    (_, (p, tw)), grads = jax.value_and_grad(
+        loss, argnums=(0, 1, 2), has_aux=True)(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(bias))
+    return np.asarray(p), np.asarray(tw), [np.asarray(g) for g in grads]
+
+
+def _port_out_and_grads(pool, h, w, bias, mask):
+    leaves = [torch.from_numpy(x).requires_grad_() for x in (h, w, bias)]
+    p, tw = pool(*leaves, torch.from_numpy(mask))
+    assert not tw.requires_grad  # token weights carry no gradient
+    (torch.sin(p) * p).sum().backward()
+    return (p.detach().numpy(), tw.numpy(),
+            [t.grad.numpy() for t in leaves])
+
+
+@pytest.mark.parametrize("B,row_block,resolved", [
+    (3, 0, 1),    # 8, 4 and 2 do not divide 3: one row a block
+    (8, 4, 4),    # explicit
+    (8, 8, 8),    # explicit, one block
+])
+def test_v2_forward_and_gradient_match_jax_pallas(B, row_block, resolved):
+    """pooled, token weights, dh, dW and dbias against the Pallas kernels
+    of fused_splade_pool_v2 in interpret mode; the fully padded row pools
+    to 0 and gets a zero, finite gradient."""
+    case = _case(B * 10 + row_block, B)
+    assert (row_block or pick_row_block(B)) == resolved
+    j_p, j_tw, j_g = _jax_out_and_grads(*case, row_block)
+    t_p, t_tw, t_g = _port_out_and_grads(
+        lambda *a: fused_splade_pool_v2(*a, row_block), *case)
+    np.testing.assert_allclose(t_p, j_p, **TOL)
+    np.testing.assert_allclose(t_tw, j_tw, **TOL)
+    for g, j, name in zip(t_g, j_g, ("dh", "dw", "dbias")):
+        np.testing.assert_allclose(g, j, **GRAD_TOL, err_msg=name)
+    assert np.all(t_p[-1] == 0) and np.all(t_tw[-1] == 0)
+    assert np.isfinite(t_g[0]).all() and np.abs(t_g[0][-1]).max() == 0.0
+
+
+@pytest.mark.parametrize("B,row_block", [(3, 0), (6, 3), (8, 0), (8, 2)])
+def test_v2_equals_the_per_row_family(B, row_block):
+    """Same function as fused_splade_pool: outputs and gradients agree to
+    1e-6 (the plain versions differ only by how one f32 matmul is blocked;
+    the kernels are bitwise equal on the card)."""
+    case = _case(B + row_block, B)
+    p1, tw1, g1 = _port_out_and_grads(fused_splade_pool, *case)
+    p2, tw2, g2 = _port_out_and_grads(
+        lambda *a: fused_splade_pool_v2(*a, row_block), *case)
+    np.testing.assert_allclose(p2, p1, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(tw2, tw1, rtol=1e-6, atol=1e-6)
+    for a, b in zip(g2, g1):
+        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+    # either family's backward recomputes from the other's maxima within
+    # the same tolerance
+    h, w, bias, mask = (torch.from_numpy(x) for x in case)
+    m1, _ = fused_splade_pool_plain(h, w, bias, mask)
+    m2, _ = fused_splade_pool_v2_plain(h, w, bias, mask, row_block)
+    torch.testing.assert_close(m2, m1, rtol=1e-6, atol=1e-6)
+
+
+def test_v2_ties_get_duplicate_gradient_as_jax():
+    h, w, bias, mask = _case(3, 4)
+    h[0, 1] = h[0, 0]  # exact ties in row 0
+    mask[0, :2] = 1
+    _, _, want = _jax_out_and_grads(h, w, bias, mask, 2)
+    _, _, got = _port_out_and_grads(
+        lambda *a: fused_splade_pool_v2(*a, 2), h, w, bias, mask)
+    for g, j, name in zip(got, want, ("dh", "dw", "dbias")):
+        np.testing.assert_allclose(g, j, **GRAD_TOL, err_msg=name)
+    np.testing.assert_array_equal(got[0][0, 0], got[0][0, 1])
+
+
+@pytest.mark.parametrize("B,row_block", [(6, 4), (3, 2), (8, 3), (4, -1)])
+def test_v2_refuses_a_row_block_that_does_not_divide_the_batch(B, row_block):
+    """As fused_splade_v2.py:128-134: the tail rows would go uncomputed."""
+    h, w, bias, mask = (torch.from_numpy(x) for x in _case(0, B))
+    with pytest.raises(ValueError, match="must divide batch"):
+        fused_splade_pool_v2(h, w, bias, mask, row_block)
+    if row_block > 0:
+        with pytest.raises(ValueError, match="must divide batch"):
+            jax_v2(jnp.asarray(h.numpy()), jnp.asarray(w.numpy()),
+                   jnp.asarray(bias.numpy()), jnp.asarray(mask.numpy()), 128,
+                   row_block)
+
+
+def test_v2_wrappers_on_cpu_are_the_plain_version():
+    """On CPU tensors the wrappers return the plain versions and count no
+    launch; gradients come back in the dtypes of h and w; bias may be
+    None."""
+    h, w, bias, mask = (torch.from_numpy(x) for x in _case(5, 4))
+    counters = (fused_splade_pool_v2, fused_splade_bwd_dh_v2,
+                fused_splade_bwd_dw_v2)
+    before = [f.launches for f in counters]
+    m, pos = fused_splade_maxima_v2(h, w, bias, mask, 2)
+    m_p, pos_p = fused_splade_pool_v2_plain(h, w, bias, mask, 2)
+    assert torch.equal(m, m_p) and torch.equal(pos, pos_p)
+    g_pre = fold_cotangent(torch.ones_like(m), m)
+    dh, dw = fused_splade_bwd_v2_plain(h, w, bias, mask, m, g_pre, 2)
+    assert torch.equal(fused_splade_bwd_dh_v2(h, w, bias, mask, m, g_pre, 2),
+                       dh)
+    assert torch.equal(fused_splade_bwd_dw_v2(h, w, bias, mask, m, g_pre, 2),
+                       dw)
+    assert [f.launches for f in counters] == before
+    # the per-row plain backward agrees from the same maxima's function
+    m1, _ = fused_splade_pool_plain(h, w, bias, mask)
+    dh1, dw1 = fused_splade_bwd_plain(h, w, bias, mask, m1,
+                                      fold_cotangent(torch.ones_like(m1), m1))
+    torch.testing.assert_close(dh, dh1, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(dw, dw1, rtol=1e-5, atol=1e-6)
+    hb = h.to(torch.bfloat16).requires_grad_()
+    wb = w.to(torch.bfloat16).requires_grad_()
+    pooled, tw = fused_splade_pool_v2(hb, wb, None, mask)
+    pooled.sum().backward()
+    assert hb.grad.dtype == wb.grad.dtype == torch.bfloat16
+    assert pooled.dtype == tw.dtype == torch.float32
+
+
+@pytest.mark.parametrize("B,rb,V,splits", [
+    (128, 8, 50000, 9),    # 16 row blocks: 9 splits fill 132 multiprocessors
+    (128, 2, 50000, 3),
+    (64, 8, 50000, 16),    # 8 row blocks: capped at 16 splits
+    (3, 1, 100, 2),        # never more splits than vocab tiles
+])
+def test_v2_dh_vocab_splits_and_shared_memory(B, rb, V, splits):
+    assert dh_vocab_splits_v2(B, rb, V) == splits
+    # the resident 64 x 768 bf16 tile and the staging fit one block's
+    # 227 KB; a hidden width of 2048 does not
+    assert shared_bytes(768, rb) <= 232_448 < shared_bytes(2048, rb)
+    from splade_tpu_torch.ops import fused_splade_v2
+
+    assert fused_splade_v2._check(torch.zeros(B, 4, 768), rb) == rb
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_splade_v2._check(torch.zeros(B, 4, 2048), rb)
+
+
+class _RecordingLibrary:
+    """Stands in for the built kernel library: every entry records its
+    arguments and reports success, so the launchers can run on CPU tensors."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, entry):
+        def call(*args):
+            self.calls.append((entry, args))
+            return 0
+        return call
+
+
+@pytest.mark.parametrize("family,row_block,extra", [
+    ("PER_ROW", None, ()),
+    ("ROW_BLOCKED", 0, (4,)),       # B = 4: the automatic row block
+    ("ROW_BLOCKED", 2, (2,)),
+])
+def test_launchers_count_where_they_launch_and_nowhere_else(
+        monkeypatch, family, row_block, extra):
+    """Both families go through one set of launchers: each adds one to its
+    kernel's count after the C entry returned, never for an empty batch;
+    the entry's name and its integer arguments (B, S, H, V, the row block,
+    the dh splits) are the family's."""
+    from splade_tpu_torch.ops import _cuda, fused_splade, fused_splade_v2
+
+    fam = getattr(fused_splade_v2 if family == "ROW_BLOCKED" else fused_splade,
+                  family)
+    lib = _RecordingLibrary()
+    monkeypatch.setattr(_cuda, "library", lambda: lib)
+    monkeypatch.setattr(_cuda, "stream_ptr", lambda t: 0)
+    for fn in fam.counted.values():
+        monkeypatch.setattr(fn, "launches", 0)
+    B, S, H, V = 4, 16, 32, 300
+    h, w, bias, mask = (torch.from_numpy(x) for x in _case(5, B, S, H, V))
+    m, g = torch.zeros(B, V), torch.ones(B, V)
+    count = lambda: {k: fn.launches for k, fn in fam.counted.items()}
+
+    fused_splade._launch_fwd(fam, h[:0], w, bias, mask[:0], row_block)
+    dh0 = fused_splade._launch_bwd(fam, "dh", h[:0], w, bias, mask[:0],
+                                   m[:0], g[:0], row_block)
+    dw0 = fused_splade._launch_bwd(fam, "dw", h[:0], w, bias, mask[:0],
+                                   m[:0], g[:0], row_block)
+    assert lib.calls == [] and count() == dict(fwd=0, dh=0, dw=0)
+    assert dh0.shape == (0, S, H) and dw0.shape == (V, H)
+
+    fused_splade._launch_fwd(fam, h, w, bias, mask, row_block)
+    assert count() == dict(fwd=1, dh=0, dw=0)
+    fused_splade._launch_bwd(fam, "dh", h, w, bias, mask, m, g, row_block)
+    fused_splade._launch_bwd(fam, "dw", h, w, bias, mask, m, g, row_block)
+    assert count() == dict(fwd=1, dh=1, dw=1)
+    splits = fam.dh_splits(B, S, V, *extra)
+    # 6 pointers (forward) or 7 (backward), the ints, the stream
+    assert [(entry, args[6 + entry.count("_bwd_"):-1])
+            for entry, args in lib.calls] == [
+        (fam.prefix + "_fwd", (B, S, H, V, *extra)),
+        (fam.prefix + "_bwd_dh", (B, S, H, V, *extra, splits)),
+        (fam.prefix + "_bwd_dw", (B, S, H, V, *extra))]

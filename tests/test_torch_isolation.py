@@ -1,7 +1,8 @@
 """The port stands alone: no file under splade_tpu_torch/, nor chip_smoke.py,
 imports jax, flax, optax or splade_tpu; the package imports without
-transformers and safetensors; and entry points with no device raise when
-there is no CUDA device instead of carrying on on the CPU."""
+transformers, safetensors, msgpack and PyYAML (msgpack is imported only
+inside the checkpoint reader's functions); and entry points with no device
+raise when there is no CUDA device instead of carrying on on the CPU."""
 
 import ast
 import subprocess
@@ -41,10 +42,62 @@ def test_port_imports_nothing_of_jax_or_the_reference(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+NEW_MODULES = ["ops/fused_splade_v2.py", "losses/schedules.py",
+               "train/preemption.py", "train/mlm.py"]
+
+
+@pytest.mark.parametrize("rel", NEW_MODULES)
+def test_the_third_slices_modules_are_among_the_checked_files(rel):
+    assert ROOT / "splade_tpu_torch" / rel in PORT_FILES
+    assert (ROOT / "splade_tpu" / rel).exists()  # each has its counterpart
+
+
+def _function_level_only(path: Path, module: str) -> bool:
+    """True if ``module`` is imported in ``path`` and only inside function
+    bodies."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    inside = set()
+    for fn in ast.walk(tree):
+        if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+            inside.update(id(n) for n in ast.walk(fn))
+    found = False
+    for node in ast.walk(tree):
+        names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                 else [node.module] if isinstance(node, ast.ImportFrom)
+                 and node.module else [])
+        if any(n.split(".")[0] == module for n in names):
+            if id(node) not in inside:
+                return False
+            found = True
+    return found
+
+
+def test_msgpack_is_imported_only_inside_the_checkpoint_reader():
+    users = [p for p in PORT_FILES if "msgpack" in {
+        m.split(".")[0] for m in _imported_modules(p)}]
+    assert users == [ROOT / "splade_tpu_torch" / "train" / "checkpoint.py"]
+    assert _function_level_only(users[0], "msgpack")
+    # and without the package the reader says so by name
+    code = (
+        "import sys\n"
+        "sys.modules['msgpack'] = None\n"
+        "from splade_tpu_torch.train.checkpoint import read_msgpack_params\n"
+        "try:\n"
+        "    read_msgpack_params('unused')\n"
+        "except ImportError as e:\n"
+        "    assert 'msgpack' in str(e), e\n"
+        "else:\n"
+        "    raise SystemExit('no ImportError')\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_package_imports_without_transformers_or_safetensors():
     code = (
         "import sys\n"
-        "for m in ('transformers', 'safetensors', 'jax', 'flax', 'optax'):\n"
+        "for m in ('transformers', 'safetensors', 'jax', 'flax', 'optax',\n"
+        "          'msgpack', 'yaml'):\n"
         "    sys.modules[m] = None  # any import of them now fails\n"
         "import importlib, pkgutil, splade_tpu_torch\n"
         "for m in pkgutil.walk_packages(splade_tpu_torch.__path__,\n"
@@ -66,6 +119,8 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
     from splade_tpu_torch.config import V33Config
     from splade_tpu_torch.serving.server import main
     from splade_tpu_torch.train.cli import main as train_main
+    from splade_tpu_torch.train.mlm import MLMConfig, MLMTrainer
+    from splade_tpu_torch.train.mlm import main as mlm_main
     from splade_tpu_torch.train.trainer import Trainer
     from splade_tpu_torch.utils.runtime import resolve_device
 
@@ -77,7 +132,9 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
                  lambda: SpladeEncoder(cfg),
                  lambda: build_engine_from_docs(None, None, []),
                  lambda: Trainer(V33Config(), None, [], None),
-                 lambda: train_main(["--config", "unused.yaml"])):
+                 lambda: train_main(["--config", "unused.yaml"]),
+                 lambda: MLMTrainer(MLMConfig(), None, [], None),
+                 lambda: mlm_main(["--config", "unused.yaml"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
     with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -20,6 +20,10 @@ from splade_tpu_torch.ops.fused_splade import (fold_cotangent,
                                                fused_splade_maxima,
                                                fused_splade_pool,
                                                fused_splade_pool_plain)
+from splade_tpu_torch.ops.fused_splade_v2 import (fused_splade_bwd_dh_v2,
+                                                  fused_splade_bwd_dw_v2,
+                                                  fused_splade_maxima_v2,
+                                                  fused_splade_pool_v2)
 from splade_tpu_torch.ops.rescore_kernel import (rescore_match,
                                                  rescore_match_plain,
                                                  rescore_match_rows)
@@ -177,6 +181,137 @@ def test_fused_pool_backward_recomputes_the_forward(cuda, B, S, H, V):
     dh = fused_splade_bwd_dh(h, w, bias, mask, m, ones)
     out = _recompute_check()(torch, h, w, bias, mask, m, dh)
     assert out["ok"], out
+
+
+# ---- the row-blocked family (ops/fused_splade_v2.py) ----------------------
+V2_SHAPES = [
+    (6, 100, 64, 1000, 3),      # chunks cross batch rows, ragged V, H < 768
+    (5, 37, 64, 777, 1),        # ragged everywhere, one row a block
+    (8, 64, 768, 50000, 8),     # query width, one row block, 16 vocab splits
+    (4, 256, 768, 50000, 2),    # document length
+    (64, 64, 768, 50000, 0),    # the training step's query batch (picks 8)
+    (128, 256, 768, 50000, 4),  # the training step's documents
+]
+
+
+@pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES)
+def test_v2_forward_equals_v1_bitwise_and_plain(cuda, B, S, H, V, rb):
+    """Both families take every score through the same routine, and a
+    maximum has no order: the row-blocked m and pos equal the per-row
+    kernel's bit for bit. Against the plain version only f32 sum order
+    differs."""
+    h, w, bias, mask = _pool_case(B, S, H, V, seed=B * S + rb, device=cuda)
+    before = fused_splade_pool_v2.launches
+    with torch.no_grad():
+        m2, pos2 = fused_splade_maxima_v2(h, w, bias, mask, rb)
+        m1, pos1 = fused_splade_maxima(h, w, bias, mask)
+        pooled, tw = fused_splade_pool_v2(h, w, bias, mask, rb)
+        m_ref, pos_ref = fused_splade_pool_plain(h, w, bias, mask)
+    torch.cuda.synchronize()
+    assert fused_splade_pool_v2.launches == before + 2
+    assert torch.equal(m2, m1) and torch.equal(pos2, pos1)
+    torch.testing.assert_close(pooled, torch.log1p(torch.relu(m_ref)),
+                               rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(
+        tw, torch.log1p(torch.relu(pos_ref)) * mask.float(), rtol=1e-4,
+        atol=1e-3)
+    assert float(pooled[-1].abs().max()) == 0.0
+    assert float(tw[-1].abs().max()) == 0.0
+
+
+def _kernel_route_v2(h, w, bias, mask, gout, rb):
+    leaves = [t.clone().requires_grad_() for t in (h, w, bias)]
+    pooled, _ = fused_splade_pool_v2(*leaves, mask, rb)
+    (pooled * gout).sum().backward()
+    return [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES)
+def test_v2_backward_exact_inputs(cuda, B, S, H, V, rb):
+    """Check (a) for the row-blocked family, at the per-row family's
+    tolerance; and its sums have the per-row kernels' owner and order
+    (tiles and columns ascending for dh, rows ascending for dW)."""
+    case = _bwd_case(B, S, H, V, seed=B * S + V, device=cuda, exact=True)
+    dh0, dw0 = fused_splade_bwd_dh_v2.launches, fused_splade_bwd_dw_v2.launches
+    got = _kernel_route_v2(*case, rb)
+    torch.cuda.synchronize()
+    assert (fused_splade_bwd_dh_v2.launches,
+            fused_splade_bwd_dw_v2.launches) == (dh0 + 1, dw0 + 1)
+    want = _plain_route(*case)
+    for name, a, b in zip(("dh", "dw", "dbias"), got, want):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()),
+                                   msg=name)
+    assert float(got[0][-1].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES)
+def test_v2_backward_realistic_inputs(cuda, B, S, H, V, rb):
+    """Check (b) by norm against the plain route and the per-row kernel
+    route; a repeated call is bitwise equal (no atomics)."""
+    case = _bwd_case(B, S, H, V, seed=B * S + V, device=cuda, exact=False)
+    got = _kernel_route_v2(*case, rb)
+    for other in (_plain_route(*case), _kernel_route(*case)):
+        for name, a, b in zip(("dh", "dw", "dbias"), got, other):
+            rel = float((a - b).norm() / b.norm())
+            assert rel <= 1e-2, (name, rel)
+    assert float(got[0][-1].abs().max()) == 0.0
+    again = _kernel_route_v2(*case, rb)
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES)
+def test_v2_backward_recomputes_either_forward(cuda, B, S, H, V, rb):
+    """Check (c) with the per-row forward kernel's maxima: the row-blocked
+    recompute must reach them exactly."""
+    h, w, bias, mask, _ = _bwd_case(B, S, H, V, seed=V, device=cuda,
+                                    exact=False)
+    m, _ = fused_splade_maxima(h, w, bias, mask)
+    ones = (mask.sum(1, keepdim=True) > 0).float().expand_as(m)
+    dh = fused_splade_bwd_dh_v2(h, w, bias, mask, m, ones, rb)
+    out = _recompute_check()(torch, h, w, bias, mask, m, dh)
+    assert out["ok"], out
+    dw = fused_splade_bwd_dw_v2(h, w, bias, mask, m, ones, rb)
+    dw1 = fused_splade_bwd_dw(h, w, bias, mask, m, ones)
+    assert float((dw - dw1).norm() / dw1.norm()) <= 1e-5
+
+
+@pytest.mark.parametrize("H", [64, 200, 768, 1024, 2048])
+@pytest.mark.parametrize("rb", [1, 2, 4, 8])
+def test_v2_shared_bytes_mirror_equals_the_kernels(cuda, H, rb):
+    """``shared_bytes`` mirrors the layout the two ``.cu`` files compute
+    for themselves; the launch path asks the built kernels."""
+    from splade_tpu_torch.ops import _cuda
+    from splade_tpu_torch.ops.fused_splade_v2 import shared_bytes
+
+    lib = _cuda.library()
+    assert shared_bytes(H, rb) == max(
+        lib.splade_fused_pool_v2_fwd_shared_bytes(H, rb),
+        lib.splade_fused_pool_v2_bwd_shared_bytes(H, rb))
+
+
+def test_v2_refuses_a_hidden_width_its_tile_cannot_hold(cuda):
+    h, w, bias, mask = _pool_case(2, 16, 2048, 100, seed=1, device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        fused_splade_maxima_v2(h, w, bias, mask, 2)
+
+
+def test_an_empty_batch_launches_and_counts_nothing(cuda):
+    h, w, bias, mask = _pool_case(4, 16, 64, 100, seed=2, device=cuda)
+    m, g = torch.zeros(0, 100, device=cuda), torch.ones(0, 100, device=cuda)
+    fns = (fused_splade_pool, fused_splade_bwd_dh, fused_splade_bwd_dw,
+           fused_splade_pool_v2, fused_splade_bwd_dh_v2,
+           fused_splade_bwd_dw_v2)
+    before = [fn.launches for fn in fns]
+    assert fused_splade_maxima(h[:0], w, bias, mask[:0])[0].shape == (0, 100)
+    assert fused_splade_maxima_v2(h[:0], w, bias, mask[:0])[0].shape == (0, 100)
+    for dh, dw in ((fused_splade_bwd_dh, fused_splade_bwd_dw),
+                   (fused_splade_bwd_dh_v2, fused_splade_bwd_dw_v2)):
+        assert dh(h[:0], w, bias, mask[:0], m, g).shape == (0, 16, 64)
+        assert float(dw(h[:0], w, bias, mask[:0], m, g).abs().max()) == 0.0
+    assert [fn.launches for fn in fns] == before
 
 
 def _rescore_case(N, M, V, B, T, C, seed, device):

@@ -48,6 +48,10 @@ from splade_tpu_torch.train.trainer import (DevicePrefetcher, Trainer,
 
 from test_data import FakeTokenizer
 
+# tiny shapes: more intra-op threads only contend with the other test
+# workers for the host's cores
+torch.set_num_threads(1)
+
 VOCAB = 512
 LAYERS = 2
 CFG = {
@@ -419,14 +423,20 @@ def test_model_only_checkpoint_and_incomplete_dirs(jax_params, tmp_path):
 
 
 def test_trainer_refuses_what_it_does_not_port(jax_params, tmp_path):
-    for training, mesh, match in (({"watchdog_timeout_s": 5.0}, {}, "watchdog"),
-                                  ({}, {"num_data": 2}, "DDP")):
+    def make(training, mesh):
         d = _trainer_cfg(tmp_path, 1, **training)
         d["mesh"].update(mesh)
-        with pytest.raises(NotImplementedError, match=match):
-            Trainer(V33Config.from_dict(d), port_model(jax_params),
-                    _samples(), TripletCollator(FakeTokenizer()),
-                    device="cpu")
+        return Trainer(V33Config.from_dict(d), port_model(jax_params),
+                       _samples(), TripletCollator(FakeTokenizer()),
+                       device="cpu")
+
+    with pytest.raises(NotImplementedError, match="DDP"):
+        make({}, {"num_data": 2})
+    # the hang watchdog is ported: a window above 0 is taken, and armed
+    # only by train() (tests/test_torch_preemption.py runs it)
+    trainer = make({"watchdog_timeout_s": 5.0}, {})
+    assert trainer.cfg.training.watchdog_timeout_s == 5.0
+    assert trainer._watchdog is None and not trainer._preempted
 
 
 def test_trainer_eval_and_depth_zero(jax_params, tmp_path):
