@@ -25,7 +25,16 @@ Phases (any failure exits non-zero; nothing is caught):
    version with m and pos bitwise equal to the per-row kernel's; backward
    checks (a), (b), (c), a repeated backward bitwise equal; its times
    beside the per-row family's. These training shapes are the ones the
-   row-blocked pool's own path (phase 5) launches its kernels at.
+   row-blocked pool's own path (phase 5) launches its kernels at. The three
+   splash attention kernels (``ops/splash_attention.py``) at the training
+   micro-batches (B=144, S=256 with packed query rows; B=32, S=512), 12
+   heads of 64, half window 64 and 0, random lengths and a fully padded
+   row: the forward's out and lse, and dq, dk, dv for a seeded dO, against
+   the plain versions; the same at a ragged S=200; the gradients through
+   autograd equal to the wrappers' own and a repeated backward bitwise
+   equal; times, bounds from the allowed pairs, and one
+   ``scaled_dot_product_attention`` call with the same mask as the library
+   yardstick (timed here, called nowhere in the port).
 3. The serving path at full width (22 layers, 768 hidden, 50K vocab) with
    seeded random weights and a character-level stand-in tokenizer: a
    two-phase PostingsIndex over 1,000,000 synthetic documents plus a few
@@ -68,9 +77,20 @@ Phases (any failure exits non-zero; nothing is caught):
    the pre-trained model's states, at the training shapes phase 2 held the
    family at, pooled by fused_splade_pool_v2 with a sparsity loss, backward into the model, with the family's launch counts
    set to 0 before and read after, held against the per-row family's route.
+6. Both training paths with ``attention_impl="splash"`` at full width:
+   phase 4 again (warm-up, 3 measured steps through ``Trainer``, a profiled
+   step, the bitwise resume, the plain pool route) and phase 5 again (3
+   measured steps through ``MLMTrainer``, SIGTERM, bitwise resume,
+   evaluation, ``from_checkpoint`` and a served engine, all on the splash
+   route) through the attention kernels. The launch counts must be the ones
+   the code implies (V33 with layer recompute: 22 x 2 forward, 22 dq, 22
+   dk/dv a micro-batch; MLM: 22 of each), one micro-batch's loss and
+   gradients are held against the sdpa route on the same weights and batch,
+   and throughput, step time, idle share and peak memory are printed
+   beside phase 4's and 5's.
 
-The last four lines are the training JSON, the pre-training JSON, the
-kernels' JSON and the run's JSON.
+The last five lines are the training JSON, the pre-training JSON, the
+splash training JSON, the kernels' JSON and the run's JSON.
 """
 
 from __future__ import annotations
@@ -145,6 +165,39 @@ V2_ROW_BLOCKS = (8, 2)
 # the row-blocked family at them (row_block 0, which resolves to
 # V2_ROW_BLOCKS[0] at both batch sizes)
 TRAIN_POOL_SHAPES = ((128, 256), (64, 64))
+# splash attention kernels vs plain versions on the same bf16 operands, with
+# the same lse and delta fed to both backward routes. Scores and sums are f32
+# in both (the order of sums and the kernels' fast exp differ by about 1e-6),
+# then two roundings to bf16 remain: p (and ds) before the second product,
+# where a 1e-6 difference can flip one value by an ulp (2^-8 of it), and the
+# kernel's bf16 out against the plain version's f32 (half an ulp: 2^-9).
+# out, dq, dk, dv: elementwise, relative to the tensor's largest value; lse:
+# absolute (one key lost from a window of 129 moves a row's lse by about
+# 8e-3, a dropped delta moves ds by its whole size)
+SPLASH_RTOL = 2.0 ** -7
+SPLASH_LSE_ATOL = 1e-4
+# (B, S) of the attention at training: the V33 micro-batch (128 document rows
+# + 16 rows of 4 packed queries, 256 positions) and the MLM one (32 x 512);
+# 12 heads of 64; the local layers' half window and the global layers' 0
+SPLASH_SHAPES = ((144, 256), (32, 512))
+SPLASH_HEADS, SPLASH_HEAD_DIM = 12, 64
+SPLASH_WINDOWS = (64, 0)
+SPLASH_RAGGED = (3, 200)  # S not a multiple of the kernels' 64-row tile
+# training, splash route vs sdpa route on one micro-batch from the same
+# parameters: valid positions see the same function, but under bf16 autocast
+# the sdpa route rounds its scores to bf16 before the softmax where the
+# kernels keep them in f32, in each of 22 layers, and every later activation
+# carries that noise (about 2^-9 a value); a wrong window or a backward that
+# drops delta moves the gradients by their whole size
+SPLASH_TRAIN_RTOL = 1e-2
+# each gradient tensor, norm-relative: twice the noise floor that
+# compare_attention_routes measures first (the sdpa route with nothing
+# changed but its scores kept in f32, against the sdpa route), no less than
+# the f32 sum-order difference of a CPU run and no more than 0.3. With seeded
+# random weights the bf16 V33 step is very sensitive: the floor is about 0.14
+# for the worst tensor there and 0.008 in the MLM step; a backward whose dv
+# never arrives moves the attention weights' gradients by their whole size
+SPLASH_TRAIN_GRAD_RTOL = (1e-3, 0.3)
 
 
 def log(msg: str) -> None:
@@ -801,6 +854,180 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     return result
 
 
+def splash_case(torch, rng, B: int, S: int, N: int, D: int, packed: bool,
+                device: str = "cuda"):
+    """Operands as the encoder hands them to the attention: q and k fresh
+    from RoPE ([B, S, N, D] storage seen as [B, N, S, D]), v a strided view
+    of the fused QKV product, a seeded dO; bf16 on the card. Rows have
+    random lengths, row 0 is all padding; with ``packed`` the last B // 9
+    rows hold 4 packed segments of S // 4 with a length each (0 included),
+    as the V33 micro-batch's query rows do. Returns (q, k, v, seg, d_out,
+    allowed [B, S, S] per window)."""
+    from splade_tpu_torch.ops.splash_attention import segment_ids_with_padding
+
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 31)))
+    dtype = torch.bfloat16 if device == "cuda" else torch.float32
+    randn = lambda *shape: torch.randn(shape, device=device,
+                                       generator=gen).to(dtype)
+    q = randn(B, S, N, D).transpose(1, 2)
+    k = randn(B, S, N, D).transpose(1, 2)
+    v = randn(B, S, 3, N, D)[:, :, 2].transpose(1, 2)
+    d_out = randn(B, S, N, D)
+    pos = np.arange(S)[None]
+    lens = rng.integers(1, S + 1, (B, 1))
+    lens[0] = 0
+    mask = pos < lens
+    segs = np.zeros((B, S), np.int64)
+    if packed:
+        rows, width = max(B // 9, 1), S // 4
+        segs[B - rows:] = np.minimum(pos // width, 3)
+        seg_lens = rng.integers(0, width + 1, (rows, 4))
+        mask[B - rows:] = (pos % width) < np.take_along_axis(
+            seg_lens, segs[B - rows:], 1)
+    seg = segment_ids_with_padding(
+        torch.from_numpy(mask.astype(np.int64)).to(device),
+        torch.from_numpy(segs).to(device))
+    return q, k, v, seg, d_out
+
+
+def splash_allowed(torch, seg, half_window: int):
+    """[B, S, S] bool: the pairs the attention's mask allows."""
+    S = seg.shape[1]
+    ok = seg[:, :, None] == seg[:, None, :]
+    if half_window > 0:
+        idx = torch.arange(S, device=seg.device)
+        ok = ok & ((idx[:, None] - idx[None, :]).abs() <= half_window)
+    return ok
+
+
+def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
+                 N: int = SPLASH_HEADS, D: int = SPLASH_HEAD_DIM,
+                 device: str = "cuda", timed: bool = True) -> dict:
+    """The three splash attention kernels against their plain versions at
+    one shape and window: the forward's out and lse; dq, dk and dv for a
+    seeded dO, both routes fed the forward kernel's lse and the same delta;
+    the gradients that come back through ``splash_attention``'s
+    autograd.Function equal to the wrappers' own, and a repeated backward
+    bitwise equal. Then times by CUDA events, the plain versions', one
+    ``scaled_dot_product_attention`` call with the same boolean mask as the
+    library yardstick (forward, and its backward for dq, dk and dv
+    together), and the bound from this run's allowed pairs. Returns
+    {"fwd": ..., "dq": ..., "dkv": ...}."""
+    from splade_tpu_torch.ops import splash_attention as sa
+
+    q, k, v, seg, d_out = splash_case(torch, rng, B, S, N, D, packed, device)
+    hw = half_window
+    with torch.no_grad():
+        out, lse = sa.splash_attention_forward(q, k, v, seg, hw)
+        out_p, lse_p = sa.splash_attention_plain(q, k, v, seg, hw)
+        delta = sa.splash_attention_delta(d_out, out)
+        dq = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, lse, delta)
+        dk, dv = sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse,
+                                             delta)
+        dq_p, dk_p, dv_p = sa.splash_attention_bwd_plain(
+            q, k, v, seg, hw, d_out, lse, delta)
+    # through autograd: the Function's gradients are the wrappers' own
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    got = sa.splash_attention(*leaves, seg, hw)
+    grads = torch.autograd.grad(got, leaves, d_out, retain_graph=True)
+    again = torch.autograd.grad(got, leaves, d_out)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wired = (bool(torch.equal(got.detach(), out.to(got.dtype)))
+             and all(bool(torch.equal(g, d.transpose(1, 2).to(g.dtype)))
+                     for g, d in zip(grads, (dq, dk, dv))))
+    repeat_bitwise = all(bool(torch.equal(a, b))
+                         for a, b in zip(grads, again))
+    rel = lambda a, b: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp_min(1e-30))
+    err = dict(out=rel(out, out_p), dq=rel(dq, dq_p), dk=rel(dk, dk_p),
+               dv=rel(dv, dv_p))
+    absolute = dict(fwd=float((out.float() - out_p).abs().max()),
+                    dq=float((dq - dq_p).abs().max()),
+                    dkv=max(float((dk - dk_p).abs().max()),
+                            float((dv - dv_p).abs().max())))
+    relative = dict(fwd=err["out"], dq=err["dq"],
+                    dkv=max(err["dk"], err["dv"]))
+    lse_err = float((lse - lse_p).abs().max())
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (out, lse, dq, dk, dv))
+    allowed = splash_allowed(torch, seg, hw)
+    pairs = float(allowed.sum())
+    label = (f"splash B={B} S={S} N={N} D={D} half_window={hw}"
+             f"{' packed' if packed else ''}")
+    log(f"  {label}: forward out {err['out']:.2e} of its largest value, lse "
+        f"{lse_err:.2e} (tol {SPLASH_RTOL:.2e} / {SPLASH_LSE_ATOL}); backward "
+        f"dq {err['dq']:.2e} dk {err['dk']:.2e} dv {err['dv']:.2e} (tol "
+        f"{SPLASH_RTOL:.2e}); finite: {finite}; autograd returns the "
+        f"wrappers' values: {wired}; repeated backward bitwise equal: "
+        f"{repeat_bitwise}; {pairs / (B * S):.1f} allowed keys a query")
+    if not (max(err.values()) <= SPLASH_RTOL and lse_err <= SPLASH_LSE_ATOL
+            and finite and wired and repeat_bitwise):
+        raise SystemExit(f"splash attention kernels disagree ({label})")
+    shape = dict(shape=f"B={B} S={S} N={N} D={D}", half_window=hw,
+                 packed=packed, allowed_pairs=pairs)
+    result = {name: dict(shape, max_abs_err=absolute[name],
+                         max_rel_err=relative[name])
+              for name in ("fwd", "dq", "dkv")}
+    result["fwd"]["lse_max_abs_err"] = lse_err
+    if not timed:
+        return result
+
+    import torch.nn.functional as F
+    lib_mask = allowed[:, None]
+
+    def library_grads():
+        ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=lib_mask)
+        return torch.autograd.grad(o, (ql, kl, vl), d_out.transpose(1, 2))
+
+    with torch.no_grad():
+        ms = dict(
+            fwd=cuda_ms(torch, lambda: sa.splash_attention_forward(
+                q, k, v, seg, hw), iters=20),
+            dq=cuda_ms(torch, lambda: sa.splash_attention_bwd_dq(
+                q, k, v, seg, hw, d_out, lse, delta), iters=20),
+            dkv=cuda_ms(torch, lambda: sa.splash_attention_bwd_dkv(
+                q, k, v, seg, hw, d_out, lse, delta), iters=20))
+        delta_ms = cuda_ms(torch, lambda: sa.splash_attention_delta(
+            d_out, out), iters=10)
+        plain_fwd = cuda_ms(torch, lambda: sa.splash_attention_plain(
+            q, k, v, seg, hw), iters=2, warmup=1)
+        plain_bwd = cuda_ms(torch, lambda: sa.splash_attention_bwd_plain(
+            q, k, v, seg, hw, d_out, lse, delta), iters=2, warmup=1)
+        lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=lib_mask), iters=5, warmup=1)
+    lib_both = cuda_ms(torch, library_grads, iters=5, warmup=1)
+    lib_bwd = max(lib_both - lib_fwd, 0.0)
+    tensor = B * S * N * D  # elements of q, k, v, out, dO, dq, dk or dv
+    small = 2 * B * N * S * 4 + B * S * 4  # lse, delta, seg
+    work = dict(  # (bytes: inputs once, outputs once; bf16 operations)
+        fwd=(4 * tensor * 2 + B * N * S * 4 + B * S * 4, 4.0 * D * pairs * N),
+        dq=(4 * tensor * 2 + small + tensor * 4, 6.0 * D * pairs * N),
+        dkv=(4 * tensor * 2 + small + 2 * tensor * 4, 8.0 * D * pairs * N))
+    for name in ("fwd", "dq", "dkv"):
+        moved, ops = work[name]
+        bound_ms, bound_by = bound(moved, ops, H100_BF16_FLOPS)
+        result[name].update(
+            ms=ms[name], plain_ms=plain_fwd if name == "fwd" else plain_bwd,
+            library_ms=lib_fwd if name == "fwd" else lib_bwd,
+            bound_ms=bound_ms, bound_by=bound_by, bytes_moved=moved, ops=ops)
+        if name != "fwd":
+            result[name].update(
+                plain_computes="dq, dk and dv together",
+                library_computes="dq, dk and dv together (the call's "
+                                 "backward: forward + backward minus forward)",
+                delta_ms=delta_ms)
+        log(f"  {label} {name}: kernel {ms[name]:.4f} ms, plain "
+            f"{result[name]['plain_ms']:.3f} ms, library "
+            f"{result[name]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {moved / 1e6:.1f} MB, {ops:.3e} FLOP)"
+            + (f"; delta in the wrapper {delta_ms:.4f} ms"
+               if name == "dq" else ""))
+    return result
+
+
 # ------------------------------------------------------------ phase 3
 def _http(addr, method, path, payload=None):
     conn = http.client.HTTPConnection(*addr, timeout=600)
@@ -1055,40 +1282,31 @@ def synth_triplets(rng, n: int, doc_words=(100, 129)) -> list:
              "negative": words(*doc_words)} for _ in range(n)]
 
 
-def compare_train_routes(torch, model, cfg, micro, step: int) -> dict:
-    """One micro-batch through the kernel route and through the plain route
-    (pool_impl 'streamed', autograd through the streamed maxima) from the
-    same parameters: loss, the gradients' global norm and every parameter's
-    gradient (norm-relative) must agree. The tied embedding is first rounded
-    to bf16 values in place, so that the kernels' bf16 operands and the
-    streamed path's f32 ones hold the same numbers; the two routes then
-    differ by the order of f32 sums (and the rare argmax a near-tie flips),
-    where a dropped dbias or a backward that finds no argmax moves a
-    gradient by its whole size."""
-    from splade_tpu_torch.train.trainer import compute_autocast, make_loss_fn
-
-    with torch.no_grad():
-        emb = model.mlm.decoder.weight
-        emb.copy_(emb.to(torch.bfloat16).to(emb.dtype))
-    dev = next(model.parameters()).device
-    routes = {}
+def compare_routes(torch, model, routes, set_route, run_loss, what: str,
+                   loss_rtol: float, grad_rtol: float) -> dict:
+    """One micro-batch through two routes of ``model`` from the same
+    parameters: ``routes`` = (the route under test, the route it is held
+    against), ``set_route(name)`` switches the model, ``run_loss()`` returns
+    the loss with the graph. Loss and the gradients' global norm must agree
+    within ``loss_rtol`` and every parameter's gradient (norm-relative)
+    within ``grad_rtol``. The model is left on the first route with no
+    gradients."""
+    found = {}
     try:
-        for impl in ("kernel", "streamed"):
-            model.pool_impl = impl
+        for name in routes:
+            set_route(name)
             model.zero_grad(set_to_none=True)
-            loss, _ = make_loss_fn(
-                model, cfg.loss, 1, packed_query=cfg.model.packed_query_tower,
-                autocast=lambda: compute_autocast(cfg.model, dev))(micro, step)
+            loss = run_loss()
             loss.backward()
             grads = {n: p.grad.detach().clone()
                      for n, p in model.named_parameters() if p.grad is not None}
             norm = torch.sqrt(sum((g.float() ** 2).sum() for g in grads.values()))
-            routes[impl] = (float(loss.detach()), float(norm), grads)
+            found[name] = (float(loss.detach()), float(norm), grads)
     finally:
-        model.pool_impl = "kernel"
+        set_route(routes[0])
         model.zero_grad(set_to_none=True)
     (k_loss, k_norm, k_grads), (p_loss, p_norm, p_grads) = (
-        routes["kernel"], routes["streamed"])
+        found[routes[0]], found[routes[1]])
     loss_err = abs(k_loss - p_loss) / max(abs(p_loss), 1e-12)
     norm_err = abs(k_norm - p_norm) / max(p_norm, 1e-12)
     tensor_err = {}
@@ -1100,40 +1318,187 @@ def compare_train_routes(torch, model, cfg, micro, step: int) -> dict:
         tensor_err[name] = float((k_grads[name].float() - ref).norm()
                                  / ref.norm().clamp_min(1e-30))
     worst = max(tensor_err, key=tensor_err.get)
-    out = dict(loss_kernel=k_loss, loss_plain=p_loss, loss_rel_err=loss_err,
-               grad_norm_kernel=k_norm, grad_norm_plain=p_norm,
-               grad_norm_rel_err=norm_err, worst_tensor=worst,
-               worst_tensor_rel_err=tensor_err[worst],
-               tensors=len(tensor_err), loss_rtol=TRAIN_RTOL,
-               grad_rtol=TRAIN_GRAD_RTOL)
-    log(f"  kernel vs plain route, one micro-batch: loss {k_loss:.6f} vs "
-        f"{p_loss:.6f} (rel {loss_err:.2e}), grad_norm {k_norm:.6f} vs "
-        f"{p_norm:.6f} (rel {norm_err:.2e}), worst of {len(tensor_err)} "
-        f"gradients {worst} {tensor_err[worst]:.2e} (tol {TRAIN_RTOL} / "
-        f"{TRAIN_GRAD_RTOL})")
-    if not (loss_err <= TRAIN_RTOL and norm_err <= TRAIN_RTOL
-            and tensor_err[worst] <= TRAIN_GRAD_RTOL):
-        raise SystemExit("training: the kernel route's loss or gradients "
-                         "differ from the plain route's")
+    finite = all(bool(torch.isfinite(g).all()) for g in k_grads.values())
+    shared = set(k_grads) & set(p_grads)
+    all_err = float(torch.sqrt(sum(
+        ((k_grads[n].float() - p_grads[n].float()) ** 2).sum()
+        for n in shared))) / max(p_norm, 1e-30)
+    out = {f"loss_{routes[0]}": k_loss, f"loss_{routes[1]}": p_loss,
+           "loss_rel_err": loss_err, f"grad_norm_{routes[0]}": k_norm,
+           f"grad_norm_{routes[1]}": p_norm, "grad_norm_rel_err": norm_err,
+           "worst_tensor": worst, "worst_tensor_rel_err": tensor_err[worst],
+           "all_gradients_rel_err": all_err,
+           "tensors": len(tensor_err), "finite": finite,
+           "loss_rtol": loss_rtol, "grad_rtol": grad_rtol}
+    log(f"  {routes[0]} vs {routes[1]} route, one micro-batch: loss "
+        f"{k_loss:.6f} vs {p_loss:.6f} (rel {loss_err:.2e}), grad_norm "
+        f"{k_norm:.6f} vs {p_norm:.6f} (rel {norm_err:.2e}), worst of "
+        f"{len(tensor_err)} gradients {worst} {tensor_err[worst]:.2e}, all "
+        f"gradients together {all_err:.2e} (tol {loss_rtol:.3g} / "
+        f"{grad_rtol:.3g})")
+    if not (finite and loss_err <= loss_rtol and norm_err <= loss_rtol
+            and tensor_err[worst] <= grad_rtol):
+        raise SystemExit(f"{what}: the {routes[0]} route's loss or gradients "
+                         f"differ from the {routes[1]} route's")
     return out
 
 
-def _launch_counts():
-    from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_dh,
-                                                   fused_splade_bwd_dw,
-                                                   fused_splade_pool)
+def compare_train_routes(torch, model, cfg, micro, step: int) -> dict:
+    """One micro-batch through the kernel route and through the plain route
+    (pool_impl 'streamed', autograd through the streamed maxima) from the
+    same parameters (``compare_routes``). The tied embedding is first rounded
+    to bf16 values in place, so that the kernels' bf16 operands and the
+    streamed path's f32 ones hold the same numbers; the two routes then
+    differ by the order of f32 sums (and the rare argmax a near-tie flips),
+    where a dropped dbias or a backward that finds no argmax moves a
+    gradient by its whole size."""
+    from splade_tpu_torch.train.trainer import compute_autocast, make_loss_fn
 
-    return {"fused_splade_pool": fused_splade_pool.launches,
-            "fused_splade_bwd_dh": fused_splade_bwd_dh.launches,
-            "fused_splade_bwd_dw": fused_splade_bwd_dw.launches}
+    with torch.no_grad():
+        emb = model.mlm.decoder.weight
+        emb.copy_(emb.to(torch.bfloat16).to(emb.dtype))
+    dev = next(model.parameters()).device
+    loss_fn = make_loss_fn(
+        model, cfg.loss, 1, packed_query=cfg.model.packed_query_tower,
+        autocast=lambda: compute_autocast(cfg.model, dev))
+    return compare_routes(
+        torch, model, ("kernel", "plain"),
+        lambda name: setattr(model, "pool_impl",
+                             "kernel" if name == "kernel" else "streamed"),
+        lambda: loss_fn(micro, step)[0], "training", TRAIN_RTOL,
+        TRAIN_GRAD_RTOL)
 
 
-def _reset_launch_counts():
-    from splade_tpu_torch.ops import fused_splade
+def sdpa_forward_with_f32_scores(self, x, attn_bias, cos, sin, seg=None):
+    """``ModernBertAttention.forward``'s sdpa route with one change: under
+    autocast the q . k product is taken in f32 on the bf16 operands, where
+    the model's own rounds the scores to bf16. A measuring instrument: the
+    gradients it gives differ from the sdpa route's by rounding noise alone,
+    which is the floor under any comparison of two attention routes."""
+    import math
 
-    for fn in (fused_splade.fused_splade_pool, fused_splade.fused_splade_bwd_dh,
-               fused_splade.fused_splade_bwd_dw):
+    import torch
+
+    from splade_tpu_torch.models.modernbert import apply_rope
+
+    B, S, H = x.shape
+    qkv = self.Wqkv(x).view(B, S, 3, self.n_heads, self.head_dim)
+    q, k, v = qkv.unbind(2)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    operand = (torch.get_autocast_dtype(x.device.type)
+               if torch.is_autocast_enabled(x.device.type) else q.dtype)
+    with torch.autocast(x.device.type, enabled=False):
+        scores = torch.einsum("bqnd,bknd->bnqk", q.to(operand).float(),
+                              k.to(operand).float())
+    scores = scores / math.sqrt(self.head_dim) + attn_bias
+    probs = torch.softmax(scores, dim=-1).to(x.dtype)
+    out = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(B, S, H)
+    return self.Wo(out)
+
+
+def compare_attention_routes(torch, mlm_model, run_loss, what: str) -> dict:
+    """One micro-batch through ``attention_impl`` "splash" (the hand-written
+    attention kernels on the card) and "sdpa" (the plain attention) from the
+    same parameters and batch (``compare_routes``): valid positions compute
+    the same function in both, padded ones feed nothing that is read. First
+    the noise floor: the sdpa route with its scores kept in f32
+    (``sdpa_forward_with_f32_scores``) against the sdpa route; each gradient
+    tensor of the splash route is then held to twice the floor's worst
+    tensor, within the bounds of SPLASH_TRAIN_GRAD_RTOL."""
+    import dataclasses
+
+    from splade_tpu_torch.models.modernbert import ModernBertAttention
+
+    own_forward = ModernBertAttention.forward
+
+    def set_route(name):
+        mlm_model.config = dataclasses.replace(
+            mlm_model.config,
+            attention_impl="splash" if name == "splash" else "sdpa")
+        ModernBertAttention.forward = (
+            sdpa_forward_with_f32_scores if name == "sdpa_f32_scores"
+            else own_forward)
+
+    least, most = SPLASH_TRAIN_GRAD_RTOL
+    try:
+        floor = compare_routes(torch, mlm_model, ("sdpa_f32_scores", "sdpa"),
+                               set_route, run_loss, what, float("inf"),
+                               float("inf"))
+        out = compare_routes(
+            torch, mlm_model, ("splash", "sdpa"), set_route, run_loss, what,
+            SPLASH_TRAIN_RTOL,
+            min(max(2 * floor["worst_tensor_rel_err"], least), most))
+    finally:
+        set_route("splash")
+    out["noise_floor"] = {k: floor[k] for k in (
+        "loss_rel_err", "grad_norm_rel_err", "worst_tensor",
+        "worst_tensor_rel_err", "all_gradients_rel_err")}
+    return out
+
+
+def device_gb_in_use(torch, device: str):
+    """Device memory still allocated once unreachable objects of earlier
+    phases are collected: what a phase's peak stands on (None on the CPU)."""
+    import gc
+
+    if device != "cuda":
+        return None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return torch.cuda.memory_allocated() / 1e9
+
+
+def _counted_kernels() -> dict:
+    """name -> the wrapper whose ``launches`` counts that kernel, for the
+    kernels a training path can launch: the per-row pool family and the
+    splash attention."""
+    from splade_tpu_torch.ops import fused_splade, splash_attention
+
+    return {"fused_splade_pool": fused_splade.fused_splade_pool,
+            "fused_splade_bwd_dh": fused_splade.fused_splade_bwd_dh,
+            "fused_splade_bwd_dw": fused_splade.fused_splade_bwd_dw,
+            "splash_attention": splash_attention.splash_attention,
+            "splash_attention_bwd_dq":
+                splash_attention.splash_attention_bwd_dq,
+            "splash_attention_bwd_dkv":
+                splash_attention.splash_attention_bwd_dkv}
+
+
+def _launch_counts() -> dict:
+    return {name: fn.launches for name, fn in _counted_kernels().items()}
+
+
+def _reset_launch_counts() -> None:
+    for fn in _counted_kernels().values():
         fn.launches = 0
+
+
+def expected_launches(model_config, accum: int, steps: int,
+                      pool_per_micro: int) -> dict:
+    """Launches ``steps`` optimizer steps of ``accum`` micro-batches must
+    count, from the code: the pool kernels ``pool_per_micro`` times a
+    micro-batch each (2 in the V33 step: documents and queries; 0 in MLM);
+    with attention_impl "splash" every layer launches the attention forward
+    once (twice under layer recompute, whose backward re-runs it) and each
+    backward kernel once; with "sdpa" none."""
+    layers = (model_config.num_hidden_layers
+              if model_config.attention_impl == "splash" else 0)
+    micro = accum * steps
+    return {"fused_splade_pool": pool_per_micro * micro,
+            "fused_splade_bwd_dh": pool_per_micro * micro,
+            "fused_splade_bwd_dw": pool_per_micro * micro,
+            "splash_attention": layers * (2 if model_config.remat else 1)
+            * micro,
+            "splash_attention_bwd_dq": layers * micro,
+            "splash_attention_bwd_dkv": layers * micro}
+
+
+def hold_launches(what: str, got: dict, want: dict) -> None:
+    """Fail on any launch count that is not the one the code implies."""
+    log(f"  {what}: kernel launches {got}, expected {want}")
+    if got != want:
+        raise SystemExit(f"{what}: kernel launches {got}, expected {want}")
 
 
 def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
@@ -1158,6 +1523,7 @@ def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
     workdir = Path(workdir)
     shutil.rmtree(workdir, ignore_errors=True)
     workdir.mkdir(parents=True)
+    gb_at_start = device_gb_in_use(torch, device)
     cfg_dict = json.loads(json.dumps(recipe))
     cfg_dict["data"]["train_files"] = [str(workdir / "train_*.jsonl")]
     cfg_dict["data"]["val_files"] = []
@@ -1250,9 +1616,10 @@ def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
     per_opt_step = {k: v / steps for k, v in launches.items()}
     log(f"  {steps} steps in {wall:.2f} s: {triplets / wall:.1f} triplets/s, "
         f"{wall / steps * 1e3:.0f} ms a step (warm-up step {warmup_s:.1f} s); "
-        f"kernel launches a step {per_opt_step} (expected {2 * accum} each); "
+        f"kernel launches a step {per_opt_step}; "
         f"peak device memory "
-        + (f"{peak_gb:.2f} GB" if peak_gb is not None else "not measured"))
+        + (f"{peak_gb:.2f} GB ({gb_at_start:.2f} GB in use before the phase)"
+           if peak_gb is not None else "not measured"))
 
     # one more step: the checkpoint first, then the step under the profiler
     ckpt = save_checkpoint(str(workdir), state, cfg, epoch=1)
@@ -1317,6 +1684,17 @@ def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
     micro = {k: v[0] for k, v in dev_batch.items()}
     plain = compare_train_routes(torch, fresh.model, cfg, micro,
                                  fresh.state.step)
+    attention = None
+    if model_config.attention_impl == "splash":
+        from splade_tpu_torch.train.trainer import (compute_autocast,
+                                                    make_loss_fn)
+        loss_fn = make_loss_fn(
+            fresh.model, cfg.loss, 1,
+            packed_query=cfg.model.packed_query_tower,
+            autocast=lambda: compute_autocast(cfg.model, fresh.device))
+        attention = compare_attention_routes(
+            torch, fresh.model.mlm,
+            lambda: loss_fn(micro, fresh.state.step)[0], "training")
     shutil.rmtree(workdir, ignore_errors=True)
     return dict(recipe=recipe, model_params=n_params, triplets=len(data),
                 mean_tokens=fill, steps=per_step,
@@ -1324,8 +1702,10 @@ def train_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
                 triplets_per_s=triplets / wall, step_ms=wall / steps * 1e3,
                 warmup_step_s=warmup_s, launches=launches,
                 launches_per_step=per_opt_step, peak_device_gb=peak_gb,
+                device_gb_at_start=gb_at_start,
                 profile=prof, profiled_step=live, resume=resume,
-                plain_route=plain, watchdog=watchdog)
+                plain_route=plain, attention_route=attention,
+                watchdog=watchdog)
 
 
 # ------------------------------------------------------------ phase 5
@@ -1482,6 +1862,7 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
     workdir = Path(workdir)
     shutil.rmtree(workdir, ignore_errors=True)
     (workdir / "corpus").mkdir(parents=True)
+    gb_at_start = device_gb_in_use(torch, device)
     t0 = time.perf_counter()
     lo, hi = sentence_words
     cuts = rng.integers(lo, hi, n_sentences)
@@ -1526,11 +1907,14 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
               for sig in (signal.SIGTERM, signal.SIGINT)}
     replaced = trainer.install_preemption_handler()
     killer = _sigterm_after(trainer, 1 + steps)
+    _reset_launch_counts()
     try:
         t0 = time.perf_counter()
         state = trainer.train()
         sync()
         run_s = time.perf_counter() - t0
+        launches = _launch_counts()
+        steps_run = state.step  # the warm-up step among them
     finally:
         for sig, handler in replaced.items():
             signal.signal(sig, handler)
@@ -1573,7 +1957,8 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
         f"{step_ms:.0f} ms a step of {tokens_per_step} tokens (warm-up "
         f"step {records[0]['time']:.1f} s after the tracker's start); peak "
         f"device memory "
-        + (f"{peak_gb:.2f} GB" if peak_gb is not None else "not measured"))
+        + (f"{peak_gb:.2f} GB ({gb_at_start:.2f} GB in use before the phase)"
+           if peak_gb is not None else "not measured"))
 
     # the next step: live under the profiler, then resumed from the
     # checkpoint by a fresh trainer; both must be bitwise equal
@@ -1629,6 +2014,13 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
         f"{evaluation}")
     if not (evaluation and np.isfinite(evaluation["mlm_loss"])):
         raise SystemExit("MLM: held-out evaluation gave nothing finite")
+    attention = None
+    if model_config.attention_impl == "splash":
+        micro = {"input_ids": dev_batch["input_ids"][0]}
+        attention = compare_attention_routes(
+            torch, state.model, lambda: trainer.loss_fn(
+                micro, torch.Generator(device=trainer.device).manual_seed(
+                    seed))[0], "MLM")
 
     # final model -> from_checkpoint -> the in-memory weights' vectors ->
     # a served engine
@@ -1677,11 +2069,13 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
                        for r in records],
                 measured_steps=steps, wall_s=wall, tokens_per_s=tokens_per_s,
                 step_ms=step_ms, tokens_per_step=tokens_per_step,
-                peak_device_gb=peak_gb, remat=model_config.remat,
+                peak_device_gb=peak_gb, device_gb_at_start=gb_at_start,
+                remat=model_config.remat,
                 preemption=preempt, profile=prof, profiled_step=live,
                 resume=resume, evaluation=evaluation,
                 from_checkpoint_max_rel_diff=worst, served=served,
-                v2_path=v2)
+                v2_path=v2, launches=launches, steps_run=steps_run,
+                attention_route=attention)
 
 
 def main() -> int:
@@ -1749,6 +2143,18 @@ def main() -> int:
     bwd_d, bwd_q = (check_pool_backward(torch, model, tok, rng, B, S)
                     for B, S in TRAIN_POOL_SHAPES)
     torch.cuda.empty_cache()
+    # the attention kernels at the training micro-batches (packed query rows
+    # at 256 positions, as the V33 step has them) and at a ragged length;
+    # their inputs come from a stream of their own, so the phases after this
+    # one draw the corpus, queries and triplets they always drew
+    splash_rng = np.random.default_rng([args.seed, 4])
+    splash = {(B, S, hw): check_splash(torch, splash_rng, B, S, hw,
+                                       packed=S == 256)
+              for B, S in SPLASH_SHAPES for hw in SPLASH_WINDOWS}
+    splash_ragged = [check_splash(torch, splash_rng, *SPLASH_RAGGED, hw,
+                                  packed=False, timed=False)
+                     for hw in SPLASH_WINDOWS]
+    torch.cuda.empty_cache()
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. the serving path
@@ -1814,17 +2220,10 @@ def main() -> int:
         / "chip_smoke_train", args.seed, v33_recipe(),
         ModernBertConfig(remat=True))
     train_launches = training["launches"]
-    log(f"[4] done in {time.perf_counter() - t0:.1f} s; kernel launches on "
-        f"the path {train_launches}")
+    log(f"[4] done in {time.perf_counter() - t0:.1f} s")
     accum = v33_recipe()["training"]["gradient_accumulation_steps"]
-    for name, n in train_launches.items():
-        if n <= 0:
-            raise SystemExit(f"kernel {name} was not launched on the "
-                             "training path")
-        if n != 2 * accum * training["measured_steps"]:
-            raise SystemExit(f"kernel {name}: {n} launches over "
-                             f"{training['measured_steps']} steps, expected "
-                             f"{2 * accum} a step")
+    hold_launches("V33 training path", train_launches, expected_launches(
+        ModernBertConfig(remat=True), accum, training["measured_steps"], 2))
     torch.cuda.empty_cache()
 
     # ---- 5. MLM pre-training at full width, and the row-blocked pool's path
@@ -1840,6 +2239,10 @@ def main() -> int:
     # the path's launches are at shapes, and at a row_block, that phase 2
     # held against the plain versions
     from splade_tpu_torch.ops.fused_splade_v2 import pick_row_block
+    hold_launches("MLM pre-training path", pretraining["launches"],
+                  expected_launches(ModernBertConfig(),
+                                    mlm_recipe()["grad_accum"],
+                                    pretraining["steps_run"], 0))
     for B, S in pretraining["v2_path"]["shapes"]:
         if ((B, S) not in TRAIN_POOL_SHAPES
                 or pick_row_block(B) not in V2_ROW_BLOCKS):
@@ -1849,6 +2252,59 @@ def main() -> int:
         if n != len(pretraining["v2_path"]["shapes"]):
             raise SystemExit(f"kernel {name}: {n} launches on the "
                              "row-blocked pool's path, expected one a batch")
+
+    torch.cuda.empty_cache()
+
+    # ---- 6. both training paths through the attention kernels
+    log("[6] attention_impl=\"splash\": the V33 recipe and the MLM recipe at "
+        "22L/768/50K through the splash attention kernels")
+    t0 = time.perf_counter()
+    splash_v33_config = ModernBertConfig(remat=True, attention_impl="splash")
+    splash_training = train_phase(
+        torch, tok, rng, Path(__file__).resolve().parent / "build"
+        / "chip_smoke_train_splash", args.seed, v33_recipe(),
+        splash_v33_config)
+    hold_launches("V33 training path, splash", splash_training["launches"],
+                  expected_launches(splash_v33_config, accum,
+                                    splash_training["measured_steps"], 2))
+    torch.cuda.empty_cache()
+    splash_mlm_config = ModernBertConfig(attention_impl="splash")
+    splash_pretraining = mlm_phase(
+        torch, tok, rng, Path(__file__).resolve().parent / "build"
+        / "chip_smoke_mlm_splash", args.seed, mlm_recipe(), splash_mlm_config,
+        checkpoint_config=splash_mlm_config)
+    hold_launches("MLM pre-training path, splash",
+                  splash_pretraining["launches"],
+                  expected_launches(splash_mlm_config,
+                                    mlm_recipe()["grad_accum"],
+                                    splash_pretraining["steps_run"], 0))
+    for name, sdpa, spl in (("V33", training, splash_training),
+                            ("MLM", pretraining, splash_pretraining)):
+        rate = "triplets_per_s" if name == "V33" else "tokens_per_s"
+        line = (f"  {name} splash vs sdpa: {spl[rate]:.1f} vs "
+                f"{sdpa[rate]:.1f} {rate.replace('_per_s', '/s')}, "
+                f"{spl['step_ms']:.0f} vs {sdpa['step_ms']:.0f} ms a step, "
+                f"peak {spl['peak_device_gb']:.2f} vs "
+                f"{sdpa['peak_device_gb']:.2f} GB")
+        if spl["profile"] and spl["profile"]["device_busy_ms"] is not None:
+            top = lambda run: ", ".join(
+                f"{k[:52]} {v:.1f}" for k, v in
+                list(run["profile"]["top_kernels_ms"].items())[:4])
+            line += (f"; profiled step busy "
+                     f"{spl['profile']['device_busy_ms']:.1f} vs "
+                     f"{sdpa['profile']['device_busy_ms']:.1f} ms, idle "
+                     f"{spl['profile']['device_idle_share']:.1%} vs "
+                     f"{sdpa['profile']['device_idle_share']:.1%}; top "
+                     f"device items, ms a step, splash: {top(spl)}; sdpa: "
+                     f"{top(sdpa)}")
+        log(line)
+    log(f"[6] done in {time.perf_counter() - t0:.1f} s")
+    splash_launches = {
+        name: {"V33 training, splash": splash_training["launches"][name],
+               "MLM pre-training, splash":
+                   splash_pretraining["launches"][name]}
+        for name in ("splash_attention", "splash_attention_bwd_dq",
+                     "splash_attention_bwd_dkv")}
 
     kernels = [
         dict(name="fused_splade_pool", route="cuda",
@@ -1914,11 +2370,36 @@ def main() -> int:
             **{k: shapes[0][k] for k in keys},
             max_abs_err_all=max(x["max_abs_err"] for x in shapes),
             shapes=shapes))
+    # the attention kernels: the headline numbers are the V33 micro-batch on
+    # a local layer (14 of the 22); every shape and window under "shapes"
+    head = (*SPLASH_SHAPES[0], SPLASH_WINDOWS[0])
+    for name, which, source in (
+            ("splash_attention", "fwd", "splash_attention_fwd.cu"),
+            ("splash_attention_bwd_dq", "dq", "splash_attention_bwd.cu"),
+            ("splash_attention_bwd_dkv", "dkv", "splash_attention_bwd.cu")):
+        shapes = ([splash[head][which]]
+                  + [x[which] for key, x in splash.items() if key != head]
+                  + [x[which] for x in splash_ragged])
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"splade_tpu_torch/csrc/{source}",
+            replaces="splade_tpu/models/modernbert.py:140",
+            launches=sum(splash_launches[name].values()),
+            launches_by_path=splash_launches[name],
+            **{k: shapes[0][k] for k in keys},
+            max_abs_err_all=max(x["max_abs_err"] for x in shapes),
+            shapes=shapes))
+    for entry in kernels:
+        if entry["launches"] <= 0:
+            raise SystemExit(f"kernel {entry['name']} was launched no time on "
+                             "its path")
     log(json.dumps({"serving": serving, "batch_profiles": profiles,
                     "doc_encode_max_rel_diff": doc_encode_diff,
                     "peak_device_gb": peak_gb}))
     log(json.dumps({"training": training}))
-    log(json.dumps({"pretraining": pretraining,
+    log(json.dumps({"pretraining": pretraining}))
+    log(json.dumps({"splash": {"training": splash_training,
+                               "pretraining": splash_pretraining},
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

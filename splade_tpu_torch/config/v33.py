@@ -39,9 +39,10 @@ class V33ModelConfig:
     XLA-streamed path, with the same numbers); 'xla' = the reference-shaped
     full-logits path for parity testing."""
     attention_impl: str = "sdpa"
-    """'sdpa' | 'splash': 'splash' is the JAX package's TPU-only Pallas
-    splash attention, which falls back to sdpa off the TPU; the port always
-    computes sdpa's math (splash is ROADMAP.md §2 item 6)."""
+    """'sdpa' | 'splash': 'splash' takes the port's sliding-window +
+    segment-id flash attention kernels (ops/splash_attention.py), the
+    counterpart of the JAX package's Pallas splash attention; unlike that
+    one it runs at every sequence length and has no fallback to sdpa."""
     packed_query_tower: bool = True
     """Pack doc_len//query_len queries per doc-shaped row (segment-masked
     attention, per-segment RoPE) and run queries + docs as ONE backbone

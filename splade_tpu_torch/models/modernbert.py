@@ -8,8 +8,16 @@ rotate-half convention with global layers (every 3rd, theta 160000) and
 local layers (theta 10000, a +/-64 sliding window), and a tied MLM decoder
 with bias.
 
-Attention is the JAX package's plain math: QKV product, RoPE, scores in f32
-plus an additive mask (-1e30, not -inf), softmax, V product. The model
+Attention has the JAX package's two routes (``config.attention_impl``).
+"sdpa", the default, is its plain math: QKV product, RoPE, scores in f32 plus
+an additive mask (-1e30, not -inf), softmax, V product. "splash" is the
+counterpart of its Pallas splash attention: the hand-written Hopper kernels
+of ``ops/splash_attention.py``, which apply the sliding window and the
+segment ids (padding and packing) inside the kernel and never write the
+[B, N, S, S] scores to device memory; no bias tensors are built on that
+route. JAX takes it only on a TPU and only when S % 128 == 0; the port's
+kernels take every S and run wherever the model does (on CPU tensors the
+wrapper computes its plain version). The model
 computes in the dtype of its parameters (bf16 when serving on the card, f32
 in the parity tests). Training keeps f32 parameters and computes in bf16
 under ``torch.autocast``, the counterpart of JAX's ``dtype: bfloat16``;
@@ -34,6 +42,11 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from splade_tpu_torch.ops.splash_attention import (segment_ids_with_padding,
+                                                   splash_attention)
+
+ATTENTION_IMPLS = ("sdpa", "splash")
+
 # Large finite negative for additive masks: -inf would NaN fully masked rows
 # (padded queries whose whole window is padding) and leak into valid rows.
 MASK_NEG = -1e30
@@ -56,6 +69,16 @@ class ModernBertConfig:
     decoder_bias: bool = True
     remat: bool = False
     """Recompute each layer's activations in the backward pass."""
+    attention_impl: str = "sdpa"
+    """'sdpa': batched einsum + additive-mask softmax. 'splash': the
+    sliding-window + segment-id flash attention kernels
+    (ops/splash_attention.py); same numbers at valid positions up to
+    rounding, finite but different ones at padded positions."""
+
+    def __post_init__(self) -> None:
+        if self.attention_impl not in ATTENTION_IMPLS:
+            raise ValueError(f"attention_impl {self.attention_impl!r} not in "
+                             f"{ATTENTION_IMPLS}")
 
     @property
     def head_dim(self) -> int:
@@ -66,7 +89,7 @@ class ModernBertConfig:
 
     @classmethod
     def from_hf_dict(cls, d: Dict[str, Any], **over: Any) -> "ModernBertConfig":
-        keys = {f.name for f in dataclasses.fields(cls)}
+        keys = {f.name for f in dataclasses.fields(cls)} - {"attention_impl"}
         kw = {k: d[k] for k in keys if k in d}
         kw.update(over)
         return cls(**kw)
@@ -121,21 +144,30 @@ def _norm(config: ModernBertConfig) -> nn.LayerNorm:
 
 
 class ModernBertAttention(nn.Module):
-    def __init__(self, config: ModernBertConfig):
+    def __init__(self, config: ModernBertConfig, layer_id: int):
         super().__init__()
         H = config.hidden_size
         self.n_heads = config.num_attention_heads
         self.head_dim = config.head_dim
+        # the splash route's window: 0 (full attention) on global layers
+        self.half_window = (0 if config.is_global_layer(layer_id)
+                            else config.local_attention // 2)
         self.Wqkv = nn.Linear(H, 3 * H, bias=False)
         self.Wo = nn.Linear(H, H, bias=False)
 
-    def forward(self, x: torch.Tensor, attn_bias: torch.Tensor,
-                cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_bias: Optional[torch.Tensor],
+                cos: torch.Tensor, sin: torch.Tensor,
+                seg: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, S, H = x.shape
         qkv = self.Wqkv(x).view(B, S, 3, self.n_heads, self.head_dim)
         q, k, v = qkv.unbind(2)                           # [B, S, N, D]
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
+        if seg is not None:
+            # splash route: seg carries padding and packing, attn_bias unused
+            out = splash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                                   v.transpose(1, 2), seg, self.half_window)
+            return self.Wo(out.reshape(B, S, H))
         # [B, N, S, S] scores in f32 for a stable softmax
         scores = torch.einsum("bqnd,bknd->bnqk", q, k).to(torch.float32)
         scores = scores / math.sqrt(self.head_dim) + attn_bias
@@ -164,12 +196,12 @@ class ModernBertLayer(nn.Module):
         super().__init__()
         # layer 0 has no attention pre-norm (the embedding norm covers it)
         self.attn_norm = nn.Identity() if layer_id == 0 else _norm(config)
-        self.attn = ModernBertAttention(config)
+        self.attn = ModernBertAttention(config, layer_id)
         self.mlp_norm = _norm(config)
         self.mlp = ModernBertMLP(config)
 
-    def forward(self, x, attn_bias, cos, sin):
-        x = x + self.attn(self.attn_norm(x), attn_bias, cos, sin)
+    def forward(self, x, attn_bias, cos, sin, seg=None):
+        x = x + self.attn(self.attn_norm(x), attn_bias, cos, sin, seg)
         return x + self.mlp(self.mlp_norm(x))
 
 
@@ -231,14 +263,21 @@ class ModernBertForMaskedLM(nn.Module):
         dev = input_ids.device
         emb = self.model.embeddings
         x = emb.norm(emb.tok_embeddings(input_ids))
-        key_ok = attention_mask.to(torch.bool)[:, None, :]        # [B, 1, S]
-        if segment_ids is not None:
-            key_ok = key_ok & (segment_ids[:, :, None]
-                               == segment_ids[:, None, :])         # [B, S, S]
-        pad_bias = torch.where(key_ok[:, None], 0.0, MASK_NEG).to(
-            torch.float32)                                # [B, 1, 1|S, S]
-        local_bias = pad_bias + sliding_window_bias(
-            S, cfg.local_attention // 2, dev)[None, None]
+        if cfg.attention_impl == "splash":
+            # padding and packing both ride the kernels' segment ids; the
+            # [B, 1, S, S] bias tensors are not built
+            seg = segment_ids_with_padding(attention_mask, segment_ids)
+            pad_bias = local_bias = None
+        else:
+            seg = None
+            key_ok = attention_mask.to(torch.bool)[:, None, :]    # [B, 1, S]
+            if segment_ids is not None:
+                key_ok = key_ok & (segment_ids[:, :, None]
+                                   == segment_ids[:, None, :])     # [B, S, S]
+            pad_bias = torch.where(key_ok[:, None], 0.0, MASK_NEG).to(
+                torch.float32)                            # [B, 1, 1|S, S]
+            local_bias = pad_bias + sliding_window_bias(
+                S, cfg.local_attention // 2, dev)[None, None]
         dtype = x.dtype
         g_cos, g_sin = rope_cos_sin(S, cfg.head_dim, cfg.global_rope_theta,
                                     dtype, dev)
@@ -249,8 +288,8 @@ class ModernBertForMaskedLM(nn.Module):
             l_cos, l_sin = l_cos[positions], l_sin[positions]
         remat = cfg.remat and torch.is_grad_enabled()
         for i, layer in enumerate(self.model.layers):
-            args = ((pad_bias, g_cos, g_sin) if cfg.is_global_layer(i)
-                    else (local_bias, l_cos, l_sin))
+            args = ((pad_bias, g_cos, g_sin, seg) if cfg.is_global_layer(i)
+                    else (local_bias, l_cos, l_sin, seg))
             if remat:
                 x = checkpoint(layer, x, *args, use_reentrant=False)
             else:

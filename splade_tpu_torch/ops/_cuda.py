@@ -33,6 +33,11 @@ CFLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+#: what the splash attention entries take after their pointers: the strides of
+#: q, k and v (batch row, head, position), B, N, S, D, half_window, scale, stream
+_SPLASH_TAIL = [_L] * 9 + [_I] * 5 + [_F, _P]
 #: C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
     "splade_fused_pool_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -51,6 +56,9 @@ SIGNATURES: Dict[str, List] = {
     # (H, RB) -> bytes of dynamic shared memory, not an error code
     "splade_fused_pool_v2_fwd_shared_bytes": [_I, _I],
     "splade_fused_pool_v2_bwd_shared_bytes": [_I, _I],
+    "splade_splash_attn_fwd": [_P] * 6 + _SPLASH_TAIL,
+    "splade_splash_attn_bwd_dq": [_P] * 8 + _SPLASH_TAIL,
+    "splade_splash_attn_bwd_dkv": [_P] * 9 + _SPLASH_TAIL,
 }
 
 

@@ -117,7 +117,8 @@ def main(argv: Optional[list] = None) -> int:
     )
     mconfig = ModernBertConfig(vocab_size=len(tokenizer),
                                pad_token_id=tokenizer.pad_token_id,
-                               remat=cfg.model.remat)
+                               remat=cfg.model.remat,
+                               attention_impl=cfg.model.attention_impl)
     model = SpladeEncoder(
         mconfig, pool_impl=POOL_MAPPING[cfg.model.fused_splade_head],
         with_token_weights=False, device=device,

@@ -85,8 +85,9 @@ class MLMConfig:
     """'bfloat16' runs the model under torch.autocast(bfloat16) over f32
     parameters; 'float32' computes in f32."""
     attention_impl: str = "sdpa"
-    """'sdpa' | 'splash'. 'splash' is the JAX package's TPU-only Pallas
-    splash attention; the port computes sdpa's math under either value."""
+    """'sdpa' | 'splash' (the flash attention kernels of
+    ops/splash_attention.py, at every max_length; see
+    V33ModelConfig.attention_impl)."""
     watchdog_timeout_s: float = 0.0
     """>0 arms the hang watchdog (see V33TrainingConfig.watchdog_timeout_s)."""
 
@@ -576,6 +577,7 @@ def main(argv: Optional[list] = None) -> int:
     logger.info("packed %d rows of %d tokens", len(rows), cfg.max_length)
 
     mconfig = ModernBertConfig(vocab_size=len(tokenizer), remat=cfg.remat,
+                               attention_impl=cfg.attention_impl,
                                pad_token_id=tokenizer.pad_token_id)
     # the SPLADE wrapper's seeded initialiser, then its MLM model alone
     model: ModernBertForMaskedLM = SpladeEncoder(

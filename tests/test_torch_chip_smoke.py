@@ -15,7 +15,12 @@ configs/train_v33.yaml's. So does phase 5 (MLM pre-training with its
 SIGTERM, resume, from_checkpoint, served engine and the row-blocked pool's
 path), whose recipe must be configs/pretrain_mlm.yaml's, and phase 2's
 comparisons of both pool families (on the CPU every family runs its plain
-versions, so they must pass, and a faulty backward must fail)."""
+versions, so they must pass, and a faulty backward must fail). The splash
+attention's phase-2 check must pass the plain versions and fail a forward
+whose window is off by one and a backward that drops delta; phase 6 (both
+training paths with attention_impl="splash") runs at a tiny size, its route
+comparison must fail a backward that loses dv, and the launch counts it
+expects must be the ones the code implies."""
 
 import dataclasses
 import importlib.util
@@ -206,9 +211,10 @@ def test_train_phase_runs_on_the_cpu(trained):
     assert out["resume"]["lr"] == pytest.approx(5e-5 * 4 / 9, rel=1e-12)
     assert out["resume"]["step_moved_params"] > 0
     assert out["plain_route"]["loss_rel_err"] <= 1e-5
-    assert out["launches"] == {"fused_splade_pool": 0,
-                               "fused_splade_bwd_dh": 0,
-                               "fused_splade_bwd_dw": 0}  # plain on the CPU
+    assert out["launches"] == dict.fromkeys(
+        ("fused_splade_pool", "fused_splade_bwd_dh", "fused_splade_bwd_dw",
+         "splash_attention", "splash_attention_bwd_dq",
+         "splash_attention_bwd_dkv"), 0)  # plain versions on the CPU
     assert out["triplets"] == 4 * 2 * 6
 
 
@@ -405,3 +411,198 @@ def test_profile_summary_adds_kernels_that_share_a_cut_name():
     busy, top = cs.summarize_spans(spans, n_top=2)
     assert busy == 12.0 + 31.0
     assert list(top.items()) == [(long_a[:60], 0.037), ("gemm", 0.010)]
+
+
+# ---- the splash attention: phase 2's check and phase 6, on the CPU ----------
+def _window_off_by_one(monkeypatch):
+    from splade_tpu_torch.ops import splash_attention as sa
+
+    real = sa.splash_attention_forward
+    monkeypatch.setattr(
+        sa, "splash_attention_forward",
+        lambda q, k, v, seg, hw: real(q, k, v, seg, hw + 1))
+
+
+def _drop_delta(monkeypatch):
+    from splade_tpu_torch.ops import splash_attention as sa
+
+    real_dq, real_dkv = sa.splash_attention_bwd_dq, sa.splash_attention_bwd_dkv
+    monkeypatch.setattr(
+        sa, "splash_attention_bwd_dq",
+        lambda *a: real_dq(*a[:-1], torch.zeros_like(a[-1])))
+    monkeypatch.setattr(
+        sa, "splash_attention_bwd_dkv",
+        lambda *a: real_dkv(*a[:-1], torch.zeros_like(a[-1])))
+
+
+@pytest.mark.parametrize("fault", [None, _window_off_by_one, _drop_delta],
+                         ids=["sound", "window_off_by_one", "drop_delta"])
+@pytest.mark.parametrize("B,S,packed", [(9, 128, True), (3, 100, False)])
+def test_splash_check_catches_a_wrong_window_and_a_dropped_delta(
+        monkeypatch, fault, B, S, packed):
+    """check_splash at a tiny size (2 heads of 16, half window 4; S = 100 is
+    ragged for the 64-row tile): on the CPU the wrappers run the plain
+    versions, so the sound reading is 0; a faulty forward or backward in
+    the wrappers' place must stop the run."""
+    cs = _load_chip_smoke()
+    args = (torch, np.random.default_rng(S), B, S, 4, packed)
+    kw = dict(N=2, D=16, device="cpu", timed=False)
+    if fault is None:
+        out = cs.check_splash(*args, **kw)
+        assert set(out) == {"fwd", "dq", "dkv"}
+        assert all(v["max_abs_err"] == 0.0 for v in out.values())
+        assert out["fwd"]["lse_max_abs_err"] == 0.0
+        assert 0 < out["fwd"]["allowed_pairs"] < B * S * 9
+        return
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match="splash attention kernels disagree"):
+        cs.check_splash(*args, **kw)
+
+
+def test_splash_case_has_padding_packing_and_a_padded_row():
+    cs = _load_chip_smoke()
+    q, k, v, seg, d_out = cs.splash_case(torch, np.random.default_rng(0), 18,
+                                         64, 2, 16, True, device="cpu")
+    assert q.shape == k.shape == v.shape == (18, 2, 64, 16)
+    assert d_out.shape == (18, 64, 2, 16)
+    assert not v.is_contiguous() and v.stride(2) == 3 * 2 * 16  # fused QKV
+    assert bool((seg[0] == 1_000_000).all())          # row 0: all padding
+    real = seg[seg < 1_000_000]
+    assert set(real[real > 0].tolist()) == {1, 2, 3}  # packed segments
+    assert set(seg[:16][seg[:16] < 1_000_000].tolist()) == {0}
+    # half window 0 allows whole segments, a window only the band
+    full = cs.splash_allowed(torch, seg, 0)
+    band = cs.splash_allowed(torch, seg, 4)
+    assert bool((band <= full).all()) and int(band.sum()) < int(full.sum())
+    assert bool(full.diagonal(dim1=1, dim2=2).all())  # every token sees itself
+
+
+def test_expected_launches_follow_the_code():
+    cs = _load_chip_smoke()
+    names = ("fused_splade_pool", "fused_splade_bwd_dh", "fused_splade_bwd_dw",
+             "splash_attention", "splash_attention_bwd_dq",
+             "splash_attention_bwd_dkv")
+    v33 = ModernBertConfig(remat=True, attention_impl="splash")
+    assert cs.expected_launches(v33, 4, 3, 2) == dict(zip(
+        names, (24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12)))
+    mlm = ModernBertConfig(attention_impl="splash")
+    assert cs.expected_launches(mlm, 4, 5, 0) == dict(zip(
+        names, (0, 0, 0, 22 * 20, 22 * 20, 22 * 20)))
+    assert cs.expected_launches(ModernBertConfig(remat=True), 4, 3, 2) == dict(
+        zip(names, (24, 24, 24, 0, 0, 0)))
+    assert set(cs._launch_counts()) == set(names)
+    cs.hold_launches("sound", dict.fromkeys(names, 0),
+                     dict.fromkeys(names, 0))
+    with pytest.raises(SystemExit, match="kernel launches"):
+        cs.hold_launches("one short", dict.fromkeys(names, 0),
+                         dict(dict.fromkeys(names, 0), splash_attention=1))
+
+
+@pytest.fixture(scope="module")
+def trained_splash(tmp_path_factory):
+    """Phase 6's V33 half on the CPU: phase 4's tiny run with
+    attention_impl="splash" (the plain versions of the attention)."""
+    cs = _load_chip_smoke()
+    cfg = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB,
+                              remat=True, attention_impl="splash")
+    out = cs.train_phase(torch, cs.CharTokenizer(), np.random.default_rng(0),
+                         tmp_path_factory.mktemp("train_splash") / "w", 0,
+                         _tiny_recipe(cs), cfg, steps=3, device="cpu",
+                         doc_words=(6, 17))
+    return cs, cfg, out
+
+
+def test_splash_train_phase_runs_on_the_cpu(trained_splash, trained):
+    _, _, out = trained_splash
+    assert [r["step"] for r in out["steps"]] == [1, 2, 3, 4]
+    assert all(np.isfinite(r["loss"]) for r in out["steps"])
+    assert out["resume"]["bitwise"] and out["resume"]["step"] == 5
+    assert set(out["launches"].values()) == {0}  # plain versions on the CPU
+    route = out["attention_route"]
+    assert route["finite"] and route["tensors"] > 10
+    # f32 on the CPU: the two routes differ by the order of sums only
+    assert route["loss_rel_err"] <= 1e-5
+    assert route["worst_tensor_rel_err"] <= 1e-3
+    # and the sdpa run of phase 4 took no attention route comparison
+    assert trained[2]["attention_route"] is None
+    # same data, same weights: the two attention routes train alike
+    for a, b in zip(out["steps"], trained[2]["steps"]):
+        assert a["loss"] == pytest.approx(b["loss"], rel=1e-4)
+
+
+def test_attention_route_check_catches_a_backward_that_loses_dv(
+        trained_splash, monkeypatch):
+    """Phase 6 holds the splash route against the sdpa route: a backward
+    whose dv never arrives must stop the run. (With seeded random weights
+    attention is close to uniform and dq and dk are small beside dv, so a
+    dropped delta moves the worst tensor by about 1e-2 only: that fault is
+    check_splash's to catch, on the kernels themselves.)"""
+    from splade_tpu_torch.ops import splash_attention as sa
+    from splade_tpu_torch.train.trainer import make_loss_fn
+
+    cs, cfg, _ = trained_splash
+    vcfg, micro, model = _micro_and_model(cs, cfg)
+    loss_fn = make_loss_fn(model, vcfg.loss, 1, packed_query=True)
+    run = lambda: loss_fn(micro, 7)[0]
+    sound = cs.compare_attention_routes(torch, model.mlm, run, "training")
+    assert sound["worst_tensor_rel_err"] <= 1e-3
+    assert model.mlm.config.attention_impl == "splash"  # left as it was
+    real = sa.splash_attention_bwd_plain
+
+    def lose_dv(*args):
+        dq, dk, dv = real(*args)
+        return dq, dk, torch.zeros_like(dv)
+
+    monkeypatch.setattr(sa, "splash_attention_bwd_plain", lose_dv)
+    with pytest.raises(SystemExit, match="differ from the sdpa route"):
+        cs.compare_attention_routes(torch, model.mlm, run, "training")
+
+
+def test_noise_floor_forward_is_the_models_sdpa_forward_in_f32(trained_splash):
+    """chip_smoke's measuring instrument repeats the model's sdpa attention
+    with the scores kept in f32 under autocast; without autocast it must be
+    the model's own forward to the bit, and the route comparison must leave
+    the model's forward in place."""
+    from splade_tpu_torch.models.modernbert import (ModernBertAttention,
+                                                    rope_cos_sin)
+
+    cs, cfg, out = trained_splash
+    own = ModernBertAttention.forward
+    attn = ModernBertAttention(cfg, 1)
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(2, 12, cfg.hidden_size, generator=g)
+    bias = torch.zeros(2, 1, 1, 12)
+    bias[0, ..., 9:] = -1e30
+    cos, sin = rope_cos_sin(12, cfg.head_dim, 10000.0)
+    with torch.no_grad():
+        want = attn(x, bias, cos, sin)
+        got = cs.sdpa_forward_with_f32_scores(attn, x, bias, cos, sin)
+    assert torch.equal(got, want)
+    assert ModernBertAttention.forward is own
+    floor = out["attention_route"]["noise_floor"]
+    assert floor["worst_tensor_rel_err"] == 0.0  # f32 here: no rounding to find
+
+
+def test_splash_mlm_phase_runs_on_the_cpu(tmp_path):
+    """Phase 6's MLM half on the CPU: phase 5's tiny run with
+    attention_impl="splash", the checkpoint loaded on the same route."""
+    import signal
+
+    cs = _load_chip_smoke()
+    cfg = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB,
+                              attention_impl="splash")
+    recipe = dict(cs.mlm_recipe(), max_length=32, batch_size=2, grad_accum=2,
+                  dtype="float32")
+    before = {s: signal.getsignal(s) for s in (signal.SIGTERM, signal.SIGINT)}
+    out = cs.mlm_phase(torch, cs.CharTokenizer(), np.random.default_rng(0),
+                       tmp_path / "w", 0, recipe, cfg, steps=3, device="cpu",
+                       n_sentences=400, sentence_words=(6, 12),
+                       v2_shapes=((4, 16),), checkpoint_config=cfg)
+    assert {s: signal.getsignal(s) for s in before} == before
+    assert out["resume"]["bitwise"]
+    assert out["steps_run"] == out["preemption"]["stopped_at_step"] >= 4
+    assert set(out["launches"].values()) == {0}  # plain versions on the CPU
+    assert out["from_checkpoint_max_rel_diff"] == 0.0
+    route = out["attention_route"]
+    assert route["loss_rel_err"] <= 1e-5
+    assert route["worst_tensor_rel_err"] <= 1e-3

@@ -52,6 +52,31 @@ def test_the_third_slices_modules_are_among_the_checked_files(rel):
     assert (ROOT / "splade_tpu" / rel).exists()  # each has its counterpart
 
 
+def test_the_splash_attention_module_is_among_the_checked_files():
+    """The splash attention has a module of its own in the port (JAX keeps
+    its call inside models/modernbert.py) and its kernels' sources ship."""
+    assert ROOT / "splade_tpu_torch" / "ops" / "splash_attention.py" in PORT_FILES
+    assert "_splash_attention" in (
+        ROOT / "splade_tpu" / "models" / "modernbert.py").read_text()
+    csrc = ROOT / "splade_tpu_torch" / "csrc"
+    for name in ("splash_attention.cuh", "splash_attention_fwd.cu",
+                 "splash_attention_bwd.cu"):
+        assert (csrc / name).exists(), name
+
+
+LIBRARY_ATTENTION = ("scaled_dot_product_attention", "torch.compile",
+                     "flash_attn", "xformers", "cudnn")
+
+
+@pytest.mark.parametrize("path", PORT_FILES[:-1],
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES[:-1]])
+def test_port_calls_no_library_attention(path):
+    """The package's attention is its own: plain math or the hand-written
+    kernels. Only chip_smoke.py may time a library call as a yardstick."""
+    text = path.read_text()
+    assert not [w for w in LIBRARY_ATTENTION if w in text], path.name
+
+
 def _function_level_only(path: Path, module: str) -> bool:
     """True if ``module`` is imported in ``path`` and only inside function
     bodies."""

@@ -24,6 +24,7 @@ from splade_tpu_torch.ops.fused_splade_v2 import (fused_splade_bwd_dh_v2,
                                                   fused_splade_bwd_dw_v2,
                                                   fused_splade_maxima_v2,
                                                   fused_splade_pool_v2)
+from splade_tpu_torch.ops import splash_attention as sa
 from splade_tpu_torch.ops.rescore_kernel import (rescore_match,
                                                  rescore_match_plain,
                                                  rescore_match_rows)
@@ -346,3 +347,192 @@ def test_rescore_kernel_matches_plain(cuda, N, M, V, B, T, C):
     assert rescore_match.launches == before + 2
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(out_rows, ref, rtol=0, atol=1e-4)
+
+
+# ---- the splash attention (ops/splash_attention.py) ------------------------
+# kernels vs plain versions on the same bf16 operands: f32 scores and sums in
+# both, then p and ds rounded to bf16 (an ulp flipped here and there: 2^-8 of
+# a value) and the kernel's bf16 out (2^-9); relative to each tensor's largest
+# value, as chip_smoke.py holds them
+SPLASH_RTOL = 2.0 ** -7
+
+
+def _splash_case(B, N, S, D, packed, seed, device, dtype=torch.bfloat16):
+    """q and k as [B, N, S, D] views of [B, S, N, D] storage, v a strided
+    view of a fused QKV tensor, dO, and segment ids with random lengths, a
+    fully padded row and (packed) rows of 4 segments."""
+    g = torch.Generator().manual_seed(seed)
+    randn = lambda *shape: torch.randn(shape, generator=g).to(dtype).to(device)
+    q = randn(B, S, N, D).transpose(1, 2)
+    k = randn(B, S, N, D).transpose(1, 2)
+    v = randn(B, S, 3, N, D)[:, :, 2].transpose(1, 2)
+    d_out = randn(B, S, N, D)
+    pos = torch.arange(S)[None]
+    lens = torch.randint(1, S + 1, (B, 1), generator=g)
+    lens[0] = 0
+    mask = pos < lens
+    segs = torch.zeros(B, S, dtype=torch.int64)
+    if packed:
+        width = -(-S // 4)
+        segs[-1] = pos[0] // width
+        seg_lens = torch.randint(0, width + 1, (4,), generator=g)
+        mask[-1] = (pos[0] % width) < seg_lens[segs[-1]]
+    seg = sa.segment_ids_with_padding(mask.long(), segs).to(device)
+    return q, k, v, seg, d_out
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp_min(1e-30))
+
+
+SPLASH_SHAPES = [
+    (2, 2, 64, 0, False),      # one tile
+    (3, 4, 200, 64, False),    # ragged last tile, a window wider than a tile
+    (5, 2, 37, 8, True),       # shorter than a tile, packed
+    (4, 12, 256, 64, True),    # the V33 micro-batch's length and heads
+    (2, 12, 512, 64, False),   # the MLM row: tiles outside the band skipped
+    (2, 12, 512, 0, False),    # a global layer at that length
+    (3, 3, 130, 1, True),      # a window of one neighbour each side
+]
+
+
+@pytest.mark.parametrize("B,N,S,hw,packed", SPLASH_SHAPES)
+def test_splash_kernels_match_plain(cuda, B, N, S, hw, packed):
+    q, k, v, seg, d_out = _splash_case(B, N, S, 64, packed, B * S + hw, cuda)
+    fns = (sa.splash_attention, sa.splash_attention_bwd_dq,
+           sa.splash_attention_bwd_dkv)
+    before = [fn.launches for fn in fns]
+    out, lse = sa.splash_attention_forward(q, k, v, seg, hw)
+    delta = sa.splash_attention_delta(d_out, out)
+    dq = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, lse, delta)
+    dk, dv = sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse, delta)
+    torch.cuda.synchronize()
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
+    out_p, lse_p = sa.splash_attention_plain(q, k, v, seg, hw)
+    dq_p, dk_p, dv_p = sa.splash_attention_bwd_plain(q, k, v, seg, hw, d_out,
+                                                     lse, delta)
+    assert out.shape == (B, S, N, 64) and out.dtype == torch.bfloat16
+    assert lse.shape == (B, N, S)
+    for name, got, want in (("out", out, out_p), ("dq", dq, dq_p),
+                            ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        assert torch.isfinite(got).all(), name
+        assert _rel(got, want) <= SPLASH_RTOL, (name, _rel(got, want))
+    # padded rows included: their lse is finite and agrees
+    assert torch.isfinite(lse).all()
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("D", [16, 32, 128])
+def test_splash_refuses_a_head_width_it_was_not_built_for(cuda, D):
+    q, k, v, seg, d_out = _splash_case(2, 2, 32, D, False, 1, cuda)
+    before = sa.splash_attention.launches
+    with pytest.raises(ValueError, match=f"head dim {D}"):
+        sa.splash_attention(q, k, v, seg, 0)
+    with pytest.raises(ValueError, match=f"head dim {D}"):
+        sa.splash_attention_bwd_dq(q, k, v, seg, 0, d_out,
+                                   torch.zeros(2, 2, 32, device=cuda),
+                                   torch.zeros(2, 2, 32, device=cuda))
+    assert sa.splash_attention.launches == before
+
+
+def test_splash_empty_batch_launches_and_counts_nothing(cuda):
+    q, k, v, seg, d_out = _splash_case(2, 2, 32, 64, False, 2, cuda)
+    fns = (sa.splash_attention, sa.splash_attention_bwd_dq,
+           sa.splash_attention_bwd_dkv)
+    before = [fn.launches for fn in fns]
+    out, lse = sa.splash_attention_forward(q[:0], k[:0], v[:0], seg[:0], 4)
+    assert out.shape == (0, 32, 2, 64) and lse.shape == (0, 2, 32)
+    dq = sa.splash_attention_bwd_dq(q[:0], k[:0], v[:0], seg[:0], 4,
+                                    d_out[:0], lse, lse)
+    dk, dv = sa.splash_attention_bwd_dkv(q[:0], k[:0], v[:0], seg[:0], 4,
+                                         d_out[:0], lse, lse)
+    assert dq.shape == dk.shape == dv.shape == (0, 32, 2, 64)
+    assert [fn.launches for fn in fns] == before
+
+
+def _function_grads(q, k, v, seg, hw, d_out, wrap=lambda f: f):
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    out = wrap(lambda a, b, c: sa.splash_attention(a, b, c, seg, hw))(*leaves)
+    out.backward(d_out.to(out.dtype))
+    return out.detach(), [t.grad for t in leaves]
+
+
+@pytest.mark.parametrize("B,N,S,hw,packed", SPLASH_SHAPES[1:5])
+def test_splash_repeated_backward_is_bitwise_equal(cuda, B, N, S, hw, packed):
+    """One owner and one order per sum, no atomics."""
+    case = _splash_case(B, N, S, 64, packed, S, cuda)
+    q, k, v, seg, d_out = case
+    out1, grads1 = _function_grads(q, k, v, seg, hw, d_out)
+    out2, grads2 = _function_grads(q, k, v, seg, hw, d_out)
+    assert torch.equal(out1, out2)
+    for a, b in zip(grads1, grads2):
+        assert torch.equal(a, b)
+
+
+def test_splash_function_under_autocast_and_checkpoint(cuda):
+    """The operands autocast hands over: f32 q and k (RoPE multiplies bf16
+    by f32 tables), a strided bf16 v. The gradients come back in those
+    dtypes and agree with the plain route's (f32 autograd through the plain
+    version on the same bf16 values); under per-layer checkpointing the
+    forward runs twice and the gradients are bitwise the same."""
+    from torch.utils.checkpoint import checkpoint
+
+    B, N, S, hw = 3, 4, 200, 64
+    q, k, v, seg, d_out = _splash_case(B, N, S, 64, True, 9, cuda)
+    q, k, d_out = q.float(), k.float(), d_out.float()
+    fns = (sa.splash_attention, sa.splash_attention_bwd_dq,
+           sa.splash_attention_bwd_dkv)
+    with torch.autocast("cuda", dtype=torch.bfloat16):
+        before = [fn.launches for fn in fns]
+        out, grads = _function_grads(q, k, v, seg, hw, d_out)
+        assert [fn.launches for fn in fns] == [n + 1 for n in before]
+        out_c, grads_c = _function_grads(
+            q, k, v, seg, hw, d_out,
+            wrap=lambda f: lambda *a: checkpoint(f, *a, use_reentrant=False))
+        assert [fn.launches - n for fn, n in zip(fns, before)] == [3, 2, 2]
+    assert out.dtype == torch.float32 and out.shape == (B, S, N, 64)
+    assert [g.dtype for g in grads] == [torch.float32, torch.float32,
+                                        torch.bfloat16]
+    assert [tuple(g.shape) for g in grads] == [(B, N, S, 64)] * 3
+    assert torch.equal(out, out_c)
+    for a, b in zip(grads, grads_c):
+        assert torch.equal(a, b)
+    # the plain route on the CPU, f32 autograd through the plain version
+    cpu = [t.detach().cpu() for t in (q, k, v.float(), seg, d_out)]
+    want_out, want = _function_grads(cpu[0], cpu[1], cpu[2], cpu[3], hw,
+                                     cpu[4])
+    assert _rel(out.cpu(), want_out) <= SPLASH_RTOL
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, want):
+        # the saved out is bf16 on the card, so delta carries its rounding
+        assert _rel(got.cpu(), ref) <= 2 * SPLASH_RTOL, (name,
+                                                         _rel(got.cpu(), ref))
+
+
+def test_model_on_the_splash_route_matches_the_sdpa_route(cuda):
+    """A narrow ModernBERT with 64-wide heads in bf16 on the card: encode
+    through the attention kernels equals the plain attention at the valid
+    positions up to bf16 rounding, and is finite at the padded ones."""
+    import dataclasses
+
+    from splade_tpu_torch.models.modernbert import ModernBertConfig
+    from splade_tpu_torch.models.splade import SpladeEncoder
+
+    cfg = ModernBertConfig.tiny(hidden_size=128, num_attention_heads=2,
+                                intermediate_size=192, local_attention=16,
+                                attention_impl="splash")
+    model = SpladeEncoder(cfg, device=cuda).init_weights(0).to(torch.bfloat16)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(3, 500, (6, 100), generator=g).to(cuda)
+    lens = torch.randint(5, 101, (6, 1), generator=g)
+    mask = (torch.arange(100)[None] < lens).long().to(cuda)
+    before = sa.splash_attention.launches
+    with torch.no_grad():
+        splash = model.mlm.encode(ids, mask)
+        assert sa.splash_attention.launches == before + cfg.num_hidden_layers
+        model.mlm.config = dataclasses.replace(cfg, attention_impl="sdpa")
+        sdpa = model.mlm.encode(ids, mask)
+    assert sa.splash_attention.launches == before + cfg.num_hidden_layers
+    assert torch.isfinite(splash).all()
+    valid = mask.bool()
+    assert _rel(splash[valid], sdpa[valid]) <= 2e-2
