@@ -13,18 +13,22 @@ Phases (any failure exits non-zero; nothing is caught):
    encode (B=32, S=256) with H=768, V=50,000 and a fully padded row; the
    exact rescore at B=32, C=1000, M=64, T=64 over a 1M-document doc-major
    block; the pool's kernels at the training shapes (docs B=128, S=256;
-   queries B=64, S=64): the forward wrapper against the plain forward, and
-   for the two backward kernels the whole kernel route against the whole
-   plain route: (a) small-integer inputs elementwise, (b) the model's own
-   states by norm, (c) the recompute against the forward kernel's maxima,
-   every row with its exact ties counted. Times by CUDA events, the bound
-   from the shapes and this run's matches, and a library yardstick
-   composed of cuBLAS calls where one exists. The row-blocked family
-   (``ops/fused_splade_v2.py``) is held on the same inputs, at row_block 8
-   and 2, to the same checks and tolerances: forward against its plain
-   version with m and pos bitwise equal to the per-row kernel's; backward
-   checks (a), (b), (c), a repeated backward bitwise equal; its times
-   beside the per-row family's. These training shapes are the ones the
+   queries B=64, S=64) and at B=8, S=200 (a ragged last bitmask word): the
+   forward wrapper against the plain forward, and for the backward (the
+   per-row family's match pass, dh gather and dW gather) the whole kernel
+   route against the whole plain route: (a) small-integer inputs
+   elementwise, (b) the model's own states by norm, (c) the recompute
+   against the forward kernel's maxima, every row with its exact ties
+   counted, a repeated backward bitwise equal; the match pass alone, its
+   bitmask bitwise the plain one on (a) and every maximum found on (b).
+   Times by CUDA events (the match pass and each gather apart and
+   together), the bound from the shapes and this run's matches, and a
+   library yardstick composed of cuBLAS calls where one exists. The
+   row-blocked family (``ops/fused_splade_v2.py``) is held on the same
+   inputs, at row_block 8 and 2, to the same checks and tolerances: forward
+   against its plain version with m and pos bitwise equal to the per-row
+   kernel's; backward checks (a), (b), (c), a repeated backward bitwise
+   equal; its times beside the per-row family's. These training shapes are the
    row-blocked pool's own path (phase 5) launches its kernels at. The three
    splash attention kernels (``ops/splash_attention.py``) at the training
    micro-batches (B=144, S=256 with packed query rows; B=32, S=512), 12
@@ -54,7 +58,8 @@ Phases (any failure exits non-zero; nothing is caught):
    lr 5e-5): synthetic Hangul triplets written as JSONL and read through
    load_training_data -> TripletCollator -> Trainer. One warm-up step, then
    3 optimizer steps through the kernels with the launch counts set to 0
-   before and read after (2 x accumulation a step for each pool kernel),
+   before and read after (2 x accumulation a step for each pool kernel:
+   the forward, the match pass and the two gathers),
    triplets/s, step time and peak memory; one step under torch.profiler; a
    checkpoint resumed by a fresh Trainer that must take the same step (at
    the schedule's learning rate for that step, above 0); one micro-batch
@@ -99,6 +104,7 @@ import argparse
 import http.client
 import json
 import os
+import re
 import signal
 import subprocess
 import sys
@@ -165,6 +171,9 @@ V2_ROW_BLOCKS = (8, 2)
 # the row-blocked family at them (row_block 0, which resolves to
 # V2_ROW_BLOCKS[0] at both batch sizes)
 TRAIN_POOL_SHAPES = ((128, 256), (64, 64))
+# a backward shape whose S is not a multiple of the bitmask's 32-position
+# words (the last word of every row is ragged)
+BWD_RAGGED = (8, 200)
 # splash attention kernels vs plain versions on the same bf16 operands, with
 # the same lse and delta fed to both backward routes. Scores and sums are f32
 # in both (the order of sums and the kernels' fast exp differ by about 1e-6),
@@ -611,6 +620,54 @@ def pool_families() -> dict:
     return fams
 
 
+def match_bit_counts(torch, match, S: int):
+    """Per (b, v) column, the bits of the bitmask [B, J, V] (int32): the
+    positions the match pass found."""
+    counts = torch.zeros(match.shape, dtype=torch.int32, device=match.device)
+    for r in range(32):
+        counts += (match >> r) & 1
+    return counts.sum(1)
+
+
+def match_check(torch, h, w, bias, mask, m, g_pre, exact: bool) -> dict:
+    """The match pass on its own, through its wrapper. With the forward
+    kernel's maxima m every column of a valid row whose g is not 0 must hold
+    at least one bit (the recompute reaches the forward's maximum bit for
+    bit; one ulp off, it would find almost none), and no bit may stand on an
+    invalid position, a position past S or a g = 0 column. On exact inputs
+    (every score exact in f32 in any order) the bitmask must equal the plain
+    match's bit for bit, every exact tie included."""
+    from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_match,
+                                                   fused_splade_bwd_match_plain)
+
+    B, S = mask.shape
+    got = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+    counts = match_bit_counts(torch, got, S)
+    live = (g_pre != 0) & (mask.sum(1, keepdim=True) > 0)
+    # a word whose bits are the invalid positions (and those past S)
+    pos = torch.arange(got.shape[1] * 32, device=mask.device)
+    invalid = torch.ones((B, got.shape[1] * 32), dtype=torch.int64,
+                         device=mask.device)
+    invalid[:, :S] = (mask == 0).long()
+    inv_words = (invalid.view(B, -1, 32) << (pos[:32].long())).sum(2)
+    inv_words = torch.where(inv_words >= 2 ** 31, inv_words - 2 ** 32,
+                            inv_words).to(torch.int32)
+    out = dict(
+        columns=int(live.sum()),
+        found=bool((counts[live] >= 1).all()),
+        stray=int((got & inv_words[:, :, None]).ne(0).sum())
+        + int(counts[~live].sum()),
+        ties=int((counts - 1).clamp_min(0).sum()))
+    if exact:
+        want = fused_splade_bwd_match_plain(h.float(), w.float(), bias, mask,
+                                            m, g_pre)
+        out["bits_differing"] = int(match_bit_counts(
+            torch, got ^ want, S).sum())
+    out["ok"] = (out["found"] and out["stray"] == 0
+                 and out.get("bits_differing", 0) == 0)
+    return out
+
+
 def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     """The kernels of both families at one training shape (the shapes the
     training path and the row-blocked pool's path launch them at), held
@@ -619,18 +676,28 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     POOL_TOL. Backward: (a) small-integer inputs, where every score
     is exact in f32 in any order and exact ties are common, elementwise;
     (b) the model's own states, by norm (near-ties may pick another
-    argmax); (c) with g_pre = 1 the dh kernel must send each column's W row
-    to the per-row forward kernel's argmax; a repeated backward of the
-    row-blocked family must be bitwise equal, and its forward's maxima the
-    per-row kernel's. Then the times of all C entries on the same inputs,
-    the plain backward, a cuBLAS composition and the bound.
-    Returns {family: {"dh": ..., "dw": ...}}."""
+    argmax); (c) with g_pre = 1 the dh kernels must send each column's W row
+    to the per-row forward kernel's argmax; a repeated backward of every
+    family must be bitwise equal, and the row-blocked forward's maxima the
+    per-row kernel's. The per-row family's match pass is also held alone
+    (``match_check``: bitwise the plain bitmask on (a), every maximum found
+    on (b)). Then the times of all kernels on the same inputs: the per-row
+    match pass, dh gather and dW gather apart and together, the row-blocked
+    C entries, the plain backward, a cuBLAS composition and the bound.
+    Returns {family: {"dh": ..., "dw": ...}}, the per-row family also with
+    "match"."""
     from splade_tpu_torch.ops import _cuda
-    from splade_tpu_torch.ops.fused_splade import (dh_vocab_splits,
+    from splade_tpu_torch.ops.fused_splade import (PER_ROW, _bwd_operands,
+                                                   dh_hidden_splits,
                                                    fold_cotangent,
+                                                   fused_splade_bwd_match_plain,
                                                    fused_splade_bwd_plain,
                                                    fused_splade_maxima,
-                                                   fused_splade_pool_plain)
+                                                   fused_splade_pool_plain,
+                                                   launch_gather,
+                                                   launch_match,
+                                                   launch_match_gather,
+                                                   match_words)
     from splade_tpu_torch.ops.fused_splade_v2 import (dh_vocab_splits_v2,
                                                       fused_splade_bwd_v2_plain)
 
@@ -651,7 +718,7 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     families = pool_families()
 
     # (a) exactly representable inputs, (b) the model's states: the plain
-    # route once, every family's kernel route against it
+    # route once, every family's kernel route against it, twice
     ints = lambda *shape: torch.randint(-2, 3, shape, device="cuda",
                                         generator=gen).float()
     exact = (ints(B, S, H), ints(V, H), ints(V))
@@ -672,14 +739,18 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 c["err_b"] = {n: float((g - r).norm() / r.norm())
                               for n, g, r in zip(names, got, want)}
                 c["padded_zero"] &= float(got[0][-1].abs().max()) == 0.0
-                if fam["row_block"] is not None:  # no atomics: bitwise
-                    again = _kernel_route(torch, fam["pool"], *inputs, mask,
-                                          gout)
-                    c["repeat_bitwise"] = all(
-                        bool(torch.equal(x, y)) for x, y in zip(got, again))
-                    del again
-            del got
+            # no float atomics in any family: a repeated backward is bitwise
+            again = _kernel_route(torch, fam["pool"], *inputs, mask, gout)
+            c["repeat_bitwise"] = c.get("repeat_bitwise", True) and all(
+                bool(torch.equal(x, y)) for x, y in zip(got, again))
+            del got, again
         del want
+        with torch.no_grad():  # the per-row match pass alone
+            m_in, _ = fused_splade_maxima(*inputs, mask)
+            checks["v1"][f"match_{label}"] = match_check(
+                torch, *inputs, mask, m_in, fold_cotangent(gout, m_in),
+                exact=label == "a")
+        del m_in
     del exact
     # the forward at this shape: every family's maxima against the plain
     # forward. (c) every family's recompute equals the per-row forward
@@ -709,6 +780,7 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     for name, c in checks.items():
         rc = c["rc"]
         share = rc["top_position_share"]
+        matches = [c[k] for k in ("match_a", "match_b") if k in c]
         log(f"  pool backward {name} B={B} S={S}: forward vs plain max |err| "
             f"{c['err_fwd']:.3e} (tol {POOL_TOL}); (a) exact inputs max err "
             + ", ".join(f"{n} {e:.2e}" for n, e in c["err_a"].items())
@@ -720,27 +792,35 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
             f"(counts sound: {rc['counts_ok']}), worst row "
             f"{rc['worst_before_ties']:.2e} before and {rc['worst']:.2e} "
             f"after the ties (tol {RECOMPUTE_RTOL}); padded row zero and "
-            f"finite: {c['padded_zero'] and c['finite']}"
-            + (f"; repeated backward bitwise equal: {c['repeat_bitwise']}, "
-               f"forward maxima bitwise the per-row kernel's: "
+            f"finite: {c['padded_zero'] and c['finite']}; repeated backward "
+            f"bitwise equal: {c['repeat_bitwise']}"
+            + (f", forward maxima bitwise the per-row kernel's: "
                f"{c['m_bitwise']}" if "m_bitwise" in c else
                f"; the position holding most of a row's maxima holds "
                f"{share['mean']:.1%} of the columns on average, "
-               f"{share['max']:.1%} at most"))
+               f"{share['max']:.1%} at most")
+            + "".join(
+                f"; match pass ({k}): {x['columns']} live columns, every "
+                f"maximum found: {x['found']}, stray bits {x['stray']}, "
+                f"{x['ties']} extra bits (ties)"
+                + (f", bits differing from the plain bitmask "
+                   f"{x['bits_differing']}" if "bits_differing" in x else "")
+                for k, x in zip(("a", "b"), matches)))
         if not (c["err_fwd"] <= POOL_TOL
                 and max(c["err_a"].values()) <= BWD_EXACT_RTOL
                 and max(c["err_b"].values()) <= BWD_NORM_RTOL
                 and rc["ok"] and c["padded_zero"] and c["finite"]
-                and c.get("repeat_bitwise", True)
-                and c.get("m_bitwise", True)):
+                and c["repeat_bitwise"] and c.get("m_bitwise", True)
+                and all(x["ok"] for x in matches)):
             raise SystemExit(f"fused pool backward kernels ({name}) disagree "
                              f"(B={B}, S={S})")
 
-    # times: the C entries alone on prepared operands, with the forward
-    # kernel's maxima and with maxima no score reaches (the recompute and
-    # the scan without a row added), and the forward kernel beside them.
-    # The row-blocked entries add into their output, so zeroing it is part
-    # of the call, as it is of the wrapper's
+    # times on prepared operands, with the forward kernel's maxima and with
+    # maxima no score reaches (the recompute alone), the forward kernel
+    # beside them. Per-row family: the match pass, each gather from its
+    # bitmask, and each gradient's kernels together. Row-blocked family: its
+    # C entries, which add into their output, so zeroing it is part of the
+    # call, as it is of the wrapper's
     lib = _cuda.library()
     g_pre = fold_cotangent(gout, m_k).contiguous()
     never = torch.full_like(m_k, float("inf"))
@@ -748,13 +828,10 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
 
     def entry(fam, which, out, maxima, splits):
         fn = getattr(lib, fam["entry"] + which)
-        rb = fam["row_block"]
-        extra = ([] if rb is None else [rb]) + ([splits] if which == "dh"
-                                                else [])
+        extra = [fam["row_block"]] + ([splits] if which == "dh" else [])
 
         def run():
-            if rb is not None:
-                out.zero_()
+            out.zero_()
             _cuda.check(fn(
                 h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
                 maxima.data_ptr(), g_pre.data_ptr(), out.data_ptr(), B, S, H,
@@ -783,11 +860,37 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                          iters=5, warmup=1)
         plain_ms = {None: cuda_ms(torch, lambda: fused_splade_bwd_plain(
             hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)}
-        times = {}
+        match_plain_ms = cuda_ms(torch, lambda: fused_splade_bwd_match_plain(
+            hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)
+        ops = _bwd_operands(h, w, bias, mask, m_k, g_pre)
+        ops_never = _bwd_operands(h, w, bias, mask, never, g_pre)
+        bits = launch_match(PER_ROW, ops)
+        gather = lambda which, mb=bits: launch_gather(
+            PER_ROW, which, mb, ops.wb if which == "dh" else ops.hb, ops.g, S)
+        v1 = dict(
+            match_ms=cuda_ms(torch, lambda: launch_match(PER_ROW, ops),
+                             iters=5, warmup=1),
+            match_no_match_ms=cuda_ms(
+                torch, lambda: launch_match(PER_ROW, ops_never), iters=3,
+                warmup=1),
+            backward_ms=cuda_ms(torch, lambda: launch_match_gather(
+                PER_ROW, ops, [], ("dh", "dw")), iters=5, warmup=1))
+        for which in ("dh", "dw"):
+            v1[which] = dict(
+                gather_ms=cuda_ms(torch, lambda: gather(which), iters=5,
+                                  warmup=1),
+                ms=cuda_ms(torch, lambda: launch_match_gather(
+                    PER_ROW, ops, [], (which,)), iters=5, warmup=1),
+                no_match_ms=cuda_ms(torch, lambda: launch_match_gather(
+                    PER_ROW, ops_never, [], (which,)), iters=3, warmup=1))
+        del bits, ops_never
+        times = {"v1": dict(v1, splits=dh_hidden_splits(B, S, H),
+                            forward_ms=fwd_ms)}
         for name, fam in families.items():
             rb = fam["row_block"]
-            splits = (dh_vocab_splits(B, S, V) if rb is None
-                      else dh_vocab_splits_v2(B, rb, V))
+            if rb is None:
+                continue
+            splits = dh_vocab_splits_v2(B, rb, V)
             dh_out = torch.empty((splits, B, S, H), dtype=torch.float32,
                                  device="cuda")
             times[name] = {which: dict(
@@ -802,10 +905,9 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 torch, lambda: fam["maxima"](h, w, bias, mask), iters=5,
                 warmup=1)
             del dh_out
-            if rb is not None:
-                plain_ms[rb] = cuda_ms(
-                    torch, lambda: fused_splade_bwd_v2_plain(
-                        hf, wf, bias, maskf, m_p, g_p, rb), iters=2, warmup=1)
+            plain_ms[rb] = cuda_ms(
+                torch, lambda: fused_splade_bwd_v2_plain(
+                    hf, wf, bias, maskf, m_p, g_p, rb), iters=2, warmup=1)
     nvalid = float(maskf.sum())
     matches = float((g_pre != 0).sum())  # one a (b, v), ties aside
     # the function's own work: the recompute, 2*valid*H*V bf16 operations
@@ -831,7 +933,7 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 max_abs_err=c["abs_a"][which],  # (a): kernel vs plain route
                 forward_max_abs_err=c["err_fwd"],
                 err_exact=c["err_a"][which], err_norm=c["err_b"][which],
-                recompute=c["rc"], repeat_bitwise=c.get("repeat_bitwise"),
+                recompute=c["rc"], repeat_bitwise=c["repeat_bitwise"],
                 ms=t["ms"], no_match_ms=t["no_match_ms"],
                 v1_ms=times["v1"][which]["ms"], dh_splits=times[name]["splits"],
                 forward_ms=fwd_ms,
@@ -841,16 +943,47 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 library_ms=library_ms[which], bound_ms=bound_ms,
                 bound_by=bound_by, matches=matches,
                 bound_dense_contraction_ms=dense_ms)
+            if fam["row_block"] is None:
+                result[name][which].update(
+                    ms_is=f"the match pass and the {which} gather",
+                    gather_ms=t["gather_ms"], match_ms=times[name]["match_ms"],
+                    backward_ms=times[name]["backward_ms"],
+                    no_match_is="the match pass and the gather with maxima "
+                                "no score reaches")
             log(f"  pool backward {name} {which} B={B} S={S}: kernel "
-                f"{t['ms']:.3f} ms ({t['no_match_ms']:.3f} ms with maxima "
-                f"nothing reaches; forward at this shape "
-                f"{times[name]['forward_ms']:.3f} ms, per-row {fwd_ms:.3f}), "
-                f"plain (dh+dw) {plain_ms[fam['row_block']]:.3f} ms, library "
+                f"{t['ms']:.3f} ms"
+                + (f" (match pass {times[name]['match_ms']:.3f} + {which} "
+                   f"gather {t['gather_ms']:.3f}; the whole backward "
+                   f"{times[name]['backward_ms']:.3f})"
+                   if fam["row_block"] is None else "")
+                + f" ({t['no_match_ms']:.3f} ms with maxima nothing reaches; "
+                f"forward at this shape {times[name]['forward_ms']:.3f} ms, "
+                f"per-row {fwd_ms:.3f}), plain (dh+dw) "
+                f"{plain_ms[fam['row_block']]:.3f} ms, library "
                 f"{library_ms[which]:.3f} ms, bound {bound_ms:.3f} ms "
                 f"({bound_by}: {recompute_ops:.3e} bf16 FLOP over "
                 f"{nvalid:.0f} valid tokens + {add_ops:.3e} f32 FLOP over "
                 f"{matches:.0f} matches; dense-contraction convention "
                 f"{dense_ms:.3f} ms)")
+    # the match pass alone: its function is the bitmask, bound by the
+    # recompute (bytes: inputs once, the bitmask written once)
+    mb = match_words(S) * B * V * 4
+    m_bound, m_by = bound(shared + mb, recompute_ops, H100_BF16_FLOPS)
+    ca = checks["v1"]["match_a"]
+    result["v1"]["match"] = dict(
+        shape=f"B={B} S={S} H={H} V={V}",
+        max_abs_err=float(ca["bits_differing"] > 0),
+        bits_differing_exact=ca["bits_differing"],
+        checks={k: checks["v1"][k] for k in ("match_a", "match_b")},
+        ms=times["v1"]["match_ms"], no_match_ms=times["v1"]["match_no_match_ms"],
+        plain_ms=match_plain_ms, bound_ms=m_bound, bound_by=m_by,
+        library_ms=None, forward_ms=fwd_ms, bitmask_mb=mb / 1e6)
+    log(f"  pool backward match pass B={B} S={S}: {times['v1']['match_ms']:.3f} "
+        f"ms ({times['v1']['match_no_match_ms']:.3f} with maxima nothing "
+        f"reaches; the forward {fwd_ms:.3f}), plain {match_plain_ms:.3f} ms, "
+        f"bound {m_bound:.3f} ms ({m_by}), bitmask {mb / 1e6:.1f} MB; dh "
+        f"gather {times['v1']['dh']['gather_ms']:.3f} ms ({times['v1']['splits']}"
+        f" hidden slices), dW gather {times['v1']['dw']['gather_ms']:.3f} ms")
     return result
 
 
@@ -1142,6 +1275,24 @@ def summarize_spans(spans, n_top: int = 8):
     return busy_us, {k: v / 1e3 for k, v in top}
 
 
+#: the port's own kernels among a trace's device spans, by function name
+PORT_KERNEL = re.compile(r"((?:fused_splade|splash|rescore)\w*_kernel)")
+#: the per-row pool backward's kernels (the match pass and the gathers)
+POOL_BACKWARD = ("fused_splade_bwd_match_kernel", "fused_splade_bwd_dh_kernel",
+                 "fused_splade_bwd_dw_kernel")
+
+
+def port_kernels_ms(spans) -> dict:
+    """{kernel function: ms} of the port's own kernels among device spans
+    (start_us, end_us, name), whatever their rank."""
+    out = {}
+    for start, end, kname in spans:
+        hit = PORT_KERNEL.search(kname)
+        if hit:
+            out[hit.group(1)] = out.get(hit.group(1), 0.0) + (end - start) / 1e3
+    return out
+
+
 def device_profile(torch, fn) -> dict:
     """Host wall clock of ``fn()`` ended by a synchronize, against the union
     of the device's kernel and copy intervals in a torch.profiler trace,
@@ -1163,7 +1314,8 @@ def device_profile(torch, fn) -> dict:
     busy_us, top = summarize_spans(spans)
     return dict(wall_ms=wall_ms, device_busy_ms=busy_us / 1e3,
                 device_idle_share=1.0 - busy_us / 1e3 / wall_ms,
-                device_ops=len(spans), top_kernels_ms=top)
+                device_ops=len(spans), top_kernels_ms=top,
+                port_kernels_ms=port_kernels_ms(spans))
 
 
 def profile_batch(torch, name: str, engine, queries) -> dict:
@@ -1456,6 +1608,7 @@ def _counted_kernels() -> dict:
     from splade_tpu_torch.ops import fused_splade, splash_attention
 
     return {"fused_splade_pool": fused_splade.fused_splade_pool,
+            "fused_splade_bwd_match": fused_splade.fused_splade_bwd_match,
             "fused_splade_bwd_dh": fused_splade.fused_splade_bwd_dh,
             "fused_splade_bwd_dw": fused_splade.fused_splade_bwd_dw,
             "splash_attention": splash_attention.splash_attention,
@@ -1478,7 +1631,8 @@ def expected_launches(model_config, accum: int, steps: int,
                       pool_per_micro: int) -> dict:
     """Launches ``steps`` optimizer steps of ``accum`` micro-batches must
     count, from the code: the pool kernels ``pool_per_micro`` times a
-    micro-batch each (2 in the V33 step: documents and queries; 0 in MLM);
+    micro-batch each (2 in the V33 step: documents and queries; 0 in MLM),
+    the backward's match pass once with its two gathers;
     with attention_impl "splash" every layer launches the attention forward
     once (twice under layer recompute, whose backward re-runs it) and each
     backward kernel once; with "sdpa" none."""
@@ -1486,6 +1640,7 @@ def expected_launches(model_config, accum: int, steps: int,
               if model_config.attention_impl == "splash" else 0)
     micro = accum * steps
     return {"fused_splade_pool": pool_per_micro * micro,
+            "fused_splade_bwd_match": pool_per_micro * micro,
             "fused_splade_bwd_dh": pool_per_micro * micro,
             "fused_splade_bwd_dw": pool_per_micro * micro,
             "splash_attention": layers * (2 if model_config.remat else 1)
@@ -2142,6 +2297,11 @@ def main() -> int:
     # negatives) and unpacked queries
     bwd_d, bwd_q = (check_pool_backward(torch, model, tok, rng, B, S)
                     for B, S in TRAIN_POOL_SHAPES)
+    # and at a length that is not a multiple of the bitmask's 32-position
+    # words, from a random stream of its own (the later phases' data stay)
+    bwd_r = check_pool_backward(torch, model, tok,
+                                np.random.default_rng([args.seed, 5]),
+                                *BWD_RAGGED)
     torch.cuda.empty_cache()
     # the attention kernels at the training micro-batches (packed query rows
     # at 256 positions, as the V33 step has them) and at a ragged length;
@@ -2290,6 +2450,14 @@ def main() -> int:
             top = lambda run: ", ".join(
                 f"{k[:52]} {v:.1f}" for k, v in
                 list(run["profile"]["top_kernels_ms"].items())[:4])
+            pool = lambda run: sum(run["profile"]["port_kernels_ms"].get(k, 0.0)
+                                   for k in POOL_BACKWARD)
+            if name == "V33":
+                line += (f"; pool backward (match pass + gathers) "
+                         f"{pool(spl):.1f} vs {pool(sdpa):.1f} ms a profiled "
+                         f"step ({pool(spl) / spl['profile']['device_busy_ms']:.1%}"
+                         f" vs {pool(sdpa) / sdpa['profile']['device_busy_ms']:.1%}"
+                         f" of busy)")
             line += (f"; profiled step busy "
                      f"{spl['profile']['device_busy_ms']:.1f} vs "
                      f"{sdpa['profile']['device_busy_ms']:.1f} ms, idle "
@@ -2330,20 +2498,28 @@ def main() -> int:
                                      "bound_ms", "bound_by", "library_ms")},
              shapes=[resc]),
     ]
-    for name, line, d, q in (("fused_splade_bwd_dh", 93, bwd_d["v1"]["dh"],
-                              bwd_q["v1"]["dh"]),
-                             ("fused_splade_bwd_dw", 111, bwd_d["v1"]["dw"],
-                              bwd_q["v1"]["dw"])):
+    # the per-row backward: the match pass (the recompute of both Pallas
+    # kernels), then each gradient's gather; a gradient's "ms" is its match
+    # pass and gather together, the function its bound and library time are
+    # of ("gather_ms" and "match_ms" beside it)
+    for name, which, line, also in (
+            ("fused_splade_bwd_match", "match", 93, 111),
+            ("fused_splade_bwd_dh", "dh", 93, None),
+            ("fused_splade_bwd_dw", "dw", 111, None)):
+        shapes = [x["v1"][which] for x in (bwd_d, bwd_q, bwd_r)]
         kernels.append(dict(
             name=name, route="cuda",
             source="splade_tpu_torch/csrc/fused_splade_bwd.cu",
             replaces=f"splade_tpu/ops/fused_splade.py:{line}",
+            **({"also_replaces": f"splade_tpu/ops/fused_splade.py:{also}"}
+               if also else {}),
             launches=train_launches[name],
             launches_by_path={"training": train_launches[name]},
-            **{k: d[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
-                                 "bound_by", "library_ms")},
-            max_abs_err_all=max(d["max_abs_err"], q["max_abs_err"]),
-            shapes=[d, q]))
+            **{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "bound_ms", "bound_by",
+                                         "library_ms")},
+            max_abs_err_all=max(x["max_abs_err"] for x in shapes),
+            shapes=shapes))
     # the row-blocked family: the headline numbers are row_block 8 at the
     # document shape; every shape and row_block stands under "shapes", the
     # per-row kernel's time on the same inputs beside each ("v1_ms")

@@ -41,10 +41,10 @@ _SPLASH_TAIL = [_L] * 9 + [_I] * 5 + [_F, _P]
 #: C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
     "splade_fused_pool_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "splade_fused_pool_bwd_dh": [_P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _I, _P],
-    "splade_fused_pool_bwd_dw": [_P, _P, _P, _P, _P, _P, _P,
-                                 _I, _I, _I, _I, _P],
+    "splade_fused_pool_bwd_match": [_P, _P, _P, _P, _P, _P, _P,
+                                    _I, _I, _I, _I, _P],
+    "splade_fused_pool_bwd_dh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "splade_fused_pool_bwd_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "splade_rescore_match": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
     "splade_fused_pool_v2_fwd": [_P, _P, _P, _P, _P, _P,

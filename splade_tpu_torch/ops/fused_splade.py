@@ -17,17 +17,23 @@ vocab tile is masked in the kernel, so W is never padded or copied.
 Backward: the forward saves m (the [B, V] maxima), h, w, bias and mask, as
 ``_fused_fwd`` does. Outside the kernels, as ``_fused_bwd`` does:
 ``g_pre = g · 1/(1+m)`` where m > 0 else 0, ``dbias = Σ_b g_pre``, and the
-token weights' cotangent is ignored (they are monitoring-only). In the
-kernels (``csrc/fused_splade_bwd.cu``, replacing ``_bwd_dh_kernel`` at
-``fused_splade.py:93`` and ``_bwd_dw_kernel`` at ``:111``): recompute the
-score tile, ``G = 1[masked == m] · g_pre``, ``dh = G @ W_tile`` and
-``dW = Gᵀ @ h``. Ties get duplicate gradient, as in the Pallas kernels
-(autograd through ``amax``, the streamed path's gradient, splits them
-instead). dh and dW come back in the dtypes of h and w.
+token weights' cotangent is ignored (they are monitoring-only). The
+gradients themselves are ``G = 1[masked == m] · g_pre``, ``dh = G @ W`` and
+``dW = Gᵀ @ h``, computed by three kernels (``csrc/fused_splade_bwd.cu``,
+replacing ``_bwd_dh_kernel`` at ``fused_splade.py:93`` and ``_bwd_dw_kernel``
+at ``:111``): a match pass recomputes every score of the batch once and
+writes the argmax set as a bitmask ``match[b, j, v]`` (bit r of word j:
+valid position 32j + r reaches m[b, v], and g_pre[b, v] != 0), then a dh
+gather and a dW gather read it. The autograd backward runs the match pass
+once and the gathers it needs. Ties get duplicate gradient, as in the Pallas
+kernels (autograd through ``amax``, the streamed path's gradient, splits
+them instead). dh and dW come back in the dtypes of h and w.
 
 On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors
-they run the plain versions ``fused_splade_pool_plain`` and
-``fused_splade_bwd_plain``. There is no fallback between the two.
+they run the plain versions ``fused_splade_pool_plain``,
+``fused_splade_bwd_match_plain``, ``fused_splade_gather_dh_plain`` and
+``fused_splade_gather_dw_plain`` (``fused_splade_bwd_plain`` is the three
+composed). There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -44,18 +50,30 @@ from splade_tpu_torch.ops.splade_pool import (NEG, masked_max_streamed,
 #: vocab tile of the plain versions: the forward's maxima and the backward's
 #: recompute use the same tile, so the recomputed scores equal m bitwise
 PLAIN_TILE = 8192
-#: the backward kernels keep one row of f32 sums (up to 768 wide) a thread
+#: the dW gather keeps one row of f32 sums (up to 768 wide) a warp
 MAX_BWD_HIDDEN = 768
-#: blocks the dh kernel aims at (a few per multiprocessor of an H100): with
-#: fewer (B, 32-row chunk) pairs it splits the vocabulary to get there
-DH_TARGET_BLOCKS = 528
+#: hidden columns of one warp of the dh gather (32 threads x 4); a slice of
+#: the hidden width is a whole number of them
+GATHER_COLS = 128
+#: blocks the dh gather aims at: two a multiprocessor of an H100, which the
+#: full-width slice's 96 KB of shared-memory sums allows; with fewer (b, word)
+#: rows it cuts the hidden width into slices
+DH_GATHER_BLOCKS = 264
 
 
-def dh_vocab_splits(B: int, S: int, V: int) -> int:
-    """How many vocab splits the dh kernel runs (1 at the document batch,
-    several at the query batch); their partial sums are added in order."""
-    pairs = max(B * -(-S // 32), 1)
-    return max(1, min(-(-DH_TARGET_BLOCKS // pairs), -(-V // 128), 16))
+def match_words(S: int) -> int:
+    """32-position words a batch row of the bitmask holds: ceil(S / 32)."""
+    return -(-S // 32)
+
+
+def dh_hidden_splits(B: int, S: int, H: int) -> int:
+    """How many slices of whole GATHER_COLS-column groups the dh gather cuts
+    the hidden width into: 1 at the document batch, several at the query
+    batch. Each slice's sums are its own, so nothing is added afterwards."""
+    rows = max(B * match_words(S), 1)
+    groups = max(-(-H // GATHER_COLS), 1)
+    want = min(groups, -(-DH_GATHER_BLOCKS // rows))
+    return -(-groups // -(-groups // want))
 
 
 def float_key(x: torch.Tensor) -> torch.Tensor:
@@ -79,29 +97,87 @@ def fused_splade_pool_plain(
     return masked_max_streamed(h, w, bias, mask, tile=PLAIN_TILE)
 
 
+def fused_splade_bwd_match_plain(
+    h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+    mask: torch.Tensor, m: torch.Tensor, g_pre: torch.Tensor,
+) -> torch.Tensor:
+    """The match pass in plain PyTorch: each score tile recomputed as
+    ``fused_splade_pool_plain`` computed it; bit r of ``match[b, j, v]`` set
+    where valid position 32j + r has ``score == m[b, v]`` and ``g_pre[b, v]
+    != 0``. Returns int32 [B, ceil(S/32), V] holding the kernel's uint32
+    words (bit 31 is the sign bit)."""
+    B, S, _ = h.shape
+    V = w.shape[0]
+    J = match_words(S)
+    dev = h.device
+    match = torch.zeros((B, J, V), dtype=torch.int32, device=dev)
+    with torch.autocast(dev.type, enabled=False):
+        x = h.to(torch.float32)
+        valid = mask.to(device=dev).to(torch.bool)[:, :, None]
+        for v0 in range(0, V, PLAIN_TILE):
+            cols = slice(v0, v0 + PLAIN_TILE)
+            masked = masked_scores(x, w, bias, valid, v0, PLAIN_TILE)
+            hit = ((masked == m[:, None, cols]) & valid
+                   & (g_pre[:, None, cols] != 0))
+            hit = torch.nn.functional.pad(hit, (0, 0, 0, J * 32 - S))
+            hit = hit.view(B, J, 32, -1).to(torch.int32)
+            words = match[:, :, cols]
+            for r in range(32):
+                words |= hit[:, :, r] << r
+    return match
+
+
+def _unpack_tile(match: torch.Tensor, S: int) -> torch.Tensor:
+    """[B, J, T] words -> [B, S, T] bool: bit r of word j is position 32j+r."""
+    B, J, T = match.shape
+    r = torch.arange(32, dtype=torch.int32, device=match.device)
+    bits = (match[:, :, None, :] >> r[None, None, :, None]) & 1
+    return bits.view(B, J * 32, T)[:, :S].to(torch.bool)
+
+
+def fused_splade_gather_dh_plain(match: torch.Tensor, w: torch.Tensor,
+                                 g_pre: torch.Tensor, S: int) -> torch.Tensor:
+    """The dh gather in plain PyTorch: ``dh[b, s] = Σ_v bit(b, s, v) ·
+    g_pre[b, v] · W[v]`` over vocab tiles. Returns dh [B, S, H] f32."""
+    B, _, V = match.shape
+    dh = torch.zeros((B, S, w.shape[1]), dtype=torch.float32,
+                     device=match.device)
+    with torch.autocast(match.device.type, enabled=False):
+        for v0 in range(0, V, PLAIN_TILE):
+            cols = slice(v0, v0 + PLAIN_TILE)
+            G = torch.where(_unpack_tile(match[:, :, cols], S),
+                            g_pre[:, None, cols].to(torch.float32), 0.0)
+            dh += G @ w[cols].to(torch.float32)
+    return dh
+
+
+def fused_splade_gather_dw_plain(match: torch.Tensor, h: torch.Tensor,
+                                 g_pre: torch.Tensor) -> torch.Tensor:
+    """The dW gather in plain PyTorch: ``dW[v] = Σ_b Σ_s bit(b, s, v) ·
+    g_pre[b, v] · h[b, s]`` over vocab tiles. Returns dW [V, H] f32."""
+    B, S, H = h.shape
+    V = match.shape[2]
+    dw = torch.empty((V, H), dtype=torch.float32, device=h.device)
+    with torch.autocast(h.device.type, enabled=False):
+        x = h.to(torch.float32)
+        for v0 in range(0, V, PLAIN_TILE):
+            cols = slice(v0, v0 + PLAIN_TILE)
+            G = torch.where(_unpack_tile(match[:, :, cols], S),
+                            g_pre[:, None, cols].to(torch.float32), 0.0)
+            dw[cols] = torch.einsum("bsv,bsh->vh", G, x)
+    return dw
+
+
 def fused_splade_bwd_plain(
     h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
     mask: torch.Tensor, m: torch.Tensor, g_pre: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernels' arithmetic in plain PyTorch: recompute each
-    score tile as ``fused_splade_pool_plain`` computed it, ``G =
-    1[masked == m] · g_pre``, ``dh = G @ W_tile``, ``dw = Gᵀ @ h``.
+    """The backward kernels' arithmetic in plain PyTorch: the plain match
+    pass, then the two plain gathers from its bitmask.
     Returns (dh [B, S, H] f32, dw [V, H] f32)."""
-    B, S, H = h.shape
-    V = w.shape[0]
-    with torch.autocast(h.device.type, enabled=False):
-        x = h.to(torch.float32)
-        valid = mask.to(torch.bool)[:, :, None]
-        dh = torch.zeros((B, S, H), dtype=torch.float32, device=h.device)
-        dw = torch.empty((V, H), dtype=torch.float32, device=h.device)
-        for v0 in range(0, V, PLAIN_TILE):
-            masked = masked_scores(x, w, bias, valid, v0, PLAIN_TILE)
-            cols = slice(v0, v0 + PLAIN_TILE)
-            G = torch.where(masked == m[:, None, cols],
-                            g_pre[:, None, cols].to(torch.float32), 0.0)
-            dh += G @ w[cols].to(torch.float32)
-            dw[cols] = torch.einsum("bsv,bsh->vh", G, x)
-    return dh, dw
+    match = fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre)
+    return (fused_splade_gather_dh_plain(match, w, g_pre, h.shape[1]),
+            fused_splade_gather_dw_plain(match, h, g_pre))
 
 
 def _operands(h, w, bias, mask):
@@ -126,25 +202,64 @@ def _operands(h, w, bias, mask):
 
 
 @dataclasses.dataclass(frozen=True)
+class BwdOperands:
+    """What the backward kernels take, prepared once a backward."""
+
+    hb: torch.Tensor
+    wb: torch.Tensor
+    bias: Optional[torch.Tensor]
+    mask: torch.Tensor
+    m: torch.Tensor
+    g: torch.Tensor
+
+    @property
+    def dims(self) -> Tuple[int, int, int, int]:
+        B, S, H = self.hb.shape
+        return B, S, H, self.wb.shape[0]
+
+    def ptr(self, name: str):
+        t = getattr(self, name)
+        return t.data_ptr() if t is not None else None
+
+
+def _bwd_operands(h, w, bias, mask, m, g_pre) -> BwdOperands:
+    hb, wb, bias_f, maskf = _operands(h, w, bias, mask)
+    B, _, _ = hb.shape
+    V = wb.shape[0]
+    dev = hb.device
+    m32 = m.to(device=dev, dtype=torch.float32).contiguous()
+    g32 = g_pre.to(device=dev, dtype=torch.float32).contiguous()
+    if m32.shape != (B, V) or g32.shape != (B, V):
+        raise ValueError(f"m {tuple(m.shape)} and g_pre {tuple(g_pre.shape)} "
+                         f"must be [{B}, {V}]")
+    return BwdOperands(hb, wb, bias_f, maskf, m32, g32)
+
+
+@dataclasses.dataclass(frozen=True)
 class KernelFamily:
     """What differs between the pool's kernel families: the per-row one of
     this module and the row-blocked one of ``ops/fused_splade_v2.py``. The
     launchers and the ``autograd.Function`` below serve both, so operand
-    preparation, the empty batch, the ordered sum of the dh splits and the
-    tie, dbias and autocast rules are written once."""
+    preparation, the empty batch and the tie, dbias and autocast rules are
+    written once."""
 
-    #: the C entries are <prefix>_fwd, <prefix>_bwd_dh and <prefix>_bwd_dw
+    #: the C entries are <prefix>_fwd and <prefix>_bwd_<kernel>
     prefix: str
     #: (hb, row_block, backward) -> the ints the C entries take after V;
     #: raises ValueError for what the kernels cannot take
     block_args: Callable
-    #: (B, S, V, *block_args) -> vocab splits of the dh kernel
+    #: (B, S, H, V, *block_args) -> the splits of the dh kernel's work (the
+    #: per-row gather: hidden slices; the row-blocked kernel: vocab splits)
     dh_splits: Callable
+    #: (fam, BwdOperands, block_args, which) -> {"dh"/"dw": f32 tensor} for
+    #: the names in ``which``: the family's backward kernels on a non-empty
+    #: batch, each launch counted
+    launch_bwd: Callable
     #: the plain versions, taking row_block as their last argument
     plain_fwd: Callable
     plain_bwd: Callable
-    #: "fwd" / "dh" / "dw" -> the public function whose ``launches`` counts
-    #: that kernel, filled in where those functions are defined
+    #: kernel ("fwd", "dh", "dw", the per-row "match") -> the public function
+    #: whose ``launches`` counts it, filled in where those are defined
     counted: Dict[str, Callable] = dataclasses.field(default_factory=dict)
 
 
@@ -171,39 +286,94 @@ def _launch_fwd(fam: KernelFamily, h, w, bias, mask, row_block
     return m, float_from_key(pos_key)
 
 
-def _launch_bwd(fam: KernelFamily, which: str, h, w, bias, mask, m, g_pre,
-                row_block) -> torch.Tensor:
-    """One backward kernel, ``which`` "dh" (out [B,S,H]) or "dw" (out
-    [V,H]), f32. The output starts at 0: the row-blocked kernels add into
-    it."""
-    hb, wb, bias_f, maskf = _operands(h, w, bias, mask)
-    B, S, H = hb.shape
-    V = wb.shape[0]
-    extra = fam.block_args(hb, row_block, True)
-    dev = hb.device
-    m32 = m.to(device=dev, dtype=torch.float32).contiguous()
-    g32 = g_pre.to(device=dev, dtype=torch.float32).contiguous()
-    if m32.shape != (B, V) or g32.shape != (B, V):
-        raise ValueError(f"m {tuple(m.shape)} and g_pre {tuple(g_pre.shape)} "
-                         f"must be [{B}, {V}]")
-    is_dh = which == "dh"
-    splits = fam.dh_splits(B, S, V, *extra) if is_dh else 1
-    out = torch.zeros(((splits, B, S, H) if is_dh else (V, H)),
-                      dtype=torch.float32, device=dev)
+def _launch_bwd(fam: KernelFamily, which, h, w, bias, mask, m, g_pre,
+                row_block) -> Dict[str, torch.Tensor]:
+    """The family's backward kernels for the outputs named in ``which``
+    ("dh" [B,S,H], "dw" [V,H], f32). An empty batch launches nothing and
+    gives zeros."""
+    ops = _bwd_operands(h, w, bias, mask, m, g_pre)
+    extra = fam.block_args(ops.hb, row_block, True)
+    B, S, H, V = ops.dims
     if B == 0 or S == 0 or V == 0:
-        return out.sum(0) if is_dh else out
+        shapes = {"dh": (B, S, H), "dw": (V, H)}
+        return {name: torch.zeros(shapes[name], dtype=torch.float32,
+                                  device=ops.hb.device) for name in which}
+    return fam.launch_bwd(fam, ops, extra, which)
+
+
+def launch_recompute(fam: KernelFamily, ops: BwdOperands, extra, which
+                     ) -> Dict[str, torch.Tensor]:
+    """One kernel per output, each recomputing the scores itself (the
+    row-blocked family). The output starts at 0: the kernels add into it;
+    dh's vocab splits are summed in a fixed order."""
+    B, S, H, V = ops.dims
+    out = {}
+    for name in which:
+        is_dh = name == "dh"
+        splits = fam.dh_splits(B, S, H, V, *extra) if is_dh else 1
+        buf = torch.zeros(((splits, B, S, H) if is_dh else (V, H)),
+                          dtype=torch.float32, device=ops.hb.device)
+        entry = f"{fam.prefix}_bwd_{name}"
+        code = getattr(_cuda.library(), entry)(
+            ops.ptr("hb"), ops.ptr("wb"), ops.ptr("bias"), ops.ptr("mask"),
+            ops.ptr("m"), ops.ptr("g"), buf.data_ptr(), B, S, H, V, *extra,
+            *([splits] if is_dh else []), _cuda.stream_ptr(ops.hb))
+        _cuda.check(code, entry)
+        fam.counted[name].launches += 1
+        out[name] = (buf[0] if splits == 1 else buf.sum(0)) if is_dh else buf
+    return out
+
+
+def launch_match(fam: KernelFamily, ops: BwdOperands) -> torch.Tensor:
+    """The match pass: the bitmask [B, ceil(S/32), V] (int32 holding the
+    kernel's uint32 words), every word written by the kernel."""
+    B, S, H, V = ops.dims
+    match = torch.empty((B, match_words(S), V), dtype=torch.int32,
+                        device=ops.hb.device)
+    entry = fam.prefix + "_bwd_match"
+    code = getattr(_cuda.library(), entry)(
+        ops.ptr("hb"), ops.ptr("wb"), ops.ptr("bias"), ops.ptr("mask"),
+        ops.ptr("m"), ops.ptr("g"), match.data_ptr(), B, S, H, V,
+        _cuda.stream_ptr(ops.hb))
+    _cuda.check(code, entry)
+    fam.counted["match"].launches += 1
+    return match
+
+
+def launch_gather(fam: KernelFamily, which: str, match: torch.Tensor,
+                  x: torch.Tensor, g32: torch.Tensor, S: int) -> torch.Tensor:
+    """The dh gather ("dh": x is bf16 w, out [B,S,H]) or the dW gather
+    ("dw": x is bf16 h, out [V,H]) from a bitmask [B, ceil(S/32), V], f32,
+    every element written by the kernel."""
+    B, J, V = match.shape
+    H = x.shape[-1]
+    if (J != match_words(S) or match.dtype != torch.int32
+            or g32.shape != (B, V)
+            or x.shape != ((V, H) if which == "dh" else (B, S, H))):
+        raise ValueError(f"match {tuple(match.shape)} {match.dtype}, g "
+                         f"{tuple(g32.shape)} and {tuple(x.shape)} do not "
+                         f"agree for the {which} gather at S={S}")
+    match = match.contiguous()
+    out = torch.empty((B, S, H) if which == "dh" else (V, H),
+                      dtype=torch.float32, device=x.device)
+    extra = [fam.dh_splits(B, S, H, V)] if which == "dh" else []
     entry = f"{fam.prefix}_bwd_{which}"
     code = getattr(_cuda.library(), entry)(
-        hb.data_ptr(), wb.data_ptr(),
-        bias_f.data_ptr() if bias_f is not None else None,
-        maskf.data_ptr(), m32.data_ptr(), g32.data_ptr(), out.data_ptr(),
-        B, S, H, V, *extra, *([splits] if is_dh else []),
-        _cuda.stream_ptr(hb))
+        match.data_ptr(), x.data_ptr(), g32.data_ptr(), out.data_ptr(),
+        B, S, H, V, *extra, _cuda.stream_ptr(x))
     _cuda.check(code, entry)
     fam.counted[which].launches += 1
-    if is_dh:  # the splits' partial sums, added in a fixed order
-        return out[0] if splits == 1 else out.sum(0)
     return out
+
+
+def launch_match_gather(fam: KernelFamily, ops: BwdOperands, _extra, which
+                        ) -> Dict[str, torch.Tensor]:
+    """The per-row family: one match pass, then the gathers in ``which``."""
+    match = launch_match(fam, ops)
+    S = ops.hb.shape[1]
+    return {name: launch_gather(fam, name, match,
+                                ops.wb if name == "dh" else ops.hb, ops.g, S)
+            for name in which}
 
 
 def family_maxima(fam: KernelFamily, h, w, bias, mask, row_block=None
@@ -215,14 +385,22 @@ def family_maxima(fam: KernelFamily, h, w, bias, mask, row_block=None
     return fam.plain_fwd(h, w, bias, mask, row_block)
 
 
-def family_bwd(fam: KernelFamily, which: str, h, w, bias, mask, m, g_pre,
-               row_block=None) -> torch.Tensor:
-    """dh [B, S, H] or dW [V, H] f32: the family's kernel on a CUDA tensor,
-    its plain version on a CPU tensor."""
+def family_backward(fam: KernelFamily, which, h, w, bias, mask, m, g_pre,
+                    row_block=None) -> Dict[str, torch.Tensor]:
+    """{"dh": [B, S, H], "dw": [V, H]} f32 for the names in ``which``: the
+    family's backward kernels on a CUDA tensor, its plain backward on a CPU
+    tensor."""
     if h.is_cuda:
         return _launch_bwd(fam, which, h, w, bias, mask, m, g_pre, row_block)
-    return fam.plain_bwd(h, w, bias, mask, m, g_pre,
-                         row_block)[("dh", "dw").index(which)]
+    dh, dw = fam.plain_bwd(h, w, bias, mask, m, g_pre, row_block)
+    return {name: {"dh": dh, "dw": dw}[name] for name in which}
+
+
+def family_bwd(fam: KernelFamily, which: str, h, w, bias, mask, m, g_pre,
+               row_block=None) -> torch.Tensor:
+    """dh [B, S, H] or dW [V, H] f32 alone (``which`` "dh" or "dw")."""
+    return family_backward(fam, (which,), h, w, bias, mask, m, g_pre,
+                           row_block)[which]
 
 
 def fold_cotangent(g_pooled: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
@@ -256,18 +434,16 @@ class _FusedPool(torch.autograd.Function):
         h, w, bias, mask, m = ctx.saved_tensors
         fam, rb = ctx.family
         g_pre = fold_cotangent(g_pooled, m)
-        dh = dw = dbias = None
-        if h.is_cuda:
-            if ctx.needs_input_grad[0]:
-                dh = family_bwd(fam, "dh", h, w, bias, mask, m, g_pre, rb)
-            if ctx.needs_input_grad[1]:
-                dw = family_bwd(fam, "dw", h, w, bias, mask, m, g_pre, rb)
-        elif ctx.needs_input_grad[0] or ctx.needs_input_grad[1]:
-            dh, dw = fam.plain_bwd(h, w, bias, mask, m, g_pre, rb)
+        which = tuple(name for name, need in zip(("dh", "dw"),
+                                                 ctx.needs_input_grad[:2])
+                      if need)
+        grads = (family_backward(fam, which, h, w, bias, mask, m, g_pre, rb)
+                 if which else {})
+        dbias = None
         if bias is not None and ctx.needs_input_grad[2]:
             dbias = g_pre.sum(0).to(bias.dtype)
-        return (dh.to(h.dtype) if ctx.needs_input_grad[0] else None,
-                dw.to(w.dtype) if ctx.needs_input_grad[1] else None,
+        return (grads["dh"].to(h.dtype) if "dh" in grads else None,
+                grads["dw"].to(w.dtype) if "dw" in grads else None,
                 dbias, None, None, None)
 
 
@@ -281,14 +457,15 @@ def family_pool(fam: KernelFamily, h, w, bias, mask, row_block=None
 def _per_row_args(hb, _row_block, backward: bool) -> list:
     if backward and hb.shape[-1] > MAX_BWD_HIDDEN:
         raise ValueError(f"hidden size {hb.shape[-1]} > {MAX_BWD_HIDDEN}: the "
-                         "backward kernels keep one row of sums per thread")
+                         "dW gather keeps one row of sums per warp")
     return []
 
 
 # the plain versions are looked up when called, not when the family is made
 PER_ROW = KernelFamily(
     prefix="splade_fused_pool", block_args=_per_row_args,
-    dh_splits=dh_vocab_splits,
+    dh_splits=lambda B, S, H, _V: dh_hidden_splits(B, S, H),
+    launch_bwd=launch_match_gather,
     plain_fwd=lambda h, w, bias, mask, _rb: fused_splade_pool_plain(
         h, w, bias, mask),
     plain_bwd=lambda h, w, bias, mask, m, g_pre, _rb: fused_splade_bwd_plain(
@@ -301,15 +478,56 @@ def fused_splade_maxima(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
     return family_maxima(PER_ROW, h, w, bias, mask)
 
 
+def fused_splade_bwd_match(h, w, bias, mask, m, g_pre) -> torch.Tensor:
+    """The argmax bitmask, int32 [B, ceil(S/32), V]: the match pass on a
+    CUDA tensor, ``fused_splade_bwd_match_plain`` on a CPU tensor."""
+    if not h.is_cuda:
+        return fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre)
+    ops = _bwd_operands(h, w, bias, mask, m, g_pre)
+    B, S, _, V = ops.dims
+    if B == 0 or S == 0 or V == 0:
+        return torch.zeros((B, match_words(S), V), dtype=torch.int32,
+                           device=ops.hb.device)
+    return launch_match(PER_ROW, ops)
+
+
+def _gather(which: str, match, x, g_pre, S: int) -> torch.Tensor:
+    xb = x.to(torch.bfloat16).contiguous()
+    _per_row_args(xb, None, True)
+    g32 = g_pre.to(device=xb.device, dtype=torch.float32).contiguous()
+    B, _, V = match.shape
+    if B == 0 or S == 0 or V == 0:
+        return torch.zeros((B, S, xb.shape[-1]) if which == "dh"
+                           else (V, xb.shape[-1]), dtype=torch.float32,
+                           device=xb.device)
+    return launch_gather(PER_ROW, which, match, xb, g32, S)
+
+
+def fused_splade_gather_dh(match, w, g_pre, S: int) -> torch.Tensor:
+    """dh [B, S, H] f32 from a bitmask: the dh gather on a CUDA tensor,
+    ``fused_splade_gather_dh_plain`` on a CPU tensor."""
+    if not w.is_cuda:
+        return fused_splade_gather_dh_plain(match, w, g_pre, S)
+    return _gather("dh", match, w, g_pre, S)
+
+
+def fused_splade_gather_dw(match, h, g_pre) -> torch.Tensor:
+    """dW [V, H] f32 from a bitmask: the dW gather on a CUDA tensor,
+    ``fused_splade_gather_dw_plain`` on a CPU tensor."""
+    if not h.is_cuda:
+        return fused_splade_gather_dw_plain(match, h, g_pre)
+    return _gather("dw", match, h, g_pre, h.shape[1])
+
+
 def fused_splade_bwd_dh(h, w, bias, mask, m, g_pre) -> torch.Tensor:
-    """dh [B, S, H] f32 of the pool: the dh kernel on a CUDA tensor, the
-    plain version on a CPU tensor."""
+    """dh [B, S, H] f32 of the pool: the match pass and the dh gather on a
+    CUDA tensor, the plain version on a CPU tensor."""
     return family_bwd(PER_ROW, "dh", h, w, bias, mask, m, g_pre)
 
 
 def fused_splade_bwd_dw(h, w, bias, mask, m, g_pre) -> torch.Tensor:
-    """dW [V, H] f32 of the pool: the dW kernel on a CUDA tensor, the plain
-    version on a CPU tensor."""
+    """dW [V, H] f32 of the pool: the match pass and the dW gather on a
+    CUDA tensor, the plain version on a CPU tensor."""
     return family_bwd(PER_ROW, "dw", h, w, bias, mask, m, g_pre)
 
 
@@ -324,9 +542,11 @@ def fused_splade_pool(
 
 
 #: kernel launches since the last reset, added where a kernel is launched
-#: and nowhere else (never for the plain versions or an empty batch)
+#: and nowhere else (never for the plain versions or an empty batch):
+#: the forward, the match pass, the dh gather and the dW gather
 fused_splade_pool.launches = 0
+fused_splade_bwd_match.launches = 0
 fused_splade_bwd_dh.launches = 0
 fused_splade_bwd_dw.launches = 0
-PER_ROW.counted.update(fwd=fused_splade_pool, dh=fused_splade_bwd_dh,
-                       dw=fused_splade_bwd_dw)
+PER_ROW.counted.update(fwd=fused_splade_pool, match=fused_splade_bwd_match,
+                       dh=fused_splade_bwd_dh, dw=fused_splade_bwd_dw)

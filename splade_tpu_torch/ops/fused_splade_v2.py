@@ -41,7 +41,7 @@ import torch
 from splade_tpu_torch.ops import _cuda
 from splade_tpu_torch.ops.fused_splade import (PLAIN_TILE, KernelFamily,
                                                family_bwd, family_maxima,
-                                               family_pool)
+                                               family_pool, launch_recompute)
 from splade_tpu_torch.ops.splade_pool import NEG
 
 #: vocab columns of the kernels' resident W tile
@@ -187,7 +187,8 @@ def _check(h, row_block: int) -> int:
 ROW_BLOCKED = KernelFamily(
     prefix="splade_fused_pool_v2",
     block_args=lambda hb, row_block, _backward: [_check(hb, row_block)],
-    dh_splits=lambda B, _S, V, RB: dh_vocab_splits_v2(B, RB, V),
+    dh_splits=lambda B, _S, _H, V, RB: dh_vocab_splits_v2(B, RB, V),
+    launch_bwd=launch_recompute,
     plain_fwd=lambda *args: fused_splade_pool_v2_plain(*args),
     plain_bwd=lambda *args: fused_splade_bwd_v2_plain(*args))
 

@@ -166,6 +166,50 @@ def test_recompute_check_counts_ties_and_catches_a_miss(fault):
     assert out["worst"] <= 1e-5 < out["worst_before_ties"]
 
 
+def _drop_columns(match):
+    """a match pass that loses the maxima of row 1's first 50 columns"""
+    match = match.clone()
+    match[1, :, :50] = 0
+    return match
+
+
+def _stray_bit(match):
+    """a match pass that sets a bit on a padded position (row 2, the last)"""
+    match = match.clone()
+    match[2, 0, 5] |= 1
+    return match
+
+
+@pytest.mark.parametrize("fault", [None, _drop_columns, _stray_bit],
+                         ids=["sound", "drop_columns", "stray_bit"])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "model"])
+def test_match_check_holds_the_bitmask(monkeypatch, fault, exact):
+    """Phase 2's check of the match pass alone passes the plain bitmask
+    (every maximum found, no stray bit, bitwise the plain one on exact
+    inputs) and fails one that loses a column's maximum or sets a bit on a
+    padded position."""
+    from splade_tpu_torch.ops import fused_splade
+
+    cs = _load_chip_smoke()
+    h, w, bias, mask = _recompute_case()
+    if exact:  # small integers: every score exact in f32 in any order
+        h, w = h.float().round(), (w.float() * 40).round()
+    m, _ = fused_splade.fused_splade_maxima(h, w, bias, mask)
+    g_pre = fused_splade.fold_cotangent(torch.ones_like(m), m)
+    if fault is not None:
+        real = fused_splade.fused_splade_bwd_match
+        monkeypatch.setattr(fused_splade, "fused_splade_bwd_match",
+                            lambda *a: fault(real(*a)))
+    out = cs.match_check(torch, h, w, bias, mask, m, g_pre, exact)
+    assert out["ok"] == (fault is None), out
+    assert out["columns"] == int(((g_pre != 0)
+                                  & (mask.sum(1, keepdim=True) > 0)).sum())
+    if fault is None:
+        assert out["stray"] == 0 and out["found"]
+        assert out.get("bits_differing", 0) == 0
+        assert out["ties"] > 0  # row 0's repeated position: every tie kept
+
+
 def test_recipe_is_configs_train_v33_yaml():
     from splade_tpu_torch.config import V33Config, load_config
 
@@ -212,8 +256,8 @@ def test_train_phase_runs_on_the_cpu(trained):
     assert out["resume"]["step_moved_params"] > 0
     assert out["plain_route"]["loss_rel_err"] <= 1e-5
     assert out["launches"] == dict.fromkeys(
-        ("fused_splade_pool", "fused_splade_bwd_dh", "fused_splade_bwd_dw",
-         "splash_attention", "splash_attention_bwd_dq",
+        ("fused_splade_pool", "fused_splade_bwd_match", "fused_splade_bwd_dh",
+         "fused_splade_bwd_dw", "splash_attention", "splash_attention_bwd_dq",
          "splash_attention_bwd_dkv"), 0)  # plain versions on the CPU
     assert out["triplets"] == 4 * 2 * 6
 
@@ -398,6 +442,23 @@ def test_v2_path_catches_a_backward_that_drops_dbias(monkeypatch):
         cs.v2_path(*args)
 
 
+def test_port_kernel_times_are_summed_by_function_name():
+    """The profile keeps the port's own kernels whatever their rank: spans
+    are summed by kernel function, library kernels are left out."""
+    cs = _load_chip_smoke()
+    spans = [(0, 1500, "(anonymous namespace)::fused_splade_bwd_dh_kernel("
+                       "unsigned int const*, int)"),
+             (2000, 2500, "(anonymous namespace)::fused_splade_bwd_dh_kernel("
+                          "unsigned int const*, int)"),
+             (3000, 3100, "void at::native::elementwise_kernel<128, 4>()"),
+             (4000, 4250, "(anonymous namespace)::splash_fwd_kernel(bf16)")]
+    assert cs.port_kernels_ms(spans) == {"fused_splade_bwd_dh_kernel": 2.0,
+                                         "splash_fwd_kernel": 0.25}
+    assert set(cs.POOL_BACKWARD) <= {
+        "fused_splade_bwd_match_kernel", "fused_splade_bwd_dh_kernel",
+        "fused_splade_bwd_dw_kernel"}
+
+
 def test_profile_summary_adds_kernels_that_share_a_cut_name():
     """Device busy time is the union of the spans, and two kernels whose
     names agree in their first 60 characters are added together (an
@@ -479,17 +540,17 @@ def test_splash_case_has_padding_packing_and_a_padded_row():
 
 def test_expected_launches_follow_the_code():
     cs = _load_chip_smoke()
-    names = ("fused_splade_pool", "fused_splade_bwd_dh", "fused_splade_bwd_dw",
-             "splash_attention", "splash_attention_bwd_dq",
-             "splash_attention_bwd_dkv")
+    names = ("fused_splade_pool", "fused_splade_bwd_match",
+             "fused_splade_bwd_dh", "fused_splade_bwd_dw", "splash_attention",
+             "splash_attention_bwd_dq", "splash_attention_bwd_dkv")
     v33 = ModernBertConfig(remat=True, attention_impl="splash")
     assert cs.expected_launches(v33, 4, 3, 2) == dict(zip(
-        names, (24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12)))
+        names, (24, 24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12)))
     mlm = ModernBertConfig(attention_impl="splash")
     assert cs.expected_launches(mlm, 4, 5, 0) == dict(zip(
-        names, (0, 0, 0, 22 * 20, 22 * 20, 22 * 20)))
+        names, (0, 0, 0, 0, 22 * 20, 22 * 20, 22 * 20)))
     assert cs.expected_launches(ModernBertConfig(remat=True), 4, 3, 2) == dict(
-        zip(names, (24, 24, 24, 0, 0, 0)))
+        zip(names, (24, 24, 24, 24, 0, 0, 0)))
     assert set(cs._launch_counts()) == set(names)
     cs.hold_launches("sound", dict.fromkeys(names, 0),
                      dict.fromkeys(names, 0))

@@ -21,15 +21,23 @@ from splade_tpu.ops.splade_pool import splade_pool_streamed as jax_streamed
 from splade_tpu_torch.models.hf_port import params_from_jax
 from splade_tpu_torch.models.modernbert import ModernBertConfig
 from splade_tpu_torch.models.splade import SpladeEncoder
-from splade_tpu_torch.ops.fused_splade import (dh_vocab_splits,
+from splade_tpu_torch.ops.fused_splade import (PLAIN_TILE, dh_hidden_splits,
                                                float_from_key, float_key,
                                                fold_cotangent,
                                                fused_splade_bwd_dh,
                                                fused_splade_bwd_dw,
+                                               fused_splade_bwd_match,
+                                               fused_splade_bwd_match_plain,
                                                fused_splade_bwd_plain,
+                                               fused_splade_gather_dh,
+                                               fused_splade_gather_dh_plain,
+                                               fused_splade_gather_dw,
+                                               fused_splade_gather_dw_plain,
                                                fused_splade_pool,
-                                               fused_splade_pool_plain)
-from splade_tpu_torch.ops.splade_pool import (splade_pool_from_logits,
+                                               fused_splade_pool_plain,
+                                               match_words)
+from splade_tpu_torch.ops.splade_pool import (masked_scores,
+                                              splade_pool_from_logits,
                                               splade_pool_streamed)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -196,14 +204,144 @@ def test_backward_wrappers_on_cpu_are_the_plain_version():
     assert bias_leaf.grad.dtype == torch.float32
 
 
-@pytest.mark.parametrize("B,S,V,splits", [
-    (128, 256, 50000, 1),   # the document batch fills the card alone
-    (64, 64, 50000, 5),     # the query batch: 128 (b, chunk) pairs
-    (1, 16, 300, 3),        # never more splits than vocab tiles
-    (0, 0, 10, 1),           # one vocab tile: one split
+@pytest.mark.parametrize("B,S,H,splits", [
+    (128, 256, 768, 1),   # the document batch: 1024 (b, word) rows fill the card
+    (64, 64, 768, 3),     # the query batch: 128 rows, the hidden width in 3
+    (8, 200, 768, 3),     # a ragged last word still counts as a row
+    (4, 64, 768, 6),      # never more slices than 128-column groups
+    (1, 16, 64, 1),       # one group: one slice
+    (0, 0, 768, 6),       # an empty batch launches nothing; the rule holds
 ])
-def test_dh_vocab_splits(B, S, V, splits):
-    assert dh_vocab_splits(B, S, V) == splits
+def test_dh_hidden_splits(B, S, H, splits):
+    """The dh gather cuts the hidden width, never the vocabulary, into whole
+    128-column slices until about DH_GATHER_BLOCKS blocks fill the card:
+    no partial sums are left to add."""
+    assert dh_hidden_splits(B, S, H) == splits
+    groups = -(-H // 128)
+    assert 1 <= splits <= groups
+    slice_cols = -(-groups // splits) * 128
+    assert -(-H // slice_cols) == splits  # every slice holds columns
+
+
+def _bitmask_case(seed, B, S, H, V):
+    """Small-integer h and W (exact f32 scores, many exact ties), ragged
+    lengths and a fully padded last row, g_pre from the plain forward's
+    maxima with every 7th column set to 0, plus two explicit ties: a
+    repeated position, and a repeat across a 32-position word boundary."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-2, 3, (B, S, H)).astype(np.float32)
+    w = rng.integers(-2, 3, (V, H)).astype(np.float32)
+    bias = rng.integers(-2, 3, V).astype(np.float32)
+    lens = rng.integers(S // 2, S + 1, B)
+    lens[0] = S
+    lens[-1] = 0
+    h[0, 1] = h[0, 0]
+    h[0, S - 1] = h[0, 2]
+    mask = (np.arange(S)[None] < lens[:, None]).astype(np.int64)
+    t = [torch.from_numpy(x) for x in (h, w, bias, mask)]
+    m, _ = fused_splade_pool_plain(*t)
+    gout = torch.from_numpy(rng.normal(size=(B, V)).astype(np.float32))
+    g_pre = fold_cotangent(gout, m)
+    g_pre[:, ::7] = 0.0
+    return t, m, gout, g_pre
+
+
+def _unpack(match, S):
+    r = torch.arange(32, dtype=torch.int32)
+    bits = (match[:, :, None, :] >> r[None, None, :, None]) & 1
+    return bits.reshape(match.shape[0], -1, match.shape[2])[:, :S].bool()
+
+
+@pytest.mark.parametrize("S,V", [
+    (200, 300),               # a ragged last word and a ragged vocab tile
+    (64, 300),                # whole words
+    (40, PLAIN_TILE + 77),    # a ragged last tile of the plain versions
+])
+def test_plain_bitmask_is_the_argmax_set(S, V):
+    """Bit r of match[b, j, v] is set exactly where valid position 32j + r
+    scores m[b, v] and g_pre[b, v] != 0: every exact tie, no invalid or
+    padded position, no g = 0 column, nothing past S; the CPU wrapper is
+    the plain version and counts no launch."""
+    (h, w, bias, mask), m, _, g_pre = _bitmask_case(S + V, 3, S, 16, V)
+    before = fused_splade_bwd_match.launches
+    match = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+    assert fused_splade_bwd_match.launches == before
+    assert match.dtype == torch.int32
+    assert match.shape == (3, match_words(S), V)
+    assert torch.equal(match,
+                       fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre))
+    valid = mask.bool()[:, :, None]
+    scores = masked_scores(h, w, bias, valid, 0, V)
+    want = (scores == m[:, None]) & valid & (g_pre[:, None] != 0)
+    bits = _unpack(match, S)
+    assert torch.equal(bits, want)
+    r = torch.arange(32, dtype=torch.int32)
+    past = (match[:, -1:, None, :] >> r[None, None, :, None]) & 1
+    assert int(past.view(3, 32, V)[:, S - 32 * (match.shape[1] - 1):].sum()) \
+        == 0
+    assert int(bits[-1].sum()) == 0 and int(bits[:, :, ::7].sum()) == 0
+    assert bool(bits[0, 0].eq(bits[0, 1]).all())  # the repeated position
+    ties = int((bits.sum(1) > 1).sum())
+    assert ties > 0 and bool((bits.sum(1)[g_pre != 0][:-V] >= 1).all())
+
+
+@pytest.mark.parametrize("S", [200, 64, 40])
+def test_plain_gathers_compose_to_the_plain_backward(S):
+    """dh and dW gathered from the plain bitmask are fused_splade_bwd_plain
+    (its composition) and G @ W, Gᵀ @ h with G the argmax set times g_pre;
+    the CPU wrappers are the plain versions."""
+    (h, w, bias, mask), m, _, g_pre = _bitmask_case(S, 3, S, 16, 300)
+    match = fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre)
+    dh = fused_splade_gather_dh_plain(match, w, g_pre, S)
+    dw = fused_splade_gather_dw_plain(match, h, g_pre)
+    assert torch.equal(fused_splade_gather_dh(match, w, g_pre, S), dh)
+    assert torch.equal(fused_splade_gather_dw(match, h, g_pre), dw)
+    want_dh, want_dw = fused_splade_bwd_plain(h, w, bias, mask, m, g_pre)
+    assert torch.equal(dh, want_dh) and torch.equal(dw, want_dw)
+    G = torch.where(_unpack(match, S), g_pre[:, None], 0.0)
+    torch.testing.assert_close(dh, G @ w, rtol=1e-6, atol=1e-5)
+    torch.testing.assert_close(dw, torch.einsum("bsv,bsh->vh", G, h),
+                               rtol=1e-6, atol=1e-5)
+    assert float(dh[-1].abs().max()) == 0.0  # the fully padded row
+
+
+@pytest.mark.parametrize("S", [40, 16])
+def test_plain_gathers_match_jax_pallas_vjp_with_ties(S):
+    """The gathers from the plain bitmask against the Pallas custom VJP in
+    interpret mode, on inputs with exact ties (a repeated position, one
+    across a word boundary at S = 40): every tied position gets the full
+    gradient in both."""
+    rng = np.random.default_rng(S)
+    B, H, V = 3, 32, 300
+    h = rng.normal(size=(B, S, H)).astype(np.float32)
+    w = (rng.normal(size=(V, H)) * 0.3).astype(np.float32)
+    bias = (rng.normal(size=V) * 0.1).astype(np.float32)
+    h[0, 0] *= 3.0  # positions that hold many maxima, repeated
+    h[1, 3] *= 3.0
+    h[0, 1] = h[0, 0]
+    h[1, S - 1] = h[1, 3]
+    lens = np.array([S, S, 0])
+    mask = (np.arange(S)[None] < lens[:, None]).astype(np.int32)
+    gout = rng.normal(size=(B, V)).astype(np.float32)
+
+    def loss(h_, w_, b_):
+        p, _ = jax_fused(h_, w_, b_, jnp.asarray(mask), 128)
+        return jnp.sum(p * jnp.asarray(gout))
+
+    want = [np.asarray(x) for x in jax.grad(loss, argnums=(0, 1))(
+        jnp.asarray(h), jnp.asarray(w), jnp.asarray(bias))]
+    t = [torch.from_numpy(x) for x in (h, w, bias, mask)]
+    m, _ = fused_splade_pool_plain(*t)
+    g_pre = fold_cotangent(torch.from_numpy(gout), m)
+    match = fused_splade_bwd_match_plain(*t, m, g_pre)
+    got = (fused_splade_gather_dh_plain(match, t[1], g_pre, S),
+           fused_splade_gather_dw_plain(match, t[0], g_pre))
+    for g, j, name in zip(got, want, ("dh", "dw")):
+        np.testing.assert_allclose(g.numpy(), j, **GRAD_TOL, err_msg=name)
+    tied = _unpack(match, S)
+    assert bool(tied[0, 0].eq(tied[0, 1]).all()) and bool(tied[0, 0].any())
+    assert bool(tied[1, 3].eq(tied[1, S - 1]).all()) and bool(tied[1, 3].any())
+    np.testing.assert_array_equal(got[0][0, 0].numpy(), got[0][0, 1].numpy())
 
 
 def test_float_key_orders_like_floats():

@@ -213,7 +213,9 @@ def test_launchers_count_where_they_launch_and_nowhere_else(
     """Both families go through one set of launchers: each adds one to its
     kernel's count after the C entry returned, never for an empty batch;
     the entry's name and its integer arguments (B, S, H, V, the row block,
-    the dh splits) are the family's."""
+    the dh splits) are the family's. The per-row backward runs its match
+    pass once a call and then the gathers asked for; the row-blocked one
+    runs one recomputing kernel an output."""
     from splade_tpu_torch.ops import _cuda, fused_splade, fused_splade_v2
 
     fam = getattr(fused_splade_v2 if family == "ROW_BLOCKED" else fused_splade,
@@ -227,24 +229,39 @@ def test_launchers_count_where_they_launch_and_nowhere_else(
     h, w, bias, mask = (torch.from_numpy(x) for x in _case(5, B, S, H, V))
     m, g = torch.zeros(B, V), torch.ones(B, V)
     count = lambda: {k: fn.launches for k, fn in fam.counted.items()}
+    zero = dict.fromkeys(fam.counted, 0)
 
     fused_splade._launch_fwd(fam, h[:0], w, bias, mask[:0], row_block)
-    dh0 = fused_splade._launch_bwd(fam, "dh", h[:0], w, bias, mask[:0],
-                                   m[:0], g[:0], row_block)
-    dw0 = fused_splade._launch_bwd(fam, "dw", h[:0], w, bias, mask[:0],
-                                   m[:0], g[:0], row_block)
-    assert lib.calls == [] and count() == dict(fwd=0, dh=0, dw=0)
-    assert dh0.shape == (0, S, H) and dw0.shape == (V, H)
+    empty = fused_splade._launch_bwd(fam, ("dh", "dw"), h[:0], w, bias,
+                                     mask[:0], m[:0], g[:0], row_block)
+    assert lib.calls == [] and count() == zero
+    assert empty["dh"].shape == (0, S, H) and empty["dw"].shape == (V, H)
+    assert float(empty["dw"].abs().max()) == 0.0
 
     fused_splade._launch_fwd(fam, h, w, bias, mask, row_block)
-    assert count() == dict(fwd=1, dh=0, dw=0)
-    fused_splade._launch_bwd(fam, "dh", h, w, bias, mask, m, g, row_block)
-    fused_splade._launch_bwd(fam, "dw", h, w, bias, mask, m, g, row_block)
-    assert count() == dict(fwd=1, dh=1, dw=1)
-    splits = fam.dh_splits(B, S, V, *extra)
-    # 6 pointers (forward) or 7 (backward), the ints, the stream
-    assert [(entry, args[6 + entry.count("_bwd_"):-1])
-            for entry, args in lib.calls] == [
-        (fam.prefix + "_fwd", (B, S, H, V, *extra)),
-        (fam.prefix + "_bwd_dh", (B, S, H, V, *extra, splits)),
-        (fam.prefix + "_bwd_dw", (B, S, H, V, *extra))]
+    assert count() == dict(zero, fwd=1)
+    fused_splade._launch_bwd(fam, ("dh",), h, w, bias, mask, m, g, row_block)
+    fused_splade._launch_bwd(fam, ("dw",), h, w, bias, mask, m, g, row_block)
+    out = fused_splade._launch_bwd(fam, ("dh", "dw"), h, w, bias, mask, m, g,
+                                   row_block)
+    assert set(out) == {"dh", "dw"}
+    splits = fam.dh_splits(B, S, H, V, *extra)
+    # the forward: 6 pointers, then the ints and the stream
+    assert [(e, a[6:-1]) for e, a in lib.calls[:1]] == [
+        (fam.prefix + "_fwd", (B, S, H, V, *extra))]
+    if family == "PER_ROW":
+        # the match pass: 7 pointers; the gathers: 4
+        assert count() == dict(fwd=1, match=3, dh=2, dw=2)
+        ints = [(e, a[7 if e.endswith("_match") else 4:-1])
+                for e, a in lib.calls[1:]]
+        match = (fam.prefix + "_bwd_match", (B, S, H, V))
+        dh = (fam.prefix + "_bwd_dh", (B, S, H, V, splits))
+        dw = (fam.prefix + "_bwd_dw", (B, S, H, V))
+        assert ints == [match, dh, match, dw, match, dh, dw]
+    else:
+        # each recomputing kernel: 7 pointers
+        assert count() == dict(fwd=1, dh=2, dw=2)
+        ints = [(e, a[7:-1]) for e, a in lib.calls[1:]]
+        dh = (fam.prefix + "_bwd_dh", (B, S, H, V, *extra, splits))
+        dw = (fam.prefix + "_bwd_dw", (B, S, H, V, *extra))
+        assert ints == [dh, dw, dh, dw]

@@ -16,10 +16,17 @@ import torch
 from splade_tpu_torch.ops.fused_splade import (fold_cotangent,
                                                fused_splade_bwd_dh,
                                                fused_splade_bwd_dw,
+                                               fused_splade_bwd_match,
+                                               fused_splade_bwd_match_plain,
                                                fused_splade_bwd_plain,
+                                               fused_splade_gather_dh,
+                                               fused_splade_gather_dh_plain,
+                                               fused_splade_gather_dw,
+                                               fused_splade_gather_dw_plain,
                                                fused_splade_maxima,
                                                fused_splade_pool,
-                                               fused_splade_pool_plain)
+                                               fused_splade_pool_plain,
+                                               match_words)
 from splade_tpu_torch.ops.fused_splade_v2 import (fused_splade_bwd_dh_v2,
                                                   fused_splade_bwd_dw_v2,
                                                   fused_splade_maxima_v2,
@@ -184,6 +191,115 @@ def test_fused_pool_backward_recomputes_the_forward(cuda, B, S, H, V):
     assert out["ok"], out
 
 
+# ---- the per-row backward's three kernels, one at a time -----------------
+MATCH_SHAPES = BWD_SHAPES + [
+    (8, 200, 768, 50000),    # S not a multiple of 32: a ragged last word
+]
+
+
+@pytest.mark.parametrize("B,S,H,V", MATCH_SHAPES)
+def test_match_kernel_equals_plain_on_exact_inputs(cuda, B, S, H, V):
+    """Small-integer inputs: every score is exact in f32 in any order, so
+    the match pass's bitmask equals the plain one bit for bit, every exact
+    tie included, given the same maxima. Columns with g = 0 get no bit, nor
+    do invalid positions, the padded row or bits past S."""
+    h, w, bias, mask, gout = _bwd_case(B, S, H, V, seed=B * S + V + 1,
+                                       device=cuda, exact=True)
+    m, _ = fused_splade_maxima(h, w, bias, mask)
+    g_pre = fold_cotangent(gout, m)
+    g_pre[:, ::5] = 0.0
+    before = fused_splade_bwd_match.launches
+    got = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+    torch.cuda.synchronize()
+    assert fused_splade_bwd_match.launches == before + 1
+    assert got.shape == (B, match_words(S), V) and got.dtype == torch.int32
+    want = fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre)
+    assert torch.equal(got, want)
+    bits = torch.stack([(got >> r) & 1 for r in range(32)], 2).view(
+        B, -1, V)
+    assert int(bits[:, :, ::5].sum()) == 0 and int(bits[-1].sum()) == 0
+    assert int(bits[:, S:].sum()) == 0
+    ties = int((bits.sum(1) > 1).sum())
+    assert ties > 0  # exact ties are common here, and every one is kept
+
+
+@pytest.mark.parametrize("B,S,H,V", MATCH_SHAPES)
+def test_match_kernel_reaches_the_forward_kernels_maxima(cuda, B, S, H, V):
+    """Model-like inputs: with the forward kernel's maxima, every column of
+    a valid row whose g is not 0 finds at least one position (a recompute one
+    ulp off would find almost none), and bits stand only on valid
+    positions."""
+    h, w, bias, mask, gout = _bwd_case(B, S, H, V, seed=V + S, device=cuda,
+                                       exact=False)
+    m, _ = fused_splade_maxima(h, w, bias, mask)
+    g_pre = fold_cotangent(gout, m)
+    got = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+    bits = torch.stack([(got >> r) & 1 for r in range(32)], 2).view(
+        B, -1, V)[:, :S]
+    live = (g_pre != 0) & (mask.sum(1, keepdim=True) > 0)
+    assert bool((bits.sum(1)[live] >= 1).all())
+    assert int(bits.sum(1)[~live].sum()) == 0
+    assert int((bits * (mask[:, :, None] == 0)).sum()) == 0
+    again = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+    assert torch.equal(got, again)
+
+
+def _random_bitmask(B, S, V, dense, seed, device):
+    """Words with no bit past S. Sparse: one bit a (b, v) column at a
+    random position, a second one in every 20th column (a tie), as training
+    gives; dense: each bit with probability 0.1, so many words hold several
+    bits and the gathers' tie paths run everywhere."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    J = match_words(S)
+    if dense:
+        bits = torch.rand(B, J * 32, V, generator=g, device=device) < 0.1
+        bits[:, S:] = False
+        bits = bits.view(B, J, 32, V).to(torch.int32)
+        words = torch.zeros(B, J, V, dtype=torch.int32, device=device)
+        for r in range(32):
+            words |= bits[:, :, r] << r
+        return words
+    pos = torch.randint(0, S, (B, V), generator=g, device=device)
+    other = (pos + 1 + torch.randint(0, max(S - 1, 1), (B, V), generator=g,
+                                     device=device)) % S
+    b = torch.arange(B, device=device)[:, None].expand(B, V)
+    v = torch.arange(V, device=device)[None].expand(B, V)
+    words = torch.zeros(B * J * V, dtype=torch.int32, device=device)
+    for p_, keep in ((pos, torch.ones_like(pos, dtype=torch.bool)),
+                     (other, (v % 20 == 0) & (other != pos))):
+        at = ((b * J + p_ // 32) * V + v)[keep]
+        words.index_put_((at,), (1 << (p_ % 32)).to(torch.int32)[keep],
+                         accumulate=True)  # distinct bits: a sum is an OR
+    return words.view(B, J, V)
+
+
+@pytest.mark.parametrize("B,S,H,V", MATCH_SHAPES)
+@pytest.mark.parametrize("dense", [False, True], ids=["sparse", "dense"])
+def test_gather_kernels_equal_plain(cuda, B, S, H, V, dense):
+    """The dh and dW gathers from one bitmask against their plain versions,
+    elementwise: only the order of f32 sums differs. Repeated calls are
+    bitwise equal."""
+    if dense and B * S * V > 4e7:
+        B = 2  # the dense mask at the long shapes: two rows are enough
+    h, w, _, _, gout = _bwd_case(B, S, H, V, seed=B + S + V, device=cuda,
+                                 exact=False)
+    match = _random_bitmask(B, S, V, dense, seed=S + V, device=cuda)
+    counts = (fused_splade_bwd_dh.launches, fused_splade_bwd_dw.launches)
+    dh = fused_splade_gather_dh(match, w, gout, S)
+    dw = fused_splade_gather_dw(match, h, gout)
+    torch.cuda.synchronize()
+    assert (fused_splade_bwd_dh.launches,
+            fused_splade_bwd_dw.launches) == (counts[0] + 1, counts[1] + 1)
+    want_dh = fused_splade_gather_dh_plain(match, w, gout, S)
+    want_dw = fused_splade_gather_dw_plain(match, h, gout)
+    for name, a, b in (("dh", dh, want_dh), ("dw", dw, want_dw)):
+        assert torch.isfinite(a).all(), name
+        torch.testing.assert_close(a, b, rtol=1e-5,
+                                   atol=1e-5 * float(b.abs().max()), msg=name)
+    assert torch.equal(dh, fused_splade_gather_dh(match, w, gout, S))
+    assert torch.equal(dw, fused_splade_gather_dw(match, h, gout))
+
+
 # ---- the row-blocked family (ops/fused_splade_v2.py) ----------------------
 V2_SHAPES = [
     (6, 100, 64, 1000, 3),      # chunks cross batch rows, ragged V, H < 768
@@ -302,11 +418,15 @@ def test_v2_refuses_a_hidden_width_its_tile_cannot_hold(cuda):
 def test_an_empty_batch_launches_and_counts_nothing(cuda):
     h, w, bias, mask = _pool_case(4, 16, 64, 100, seed=2, device=cuda)
     m, g = torch.zeros(0, 100, device=cuda), torch.ones(0, 100, device=cuda)
-    fns = (fused_splade_pool, fused_splade_bwd_dh, fused_splade_bwd_dw,
-           fused_splade_pool_v2, fused_splade_bwd_dh_v2,
+    fns = (fused_splade_pool, fused_splade_bwd_match, fused_splade_bwd_dh,
+           fused_splade_bwd_dw, fused_splade_pool_v2, fused_splade_bwd_dh_v2,
            fused_splade_bwd_dw_v2)
     before = [fn.launches for fn in fns]
     assert fused_splade_maxima(h[:0], w, bias, mask[:0])[0].shape == (0, 100)
+    match = fused_splade_bwd_match(h[:0], w, bias, mask[:0], m, g)
+    assert match.shape == (0, 1, 100)
+    assert fused_splade_gather_dh(match, w, g, 16).shape == (0, 16, 64)
+    assert float(fused_splade_gather_dw(match, h[:0], g).abs().max()) == 0
     assert fused_splade_maxima_v2(h[:0], w, bias, mask[:0])[0].shape == (0, 100)
     for dh, dw in ((fused_splade_bwd_dh, fused_splade_bwd_dw),
                    (fused_splade_bwd_dh_v2, fused_splade_bwd_dw_v2)):
