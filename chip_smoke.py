@@ -33,10 +33,12 @@ Phases (any failure exits non-zero; nothing is caught):
    splash attention kernels (``ops/splash_attention.py``) at the training
    micro-batches (B=144, S=256 with packed query rows; B=32, S=512), 12
    heads of 64, half window 64 and 0, random lengths and a fully padded
-   row: the forward's out and lse, and dq, dk, dv for a seeded dO, against
-   the plain versions; the same at a ragged S=200; the gradients through
-   autograd equal to the wrappers' own and a repeated backward bitwise
-   equal; times, bounds from the allowed pairs, and one
+   row: the forward's out and lse, the dq kernel's delta, and dq, dk, dv
+   for a seeded dO, against the plain versions; the same at a ragged
+   S=200; the gradients through autograd equal to the wrappers' own and a
+   repeated backward bitwise equal; times (each kernel, and the whole
+   backward as the autograd.Function runs it: the dq kernel with delta,
+   then dk/dv), bounds from the allowed pairs, and one
    ``scaled_dot_product_attention`` call with the same mask as the library
    yardstick (timed here, called nowhere in the port).
 3. The serving path at full width (22 layers, 768 hidden, 50K vocab) with
@@ -47,7 +49,8 @@ Phases (any failure exits non-zero; nothing is caught):
    /encode, /index then /search through the LSM delta. The batched /search
    results, and the indexed text documents' vectors, are held against the
    port's plain path (pool_impl="streamed", exact_rescore) on the same
-   inputs. The kernels' launch counts are set to 0 before this phase and
+   inputs; each index's own ``search_vector`` on one query's vector against
+   the engine's search of that query. The kernels' launch counts are set to 0 before this phase and
    read after it, and per served request and batch around the
    single-query requests. Then one warmed search batch
    of 8 and of 32 queries per engine under torch.profiler: wall time,
@@ -175,7 +178,9 @@ TRAIN_POOL_SHAPES = ((128, 256), (64, 64))
 # words (the last word of every row is ragged)
 BWD_RAGGED = (8, 200)
 # splash attention kernels vs plain versions on the same bf16 operands, with
-# the same lse and delta fed to both backward routes. Scores and sums are f32
+# the same lse fed to both backward routes (the kernels' delta is their own,
+# the plain route's the plain reduction: within SPLASH_DELTA_RTOL of each
+# other, far below the ulp below). Scores and sums are f32
 # in both (the order of sums and the kernels' fast exp differ by about 1e-6),
 # then two roundings to bf16 remain: p (and ds) before the second product,
 # where a 1e-6 difference can flip one value by an ulp (2^-8 of it), and the
@@ -185,6 +190,10 @@ BWD_RAGGED = (8, 200)
 # 8e-3, a dropped delta moves ds by its whole size)
 SPLASH_RTOL = 2.0 ** -7
 SPLASH_LSE_ATOL = 1e-4
+# delta = rowsum(dO * out), the dq kernel's against the plain reduction on the
+# same bf16 values: f32 sums of 64 products in another order (about 1e-6 of
+# the largest value); a dropped or stale delta is off by its whole size
+SPLASH_DELTA_RTOL = 1e-5
 # (B, S) of the attention at training: the V33 micro-batch (128 document rows
 # + 16 rows of 4 packed queries, 256 positions) and the MLM one (32 x 512);
 # 12 heads of 64; the local layers' half window and the global layers' 0
@@ -1038,15 +1047,19 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
                  N: int = SPLASH_HEADS, D: int = SPLASH_HEAD_DIM,
                  device: str = "cuda", timed: bool = True) -> dict:
     """The three splash attention kernels against their plain versions at
-    one shape and window: the forward's out and lse; dq, dk and dv for a
-    seeded dO, both routes fed the forward kernel's lse and the same delta;
-    the gradients that come back through ``splash_attention``'s
+    one shape and window: the forward's out and lse; for a seeded dO, the dq
+    kernel's delta against the plain reduction, and dq, dk, dv against the
+    plain backward fed the forward kernel's lse and the plain delta; the
+    gradients that come back through ``splash_attention``'s
     autograd.Function equal to the wrappers' own, and a repeated backward
-    bitwise equal. Then times by CUDA events, the plain versions', one
-    ``scaled_dot_product_attention`` call with the same boolean mask as the
-    library yardstick (forward, and its backward for dq, dk and dv
-    together), and the bound from this run's allowed pairs. Returns
-    {"fwd": ..., "dq": ..., "dkv": ...}."""
+    bitwise equal. Then times by CUDA events, with the gradients in the
+    dtypes the training paths give them (q and k come out of RoPE in f32
+    under autocast, v in bf16: dq and dk f32, dv bf16): each kernel, the
+    dq kernel computing delta alone, the whole backward as the Function
+    runs it, the plain versions', one ``scaled_dot_product_attention`` call
+    with the same boolean mask as the library yardstick (forward, and its
+    backward for dq, dk and dv together), and the bound from this run's
+    allowed pairs. Returns {"fwd": ..., "dq": ..., "dkv": ...}."""
     from splade_tpu_torch.ops import splash_attention as sa
 
     q, k, v, seg, d_out = splash_case(torch, rng, B, S, N, D, packed, device)
@@ -1054,12 +1067,13 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
     with torch.no_grad():
         out, lse = sa.splash_attention_forward(q, k, v, seg, hw)
         out_p, lse_p = sa.splash_attention_plain(q, k, v, seg, hw)
-        delta = sa.splash_attention_delta(d_out, out)
-        dq = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, lse, delta)
+        dq, delta = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, out,
+                                               lse)
         dk, dv = sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse,
                                              delta)
+        delta_p = sa.splash_attention_delta(d_out, out)
         dq_p, dk_p, dv_p = sa.splash_attention_bwd_plain(
-            q, k, v, seg, hw, d_out, lse, delta)
+            q, k, v, seg, hw, d_out, lse, delta_p)
     # through autograd: the Function's gradients are the wrappers' own
     leaves = [t.detach().requires_grad_() for t in (q, k, v)]
     got = sa.splash_attention(*leaves, seg, hw)
@@ -1076,6 +1090,7 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
                              / b.float().abs().max().clamp_min(1e-30))
     err = dict(out=rel(out, out_p), dq=rel(dq, dq_p), dk=rel(dk, dk_p),
                dv=rel(dv, dv_p))
+    delta_err = rel(delta, delta_p)
     absolute = dict(fwd=float((out.float() - out_p).abs().max()),
                     dq=float((dq - dq_p).abs().max()),
                     dkv=max(float((dk - dk_p).abs().max()),
@@ -1084,19 +1099,21 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
                     dkv=max(err["dk"], err["dv"]))
     lse_err = float((lse - lse_p).abs().max())
     finite = all(bool(torch.isfinite(t).all())
-                 for t in (out, lse, dq, dk, dv))
+                 for t in (out, lse, delta, dq, dk, dv))
     allowed = splash_allowed(torch, seg, hw)
     pairs = float(allowed.sum())
     label = (f"splash B={B} S={S} N={N} D={D} half_window={hw}"
              f"{' packed' if packed else ''}")
     log(f"  {label}: forward out {err['out']:.2e} of its largest value, lse "
         f"{lse_err:.2e} (tol {SPLASH_RTOL:.2e} / {SPLASH_LSE_ATOL}); backward "
-        f"dq {err['dq']:.2e} dk {err['dk']:.2e} dv {err['dv']:.2e} (tol "
+        f"delta {delta_err:.2e} (tol {SPLASH_DELTA_RTOL:.0e}), dq "
+        f"{err['dq']:.2e} dk {err['dk']:.2e} dv {err['dv']:.2e} (tol "
         f"{SPLASH_RTOL:.2e}); finite: {finite}; autograd returns the "
         f"wrappers' values: {wired}; repeated backward bitwise equal: "
         f"{repeat_bitwise}; {pairs / (B * S):.1f} allowed keys a query")
     if not (max(err.values()) <= SPLASH_RTOL and lse_err <= SPLASH_LSE_ATOL
-            and finite and wired and repeat_bitwise):
+            and delta_err <= SPLASH_DELTA_RTOL and finite and wired
+            and repeat_bitwise):
         raise SystemExit(f"splash attention kernels disagree ({label})")
     shape = dict(shape=f"B={B} S={S} N={N} D={D}", half_window=hw,
                  packed=packed, allowed_pairs=pairs)
@@ -1104,41 +1121,55 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
                          max_rel_err=relative[name])
               for name in ("fwd", "dq", "dkv")}
     result["fwd"]["lse_max_abs_err"] = lse_err
+    result["dq"]["delta_max_rel_err"] = delta_err
     if not timed:
         return result
 
     import torch.nn.functional as F
     lib_mask = allowed[:, None]
+    f32, bf16 = torch.float32, torch.bfloat16
 
     def library_grads():
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
         o = F.scaled_dot_product_attention(ql, kl, vl, attn_mask=lib_mask)
         return torch.autograd.grad(o, (ql, kl, vl), d_out.transpose(1, 2))
 
+    def whole_backward():  # as _SplashAttention.backward runs it
+        _, dl = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, out, lse,
+                                           f32)
+        sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse, dl, f32,
+                                    bf16)
+
     with torch.no_grad():
         ms = dict(
             fwd=cuda_ms(torch, lambda: sa.splash_attention_forward(
                 q, k, v, seg, hw), iters=20),
             dq=cuda_ms(torch, lambda: sa.splash_attention_bwd_dq(
-                q, k, v, seg, hw, d_out, lse, delta), iters=20),
+                q, k, v, seg, hw, d_out, out, lse, f32), iters=20),
             dkv=cuda_ms(torch, lambda: sa.splash_attention_bwd_dkv(
-                q, k, v, seg, hw, d_out, lse, delta), iters=20))
-        delta_ms = cuda_ms(torch, lambda: sa.splash_attention_delta(
-            d_out, out), iters=10)
+                q, k, v, seg, hw, d_out, lse, delta, f32, bf16), iters=20))
+        delta_only_ms = cuda_ms(torch, lambda: sa.splash_attention_bwd_dq(
+            q, k, v, seg, hw, d_out, out, lse, None), iters=20)
+        whole_ms = cuda_ms(torch, whole_backward, iters=20)
         plain_fwd = cuda_ms(torch, lambda: sa.splash_attention_plain(
             q, k, v, seg, hw), iters=2, warmup=1)
         plain_bwd = cuda_ms(torch, lambda: sa.splash_attention_bwd_plain(
-            q, k, v, seg, hw, d_out, lse, delta), iters=2, warmup=1)
+            q, k, v, seg, hw, d_out, lse, delta_p), iters=2, warmup=1)
         lib_fwd = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=lib_mask), iters=5, warmup=1)
     lib_both = cuda_ms(torch, library_grads, iters=5, warmup=1)
     lib_bwd = max(lib_both - lib_fwd, 0.0)
     tensor = B * S * N * D  # elements of q, k, v, out, dO, dq, dk or dv
-    small = 2 * B * N * S * 4 + B * S * 4  # lse, delta, seg
+    row = B * N * S * 4     # bytes of lse or delta
+    seg_bytes = B * S * 4
     work = dict(  # (bytes: inputs once, outputs once; bf16 operations)
-        fwd=(4 * tensor * 2 + B * N * S * 4 + B * S * 4, 4.0 * D * pairs * N),
-        dq=(4 * tensor * 2 + small + tensor * 4, 6.0 * D * pairs * N),
-        dkv=(4 * tensor * 2 + small + 2 * tensor * 4, 8.0 * D * pairs * N))
+        fwd=(4 * tensor * 2 + row + seg_bytes, 4.0 * D * pairs * N),
+        # q, k, v, dO, out, lse, seg in; dq (f32) and delta out
+        dq=(5 * tensor * 2 + row + seg_bytes + tensor * 4 + row,
+            6.0 * D * pairs * N),
+        # q, k, v, dO, lse, delta, seg in; dk (f32) and dv (bf16) out
+        dkv=(4 * tensor * 2 + 2 * row + seg_bytes + tensor * (4 + 2),
+             8.0 * D * pairs * N))
     for name in ("fwd", "dq", "dkv"):
         moved, ops = work[name]
         bound_ms, bound_by = bound(moved, ops, H100_BF16_FLOPS)
@@ -1148,16 +1179,23 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
             bound_ms=bound_ms, bound_by=bound_by, bytes_moved=moved, ops=ops)
         if name != "fwd":
             result[name].update(
+                grad_dtypes="dq f32, dk f32, dv bf16",
                 plain_computes="dq, dk and dv together",
                 library_computes="dq, dk and dv together (the call's "
                                  "backward: forward + backward minus forward)",
-                delta_ms=delta_ms)
+                whole_backward_ms=whole_ms,
+                whole_over_library=whole_ms / lib_bwd if lib_bwd else None,
+                delta_only_ms=delta_only_ms)
         log(f"  {label} {name}: kernel {ms[name]:.4f} ms, plain "
             f"{result[name]['plain_ms']:.3f} ms, library "
             f"{result[name]['library_ms']:.4f} ms, bound {bound_ms:.4f} ms "
             f"({bound_by}: {moved / 1e6:.1f} MB, {ops:.3e} FLOP)"
-            + (f"; delta in the wrapper {delta_ms:.4f} ms"
+            + (f"; the dq kernel for delta alone {delta_only_ms:.4f} ms"
                if name == "dq" else ""))
+    log(f"  {label} whole backward (dq kernel with delta, then dk/dv): "
+        f"{whole_ms:.4f} ms against the library's {lib_bwd:.4f} ms ("
+        + (f"{whole_ms / lib_bwd:.2f}x" if lib_bwd else "library not timed")
+        + ")")
     return result
 
 
@@ -1204,6 +1242,7 @@ def drive(name: str, engine, model, queries, doc_text: str) -> dict:
                          for rs in out["results"]]
             assert all(0 < len(r) <= k for r in served[k]), name
         compare_with_plain_path(name, engine, model, queries, served)
+        compare_search_vector(name, engine, queries[0])
         # single-query requests from 8 concurrent clients, with the kernels'
         # launches and the batches they rode in counted around them
         pool0, resc0 = fused_splade_pool.launches, rescore_match.launches
@@ -1349,6 +1388,18 @@ def compare_with_plain_path(name, engine, model, queries, served) -> None:
     finally:
         model.pool_impl = "kernel"
         del os.environ["SPLADE_RESCORE"]
+
+
+def compare_search_vector(name, engine, query: str, k: int = 10) -> None:
+    """The served index's own single-query search, ``search_vector``, on the
+    vector the engine's encoder gives one query, held against the engine's
+    search of the same text (compare_served). The query is encoded in the
+    padded batch the engine encodes it in, so both see the same vector."""
+    idx, val = engine.encoder.encode_queries(
+        [query] + [""] * (engine.batch_pad - 1))[0]
+    compare_served(f"{name} search_vector k={k}",
+                   [engine.index.search_vector(idx, val, k=k)],
+                   [engine.search(query, k=k)])
 
 
 def compare_doc_encode(torch, enc, model, texts) -> float:

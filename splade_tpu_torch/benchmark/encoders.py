@@ -131,6 +131,10 @@ class SparseEncoderV33:
                             vals[r][nz].astype(np.float32)))
         return out
 
+    def encode_for_query(self, text: str) -> SparseVec:
+        """One query's vector, as encode_queries gives it."""
+        return self.encode_queries([text])[0]
+
     @classmethod
     def from_any(cls, path: str, tokenizer=None,
                  **kwargs) -> "SparseEncoderV33":

@@ -1,15 +1,16 @@
-// Shared pieces of the sliding-window + segment-id flash attention kernels
-// (splash_attention_fwd.cu, splash_attention_bwd.cu): the tiling, the mask,
-// the staging of a strided [S, 64] operand tile and the two warp-level
-// products every kernel is made of.
+// Shared pieces of the sliding-window + segment-id flash attention kernels:
+// the tiling, the mask and the operand strides, which both directions use
+// (splash_attention_fwd.cu, splash_attention_bwd.cu), and the forward's
+// staging of a strided [S, 64] operand tile and its two WMMA products (the
+// backward's register-level pieces are in splash_mma.cuh).
 //
 // A block of 4 warps owns one 64-row tile of one (batch row, head); each warp
 // owns 16 of its rows and walks the 64-row tiles of the other axis that the
-// mask can reach. Products are bf16 WMMA 16x16x16 with f32 sums. A score tile
-// goes through shared memory in f32 (WMMA fragments have no documented
-// element layout, so row-wise softmax arithmetic needs one), where two lanes
-// share a row and each handles 32 of its 64 columns; what is multiplied next
-// (p, ds) is written back as bf16 over the same rows.
+// mask can reach. In the forward, products are bf16 WMMA 16x16x16 with f32
+// sums. A score tile goes through shared memory in f32 (WMMA fragments have
+// no documented element layout, so row-wise softmax arithmetic needs one),
+// where two lanes share a row and each handles 32 of its 64 columns; what is
+// multiplied next (p) is written back as bf16 over the same rows.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -124,33 +125,6 @@ __device__ __forceinline__ void accumulate(const __nv_bfloat16* P,
       wmma::mma_sync(acc[j], af, bf, acc[j]);
     }
   }
-}
-
-// One warp's [16, HD] f32 sums, times `factor`, through its score rows W
-// (row stride LDF) into rows of a [B, S, N, HD] f32 tensor: dst points at
-// (b, row 0 of the warp, head n), rows are row_stride elements apart, and
-// rows from n_rows on are not written.
-__device__ __forceinline__ void store_rows(Acc* acc, float factor, float* W,
-                                           float* dst, long long row_stride,
-                                           int n_rows) {
-  using namespace nvcuda;
-  const int lane = threadIdx.x & 31, row = lane >> 1, half = lane & 1;
-#pragma unroll
-  for (int j = 0; j < HD / 16; ++j) {
-#pragma unroll
-    for (int i = 0; i < acc[j].num_elements; ++i) acc[j].x[i] *= factor;
-    wmma::store_matrix_sync(W + j * 16, acc[j], LDF, wmma::mem_row_major);
-  }
-  __syncwarp();
-  if (row < n_rows) {
-    const float4* src = reinterpret_cast<const float4*>(W + row * LDF +
-                                                        half * HALF);
-    float4* out = reinterpret_cast<float4*>(dst + (size_t)row * row_stride +
-                                            half * HALF);
-#pragma unroll
-    for (int j = 0; j < HALF / 4; ++j) out[j] = src[j];
-  }
-  __syncwarp();
 }
 
 }  // namespace splash

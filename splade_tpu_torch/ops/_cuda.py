@@ -57,8 +57,9 @@ SIGNATURES: Dict[str, List] = {
     "splade_fused_pool_v2_fwd_shared_bytes": [_I, _I],
     "splade_fused_pool_v2_bwd_shared_bytes": [_I, _I],
     "splade_splash_attn_fwd": [_P] * 6 + _SPLASH_TAIL,
-    "splade_splash_attn_bwd_dq": [_P] * 8 + _SPLASH_TAIL,
-    "splade_splash_attn_bwd_dkv": [_P] * 9 + _SPLASH_TAIL,
+    # the pointers, then whether each gradient is written in bf16 (else f32)
+    "splade_splash_attn_bwd_dq": [_P] * 9 + [_I] + _SPLASH_TAIL,
+    "splade_splash_attn_bwd_dkv": [_P] * 9 + [_I, _I] + _SPLASH_TAIL,
 }
 
 

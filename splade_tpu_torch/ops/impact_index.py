@@ -48,7 +48,8 @@ def impact_scores(queries: torch.Tensor, mat: torch.Tensor, scale,
 
 class ImpactIndex:
     """Exact sparse-dot-product retrieval from device memory (counterpart
-    of ``TpuImpactIndex``; the mesh-sharded layout waits)."""
+    of ``TpuImpactIndex``, with its batched, single-query and two-phase
+    search; the mesh-sharded layout waits)."""
 
     def __init__(
         self,
@@ -148,6 +149,72 @@ class ImpactIndex:
                     self.memory_bytes / 1e6)
 
     # ---------------------------------------------------------- search
+    def search_batch_dense(self, queries: np.ndarray, k: int = 10
+                           ) -> List[List[Tuple[str, float]]]:
+        """[B, V] dense impact vectors -> per-query ranked lists: the
+        batch padded to ``batch_pad`` rows, ``impact_scores`` on the index's
+        device, padded corpus rows at -inf, exact top-k; non-finite entries
+        are dropped, so a list holds at most len(self) results."""
+        mat, scale, n_valid = self.device_arrays()
+        queries = np.asarray(queries, np.float32)
+        B = queries.shape[0]
+        q = np.zeros((_round_up(max(B, 1), self.batch_pad), self.vocab_size),
+                     np.float32)
+        q[:B] = queries
+        with torch.no_grad():
+            scores = impact_scores(torch.from_numpy(q).to(self.device), mat,
+                                   scale, self.quantize_int8)
+            scores[:, n_valid:] = float("-inf")
+            vals, idxs = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+        vals, idxs = vals.cpu().numpy()[:B], idxs.cpu().numpy()[:B]
+        return [[(self.doc_ids[int(i)], float(v))
+                 for v, i in zip(vals[b], idxs[b]) if np.isfinite(v)]
+                for b in range(B)]
+
+    def search_vector(self, indices: np.ndarray, values: np.ndarray,
+                      k: int = 10) -> List[Tuple[str, float]]:
+        """One sparse query, (term ids, weights)."""
+        q = np.zeros((1, self.vocab_size), np.float32)
+        q[0, np.asarray(indices, np.int64)] = np.asarray(values, np.float32)
+        return self.search_batch_dense(q, k)[0]
+
+    def search_dense(self, vec: np.ndarray, k: int = 10,
+                     query_top_k: int = 0) -> List[Tuple[str, float]]:
+        """One dense [V] query; ``query_top_k`` > 0 keeps only its strongest
+        positive weights."""
+        vec = np.asarray(vec, np.float32)
+        if query_top_k:
+            nz = np.flatnonzero(vec > 0)
+            if len(nz) > query_top_k:
+                drop = nz[np.argpartition(-vec[nz],
+                                          query_top_k - 1)[query_top_k:]]
+                vec = vec.copy()
+                vec[drop] = 0.0
+        return self.search_batch_dense(vec[None], k)[0]
+
+    def search_two_phase(self, indices: np.ndarray, values: np.ndarray,
+                         k: int = 10, prune_ratio: float = 0.4,
+                         expansion: float = 5.0) -> List[Tuple[str, float]]:
+        """Two-phase pruned search, the reference's rule (after OpenSearch's
+        ``neural_sparse_two_phase_processor``): phase 1 ranks ``k *
+        expansion`` candidates with only the query terms whose weight is at
+        least ``prune_ratio`` times the largest; phase 2 keeps those
+        candidates, in the order a full-query search of ``4 *`` that many
+        gives them, and returns the first k."""
+        indices = np.asarray(indices, np.int64)
+        values = np.asarray(values, np.float32)
+        if len(values) == 0:
+            return []
+        keep = values >= prune_ratio * values.max()
+        k1 = int(min(max(k * expansion, k), max(len(self.doc_ids), 1)))
+        phase1 = self.search_vector(indices[keep], values[keep], k=k1)
+        if not phase1:
+            return []
+        cand = {d for d, _ in phase1}
+        full = self.search_vector(indices, values,
+                                  k=min(len(self.doc_ids), k1 * 4))
+        return [(d, s) for d, s in full if d in cand][:k]
+
     def device_arrays(self):
         """(mat [N_pad, V], scale [N_pad] or 1.0, n_valid): for callers
         fusing their own compute with the index (the serving engine)."""

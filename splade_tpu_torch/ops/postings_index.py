@@ -310,8 +310,8 @@ class PostingsIndex:
     Counterpart of ``splade_tpu.ops.postings_index.TpuPostingsIndex``:
     add / add_batch / add_csr / build, the LSM delta segment (documents
     added after build() are scored exactly on the host and merged),
-    tombstone deletes, compact, search_topk and save/load in the same npz
-    format (a ``splade_tpu`` archive loads here).
+    tombstone deletes, compact, search_topk, search_vector and save/load
+    in the same npz format (a ``splade_tpu`` archive loads here).
     """
 
     def __init__(
@@ -622,6 +622,12 @@ class PostingsIndex:
             d_scores = self.score_delta(q_indices[:B], q_values[:B])
             out = self.merge_delta(out, d_scores, k)
         return out
+
+    def search_vector(self, indices: np.ndarray, values: np.ndarray,
+                      k: int = 10) -> List[Tuple[str, float]]:
+        """One sparse query, (term ids, weights), through search_topk."""
+        return self.search_topk(np.asarray(indices)[None],
+                                np.asarray(values)[None], k)[0]
 
     # --------------------------------------------------------- persistence
     #: archive format discriminator (the reference's npz "kind" field)

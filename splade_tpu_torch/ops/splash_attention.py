@@ -20,18 +20,26 @@ At padded positions the output therefore differs from the additive-mask
 (sdpa) route's by design; at valid positions only rounding differs.
 
 Kernels (``csrc/splash_attention_fwd.cu``, ``csrc/splash_attention_bwd.cu``,
-shared pieces in ``csrc/splash_attention.cuh``): the forward owns one (b,
+shared pieces in ``csrc/splash_attention.cuh`` and the backward's
+register-level ones in ``csrc/splash_mma.cuh``): the forward owns one (b,
 head, 64-query tile) a block and walks the kv tiles its mask can reach with
-an online softmax in f32; the backward is a dq kernel (a block owns a query
-tile) and a dk/dv kernel (a block owns a kv tile) that recompute ``p =
-exp(s - lse)`` and ``ds = p * (dp - delta)``. The ``[B, N, S, S]`` scores
-reach device memory in neither direction, local layers skip every tile
-wholly outside the band, and each sum has one owner and one order (no
-atomics), so a repeated backward is bitwise equal. ``delta = rowsum(dO *
-out)`` is a plain f32 reduction in the wrapper. Products run in bf16 on the
-tensor cores with f32 sums; ``p`` and ``ds`` are rounded to bf16 before the
-second products, as the TPU kernel rounds them to v's dtype; the f32 scores
-are scaled inside the kernels (JAX pre-multiplies q by the scale in bf16).
+an online softmax in f32. The backward is two kernels launched in order on
+one stream. The dq kernel (a block owns a query tile) first computes
+``delta = rowsum(dO * out)`` in f32 for its rows and writes it ``[B, N,
+S]``; the dk/dv kernel (a block owns a kv tile) reads it. Both recompute
+``p = exp(s - lse)`` and ``ds = p * (dp - delta)`` in registers (bf16
+``mma.sync`` with f32 sums; the walked tiles double-buffered with
+``cp.async``). When q needs no gradient the dq kernel still launches: it
+supplies delta, and stops there. The ``[B, N, S, S]`` scores reach device
+memory in neither direction, local layers skip every tile wholly outside
+the band, and each sum has one owner and one order (no atomics), so a
+repeated backward is bitwise equal. The backward writes each gradient in
+the dtype autograd returns for its operand (bf16 for a bf16 operand, else
+f32), rounded to nearest from its f32 sums as a cast would round them.
+Products run in bf16 on the tensor cores with f32 sums; ``p`` and ``ds``
+are rounded to bf16 before the second products, as the TPU kernel rounds
+them to v's dtype; the f32 scores are scaled inside the kernels (JAX
+pre-multiplies q by the scale in bf16).
 
 The kernels read q, k and v through their strides (any layout whose last
 dimension is contiguous with 16-byte aligned rows: the ``[B, N, S, D]``
@@ -249,31 +257,73 @@ def _launch_fwd(q, k, v, seg, half_window: int
     return out, lse
 
 
-def _launch_bwd(which: str, q, k, v, seg, half_window: int, d_out, lse, delta):
-    """One backward kernel: ``which`` "dq" (returns dq) or "dkv" (returns
-    (dk, dv)), each [B, S, N, D] f32, every element written once."""
+def _grad_dtype(dtype: torch.dtype) -> torch.dtype:
+    """What the backward kernels write for an operand of ``dtype``: bf16 for
+    bf16, f32 for any other (autograd's cast then makes it ``dtype``)."""
+    return torch.bfloat16 if dtype == torch.bfloat16 else torch.float32
+
+
+def _bwd_inputs(q, k, v, seg, d_out):
     qb, kb, vb, segi = _operands(q, k, v, seg)
     B, N, S, D = qb.shape
     if tuple(d_out.shape) != (B, S, N, D):
         raise ValueError(f"dO {tuple(d_out.shape)} must be [{B}, {S}, {N}, "
                          f"{D}]")
-    dob = d_out.to(torch.bfloat16).contiguous()
+    return qb, kb, vb, segi, d_out.to(torch.bfloat16).contiguous()
+
+
+def _launch_bwd_dq(q, k, v, seg, half_window: int, d_out, out, lse,
+                   dq_dtype):
+    """The dq kernel: (dq [B, S, N, D] in ``dq_dtype``, or None when
+    ``dq_dtype`` is None and the kernel computes delta alone; delta [B, N,
+    S] f32), every element written once."""
+    qb, kb, vb, segi, dob = _bwd_inputs(q, k, v, seg, d_out)
+    B, N, S, D = qb.shape
+    if tuple(out.shape) != (B, S, N, D):
+        raise ValueError(f"out {tuple(out.shape)} must be [{B}, {S}, {N}, "
+                         f"{D}]")
+    outb = out.to(torch.bfloat16).contiguous()
+    lse32 = _per_head("lse", lse, B, N, S)
+    delta = torch.empty((B, N, S), dtype=torch.float32, device=qb.device)
+    dq = (None if dq_dtype is None else
+          torch.empty((B, S, N, D), dtype=_grad_dtype(dq_dtype),
+                      device=qb.device))
+    if not (B == 0 or N == 0 or S == 0):
+        entry = "splade_splash_attn_bwd_dq"
+        code = getattr(_cuda.library(), entry)(
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), segi.data_ptr(),
+            dob.data_ptr(), outb.data_ptr(), lse32.data_ptr(),
+            delta.data_ptr(), 0 if dq is None else dq.data_ptr(),
+            int(dq is not None and dq.dtype == torch.bfloat16),
+            *_strides(qb), *_strides(kb), *_strides(vb), B, N, S, D,
+            int(half_window), 1.0 / math.sqrt(D), _cuda.stream_ptr(qb))
+        _cuda.check(code, entry)
+        splash_attention_bwd_dq.launches += 1
+    return dq, delta
+
+
+def _launch_bwd_dkv(q, k, v, seg, half_window: int, d_out, lse, delta,
+                    dk_dtype, dv_dtype):
+    """The dk/dv kernel, fed the dq kernel's delta: (dk, dv), each [B, S,
+    N, D] in ``dk_dtype`` / ``dv_dtype``, every element written once."""
+    qb, kb, vb, segi, dob = _bwd_inputs(q, k, v, seg, d_out)
+    B, N, S, D = qb.shape
     lse32 = _per_head("lse", lse, B, N, S)
     delta32 = _per_head("delta", delta, B, N, S)
-    outs = [torch.empty((B, S, N, D), dtype=torch.float32, device=qb.device)
-            for _ in range(1 if which == "dq" else 2)]
+    dk, dv = (torch.empty((B, S, N, D), dtype=_grad_dtype(dt),
+                          device=qb.device) for dt in (dk_dtype, dv_dtype))
     if not (B == 0 or N == 0 or S == 0):
-        entry = f"splade_splash_attn_bwd_{which}"
+        entry = "splade_splash_attn_bwd_dkv"
         code = getattr(_cuda.library(), entry)(
             qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), segi.data_ptr(),
             dob.data_ptr(), lse32.data_ptr(), delta32.data_ptr(),
-            *(t.data_ptr() for t in outs), *_strides(qb), *_strides(kb),
+            dk.data_ptr(), dv.data_ptr(), int(dk.dtype == torch.bfloat16),
+            int(dv.dtype == torch.bfloat16), *_strides(qb), *_strides(kb),
             *_strides(vb), B, N, S, D, int(half_window), 1.0 / math.sqrt(D),
             _cuda.stream_ptr(qb))
         _cuda.check(code, entry)
-        (splash_attention_bwd_dq if which == "dq"
-         else splash_attention_bwd_dkv).launches += 1
-    return outs[0] if which == "dq" else tuple(outs)
+        splash_attention_bwd_dkv.launches += 1
+    return dk, dv
 
 
 def splash_attention_forward(q, k, v, seg, half_window: int
@@ -285,24 +335,36 @@ def splash_attention_forward(q, k, v, seg, half_window: int
     return splash_attention_plain(q, k, v, seg, half_window)
 
 
-def splash_attention_bwd_dq(q, k, v, seg, half_window: int, d_out, lse, delta
-                            ) -> torch.Tensor:
-    """dq [B, S, N, D] f32: the dq kernel on CUDA tensors, the plain
-    backward on CPU tensors."""
+def splash_attention_bwd_dq(q, k, v, seg, half_window: int, d_out, out, lse,
+                            dq_dtype=torch.float32):
+    """(dq [B, S, N, D], delta [B, N, S] f32) from the forward's out and
+    lse: on CUDA tensors the dq kernel, which computes delta itself (dq in
+    bf16 for ``dq_dtype`` bf16, else f32; ``dq_dtype`` None: delta alone,
+    dq None); on CPU tensors ``splash_attention_delta`` and the plain
+    backward (dq in ``dq_dtype``)."""
     if q.is_cuda:
-        return _launch_bwd("dq", q, k, v, seg, half_window, d_out, lse, delta)
-    return splash_attention_bwd_plain(q, k, v, seg, half_window, d_out, lse,
-                                      delta)[0]
+        return _launch_bwd_dq(q, k, v, seg, half_window, d_out, out, lse,
+                              dq_dtype)
+    delta = splash_attention_delta(d_out, out)
+    dq = (None if dq_dtype is None else splash_attention_bwd_plain(
+        q, k, v, seg, half_window, d_out, lse, delta)[0].to(dq_dtype))
+    return dq, delta
 
 
-def splash_attention_bwd_dkv(q, k, v, seg, half_window: int, d_out, lse, delta
+def splash_attention_bwd_dkv(q, k, v, seg, half_window: int, d_out, lse,
+                             delta, dk_dtype=torch.float32,
+                             dv_dtype=torch.float32
                              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(dk, dv), each [B, S, N, D] f32: the dk/dv kernel on CUDA tensors,
-    the plain backward on CPU tensors."""
+    """(dk, dv), each [B, S, N, D], from the delta that
+    ``splash_attention_bwd_dq`` returned: the dk/dv kernel on CUDA tensors
+    (each in bf16 for a bf16 dtype, else f32), the plain backward on CPU
+    tensors (in the dtypes asked)."""
     if q.is_cuda:
-        return _launch_bwd("dkv", q, k, v, seg, half_window, d_out, lse, delta)
-    return splash_attention_bwd_plain(q, k, v, seg, half_window, d_out, lse,
-                                      delta)[1:]
+        return _launch_bwd_dkv(q, k, v, seg, half_window, d_out, lse, delta,
+                               dk_dtype, dv_dtype)
+    _, dk, dv = splash_attention_bwd_plain(q, k, v, seg, half_window, d_out,
+                                           lse, delta)
+    return dk.to(dk_dtype), dv.to(dv_dtype)
 
 
 class _SplashAttention(torch.autograd.Function):
@@ -328,19 +390,21 @@ class _SplashAttention(torch.autograd.Function):
         q, k, v, seg, out, lse = ctx.saved_tensors
         hw = ctx.half_window
         d_out = d_out.to(out.dtype).contiguous()  # as the kernels read it
-        delta = splash_attention_delta(d_out, out)
         need_q, need_k, need_v = ctx.needs_input_grad[:3]
         dq = dk = dv = None
         if q.is_cuda:
-            if need_q:
-                dq = splash_attention_bwd_dq(q, k, v, seg, hw, d_out, lse,
-                                             delta)
+            # the dq kernel supplies delta, so it runs even when q needs no
+            # gradient; the gradients come out in the dtypes returned below
+            dq, delta = splash_attention_bwd_dq(
+                q, k, v, seg, hw, d_out, out, lse,
+                ctx.dtypes[0] if need_q else None)
             if need_k or need_v:
-                dk, dv = splash_attention_bwd_dkv(q, k, v, seg, hw, d_out,
-                                                  lse, delta)
+                dk, dv = splash_attention_bwd_dkv(
+                    q, k, v, seg, hw, d_out, lse, delta, *ctx.dtypes[1:])
         elif need_q or need_k or need_v:
-            dq, dk, dv = splash_attention_bwd_plain(q, k, v, seg, hw, d_out,
-                                                    lse, delta)
+            dq, dk, dv = splash_attention_bwd_plain(
+                q, k, v, seg, hw, d_out, lse,
+                splash_attention_delta(d_out, out))
         # [B, S, N, D] -> the operands' [B, N, S, D] views, in their dtypes
         return tuple(
             g.transpose(1, 2).to(dtype) if need else None

@@ -2,7 +2,9 @@
 
 Its served-vs-plain check must pass the port's plain path and fail a
 phase-2 rescore with one wrong term (a dropped document slot, a dropped
-query term), and its document-encode check must run through the encoder.
+query term), its search_vector check must hold each index's single-query
+search against the engine and fail one that loses a query term, and its
+document-encode check must run through the encoder.
 Its phase-4 kernel-vs-plain training comparison must pass the sound
 backward and fail one that drops dbias and one whose recompute misses the
 forward's maxima by one ulp, so that no position ties with m and none gets
@@ -17,7 +19,8 @@ path), whose recipe must be configs/pretrain_mlm.yaml's, and phase 2's
 comparisons of both pool families (on the CPU every family runs its plain
 versions, so they must pass, and a faulty backward must fail). The splash
 attention's phase-2 check must pass the plain versions and fail a forward
-whose window is off by one and a backward that drops delta; phase 6 (both
+whose window is off by one, a dq kernel whose delta is lost and a dk/dv
+kernel fed a zero or stale delta; phase 6 (both
 training paths with attention_impl="splash") runs at a tiny size, its route
 comparison must fail a backward that loses dv, and the launch counts it
 expects must be the ones the code implies."""
@@ -100,6 +103,37 @@ def test_served_check_catches_a_wrong_rescore(setup, monkeypatch, fault):
     else:
         with pytest.raises(SystemExit, match="served scores differ"):
             cs.compare_served("faulty", served, plain)
+
+
+def _dense_engine(cs, model, tok):
+    from splade_tpu_torch.serving.engine import build_engine_from_docs
+
+    docs = cs.hangul_texts(np.random.default_rng(2), 40, 12)
+    return build_engine_from_docs(
+        model, tok, [(f"dense{i}", t) for i, t in enumerate(docs)],
+        int8=True, doc_top_k=64, index_type="dense", query_top_k=64,
+        device="cpu")
+
+
+@pytest.mark.parametrize("kind", ["postings", "dense"])
+@pytest.mark.parametrize("fault", [False, True],
+                         ids=["sound", "drop_strongest_term"])
+def test_search_vector_check_holds_the_index_against_the_engine(
+        setup, monkeypatch, kind, fault):
+    """Phase 3 holds each served index's search_vector, on the vector the
+    engine's encoder gives a query, against the engine's search of the text;
+    an index search that loses the query's strongest term must fail it."""
+    cs, model, tok, engine, queries, _ = setup
+    if kind == "dense":
+        engine = _dense_engine(cs, model, tok)
+    if fault:
+        real = engine.index.search_vector
+        monkeypatch.setattr(engine.index, "search_vector",
+                            lambda idx, val, k=10: real(idx[1:], val[1:], k))
+        with pytest.raises(SystemExit, match="differ from the plain path"):
+            cs.compare_search_vector("faulty", engine, queries[0])
+    else:
+        cs.compare_search_vector("sound", engine, queries[0])
 
 
 def test_doc_encode_check_runs_through_the_encoder(setup):
@@ -485,19 +519,38 @@ def _window_off_by_one(monkeypatch):
 
 
 def _drop_delta(monkeypatch):
+    """A dq kernel whose delta route is lost: it reads zeros for out, so the
+    delta it uses and hands on is 0."""
     from splade_tpu_torch.ops import splash_attention as sa
 
-    real_dq, real_dkv = sa.splash_attention_bwd_dq, sa.splash_attention_bwd_dkv
+    real = sa.splash_attention_bwd_dq
     monkeypatch.setattr(
         sa, "splash_attention_bwd_dq",
-        lambda *a: real_dq(*a[:-1], torch.zeros_like(a[-1])))
+        lambda q, k, v, seg, hw, d_out, out, *a: real(
+            q, k, v, seg, hw, d_out, torch.zeros_like(out), *a))
+
+
+def _stale_delta_to_dkv(monkeypatch, stale=lambda d: torch.zeros_like(d)):
+    """A dk/dv kernel fed a zero delta instead of the dq kernel's."""
+    from splade_tpu_torch.ops import splash_attention as sa
+
+    real = sa.splash_attention_bwd_dkv
     monkeypatch.setattr(
         sa, "splash_attention_bwd_dkv",
-        lambda *a: real_dkv(*a[:-1], torch.zeros_like(a[-1])))
+        lambda q, k, v, seg, hw, d_out, lse, delta, *a: real(
+            q, k, v, seg, hw, d_out, lse, stale(delta), *a))
 
 
-@pytest.mark.parametrize("fault", [None, _window_off_by_one, _drop_delta],
-                         ids=["sound", "window_off_by_one", "drop_delta"])
+def _other_rows_delta_to_dkv(monkeypatch):
+    """... or the delta of the wrong rows (a stale buffer of another step)."""
+    _stale_delta_to_dkv(monkeypatch, lambda d: d.roll(1, dims=-1))
+
+
+@pytest.mark.parametrize("fault", [None, _window_off_by_one, _drop_delta,
+                                   _stale_delta_to_dkv,
+                                   _other_rows_delta_to_dkv],
+                         ids=["sound", "window_off_by_one", "drop_delta",
+                              "zero_delta_to_dkv", "stale_delta_to_dkv"])
 @pytest.mark.parametrize("B,S,packed", [(9, 128, True), (3, 100, False)])
 def test_splash_check_catches_a_wrong_window_and_a_dropped_delta(
         monkeypatch, fault, B, S, packed):
@@ -513,6 +566,7 @@ def test_splash_check_catches_a_wrong_window_and_a_dropped_delta(
         assert set(out) == {"fwd", "dq", "dkv"}
         assert all(v["max_abs_err"] == 0.0 for v in out.values())
         assert out["fwd"]["lse_max_abs_err"] == 0.0
+        assert out["dq"]["delta_max_rel_err"] == 0.0
         assert 0 < out["fwd"]["allowed_pairs"] < B * S * 9
         return
     fault(monkeypatch)

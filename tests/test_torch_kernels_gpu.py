@@ -514,7 +514,14 @@ SPLASH_SHAPES = [
     (2, 12, 512, 64, False),   # the MLM row: tiles outside the band skipped
     (2, 12, 512, 0, False),    # a global layer at that length
     (3, 3, 130, 1, True),      # a window of one neighbour each side
+    (3, 2, 100, 4, True),      # ragged, a narrow window, packed
+    (2, 3, 37, 0, False),      # shorter than a tile, full attention
+    (144, 12, 256, 0, True),   # the V33 micro-batch, a global layer
+    (32, 12, 512, 64, False),  # the MLM micro-batch, a local layer
 ]
+# delta, the dq kernel's against the plain reduction: f32 sums in another
+# order, about 1e-6 of the largest value
+DELTA_RTOL = 1e-5
 
 
 @pytest.mark.parametrize("B,N,S,hw,packed", SPLASH_SHAPES)
@@ -524,16 +531,18 @@ def test_splash_kernels_match_plain(cuda, B, N, S, hw, packed):
            sa.splash_attention_bwd_dkv)
     before = [fn.launches for fn in fns]
     out, lse = sa.splash_attention_forward(q, k, v, seg, hw)
-    delta = sa.splash_attention_delta(d_out, out)
-    dq = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, lse, delta)
+    dq, delta = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, out, lse)
     dk, dv = sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse, delta)
     torch.cuda.synchronize()
     assert [fn.launches for fn in fns] == [n + 1 for n in before]
     out_p, lse_p = sa.splash_attention_plain(q, k, v, seg, hw)
+    delta_p = sa.splash_attention_delta(d_out, out)
     dq_p, dk_p, dv_p = sa.splash_attention_bwd_plain(q, k, v, seg, hw, d_out,
-                                                     lse, delta)
+                                                     lse, delta_p)
     assert out.shape == (B, S, N, 64) and out.dtype == torch.bfloat16
-    assert lse.shape == (B, N, S)
+    assert lse.shape == delta.shape == (B, N, S)
+    assert {t.dtype for t in (dq, dk, dv, delta)} == {torch.float32}
+    assert _rel(delta, delta_p) <= DELTA_RTOL, _rel(delta, delta_p)
     for name, got, want in (("out", out, out_p), ("dq", dq, dq_p),
                             ("dk", dk, dk_p), ("dv", dv, dv_p)):
         assert torch.isfinite(got).all(), name
@@ -543,6 +552,64 @@ def test_splash_kernels_match_plain(cuda, B, N, S, hw, packed):
     torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
 
 
+@pytest.mark.parametrize("B,N,S,hw,packed", SPLASH_SHAPES[1:4])
+def test_splash_backward_writes_bf16_as_the_cast_of_f32(cuda, B, N, S, hw,
+                                                       packed):
+    """A gradient asked in bf16 is the f32 one rounded to nearest, bitwise,
+    in every mix of the three dtypes; delta does not depend on them."""
+    q, k, v, seg, d_out = _splash_case(B, N, S, 64, packed, S, cuda)
+    f32, bf16 = torch.float32, torch.bfloat16
+    out, lse = sa.splash_attention_forward(q, k, v, seg, hw)
+    dq, delta = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, out, lse,
+                                           f32)
+    dk, dv = sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse, delta,
+                                         f32, f32)
+    dq16, delta16 = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, out,
+                                               lse, bf16)
+    assert dq16.dtype == bf16 and torch.equal(dq16, dq.to(bf16))
+    assert torch.equal(delta16, delta)
+    for dtk, dtv in ((bf16, bf16), (bf16, f32), (f32, bf16)):
+        gk, gv = sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse,
+                                             delta, dtk, dtv)
+        assert (gk.dtype, gv.dtype) == (dtk, dtv)
+        assert torch.equal(gk, dk.to(dtk)) and torch.equal(gv, dv.to(dtv))
+    # delta alone: the dq kernel launches, writes delta and no dq
+    before = sa.splash_attention_bwd_dq.launches
+    none, delta_only = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out,
+                                                  out, lse, None)
+    assert none is None and torch.equal(delta_only, delta)
+    assert sa.splash_attention_bwd_dq.launches == before + 1
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("need_q", [True, False])
+def test_splash_function_gradients_in_operand_dtypes(cuda, dtype, need_q):
+    """Through the Function with bf16 or f32 operands, with and without a
+    gradient for q: each gradient in its operand's dtype, equal to the
+    wrappers' f32 gradients cast to it; without q's, the dq kernel still
+    launches (it supplies delta) and dk, dv are unchanged."""
+    B, N, S, hw = 3, 4, 200, 64
+    q, k, v, seg, d_out = _splash_case(B, N, S, 64, True, 11, cuda, dtype)
+    fns = (sa.splash_attention_bwd_dq, sa.splash_attention_bwd_dkv)
+    leaves = [t.detach().clone().requires_grad_(need)
+              for t, need in zip((q, k, v), (need_q, True, True))]
+    out = sa.splash_attention(*leaves, seg, hw)
+    before = [fn.launches for fn in fns]
+    out.backward(d_out.to(out.dtype))
+    assert [fn.launches for fn in fns] == [n + 1 for n in before]
+    qb, kb, vb = (t.detach().to(torch.bfloat16) for t in (q, k, v))
+    o, lse = sa.splash_attention_forward(qb, kb, vb, seg, hw)
+    dq, delta = sa.splash_attention_bwd_dq(qb, kb, vb, seg, hw,
+                                           d_out.to(torch.bfloat16), o, lse)
+    dk, dv = sa.splash_attention_bwd_dkv(qb, kb, vb, seg, hw,
+                                         d_out.to(torch.bfloat16), lse, delta)
+    assert (leaves[0].grad is None) == (not need_q)
+    for leaf, want in zip(leaves, (dq, dk, dv)):
+        if leaf.grad is not None:
+            assert leaf.grad.dtype == dtype
+            assert torch.equal(leaf.grad, want.transpose(1, 2).to(dtype))
+
+
 @pytest.mark.parametrize("D", [16, 32, 128])
 def test_splash_refuses_a_head_width_it_was_not_built_for(cuda, D):
     q, k, v, seg, d_out = _splash_case(2, 2, 32, D, False, 1, cuda)
@@ -550,9 +617,12 @@ def test_splash_refuses_a_head_width_it_was_not_built_for(cuda, D):
     with pytest.raises(ValueError, match=f"head dim {D}"):
         sa.splash_attention(q, k, v, seg, 0)
     with pytest.raises(ValueError, match=f"head dim {D}"):
-        sa.splash_attention_bwd_dq(q, k, v, seg, 0, d_out,
-                                   torch.zeros(2, 2, 32, device=cuda),
+        sa.splash_attention_bwd_dq(q, k, v, seg, 0, d_out, d_out,
                                    torch.zeros(2, 2, 32, device=cuda))
+    with pytest.raises(ValueError, match=f"head dim {D}"):
+        sa.splash_attention_bwd_dkv(q, k, v, seg, 0, d_out,
+                                    torch.zeros(2, 2, 32, device=cuda),
+                                    torch.zeros(2, 2, 32, device=cuda))
     assert sa.splash_attention.launches == before
 
 
@@ -563,11 +633,12 @@ def test_splash_empty_batch_launches_and_counts_nothing(cuda):
     before = [fn.launches for fn in fns]
     out, lse = sa.splash_attention_forward(q[:0], k[:0], v[:0], seg[:0], 4)
     assert out.shape == (0, 32, 2, 64) and lse.shape == (0, 2, 32)
-    dq = sa.splash_attention_bwd_dq(q[:0], k[:0], v[:0], seg[:0], 4,
-                                    d_out[:0], lse, lse)
+    dq, delta = sa.splash_attention_bwd_dq(q[:0], k[:0], v[:0], seg[:0], 4,
+                                           d_out[:0], out, lse)
     dk, dv = sa.splash_attention_bwd_dkv(q[:0], k[:0], v[:0], seg[:0], 4,
-                                         d_out[:0], lse, lse)
+                                         d_out[:0], lse, delta)
     assert dq.shape == dk.shape == dv.shape == (0, 32, 2, 64)
+    assert delta.shape == (0, 2, 32)
     assert [fn.launches for fn in fns] == before
 
 

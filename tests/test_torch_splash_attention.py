@@ -151,12 +151,24 @@ def test_backward_wrappers_are_the_plain_backward_on_the_cpu():
     assert delta.shape == lse.shape == (2, 2, 70)
     dq, dk, dv = sa.splash_attention_bwd_plain(q, k, v, seg, 4, d_out, lse,
                                                delta)
-    assert torch.equal(sa.splash_attention_bwd_dq(q, k, v, seg, 4, d_out,
-                                                  lse, delta), dq)
+    # the dq wrapper takes out and returns the delta it computed
+    got_dq, got_delta = sa.splash_attention_bwd_dq(q, k, v, seg, 4, d_out,
+                                                   out, lse)
+    assert torch.equal(got_dq, dq) and torch.equal(got_delta, delta)
+    none, delta_only = sa.splash_attention_bwd_dq(q, k, v, seg, 4, d_out,
+                                                  out, lse, None)
+    assert none is None and torch.equal(delta_only, delta)
     got_dk, got_dv = sa.splash_attention_bwd_dkv(q, k, v, seg, 4, d_out, lse,
                                                  delta)
     assert torch.equal(got_dk, dk) and torch.equal(got_dv, dv)
     assert dq.shape == (2, 70, 2, 16)
+    # gradients in the dtypes asked: the f32 ones cast
+    bf = torch.bfloat16
+    assert torch.equal(sa.splash_attention_bwd_dq(q, k, v, seg, 4, d_out,
+                                                  out, lse, bf)[0], dq.to(bf))
+    got_dk, got_dv = sa.splash_attention_bwd_dkv(q, k, v, seg, 4, d_out, lse,
+                                                 delta, torch.float32, bf)
+    assert torch.equal(got_dk, dk) and torch.equal(got_dv, dv.to(bf))
 
 
 def test_tile_range_skips_tiles_outside_the_band():
@@ -486,7 +498,9 @@ def test_launchers_count_where_they_launch_and_nowhere_else(monkeypatch):
     returned, never for an empty batch; the entries get the operands'
     strides as they are (the [B, N, S, D] views of [B, S, N, D] storage and
     of a fused QKV tensor are not copied), then B, N, S, D, the window and
-    the scale."""
+    the scale. The backward hands the dq kernel the forward's out and an
+    f32 delta buffer, which the dk/dv kernel then reads, and allocates each
+    gradient in the dtype it asks the kernel to write (bf16 or f32)."""
     from splade_tpu_torch.ops import _cuda
 
     lib = _RecordingLibrary()
@@ -504,39 +518,110 @@ def test_launchers_count_where_they_launch_and_nowhere_else(monkeypatch):
     k = bf(B, S, N, D).float().transpose(1, 2)   # cast to bf16 by the wrapper
     v = bf(B, S, 3, N, D)[:, :, 2].transpose(1, 2)
     seg = torch.zeros(B, S, dtype=torch.int64)
-    d_out, lse = bf(B, S, N, D), torch.zeros(B, N, S)
+    d_out, out, lse = bf(B, S, N, D), bf(B, S, N, D), torch.zeros(B, N, S)
 
     out0, lse0 = sa._launch_fwd(q[:0], k[:0], v[:0], seg[:0], 4)
-    dq0 = sa._launch_bwd("dq", q[:0], k[:0], v[:0], seg[:0], 4, d_out[:0],
-                         lse[:0], lse[:0])
-    dk0, dv0 = sa._launch_bwd("dkv", q[:0], k[:0], v[:0], seg[:0], 4,
-                              d_out[:0], lse[:0], lse[:0])
+    dq0, delta0 = sa._launch_bwd_dq(q[:0], k[:0], v[:0], seg[:0], 4,
+                                    d_out[:0], out[:0], lse[:0],
+                                    torch.float32)
+    dk0, dv0 = sa._launch_bwd_dkv(q[:0], k[:0], v[:0], seg[:0], 4, d_out[:0],
+                                  lse[:0], lse[:0], torch.float32,
+                                  torch.float32)
     assert lib.calls == [] and count() == dict(fwd=0, dq=0, dkv=0)
     assert out0.shape == dq0.shape == dk0.shape == dv0.shape == (0, S, N, D)
-    assert lse0.shape == (0, N, S)
+    assert lse0.shape == delta0.shape == (0, N, S)
 
-    out, got_lse = sa._launch_fwd(q, k, v, seg, 4)
+    got_out, got_lse = sa._launch_fwd(q, k, v, seg, 4)
     assert count() == dict(fwd=1, dq=0, dkv=0)
-    assert out.shape == (B, S, N, D) and out.dtype == torch.bfloat16
+    assert got_out.shape == (B, S, N, D) and got_out.dtype == torch.bfloat16
     assert got_lse.shape == (B, N, S) and got_lse.dtype == torch.float32
-    sa._launch_bwd("dq", q, k, v, seg, 4, d_out, lse, lse)
-    sa._launch_bwd("dkv", q, k, v, seg, 0, d_out, lse, lse)
-    assert count() == dict(fwd=1, dq=1, dkv=1)
+    dq, delta = sa._launch_bwd_dq(q, k, v, seg, 4, d_out, out, lse,
+                                  torch.bfloat16)
+    dk, dv = sa._launch_bwd_dkv(q, k, v, seg, 0, d_out, lse, delta,
+                                torch.float32, torch.bfloat16)
+    none, _ = sa._launch_bwd_dq(q, k, v, seg, 4, d_out, out, lse, None)
+    assert count() == dict(fwd=1, dq=2, dkv=1)
+    assert none is None
+    assert (dq.dtype, dk.dtype, dv.dtype) == (torch.bfloat16, torch.float32,
+                                              torch.bfloat16)
+    assert delta.shape == (B, N, S) and delta.dtype == torch.float32
     row, fused = S * N * D, S * 3 * N * D
     strides = (row, D, N * D, row, D, N * D, fused, D, 3 * N * D)
     scale = 1.0 / math.sqrt(D)
-    # 6, 8 or 9 pointers, then the strides and integers, the scale, the stream
+    # 9 pointers and 1 or 2 dtype flags (the forward: 6 pointers), then the
+    # strides and integers, the scale, the stream
     assert [(entry, args[n_ptr:-1]) for (entry, args), n_ptr
-            in zip(lib.calls, (6, 8, 9))] == [
+            in zip(lib.calls, (6, 9, 9, 9))] == [
         ("splade_splash_attn_fwd", (*strides, B, N, S, D, 4, scale)),
-        ("splade_splash_attn_bwd_dq", (*strides, B, N, S, D, 4, scale)),
-        ("splade_splash_attn_bwd_dkv", (*strides, B, N, S, D, 0, scale))]
+        ("splade_splash_attn_bwd_dq", (1, *strides, B, N, S, D, 4, scale)),
+        ("splade_splash_attn_bwd_dkv",
+         (0, 1, *strides, B, N, S, D, 0, scale)),
+        ("splade_splash_attn_bwd_dq", (0, *strides, B, N, S, D, 4, scale))]
+    fwd_args, dq_args, dkv_args, none_args = (a for _, a in lib.calls)
     # q and v went in as they are: the first and third pointers are theirs
-    assert lib.calls[0][1][0] == q.data_ptr()
-    assert lib.calls[0][1][2] == v.data_ptr()
+    assert fwd_args[0] == q.data_ptr() and fwd_args[2] == v.data_ptr()
+    # dq: d_out, out, lse, then the delta and dq it writes; delta only: dq 0
+    assert dq_args[4:9] == (d_out.data_ptr(), out.data_ptr(), lse.data_ptr(),
+                            delta.data_ptr(), dq.data_ptr())
+    assert none_args[8] == 0
+    # dk/dv: d_out, lse and the dq kernel's delta, then dk and dv
+    assert dkv_args[4:9] == (d_out.data_ptr(), lse.data_ptr(),
+                             delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
     # the signatures the loader declares have as many arguments as were passed
     for entry, args in lib.calls:
         assert len(_cuda.SIGNATURES[entry]) == len(args)
+
+
+def test_function_backward_on_the_card_path_launches_dq_then_dkv(
+        monkeypatch):
+    """The autograd.Function's card path, on CPU tensors that claim to be
+    CUDA ones: the dq wrapper first (with out, and a dtype for dq, or None
+    when q needs no gradient), then the dk/dv wrapper fed the delta the dq
+    wrapper returned, each gradient asked in its operand's dtype; no eager
+    delta reduction."""
+    calls = []
+    fake_delta = torch.full((2, 2, 70), 7.0)
+
+    def fake_dq(q, k, v, seg, hw, d_out, out, lse, dq_dtype):
+        calls.append(("dq", out, dq_dtype))
+        dq = None if dq_dtype is None else torch.ones(
+            2, 70, 2, 16, dtype=dq_dtype)
+        return dq, fake_delta
+
+    def fake_dkv(q, k, v, seg, hw, d_out, lse, delta, dk_dtype, dv_dtype):
+        calls.append(("dkv", delta, dk_dtype, dv_dtype))
+        return (torch.full((2, 70, 2, 16), 2.0, dtype=dk_dtype),
+                torch.full((2, 70, 2, 16), 3.0, dtype=dv_dtype))
+
+    def no_delta(*a):
+        raise AssertionError("the card path reduced delta eagerly")
+
+    monkeypatch.setattr(sa, "splash_attention_bwd_dq", fake_dq)
+    monkeypatch.setattr(sa, "splash_attention_bwd_dkv", fake_dkv)
+    monkeypatch.setattr(sa, "splash_attention_delta", no_delta)
+    monkeypatch.setattr(torch.Tensor, "is_cuda", property(lambda t: True))
+    q, k, v, d_out, seg = (torch.from_numpy(x) if isinstance(x, np.ndarray)
+                           else x for x in _case(7, 2, 2, 70, 16))
+    out, lse = torch.zeros(2, 70, 2, 16, dtype=torch.bfloat16), torch.zeros(
+        2, 2, 70)
+    for need_q in (True, False):
+        calls.clear()
+        ctx = type("Ctx", (), {})()
+        ctx.saved_tensors = (q, k, v, seg, out, lse)
+        ctx.half_window = 4
+        ctx.dtypes = (torch.float32, torch.float32, torch.bfloat16)
+        ctx.needs_input_grad = (need_q, True, True, False, False)
+        grads = sa._SplashAttention.backward.__wrapped__(ctx, d_out)
+        assert [c[0] for c in calls] == ["dq", "dkv"]
+        assert calls[0][1] is out
+        assert calls[0][2] == (torch.float32 if need_q else None)
+        assert calls[1][1] is fake_delta
+        assert calls[1][2:] == (torch.float32, torch.bfloat16)
+        assert (grads[0] is None) == (not need_q)
+        assert grads[1].dtype == torch.float32 and bool((grads[1] == 2).all())
+        assert grads[2].dtype == torch.bfloat16 and bool((grads[2] == 3).all())
+        assert grads[1].shape == (2, 2, 70, 16)  # back to [B, N, S, D]
+        assert grads[3:] == (None, None)
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
@@ -552,6 +637,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch):
         sa._launch_fwd(q64, q64[:, :1], q64, seg, 0)
     with pytest.raises(ValueError, match="seg"):
         sa._launch_fwd(q64, q64, q64, seg[:, :4], 0)
+    d_out = torch.zeros(2, 8, 2, 64)
     with pytest.raises(ValueError, match="dO"):
-        sa._launch_bwd("dq", q64, q64, q64, seg, 0, q64, torch.zeros(2, 2, 8),
-                       torch.zeros(2, 2, 8))
+        sa._launch_bwd_dq(q64, q64, q64, seg, 0, q64, d_out,
+                          torch.zeros(2, 2, 8), torch.float32)
+    with pytest.raises(ValueError, match="out"):
+        sa._launch_bwd_dq(q64, q64, q64, seg, 0, d_out, q64,
+                          torch.zeros(2, 2, 8), torch.float32)
+    with pytest.raises(ValueError, match="delta"):
+        sa._launch_bwd_dkv(q64, q64, q64, seg, 0, d_out, torch.zeros(2, 2, 8),
+                           torch.zeros(2, 8), torch.float32, torch.float32)
