@@ -7,10 +7,11 @@ Phases (any failure exits non-zero; nothing is caught):
 
 1. The card's name and power limit; the Hopper kernels built from
    ``splade_tpu_torch/csrc`` with their ptxas register/shared-memory/spill
-   report.
+   report, spelled out for the kernels last redesigned (``REDESIGNED``).
 2. Each kernel against its plain PyTorch version, in bf16 on the card: the
    fused SPLADE pool forward at query encode (B=32, S=64) and document
-   encode (B=32, S=256) with H=768, V=50,000 and a fully padded row; the
+   encode (B=32, S=256) with H=768, V=50,000 and a fully padded row, and at
+   the training shapes below (pooled values, token weights, m and pos); the
    exact rescore at B=32, C=1000, M=64, T=64 over a 1M-document doc-major
    block; the pool's kernels at the training shapes (docs B=128, S=256;
    queries B=64, S=64) and at B=8, S=200 (a ragged last bitmask word): the
@@ -228,13 +229,19 @@ class CharTokenizer:
     tokenizer (which is not in the repository): one id per non-space
     character, ids 0-3 special, [PAD] = 0. Called with
     ``add_special_tokens=False`` it returns unpadded id lists, as
-    ``pack_corpus`` asks of a tokenizer."""
+    ``pack_corpus`` asks of a tokenizer. ``fill`` counts the valid and the
+    padded-to positions of the padded batches it makes, by max_length: the
+    masks the encoders and the collator hand the pool forward."""
 
     pad_token_id = 0
     cls_token_id = 1
     sep_token_id = 2
     mask_token_id = 3
     all_special_ids = [0, 1, 2, 3]
+
+    def __init__(self):
+        self.fill = {}  # max_length -> [valid positions, positions]
+        self._lock = threading.Lock()  # the collator runs in a loader thread
 
     def __len__(self):
         return V
@@ -254,7 +261,17 @@ class CharTokenizer:
             codes = codes[:max_length]
             ids[i, :len(codes)] = codes
             mask[i, :len(codes)] = 1
+        with self._lock:
+            tally = self.fill.setdefault(max_length, [0, 0])
+            tally[0] += int(mask.sum())
+            tally[1] += mask.size
         return {"input_ids": ids, "attention_mask": mask}
+
+    def valid_share(self) -> dict:
+        """max_length -> the share of valid positions in the padded batches
+        made since ``fill`` was last cleared."""
+        with self._lock:
+            return {n: v / max(p, 1) for n, (v, p) in self.fill.items()}
 
 
 def hangul_texts(rng, n: int, words: int) -> list:
@@ -308,97 +325,242 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# ------------------------------------------------------------ phase 1
+PTXAS_ENTRY = re.compile(r"\d((?:fused_splade|splash|rescore)\w*?_kernel)[EI]")
+PTXAS_NUMBERS = {
+    "stack_bytes": re.compile(r"(\d+) bytes stack frame"),
+    "spill_store_bytes": re.compile(r"(\d+) bytes spill stores"),
+    "spill_load_bytes": re.compile(r"(\d+) bytes spill loads"),
+    "registers": re.compile(r"Used (\d+) registers"),
+    "static_smem_bytes": re.compile(r"(\d+) bytes smem"),
+}
+#: the kernels this slice redesigned, whose ptxas report phase 1 spells out
+REDESIGNED = ("fused_splade_fwd_kernel", "splash_fwd_kernel")
+
+
+def ptxas_summary(build_log: str) -> dict:
+    """kernel name -> a list (one per compiled instance) of what ptxas
+    reported for it: registers, static shared memory, stack frame and
+    spilled bytes. Numbers ptxas leaves out (no static shared memory) are
+    0."""
+    out, current = {}, None
+    for line in build_log.splitlines():
+        if "Compiling entry function" in line:
+            found = PTXAS_ENTRY.search(line)
+            current = dict.fromkeys(PTXAS_NUMBERS, 0) if found else None
+            if found:
+                out.setdefault(found.group(1), []).append(current)
+            continue
+        if current is None:
+            continue
+        for key, pattern in PTXAS_NUMBERS.items():
+            hit = pattern.search(line)
+            if hit:
+                current[key] = int(hit.group(1))
+    return out
+
+
 # ------------------------------------------------------------ phase 2
-def check_pool(torch, model, tok, rng, B: int, S: int) -> dict:
-    """The wrapper ``fused_splade_pool`` against its plain version at one
-    encode shape; the timed closure calls the C entry alone. Then the
-    row-blocked family on the same inputs (``check_pool_v2``)."""
+def pool_fwd_entry(torch, lib, h, w, bias, maskf,
+                   entry: str = "splade_fused_pool_fwd"):
+    """A call of the pool forward's C entry ``entry`` of ``lib`` (a built
+    kernel library, this checkout's or another's) on [B, S, H] bf16 h, [V, H]
+    bf16 w, f32 bias and f32 mask, without the wrapper's conversions or
+    launch count: (run, (m [B, V], pos_key [B, S])), run refilling pos_key
+    with key(-1e30) first, as the wrapper does."""
     from splade_tpu_torch.ops import _cuda
-    from splade_tpu_torch.ops.fused_splade import (float_key,
+    from splade_tpu_torch.ops.fused_splade import float_key
+
+    B, S, H = h.shape
+    V_ = w.shape[0]
+    m_out = torch.empty((B, V_), dtype=torch.float32, device="cuda")
+    neg_key = int(float_key(torch.tensor(-1e30)))
+    pos_key = torch.full((B, S), neg_key, dtype=torch.int32, device="cuda")
+
+    def run():
+        pos_key.fill_(neg_key)
+        _cuda.check(getattr(lib, entry)(
+            h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
+            m_out.data_ptr(), pos_key.data_ptr(), B, S, H, V_,
+            torch.cuda.current_stream().cuda_stream), entry)
+    return run, (m_out, pos_key)
+
+
+def splash_fwd_entry(torch, lib, q, k, v, seg, half_window: int):
+    """A call of the splash forward's C entry of ``lib`` on q, k, v [B, N, S,
+    D] (strided views) and seg [B, S], without the wrapper: (run, (out
+    [B, S, N, D] bf16, lse [B, N, S] f32))."""
+    import math
+
+    from splade_tpu_torch.ops import _cuda
+
+    B, N, S, D = q.shape
+    out = torch.empty((B, S, N, D), dtype=torch.bfloat16, device="cuda")
+    lse = torch.empty((B, N, S), dtype=torch.float32, device="cuda")
+    strides = [*q.stride()[:3], *k.stride()[:3], *v.stride()[:3]]
+
+    def run():
+        _cuda.check(lib.splade_splash_attn_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), seg.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), *strides, B, N, S, D, half_window,
+            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream),
+            "splade_splash_attn_fwd")
+    return run, (out, lse)
+
+
+def live_group_share(torch, mask) -> float:
+    """The share of a [B, S] mask's 16-position groups (positions 16i..16i+15
+    of one row, the last one ragged) that hold a valid position: the part
+    of the full work that the pool forward, which skips the others, does."""
+    B, S = mask.shape
+    if B * S == 0:
+        return 0.0
+    pad = -S % 16
+    grouped = torch.nn.functional.pad(mask.float(), (0, pad)).view(B, -1, 16)
+    return float((grouped > 0).any(2).float().mean())
+
+
+def v33_pool_batches(tok, rng) -> dict:
+    """The pool forward's inputs in one V33 micro-batch, as the trainer's
+    collator builds them from ``synth_triplets`` (phase 4's data): the
+    documents (positives, then negatives) and the queries, each
+    {"input_ids", "attention_mask"} in numpy, keyed by their (B, S), which
+    are TRAIN_POOL_SHAPES."""
+    from splade_tpu_torch.data import TripletCollator
+
+    data = v33_recipe()["data"]
+    collate = TripletCollator(tok, query_max_length=data["query_max_length"],
+                              doc_max_length=data["doc_max_length"])
+    got = collate(synth_triplets(rng, data["batch_size"]))
+    names = ("input_ids", "attention_mask")
+    docs = {k: np.concatenate([got[f"positive_{k}"], got[f"negative_{k}"]])
+            for k in names}
+    queries = {k: got[f"query_{k}"] for k in names}
+    return {x["attention_mask"].shape: x for x in (docs, queries)}
+
+
+def check_pool(torch, model, tok, rng, B: int, S: int, v2: bool = True,
+               device: str = "cuda", timed: bool = True,
+               enc: dict = None) -> dict:
+    """The wrapper ``fused_splade_pool`` against its plain version at one
+    encode shape, on the model's own states: pooled values and token
+    weights, and the maxima wrapper's m and pos (pos at the valid
+    positions), within POOL_TOL; every fully padded row zero. The batch is
+    ``enc`` ({"input_ids", "attention_mask"} [B, S], as a path's collator or
+    encoder made it) or else random lengths with the last row padded. Timed
+    (on the card): the C entry alone, the same on an all-valid mask (the
+    time of the same launch with no padding to skip), the plain version, a
+    cuBLAS yardstick and the bound from this run's valid positions. With
+    ``v2`` the row-blocked family on the same inputs (``check_pool_v2``)."""
+    from splade_tpu_torch.ops import _cuda
+    from splade_tpu_torch.ops.fused_splade import (fused_splade_maxima,
                                                    fused_splade_pool,
                                                    fused_splade_pool_plain)
 
-    enc = tok(hangul_texts(rng, B, S), max_length=S)
-    ids = torch.from_numpy(enc["input_ids"]).cuda()
-    mask = torch.from_numpy(enc["attention_mask"]).cuda()
-    lens = torch.from_numpy(rng.integers(1, S + 1, B)).cuda()
-    mask = mask * (torch.arange(S, device="cuda")[None] < lens[:, None])
-    mask[-1] = 0                                  # a fully padded row
+    cut = None
+    if enc is None:
+        enc = tok(hangul_texts(rng, B, S), max_length=S)
+        lens = torch.from_numpy(rng.integers(1, S + 1, B)).to(device)
+        cut = torch.arange(S, device=device)[None] < lens[:, None]
+        cut[-1] = False                           # a fully padded row
+    ids = torch.from_numpy(enc["input_ids"]).to(device)
+    mask = torch.from_numpy(enc["attention_mask"]).to(device)
+    if tuple(mask.shape) != (B, S):
+        raise SystemExit(f"check_pool: a batch of {tuple(mask.shape)} given "
+                         f"for B={B} S={S}")
+    if cut is not None:
+        mask = mask * cut
     with torch.no_grad():
         h = model.mlm.head_transform(model.mlm.encode(ids, mask)).contiguous()
     w, bias_param = model.mlm.decoder_weights()
     w, bias = w.detach(), bias_param.detach().float().contiguous()
     maskf = mask.float().contiguous()
     H = h.shape[-1]
-    lib = _cuda.library()
-    m = torch.empty((B, V), dtype=torch.float32, device="cuda")
-    neg_key = int(float_key(torch.tensor(-1e30)))
-    pos_key = torch.full((B, S), neg_key, dtype=torch.int32, device="cuda")
-
-    def kernel():
-        pos_key.fill_(neg_key)
-        _cuda.check(lib.splade_fused_pool_fwd(
-            h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
-            m.data_ptr(), pos_key.data_ptr(), B, S, H, V,
-            torch.cuda.current_stream().cuda_stream), "splade_fused_pool_fwd")
+    V_ = w.shape[0]
 
     with torch.no_grad():
         # the model's own (bf16) bias and the int mask, as the encoder
         # passes them: the wrapper does the conversions
         pooled, tw = fused_splade_pool(h, w, bias_param, mask)
+        m, pos = fused_splade_maxima(h, w, bias_param, mask)
         empty, empty_tw = fused_splade_pool(h[:0], w, bias_param, mask[:0])
         m_ref, pos_ref = fused_splade_pool_plain(h, w, bias, maskf)
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     ref_pooled = torch.log1p(torch.relu(m_ref))
     ref_tw = torch.log1p(torch.relu(pos_ref)) * maskf
+    valid = maskf > 0
+    padded = ~valid.any(1)
     err = max(float((pooled - ref_pooled).abs().max()),
               float((tw - ref_tw).abs().max()))
-    padded_zero = (float(pooled[-1].abs().max()) == 0.0
-                   and float(tw[-1].abs().max()) == 0.0)
-    log(f"  pool B={B} S={S}: max |err| {err:.3e} (tol {POOL_TOL}), "
-        f"padded row zero: {padded_zero}, nnz/row "
-        f"{float((pooled > 0).sum(1)[:-1].float().mean()):.0f}")
-    if not (err <= POOL_TOL and padded_zero):
+    maxima_err = max(float((m - m_ref).abs().max()),
+                     float((pos - pos_ref)[valid].abs().max())
+                     if bool(valid.any()) else 0.0)
+    padded_zero = (float(pooled[padded].abs().sum()) == 0.0
+                   and float(tw[padded].abs().sum()) == 0.0)
+    log(f"  pool B={B} S={S}: max |err| {err:.3e}, maxima m and pos "
+        f"{maxima_err:.3e} (tol {POOL_TOL}), {int(padded.sum())} fully "
+        f"padded rows zero: {padded_zero}, nnz/row "
+        f"{float((pooled > 0).sum(1)[~padded].float().mean()):.0f}")
+    if not (err <= POOL_TOL and maxima_err <= POOL_TOL and padded_zero):
         raise SystemExit(f"fused pool kernel disagrees (B={B}, S={S})")
-    if empty.shape != (0, V) or empty_tw.shape != (0, S):
+    if empty.shape != (0, V_) or empty_tw.shape != (0, S):
         raise SystemExit(f"fused pool on an empty batch gave "
                          f"{tuple(empty.shape)}, {tuple(empty_tw.shape)}")
+    out = dict(shape=f"B={B} S={S} H={H} V={V_}",
+               max_abs_err=max(err, maxima_err),
+               valid_share=float(maskf.mean()),
+               live_group_share=live_group_share(torch, maskf))
+    if timed:
+        lib = _cuda.library()
+        kernel, _ = pool_fwd_entry(torch, lib, h, w, bias, maskf)
+        full, _ = pool_fwd_entry(torch, lib, h, w, bias,
+                                 torch.ones_like(maskf))
 
-    def library():
-        logits = torch.matmul(h.view(B * S, H), w.T).view(B, S, V)
-        return (logits.float() + bias).masked_fill(
-            maskf[:, :, None] == 0, -1e30).amax(1)
+        def library():
+            logits = torch.matmul(h.view(B * S, H), w.T).view(B, S, V_)
+            return (logits.float() + bias).masked_fill(
+                maskf[:, :, None] == 0, -1e30).amax(1)
 
-    with torch.no_grad():
-        ms = cuda_ms(torch, kernel, iters=20)
-        plain_ms = cuda_ms(torch, lambda: fused_splade_pool_plain(
-            h, w, bias, maskf), iters=3, warmup=1)
-        library_ms = cuda_ms(torch, library, iters=5, warmup=1)
-    valid = float(maskf.sum())
-    ops = 2.0 * valid * H * V
-    moved = h.numel() * 2 + w.numel() * 2 + V * 4 + B * S * 4 + B * V * 4 \
-        + B * S * 4
-    bound_ms, bound_by = bound(moved, ops, H100_BF16_FLOPS)
-    log(f"  pool B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"library {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{ops:.3e} FLOP over {valid:.0f} valid tokens, {moved / 1e6:.1f} MB)")
-    out = dict(shape=f"B={B} S={S} H={H} V={V}", max_abs_err=err, ms=ms,
-               plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
-               library_ms=library_ms)
-    out["v2"] = {rb: check_pool_v2(torch, h, w, bias_param, bias, mask, rb,
-                                   out, (ref_pooled, ref_tw))
-                 for rb in V2_ROW_BLOCKS}
+        with torch.no_grad():
+            ms = cuda_ms(torch, kernel, iters=20)
+            full_mask_ms = cuda_ms(torch, full, iters=20)
+            plain_ms = cuda_ms(torch, lambda: fused_splade_pool_plain(
+                h, w, bias, maskf), iters=3, warmup=1)
+            library_ms = cuda_ms(torch, library, iters=5, warmup=1)
+        n_valid = float(maskf.sum())
+        ops = 2.0 * n_valid * H * V_
+        moved = h.numel() * 2 + w.numel() * 2 + V_ * 4 + B * S * 4 \
+            + B * V_ * 4 + B * S * 4
+        bound_ms, bound_by = bound(moved, ops, H100_BF16_FLOPS)
+        log(f"  pool B={B} S={S}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, library {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {ops:.3e} FLOP over {n_valid:.0f} valid tokens, "
+            f"{moved / 1e6:.1f} MB; {bound_ms / ms:.1%} of it); "
+            f"{out['valid_share']:.1%} of positions valid, "
+            f"{out['live_group_share']:.1%} of 16-row groups live; on an "
+            f"all-valid mask {full_mask_ms:.4f} ms")
+        out.update(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                   bound_by=bound_by, library_ms=library_ms,
+                   full_mask_ms=full_mask_ms)
+    if v2:
+        out["v2"] = {rb: check_pool_v2(torch, h, w, bias_param, bias, mask,
+                                       rb, out, (ref_pooled, ref_tw),
+                                       device=device, timed=timed)
+                     for rb in V2_ROW_BLOCKS}
     return out
 
 
 def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
-                  v1: dict, ref) -> dict:
+                  v1: dict, ref, device: str = "cuda",
+                  timed: bool = True) -> dict:
     """The row-blocked forward at ``row_block`` on the inputs the per-row
     kernel was just held at: the wrapper against the plain versions (the
     per-row one's values ``ref``, within POOL_TOL), m and pos bitwise equal
-    to the per-row kernel's, a fully padded row zero, and the C entry's
-    time beside the per-row kernel's. The bound and the library yardstick
-    are the per-row kernel's: the same function on the same inputs."""
+    to the per-row kernel's, a fully padded row zero, and (timed) the C
+    entry's time beside the per-row kernel's. The bound and the library
+    yardstick are the per-row kernel's: the same function on the same
+    inputs."""
     from splade_tpu_torch.ops import _cuda
     from splade_tpu_torch.ops.fused_splade import (float_key,
                                                    fused_splade_maxima)
@@ -407,13 +569,15 @@ def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
         fused_splade_pool_v2_plain)
 
     B, S, H = h.shape
+    V_ = w.shape[0]
     maskf = mask.float().contiguous()
     with torch.no_grad():
         pooled, tw = fused_splade_pool_v2(h, w, bias_param, mask, row_block)
         m2, pos2 = fused_splade_maxima_v2(h, w, bias, mask, row_block)
         m1, pos1 = fused_splade_maxima(h, w, bias, mask)
         m_p, pos_p = fused_splade_pool_v2_plain(h, w, bias, maskf, row_block)
-    torch.cuda.synchronize()
+    if device == "cuda":
+        torch.cuda.synchronize()
     ref_pooled, ref_tw = ref
     err = max(float((pooled - ref_pooled).abs().max()),
               float((tw - ref_tw).abs().max()),
@@ -422,8 +586,18 @@ def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
     bitwise = bool(torch.equal(m2, m1) and torch.equal(pos2, pos1))
     padded_zero = (float(pooled[-1].abs().max()) == 0.0
                    and float(tw[-1].abs().max()) == 0.0)
+    log(f"  pool v2 B={B} S={S} row_block={row_block}: max |err| {err:.3e} "
+        f"(tol {POOL_TOL}), m and pos bitwise equal to the per-row "
+        f"kernel's: {bitwise}, padded row zero: {padded_zero}")
+    if not (err <= POOL_TOL and bitwise and padded_zero):
+        raise SystemExit(f"row-blocked pool kernel disagrees (B={B}, S={S}, "
+                         f"row_block={row_block})")
+    out = dict(shape=v1["shape"], row_block=row_block, max_abs_err=err,
+               bitwise_equal_v1=bitwise)
+    if not timed:
+        return out
     lib = _cuda.library()
-    m = torch.empty((B, V), dtype=torch.float32, device="cuda")
+    m = torch.empty((B, V_), dtype=torch.float32, device="cuda")
     neg_key = int(float_key(torch.tensor(-1e30)))
     pos_key = torch.full((B, S), neg_key, dtype=torch.int32, device="cuda")
 
@@ -431,7 +605,7 @@ def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
         pos_key.fill_(neg_key)
         _cuda.check(lib.splade_fused_pool_v2_fwd(
             h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
-            m.data_ptr(), pos_key.data_ptr(), B, S, H, V, row_block,
+            m.data_ptr(), pos_key.data_ptr(), B, S, H, V_, row_block,
             torch.cuda.current_stream().cuda_stream),
             "splade_fused_pool_v2_fwd")
 
@@ -439,19 +613,13 @@ def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
         ms = cuda_ms(torch, kernel, iters=20)
         plain_ms = cuda_ms(torch, lambda: fused_splade_pool_v2_plain(
             h, w, bias, maskf, row_block), iters=3, warmup=1)
-    log(f"  pool v2 B={B} S={S} row_block={row_block}: max |err| {err:.3e} "
-        f"(tol {POOL_TOL}), m and pos bitwise equal to the per-row "
-        f"kernel's: {bitwise}, padded row zero: {padded_zero}; kernel "
-        f"{ms:.4f} ms (per-row kernel {v1['ms']:.4f} ms), plain "
-        f"{plain_ms:.4f} ms, library {v1['library_ms']:.4f} ms, bound "
-        f"{v1['bound_ms']:.4f} ms")
-    if not (err <= POOL_TOL and bitwise and padded_zero):
-        raise SystemExit(f"row-blocked pool kernel disagrees (B={B}, S={S}, "
-                         f"row_block={row_block})")
-    return dict(shape=v1["shape"], row_block=row_block, max_abs_err=err,
-                bitwise_equal_v1=bitwise, ms=ms, v1_ms=v1["ms"],
-                plain_ms=plain_ms, bound_ms=v1["bound_ms"],
-                bound_by=v1["bound_by"], library_ms=v1["library_ms"])
+    log(f"  pool v2 B={B} S={S} row_block={row_block}: kernel {ms:.4f} ms "
+        f"(per-row kernel {v1['ms']:.4f} ms), plain {plain_ms:.4f} ms, "
+        f"library {v1['library_ms']:.4f} ms, bound {v1['bound_ms']:.4f} ms")
+    out.update(ms=ms, v1_ms=v1["ms"], plain_ms=plain_ms,
+               bound_ms=v1["bound_ms"], bound_by=v1["bound_by"],
+               library_ms=v1["library_ms"])
+    return out
 
 
 def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
@@ -2324,6 +2492,14 @@ def main() -> int:
     for line in _cuda.build_log().splitlines():
         if "registers" in line or "spill" in line or line.startswith("=="):
             log("  " + line.strip())
+    ptxas = ptxas_summary(_cuda.build_log())
+    for name in REDESIGNED:
+        for rep in ptxas[name]:
+            log(f"  {name}: {rep['registers']} registers, "
+                f"{rep['static_smem_bytes']} B static shared memory (the "
+                f"rest is dynamic), {rep['stack_bytes']} B stack, spills "
+                f"{rep['spill_store_bytes']} B stored / "
+                f"{rep['spill_load_bytes']} B loaded")
 
     rng = np.random.default_rng(args.seed)
     tok = CharTokenizer()
@@ -2342,6 +2518,15 @@ def main() -> int:
     syn_terms, syn_vals = zipf_corpus_csr(rng, POSTINGS_DOCS)
     pool_q = check_pool(torch, model, tok, rng, 32, 64)
     pool_d = check_pool(torch, model, tok, rng, 32, 256)
+    # the forward at the training shapes too, on the masks the V33 trainer's
+    # collator builds from phase 4's kind of triplets, from a random stream
+    # of its own (the later phases' data stay)
+    pool_rng = np.random.default_rng([args.seed, 6])
+    v33_batch = v33_pool_batches(tok, pool_rng)
+    pool_train = [check_pool(torch, model, tok, pool_rng, B, S, v2=False,
+                             enc=v33_batch[(B, S)])
+                  for B, S in TRAIN_POOL_SHAPES]
+    torch.cuda.empty_cache()
     probe = SparseEncoderV33(model, tok, query_top_k=64, device="cuda")
     resc = check_rescore(torch, probe, rng, syn_terms, syn_vals)
     # the backward kernels at the training shapes: docs (64 positives + 64
@@ -2377,6 +2562,7 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     fused_splade_pool.launches = 0
     rescore_match.launches = 0
+    tok.fill.clear()
     t0 = time.perf_counter()
     index = PostingsIndex(V, n_postings=256, query_top_t=64,
                           rescore_candidates=1000, device="cuda")
@@ -2398,12 +2584,22 @@ def main() -> int:
         device="cuda")
     log(f"  dense engine: {dense.num_docs} docs int8, built in "
         f"{time.perf_counter() - t0:.1f} s")
+    # the valid share of the batches the pool forward was given, by
+    # max_length: the documents indexed, then what the requests sent
+    fill = {"indexed": tok.valid_share()}
+    tok.fill.clear()
     t0 = time.perf_counter()
     pool_at_indexed = fused_splade_pool.launches
     serving = {
         "postings": drive("postings", postings, model, queries, pool_docs[3]),
         "dense": drive("dense", dense, model, queries, dense_docs[5])}
     torch.cuda.synchronize()
+    fill["served"] = tok.valid_share()
+    log("  valid positions in the pool forward's batches, by padded "
+        "length: " + "; ".join(
+            f"{what} " + ", ".join(f"{share:.1%} of {n}"
+                                   for n, share in sorted(got.items()))
+            for what, got in fill.items()))
     launches = {"fused_splade_pool": fused_splade_pool.launches,
                 "rescore_match": rescore_match.launches}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2536,10 +2732,11 @@ def main() -> int:
              **{k: pool_d[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
-             max_abs_err_all=max(pool_q["max_abs_err"],
-                                 pool_d["max_abs_err"]),
+             max_abs_err_all=max(x["max_abs_err"]
+                                 for x in (pool_d, pool_q, *pool_train)),
              shapes=[{k: v for k, v in x.items() if k != "v2"}
-                     for x in (pool_d, pool_q)]),
+                     for x in (pool_d, pool_q, *pool_train)],
+             ptxas=ptxas["fused_splade_fwd_kernel"]),
         dict(name="rescore_match", route="cuda",
              source="splade_tpu_torch/csrc/rescore.cu",
              replaces="splade_tpu/ops/rescore_kernel.py:54",
@@ -2615,12 +2812,15 @@ def main() -> int:
             launches_by_path=splash_launches[name],
             **{k: shapes[0][k] for k in keys},
             max_abs_err_all=max(x["max_abs_err"] for x in shapes),
-            shapes=shapes))
+            shapes=shapes,
+            **({"ptxas": ptxas["splash_fwd_kernel"]} if which == "fwd"
+               else {})))
     for entry in kernels:
         if entry["launches"] <= 0:
             raise SystemExit(f"kernel {entry['name']} was launched no time on "
                              "its path")
     log(json.dumps({"serving": serving, "batch_profiles": profiles,
+                    "pool_valid_share": fill,
                     "doc_encode_max_rel_diff": doc_encode_diff,
                     "peak_device_gb": peak_gb}))
     log(json.dumps({"training": training}))

@@ -1,20 +1,25 @@
-// The score tile of the fused SPLADE pool, shared by its forward and backward
-// kernels (fused_splade_fwd.cu, fused_splade_bwd.cu) and by the row-blocked
-// family (fused_splade_v2_fwd.cu, fused_splade_v2_bwd.cu).
+// The score arithmetic of the fused SPLADE pool, shared by its forward and
+// backward kernels (fused_splade_fwd.cu, fused_splade_bwd.cu) and by the
+// row-blocked family (fused_splade_v2_fwd.cu, fused_splade_v2_bwd.cu).
 //
 // The backward finds each column's argmax by equality with the maxima m that
 // the forward wrote, so it must recompute every score with exactly the
-// forward's arithmetic: one routine, included by both. Each score is the sum
-// over k of h[s, k] * W[v, k] taken as bf16 WMMA 16x16x16 products
-// accumulated in f32, the k-slices of 16 in ascending order from a zeroed
-// accumulator, and the caller adds bias[v] in f32 afterwards. That per-element
-// sequence does not depend on the chunk's shape (BM rows by BN columns) or on
-// which warp owns a fragment, so the kernels may pick the chunk shape that
-// suits their accumulators while every score stays bitwise the forward's.
-// Nor does it depend on how the operands reached shared memory: score_chunk
-// stages A and B one k-step at a time, score_chunk_resident (the row-blocked
-// family) stages A the same way against a W tile that stays in shared memory
-// for its whole hidden width, and both feed the same mma_step.
+// forward's arithmetic. Each score is the sum over k of h[s, k] * W[v, k]
+// taken as bf16 tensor-core products of k-slices of 16 accumulated in f32,
+// in ascending order from a zeroed accumulator up to H rounded to whole
+// BK-wide steps (zeros past H), and the caller adds bias[v] in f32
+// afterwards. On sm_90 a WMMA 16x16x16 product is two HMMA.16816
+// instructions, one per n8 half, each adding one k-slice; an mma.sync
+// m16n8k16 is one. So the per-element sequence does not depend on the
+// chunk's shape, on which warp owns a fragment, on how the operands reached
+// shared memory or on which of the two the code issues: the kernels may pick
+// the tiling that suits them while every score stays bitwise the forward's.
+// mma_step below is the WMMA form (the row-blocked family, through
+// score_chunk_resident, which stages A one k-step at a time against a W tile
+// that stays in shared memory for its whole hidden width); the match pass
+// issues the same WMMA products from its own cp.async ring; the per-row
+// forward (fused_splade_fwd.cu) issues mma.sync m16n8k16 on fragments loaded
+// by ldmatrix (mma_sm90.cuh), slice by slice in the same order.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -37,9 +42,7 @@ struct Chunk {
   static_assert(PER_WARP >= 1 && FRAG_COLS % PER_WARP == 0,
                 "each warp owns fragments of one fragment row");
   static constexpr int A_BYTES = BM * LDS * 2;
-  static constexpr int AB_BYTES = (BM + BN) * LDS * 2;
   static constexpr int C_BYTES = BM * LDC * 4;
-  static constexpr int SMEM_BYTES = AB_BYTES > C_BYTES ? AB_BYTES : C_BYTES;
   // with B resident elsewhere: the A staging buffer aliased by the scores
   static constexpr int AC_BYTES = A_BYTES > C_BYTES ? A_BYTES : C_BYTES;
 };
@@ -80,108 +83,6 @@ __device__ __forceinline__ uint4 load16(const __nv_bfloat16* __restrict__ base,
   return make_uint4(0u, 0u, 0u, 0u);
 }
 
-// Scores without bias of rows s0..s0+BM of one batch row (hb, [S, H]) against
-// vocab rows v0..v0+n_cols of w ([V, H]) into Cs = (float*)smem, row stride
-// Chunk::LDC. Rows past S and columns past n_cols come out 0. All THREADS
-// threads call it; it ends with a barrier after Cs is written, and the caller
-// must barrier again before the next call overwrites Cs.
-//
-// kPrefetch chooses only how operands reach shared memory, never the
-// arithmetic: false stages each k-step straight from device memory (the
-// forward, which keeps several blocks a multiprocessor in flight); true
-// holds the next k-step's 16-byte loads in registers while the current one
-// multiplies (the backward kernels, one block a multiprocessor, where the
-// loads' latency would otherwise go unhidden).
-template <int BM, int BN, bool kPrefetch = false>
-__device__ __forceinline__ void score_chunk(const __nv_bfloat16* __restrict__ hb,
-                                            const __nv_bfloat16* __restrict__ w,
-                                            int s0, int S, int v0, int n_cols,
-                                            int H, unsigned char* smem) {
-  using namespace nvcuda;
-  using C = Chunk<BM, BN>;
-  // Cs aliases the A/B staging buffers: the k-loop ends with a barrier
-  __nv_bfloat16* As = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* Bs = As + BM * LDS;
-  float* Cs = reinterpret_cast<float*>(smem);
-  const int tid = threadIdx.x;
-  const int first = (tid >> 5) * C::PER_WARP;  // this warp's first fragment
-  const int fr = first / C::FRAG_COLS;         // its fragment row
-  const int fc = first % C::FRAG_COLS;         // its first fragment column
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[C::PER_WARP];
-#pragma unroll
-  for (int j = 0; j < C::PER_WARP; ++j) wmma::fill_fragment(acc[j], 0.f);
-
-  constexpr int Q = BK / 8;  // 16-byte slices per row and k-step
-  if constexpr (kPrefetch) {
-    const __nv_bfloat16* hs = hb + (size_t)s0 * H;
-    const __nv_bfloat16* wv = w + (size_t)v0 * H;
-    const int a_rows = S - s0;
-    constexpr int NA = (BM * Q + THREADS - 1) / THREADS;
-    constexpr int NB = (BN * Q + THREADS - 1) / THREADS;
-    uint4 ra[NA], rb[NB];
-    auto fetch = [&](int k0) {
-#pragma unroll
-      for (int it = 0; it < NA; ++it) {
-        const int i = tid + it * THREADS;
-        ra[it] = i < BM * Q ? load16(hs, i / Q, a_rows, k0 + i % Q * 8, H)
-                            : make_uint4(0u, 0u, 0u, 0u);
-      }
-#pragma unroll
-      for (int it = 0; it < NB; ++it) {
-        const int i = tid + it * THREADS;
-        rb[it] = i < BN * Q ? load16(wv, i / Q, n_cols, k0 + i % Q * 8, H)
-                            : make_uint4(0u, 0u, 0u, 0u);
-      }
-    };
-    fetch(0);
-    for (int k0 = 0; k0 < H; k0 += BK) {
-#pragma unroll
-      for (int it = 0; it < NA; ++it) {
-        const int i = tid + it * THREADS;
-        if (i < BM * Q)
-          *reinterpret_cast<uint4*>(As + (i / Q) * LDS + i % Q * 8) = ra[it];
-      }
-#pragma unroll
-      for (int it = 0; it < NB; ++it) {
-        const int i = tid + it * THREADS;
-        if (i < BN * Q)
-          *reinterpret_cast<uint4*>(Bs + (i / Q) * LDS + i % Q * 8) = rb[it];
-      }
-      __syncthreads();
-      if (k0 + BK < H) fetch(k0 + BK);  // in flight during the products
-      mma_step<BM, BN>(As, Bs, fr, fc, acc);
-      __syncthreads();
-    }
-  } else {
-    for (int k0 = 0; k0 < H; k0 += BK) {
-      for (int i = tid; i < BM * Q; i += THREADS) {
-        const int r = i / Q, q = i % Q;
-        const int s = s0 + r, k = k0 + q * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (s < S && k < H)
-          val = *reinterpret_cast<const uint4*>(hb + (size_t)s * H + k);
-        *reinterpret_cast<uint4*>(As + r * LDS + q * 8) = val;
-      }
-      for (int i = tid; i < BN * Q; i += THREADS) {
-        const int r = i / Q, q = i % Q;
-        const int k = k0 + q * 8;
-        uint4 val = make_uint4(0u, 0u, 0u, 0u);
-        if (r < n_cols && k < H)
-          val = *reinterpret_cast<const uint4*>(w + (size_t)(v0 + r) * H + k);
-        *reinterpret_cast<uint4*>(Bs + r * LDS + q * 8) = val;
-      }
-      __syncthreads();
-      mma_step<BM, BN>(As, Bs, fr, fc, acc);
-      __syncthreads();
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < C::PER_WARP; ++j)
-    wmma::store_matrix_sync(Cs + (fr * 16) * C::LDC + (fc + j) * 16, acc[j],
-                            C::LDC, wmma::mem_row_major);
-  __syncthreads();
-}
-
 // ---- the row-blocked family: a W tile resident in shared memory ----------
 
 // bf16 row stride of a resident W tile: the hidden width rounded up to whole
@@ -213,13 +114,14 @@ __device__ __forceinline__ void stage_w_tile(const __nv_bfloat16* __restrict__ w
   }
 }
 
-// score_chunk against a resident W tile: scores without bias of rows
-// s0..s0+BM of ``rows`` ([n_rows, H]: the flattened batch rows of one row
-// block) against the BN vocab rows held in Wt, into Cs = (float*)smem_ac, row
-// stride Chunk::LDC. Only A is staged per k-step (the next step's 16-byte
-// loads wait in registers while the current one multiplies); the products are
-// mma_step's, so every score equals score_chunk's bit for bit. smem_ac holds
-// Chunk::AC_BYTES. Barriers as score_chunk.
+// Scores without bias of rows s0..s0+BM of ``rows`` ([n_rows, H]: the
+// flattened batch rows of one row block) against the BN vocab rows held in
+// Wt, a resident W tile, into Cs = (float*)smem_ac, row stride Chunk::LDC;
+// rows past n_rows come out 0. Only A is staged per k-step (the next step's
+// 16-byte loads wait in registers while the current one multiplies); the
+// products are mma_step's. smem_ac holds Chunk::AC_BYTES. All THREADS
+// threads call it; it ends with a barrier after Cs is written, and the
+// caller must barrier again before the next call overwrites Cs.
 template <int BM, int BN>
 __device__ __forceinline__ void score_chunk_resident(
     const __nv_bfloat16* __restrict__ rows, int s0, int n_rows,

@@ -1,8 +1,10 @@
-// Register-level pieces of the splash attention backward
-// (splash_attention_bwd.cu), kept apart from splash_attention.cuh so that the
-// forward can move onto them: the bf16 m16n8k16 tensor-core product with its
-// documented fragment layout, ldmatrix loads of its operands from padded
-// shared-memory tiles, and cp.async copies of strided rows into those tiles.
+// Register-level pieces of the hand-written sm_90 kernels that run bf16
+// tensor-core products on mma.sync fragments (the splash attention forward
+// and backward, splash_attention_fwd.cu and splash_attention_bwd.cu, and the
+// fused SPLADE pool forward, fused_splade_fwd.cu): the m16n8k16 product with
+// its documented fragment layout, ldmatrix loads of its operands from
+// shared memory, cp.async copies, ex2 and paired stores. Nothing here knows
+// a kernel's tiling or mask.
 //
 // Fragment layout of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32
 // (PTX ISA, "Matrix fragments for mma.m16n8k16"), g = lane / 4 and
@@ -20,18 +22,17 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
-#include "splash_attention.cuh"
-
-namespace splash {
+namespace sm90 {
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// d += a . b for one 16 x 8 tile, f32 sums
+// d += a . b for one 16 x 8 tile, f32 sums. Not volatile: a product of
+// registers only, which the compiler may schedule among the loads.
 __device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
                                          uint32_t b0, uint32_t b1) {
-  asm volatile(
+  asm(
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
@@ -70,38 +71,6 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
       : "r"(smem_u32(p)));
 }
 
-// Tiles are [rows][LDS] bf16 in shared memory. A row of LDS = 72 values is
-// 144 bytes, so the 8 rows an 8 x 8 ldmatrix reads start 4 banks apart and
-// its 16-byte rows cover all 32 banks once: no conflict.
-
-// A operand: rows r0..r0+15, columns k0..k0+15 of a tile.
-__device__ __forceinline__ void load_a(uint32_t (&a)[4],
-                                       const __nv_bfloat16* tile, int r0,
-                                       int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LDS + k0 + (lane >> 4) * 8);
-}
-
-// B operands of the n8 tiles n0 and n0+8 (b[0..1] and b[2..3]) at depth
-// k0..k0+15, from a tile whose rows are n and columns k (B = tile^T).
-__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4],
-                                          const __nv_bfloat16* tile, int n0,
-                                          int k0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS + k0 +
-                     ((lane >> 3) & 1) * 8);
-}
-
-// The same from a tile whose rows are k and columns n (B = tile), through
-// ldmatrix's transpose.
-__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4],
-                                          const __nv_bfloat16* tile, int k0,
-                                          int n0) {
-  const int lane = threadIdx.x & 31;
-  ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
-                           n0 + (lane >> 4) * 8);
-}
-
 // cp.async of 16 bytes from global src to shared dst, or zeros where !valid
 // (src is then not read, but must still be an address of the tensor)
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -126,34 +95,6 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" :: "n"(pending) : "memory");
 }
 
-// Rows s0..s0+BT of one (b, head) operand, `stride_s` elements apart, into
-// dst [BT][LDS] by cp.async, 16 bytes a copy; rows past S are zeros.
-__device__ __forceinline__ void load_tile_async(
-    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
-    long long stride_s, int s0, int S) {
-  constexpr int Q = HD / 8;
-  for (int i = threadIdx.x; i < BT * Q; i += THREADS) {
-    const int r = i / Q, c = (i % Q) * 8;
-    const bool in = s0 + r < S;
-    cp_async16(dst + r * LDS + c,
-               src + (size_t)(in ? s0 + r : s0) * stride_s + c, in);
-  }
-}
-
-// BT 4-byte values src[s0..s0+BT) into dst by cp.async, one thread a value
-// (threads first..first+BT); past S, the bits of `fill` are stored instead.
-__device__ __forceinline__ void load_row_async(void* dst, const void* src,
-                                               int s0, int S, int first,
-                                               uint32_t fill) {
-  const int i = threadIdx.x - first;
-  if (i < 0 || i >= BT) return;
-  uint32_t* d = static_cast<uint32_t*>(dst) + i;
-  if (s0 + i < S)
-    cp_async4(d, static_cast<const uint32_t*>(src) + s0 + i);
-  else
-    *d = fill;
-}
-
 // 2^x, the special-function unit's approximation (what __expf computes
 // after scaling its argument by log2(e))
 __device__ __forceinline__ float ex2(float x) {
@@ -172,4 +113,4 @@ __device__ __forceinline__ void store_pair(__nv_bfloat16* p, float a,
   *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
 }
 
-}  // namespace splash
+}  // namespace sm90

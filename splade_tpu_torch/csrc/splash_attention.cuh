@@ -1,54 +1,38 @@
-// Shared pieces of the sliding-window + segment-id flash attention kernels:
-// the tiling, the mask and the operand strides, which both directions use
-// (splash_attention_fwd.cu, splash_attention_bwd.cu), and the forward's
-// staging of a strided [S, 64] operand tile and its two WMMA products (the
-// backward's register-level pieces are in splash_mma.cuh).
+// Shared pieces of the sliding-window + segment-id flash attention kernels
+// (splash_attention_fwd.cu, splash_attention_bwd.cu): the tiling, the
+// operand strides, the mask as two tests on a fragment's positions, and the
+// loads of operand tiles into shared memory and of their fragments out of
+// it. The generic register-level pieces they are built on (the mma.sync
+// product and its fragment layout, ldmatrix, cp.async) are in mma_sm90.cuh.
 //
 // A block of 4 warps owns one 64-row tile of one (batch row, head); each warp
 // owns 16 of its rows and walks the 64-row tiles of the other axis that the
-// mask can reach. In the forward, products are bf16 WMMA 16x16x16 with f32
-// sums. A score tile goes through shared memory in f32 (WMMA fragments have
-// no documented element layout, so row-wise softmax arithmetic needs one),
-// where two lanes share a row and each handles 32 of its 64 columns; what is
-// multiplied next (p) is written back as bf16 over the same rows.
+// mask can reach.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
+#include "mma_sm90.cuh"
+
 namespace splash {
+
+// the attention kernels use the generic pieces unqualified
+using namespace sm90;
 
 constexpr int HD = 64;        // head width the kernels are built for
 constexpr int BT = 64;        // rows of a query tile and of a kv tile
 constexpr int THREADS = 128;  // 4 warps, 16 tile rows each
 constexpr int LDS = HD + 8;   // bf16 row stride of a staged operand tile
-constexpr int LDF = BT + 4;   // f32 row stride of a score tile
-constexpr int LDP = 2 * LDF;  // bf16 row stride of p / ds laid over the scores
-constexpr int HALF = BT / 2;  // columns a lane handles in its row
 constexpr float NEG = -1e30f;  // finite -inf: exp(NEG - m) = 0, never inf - inf
 constexpr int TILE_BYTES = BT * LDS * 2;
-constexpr int SCORE_BYTES = BT * LDF * 4;
-
-using Acc = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                   float>;
 
 // Elements between batch rows, heads and positions of a [B, N, S, HD] view
 // whose last dimension is contiguous.
 struct Strides {
   long long b, n, s;
 };
-
-// May query position qi attend to key position kj? Same segment (padding
-// rides the segment ids), inside the sequence, and within the window when
-// there is one (hw == 0: full attention).
-__device__ __forceinline__ bool allowed(int qi, int kj, int sq, int sk, int S,
-                                        int hw) {
-  if (qi >= S || kj >= S || sq != sk) return false;
-  const int d = qi - kj;
-  return hw == 0 || (d <= hw && -d <= hw);
-}
 
 // Tiles lo..hi of the other axis that the tile of rows t0..t0+BT can reach.
 // The mask is symmetric in (q, k), so query tiles and kv tiles share it.
@@ -62,69 +46,80 @@ __device__ __forceinline__ void tile_range(int t0, int S, int hw, int& lo,
   hi = min(end + hw, S - 1) / BT;
 }
 
-// Rows s0..s0+BT of one (b, head) operand, `stride_s` elements apart in
-// device memory, into dst [BT][LDS]; rows past S are zeros. 16 bytes a load.
-__device__ __forceinline__ void load_tile(__nv_bfloat16* dst,
-                                          const __nv_bfloat16* __restrict__ src,
-                                          long long stride_s, int s0, int S) {
+// ex2 takes log2 units; lse leaves as a natural log
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
+// Segment ids of the positions past S, so that the mask is two tests
+// (in_mask): the model's ids are >= 0 and never match them (and a match
+// would add exact zeros: rows past S are zeros, with lse and delta 0)
+constexpr int ROW_PAST_S = -1;
+constexpr uint32_t COL_PAST_S = 0xfffffffeu;  // -2
+
+// May query position i attend to key position j, for d = i - j, with hwe =
+// the half window, or S when there is none? Equal segment ids (padding,
+// packing and the ends of the sequence ride them) and |d| <= hwe.
+__device__ __forceinline__ bool in_mask(int si, int sj, int d, int hwe) {
+  return si == sj && (unsigned)(d + hwe) <= (unsigned)(2 * hwe);
+}
+
+// Tiles are [rows][LDS] bf16 in shared memory. A row of LDS = 72 values is
+// 144 bytes, so the 8 rows an 8 x 8 ldmatrix reads start 4 banks apart and
+// its 16-byte rows cover all 32 banks once: no conflict.
+
+// A operand: rows r0..r0+15, columns k0..k0+15 of a tile.
+__device__ __forceinline__ void load_a(uint32_t (&a)[4],
+                                       const __nv_bfloat16* tile, int r0,
+                                       int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(a, tile + (r0 + (lane & 15)) * LDS + k0 + (lane >> 4) * 8);
+}
+
+// B operands of the n8 tiles n0 and n0+8 (b[0..1] and b[2..3]) at depth
+// k0..k0+15, from a tile whose rows are n and columns k (B = tile^T).
+__device__ __forceinline__ void load_b_nk(uint32_t (&b)[4],
+                                          const __nv_bfloat16* tile, int n0,
+                                          int k0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4(b, tile + (n0 + (lane & 7) + ((lane >> 4) << 3)) * LDS + k0 +
+                     ((lane >> 3) & 1) * 8);
+}
+
+// The same from a tile whose rows are k and columns n (B = tile), through
+// ldmatrix's transpose.
+__device__ __forceinline__ void load_b_kn(uint32_t (&b)[4],
+                                          const __nv_bfloat16* tile, int k0,
+                                          int n0) {
+  const int lane = threadIdx.x & 31;
+  ldmatrix_x4_trans(b, tile + (k0 + (lane & 7) + ((lane >> 3) & 1) * 8) * LDS +
+                           n0 + (lane >> 4) * 8);
+}
+
+// Rows s0..s0+BT of one (b, head) operand, `stride_s` elements apart, into
+// dst [BT][LDS] by cp.async, 16 bytes a copy; rows past S are zeros.
+__device__ __forceinline__ void load_tile_async(
+    __nv_bfloat16* dst, const __nv_bfloat16* __restrict__ src,
+    long long stride_s, int s0, int S) {
   constexpr int Q = HD / 8;
   for (int i = threadIdx.x; i < BT * Q; i += THREADS) {
     const int r = i / Q, c = (i % Q) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (s0 + r < S)
-      val = *reinterpret_cast<const uint4*>(src + (size_t)(s0 + r) * stride_s +
-                                            c);
-    *reinterpret_cast<uint4*>(dst + r * LDS + c) = val;
+    const bool in = s0 + r < S;
+    cp_async16(dst + r * LDS + c,
+               src + (size_t)(in ? s0 + r : s0) * stride_s + c, in);
   }
 }
 
-// C[16, BT] = A[16, HD] . Bt[BT, HD]^T for one warp: A its 16 rows of a staged
-// tile, Bt a whole staged tile read as a column-major [HD, BT] matrix; C f32
-// with row stride LDF.
-__device__ __forceinline__ void rows_times_transposed(const __nv_bfloat16* A,
-                                                      const __nv_bfloat16* Bt,
-                                                      float* C) {
-  using namespace nvcuda;
-  Acc acc[BT / 16];
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < HD; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        af;
-    wmma::load_matrix_sync(af, A + kk, LDS);
-#pragma unroll
-    for (int j = 0; j < BT / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, Bt + (j * 16) * LDS + kk, LDS);
-      wmma::mma_sync(acc[j], af, bf, acc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < BT / 16; ++j)
-    wmma::store_matrix_sync(C + j * 16, acc[j], LDF, wmma::mem_row_major);
-}
-
-// acc[16, HD] += P[16, BT] . Bm[BT, HD] for one warp: P its 16 rows of bf16
-// values laid over a score tile (row stride LDP), Bm a whole staged tile.
-__device__ __forceinline__ void accumulate(const __nv_bfloat16* P,
-                                           const __nv_bfloat16* Bm,
-                                           Acc* acc) {
-  using namespace nvcuda;
-#pragma unroll
-  for (int kk = 0; kk < BT; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        af;
-    wmma::load_matrix_sync(af, P + kk, LDP);
-#pragma unroll
-    for (int j = 0; j < HD / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bf;
-      wmma::load_matrix_sync(bf, Bm + kk * LDS + j * 16, LDS);
-      wmma::mma_sync(acc[j], af, bf, acc[j]);
-    }
-  }
+// BT 4-byte values src[s0..s0+BT) into dst by cp.async, one thread a value
+// (threads first..first+BT); past S, the bits of `fill` are stored instead.
+__device__ __forceinline__ void load_row_async(void* dst, const void* src,
+                                               int s0, int S, int first,
+                                               uint32_t fill) {
+  const int i = threadIdx.x - first;
+  if (i < 0 || i >= BT) return;
+  uint32_t* d = static_cast<uint32_t*>(dst) + i;
+  if (s0 + i < S)
+    cp_async4(d, static_cast<const uint32_t*>(src) + s0 + i);
+  else
+    *d = fill;
 }
 
 }  // namespace splash

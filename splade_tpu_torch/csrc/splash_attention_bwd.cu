@@ -34,7 +34,7 @@
 // against 4 products (0.059 ms): bytes, in both. What holds them above that
 // is the work between the products and its latency. So everything between
 // the products stays in registers: each warp owns 16 rows and runs bf16
-// mma.sync m16n8k16 (splash_mma.cuh), whose documented fragment layout tells
+// mma.sync m16n8k16 (mma_sm90.cuh), whose documented fragment layout tells
 // each lane the rows and columns it holds; the mask, exp, - delta and the
 // bf16 rounding run on the f32 accumulator fragments in place, and a
 // product's result is the next product's A operand (p and ds are rounded to
@@ -52,7 +52,6 @@
 #include <stdint.h>
 
 #include "splash_attention.cuh"
-#include "splash_mma.cuh"
 
 namespace {
 
@@ -61,20 +60,6 @@ using namespace splash;
 static_assert(HD == 64 && BT == 64, "fragment loops are unrolled for 64");
 constexpr int NT = 8;  // n8 tiles across 64 columns
 constexpr int KS = 4;  // k16 steps across a depth of 64
-
-constexpr float LOG2E = 1.4426950408889634f;
-// Segment ids of the positions past S, so that the mask is two tests
-// (in_mask): the model's ids are >= 0 and never match them (and a match
-// would add exact zeros: rows past S are zeros, with lse and delta 0)
-constexpr int ROW_PAST_S = -1;
-constexpr uint32_t COL_PAST_S = 0xfffffffeu;  // -2
-
-// allowed(i, j) of splash_attention.cuh for d = i - j, with hwe = hw, or S
-// when there is no window: equal segment ids (padding, packing and the ends
-// of the sequence ride them) and |d| <= hwe
-__device__ __forceinline__ bool in_mask(int si, int sj, int d, int hwe) {
-  return si == sj && (unsigned)(d + hwe) <= (unsigned)(2 * hwe);
-}
 
 // dq kernel: the two buffers of the walked K and V tiles (q and dO stage in
 // the second pair before the walk), the walked tiles' segment ids

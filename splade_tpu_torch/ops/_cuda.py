@@ -41,6 +41,9 @@ _SPLASH_TAIL = [_L] * 9 + [_I] * 5 + [_F, _P]
 #: C signature of every entry point: name -> argtypes (restype is int)
 SIGNATURES: Dict[str, List] = {
     "splade_fused_pool_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # the same launch with its blocks in the other order (measurement only)
+    "splade_fused_pool_fwd_batch_first": [_P, _P, _P, _P, _P, _P,
+                                          _I, _I, _I, _I, _P],
     "splade_fused_pool_bwd_match": [_P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _P],
     "splade_fused_pool_bwd_dh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],

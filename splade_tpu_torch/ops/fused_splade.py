@@ -9,10 +9,14 @@ Counterpart of ``splade_tpu/ops/fused_splade.py::fused_splade_pool`` (a
 
 Forward kernel: ``csrc/fused_splade_fwd.cu`` replaces the Pallas
 ``_fwd_kernel`` (``splade_tpu/ops/fused_splade.py:50``). It is bound by
-tensor-core operations (2·B·S·H·V FLOP, 0.64 ms at document encode on an
-H100) and keeps each [S, tile] score tile in registers and shared memory,
-so only the [B, V] and [B, S] maxima reach device memory; the ragged last
-vocab tile is masked in the kernel, so W is never padded or copied.
+tensor-core operations (2·valid·H·V FLOP) and keeps every score in the
+``mma.sync`` accumulator fragments, so only the [B, V] and [B, S] maxima
+reach device memory. A block owns a vocab tile and the valid 16-row groups
+of a few batch rows, which it lists from the mask itself (padding is never
+loaded or multiplied); the blocks that run together share their W tile in
+L2. Each score keeps the products of ``csrc/fused_splade_tile.cuh``, which
+the backward's recompute equals bit for bit. The ragged last vocab tile is
+masked in the kernel, so W is never padded or copied.
 
 Backward: the forward saves m (the [B, V] maxima), h, w, bias and mask, as
 ``_fused_fwd`` does. Outside the kernels, as ``_fused_bwd`` does:

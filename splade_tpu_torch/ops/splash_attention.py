@@ -20,10 +20,13 @@ At padded positions the output therefore differs from the additive-mask
 (sdpa) route's by design; at valid positions only rounding differs.
 
 Kernels (``csrc/splash_attention_fwd.cu``, ``csrc/splash_attention_bwd.cu``,
-shared pieces in ``csrc/splash_attention.cuh`` and the backward's
-register-level ones in ``csrc/splash_mma.cuh``): the forward owns one (b,
-head, 64-query tile) a block and walks the kv tiles its mask can reach with
-an online softmax in f32. The backward is two kernels launched in order on
+shared pieces, the mask's two tests among them, in
+``csrc/splash_attention.cuh``, and the generic register-level ones in
+``csrc/mma_sm90.cuh``): the forward owns one (b, head, 64-query
+tile) a block and walks the kv tiles its mask can reach with an online
+softmax in f32, the scores, p and the output in ``mma.sync`` fragments in
+registers and the K/V tiles double-buffered with ``cp.async``; it writes
+``lse`` as a natural log. The backward is two kernels launched in order on
 one stream. The dq kernel (a block owns a query tile) first computes
 ``delta = rowsum(dO * out)`` in f32 for its rows and writes it ``[B, N,
 S]``; the dk/dv kernel (a block owns a kv tile) reads it. Both recompute

@@ -27,6 +27,7 @@ expects must be the ones the code implies."""
 
 import dataclasses
 import importlib.util
+import math
 from pathlib import Path
 
 import numpy as np
@@ -134,6 +135,235 @@ def test_search_vector_check_holds_the_index_against_the_engine(
             cs.compare_search_vector("faulty", engine, queries[0])
     else:
         cs.compare_search_vector("sound", engine, queries[0])
+
+
+def _skip_a_group(monkeypatch):
+    """A pool forward that skips a 16-row group holding valid rows: the
+    positions 16..31 of every row are dropped before the maxima."""
+    from splade_tpu_torch.ops import fused_splade
+
+    def skipping(real):
+        def run(h, w, bias, mask):
+            mask = mask.clone()
+            mask[:, 16:32] = 0
+            return real(h, w, bias, mask)
+        return run
+
+    for name in ("fused_splade_pool", "fused_splade_maxima"):
+        monkeypatch.setattr(fused_splade, name,
+                            skipping(getattr(fused_splade, name)))
+
+
+@pytest.mark.parametrize("fault", [None, _skip_a_group],
+                         ids=["sound", "skip_a_group"])
+@pytest.mark.parametrize("B,S", [(8, 40), (8, 64)])
+def test_pool_check_catches_a_forward_that_skips_a_group(setup, monkeypatch,
+                                                         fault, B, S):
+    """Phase 2's check_pool on the CPU at a tiny size (S = 40 is ragged for
+    the forward's 16-row groups): the wrapper runs the plain version, so
+    the sound reading is 0, and the row-blocked family on the same inputs
+    agrees bit for bit; a forward that skips a group holding valid rows
+    must stop the run."""
+    cs, model, tok, _, _, _ = setup
+    args = (torch, model, tok, np.random.default_rng(S), B, S)
+    kw = dict(device="cpu", timed=False)
+    if fault is None:
+        out = cs.check_pool(*args, **kw)
+        assert out["max_abs_err"] == 0.0
+        assert set(out["v2"]) == set(cs.V2_ROW_BLOCKS)
+        assert all(x["bitwise_equal_v1"] for x in out["v2"].values())
+        return
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match="fused pool kernel disagrees"):
+        cs.check_pool(*args, v2=False, **kw)
+
+
+def _collated(cs, tok, rng, n: int, doc_words=(10, 21)):
+    """A V33-style batch from the trainer's collator at a tiny size:
+    documents of 20-40 positions padded to 40, queries to 16."""
+    from splade_tpu_torch.data import TripletCollator
+
+    got = TripletCollator(tok, query_max_length=16, doc_max_length=40)(
+        cs.synth_triplets(rng, n, doc_words))
+    names = ("input_ids", "attention_mask")
+    docs = {k: np.concatenate([got[f"positive_{k}"], got[f"negative_{k}"]])
+            for k in names}
+    return docs, {k: got[f"query_{k}"] for k in names}
+
+
+@pytest.mark.parametrize("fault", [None, _skip_a_group],
+                         ids=["sound", "skip_a_group"])
+def test_pool_check_on_a_collated_batch(setup, monkeypatch, fault):
+    """check_pool on a batch the trainer's collator made, taken as it is
+    (no random cut, no padded row forced): the sound reading is 0 with the
+    batch's valid and live-group shares reported; a forward that skips a
+    group holding valid rows still stops the run."""
+    cs, model, tok, _, _, _ = setup
+    docs, _ = _collated(cs, tok, np.random.default_rng(3), 4)
+    kw = dict(v2=False, device="cpu", timed=False, enc=docs)
+    args = (torch, model, tok, None, 8, 40)
+    if fault is None:
+        out = cs.check_pool(*args, **kw)
+        mask = torch.from_numpy(docs["attention_mask"]).float()
+        assert out["max_abs_err"] == 0.0
+        assert out["valid_share"] == float(mask.mean())
+        assert out["live_group_share"] == cs.live_group_share(torch, mask)
+        return
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match="fused pool kernel disagrees"):
+        cs.check_pool(*args, **kw)
+
+
+def test_pool_check_refuses_a_batch_of_another_shape(setup):
+    cs, model, tok, _, _, _ = setup
+    docs, _ = _collated(cs, tok, np.random.default_rng(3), 4)
+    with pytest.raises(SystemExit, match="a batch of"):
+        cs.check_pool(torch, model, tok, None, 8, 64, v2=False,
+                      device="cpu", timed=False, enc=docs)
+
+
+@pytest.mark.parametrize("case", ["prefix", "holes", "padded_row", "ragged",
+                                  "empty"])
+def test_live_group_share_counts_groups_holding_a_valid_position(case):
+    """The share of 16-position groups of a mask that hold a valid position,
+    against a count by hand: right-padded rows, holes, an all-padded row, S
+    not a multiple of 16 (the last group is short) and an empty batch."""
+    cs = _load_chip_smoke()
+    if case == "empty":
+        assert cs.live_group_share(torch, torch.zeros(0, 40)) == 0.0
+        return
+    S = 40 if case == "ragged" else 64
+    mask = torch.zeros(4, S)
+    mask[0, :17] = 1          # groups 0 and 1
+    mask[1, :S] = 1           # every group
+    if case == "holes":
+        mask[2, 5] = mask[2, 50] = 1    # groups 0 and 3
+    if case == "padded_row":
+        mask[3] = 0
+    if case == "ragged":
+        mask[2, 39] = 1       # the short last group (positions 32..39)
+    groups = -(-S // 16)
+    live = {"prefix": 2 + groups, "holes": 2 + groups + 2,
+            "padded_row": 2 + groups, "ragged": 2 + groups + 1}[case]
+    assert cs.live_group_share(torch, mask) == live / (4 * groups)
+
+
+def test_tokenizer_counts_the_valid_share_of_its_padded_batches():
+    """CharTokenizer.fill tallies, by max_length, the valid positions of
+    the padded batches it makes (what the encoders and the collator hand
+    the pool forward); unpadded calls count nothing; clearing starts over."""
+    cs = _load_chip_smoke()
+    tok = cs.CharTokenizer()
+    a = tok(["ab c", "", "abcdefgh"], max_length=4)
+    b = tok(["abc"], max_length=8)
+    tok(["abc"], add_special_tokens=False)
+    assert tok.fill == {4: [int(a["attention_mask"].sum()), 12],
+                        8: [int(b["attention_mask"].sum()), 8]}
+    assert tok.valid_share() == {4: 7 / 12, 8: 3 / 8}
+    tok.fill.clear()
+    assert tok.valid_share() == {}
+
+
+def test_v33_pool_batches_are_the_collators_micro_batch():
+    """Phase 2's training-shape pool check runs on what the V33 trainer's
+    collator builds from phase 4's kind of triplets: documents (positives,
+    then negatives) at TRAIN_POOL_SHAPES[0], queries at [1]."""
+    from splade_tpu_torch.data import TripletCollator
+
+    cs = _load_chip_smoke()
+    tok = cs.CharTokenizer()
+    got = cs.v33_pool_batches(tok, np.random.default_rng(7))
+    assert set(got) == set(cs.TRAIN_POOL_SHAPES)
+    data = cs.v33_recipe()["data"]
+    ref = TripletCollator(tok, query_max_length=data["query_max_length"],
+                          doc_max_length=data["doc_max_length"])(
+        cs.synth_triplets(np.random.default_rng(7), data["batch_size"]))
+    docs, queries = (got[shape] for shape in cs.TRAIN_POOL_SHAPES)
+    for k in ("input_ids", "attention_mask"):
+        np.testing.assert_array_equal(
+            docs[k], np.concatenate([ref[f"positive_{k}"],
+                                     ref[f"negative_{k}"]]))
+        np.testing.assert_array_equal(queries[k], ref[f"query_{k}"])
+    # documents of 100-128 two-syllable words fill most of 256 positions
+    assert 0.75 < docs["attention_mask"].mean() < 1.0
+
+
+def _load_bench():
+    spec = importlib.util.spec_from_file_location(
+        "bench_forward_kernels", ROOT / "scripts" / "bench_forward_kernels.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@pytest.mark.parametrize("where,ok", [("build/parent", True),
+                                      ("build/a/b", True),
+                                      ("build", False), ("..", False),
+                                      ("splade_tpu_torch", False)])
+def test_bench_takes_a_parent_only_under_build(where, ok):
+    """scripts/bench_forward_kernels.py builds the parent checkout's kernels
+    inside it, so it takes only a directory under this checkout's build/."""
+    bench = _load_bench()
+    if ok:
+        assert bench.parent_checkout(ROOT / where) == (ROOT / where).resolve()
+    else:
+        with pytest.raises(SystemExit, match="is not under"):
+            bench.parent_checkout(ROOT / where)
+
+
+def test_every_c_entry_has_a_signature_and_every_signature_an_entry():
+    """The C entries of csrc/*.cu (the measurement entry that numbers the
+    pool forward's blocks batch range first among them) are exactly the
+    names _cuda.SIGNATURES gives argument types."""
+    import re
+
+    from splade_tpu_torch.ops import _cuda
+
+    found = set()
+    for src in _cuda.sources():
+        found |= set(re.findall(r'extern "C" int\s+(\w+)\(',
+                                src.read_text()))
+    assert "splade_fused_pool_fwd_batch_first" in found
+    assert found == set(_cuda.SIGNATURES)
+
+
+PTXAS_SAMPLE = """== fused_splade_fwd.cu
+ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__873ffd15_19_fused_splade_fwd_cu_9202b51223fused_splade_fwd_kernelEPK13__nv_bfloat16S2_PKfS4_PfPiiiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN52_GLOBAL__N__873ffd15_19_fused_splade_fwd_cu_9202b51223fused_splade_fwd_kernelEPK13__nv_bfloat16S2_PKfS4_PfPiiiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 220 registers, used 1 barriers, 128 bytes smem
+== splash_attention_bwd.cu
+ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__e2_23_splash_attention_bwd_cu_3c20splash_bwd_dq_kernelIfEEvPK13__nv_bfloat16' for 'sm_90a'
+    8 bytes stack frame, 68 bytes spill stores, 68 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__e2_23_splash_attention_bwd_cu_3c20splash_bwd_dq_kernelI13__nv_bfloat16EEvPK' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 166 registers, used 1 barriers
+== splash_attention_fwd.cu
+ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__efbc3fac_23_splash_attention_fwd_cu_aad4cf4b17splash_fwd_kernelEPK13__nv_bfloat16S2_S2_PKiPS0_PfN6splash7StridesES8_S8_iiif' for 'sm_90a'
+    56 bytes stack frame, 64 bytes spill stores, 104 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 56 bytes cumulative stack size
+"""
+
+
+def test_ptxas_summary_reads_each_kernels_report():
+    """Phase 1 spells out the redesigned kernels' registers, static shared
+    memory and spills from the build log, one entry per compiled instance
+    (a template's instances under one name)."""
+    cs = _load_chip_smoke()
+    got = cs.ptxas_summary(PTXAS_SAMPLE)
+    assert set(got) == {"fused_splade_fwd_kernel", "splash_bwd_dq_kernel",
+                        "splash_fwd_kernel"}
+    assert got["fused_splade_fwd_kernel"] == [dict(
+        stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+        registers=220, static_smem_bytes=128)]
+    assert [r["registers"] for r in got["splash_bwd_dq_kernel"]] == [168, 166]
+    assert got["splash_bwd_dq_kernel"][0]["spill_store_bytes"] == 68
+    fwd = got["splash_fwd_kernel"][0]
+    assert (fwd["registers"], fwd["spill_store_bytes"],
+            fwd["spill_load_bytes"], fwd["static_smem_bytes"]) == (
+                128, 64, 104, 0)
+    assert set(cs.REDESIGNED) <= set(got)
 
 
 def test_doc_encode_check_runs_through_the_encoder(setup):
@@ -546,11 +776,75 @@ def _other_rows_delta_to_dkv(monkeypatch):
     _stale_delta_to_dkv(monkeypatch, lambda d: d.roll(1, dims=-1))
 
 
+def _forward_without_alpha(monkeypatch):
+    """A forward that drops the online softmax's rescale: the running sum
+    and output keep the scale of the tiles before a new maximum."""
+    from splade_tpu_torch.ops import splash_attention as sa
+
+    def forward(q, k, v, seg, hw):
+        B, N, S, D = q.shape
+        scale = 1.0 / math.sqrt(D)
+        qf, kf, vf = (t.float() for t in (q, k, v))
+        out = torch.empty((B, N, S, D))
+        lse = torch.empty((B, N, S))
+        for q0 in range(0, S, sa.TILE):
+            qt = qf[:, :, q0:q0 + sa.TILE]
+            m = torch.full(qt.shape[:3], sa.NEG)
+            l = torch.zeros_like(m)
+            o = torch.zeros_like(qt)
+            for t in sa.tile_range(q0, S, hw):
+                k0 = t * sa.TILE
+                ok = sa._allowed(seg, q0, k0, hw)
+                s = (qt @ kf[:, :, k0:k0 + sa.TILE].transpose(-1, -2)) * scale
+                s = torch.where(ok, s, torch.full_like(s, sa.NEG))
+                m = torch.maximum(m, s.amax(-1))
+                p = torch.where(ok, torch.exp(s - m[..., None]),
+                                torch.zeros_like(s))
+                l = l + p.sum(-1)                   # no * alpha
+                o = o + p @ vf[:, :, k0:k0 + sa.TILE]  # no * alpha
+            out[:, :, q0:q0 + sa.TILE] = o / l[..., None]
+            lse[:, :, q0:q0 + sa.TILE] = m + torch.log(l)
+        return out.transpose(1, 2), lse
+
+    monkeypatch.setattr(sa, "splash_attention_forward", forward)
+
+
+def _lse_in_log2_units(monkeypatch):
+    """A forward whose lse is left in the log2 units the kernel keeps its
+    running maximum in."""
+    from splade_tpu_torch.ops import splash_attention as sa
+
+    real = sa.splash_attention_forward
+
+    def forward(*a):
+        out, lse = real(*a)
+        return out, lse / math.log(2.0)
+
+    monkeypatch.setattr(sa, "splash_attention_forward", forward)
+
+
+def _lse_shifted(monkeypatch):
+    """... or shifted by 1e-3 (ten times the tolerance)."""
+    from splade_tpu_torch.ops import splash_attention as sa
+
+    real = sa.splash_attention_forward
+
+    def forward(*a):
+        out, lse = real(*a)
+        return out, lse + 1e-3
+
+    monkeypatch.setattr(sa, "splash_attention_forward", forward)
+
+
 @pytest.mark.parametrize("fault", [None, _window_off_by_one, _drop_delta,
                                    _stale_delta_to_dkv,
-                                   _other_rows_delta_to_dkv],
+                                   _other_rows_delta_to_dkv,
+                                   _forward_without_alpha,
+                                   _lse_in_log2_units, _lse_shifted],
                          ids=["sound", "window_off_by_one", "drop_delta",
-                              "zero_delta_to_dkv", "stale_delta_to_dkv"])
+                              "zero_delta_to_dkv", "stale_delta_to_dkv",
+                              "forward_without_alpha", "lse_in_log2_units",
+                              "lse_shifted"])
 @pytest.mark.parametrize("B,S,packed", [(9, 128, True), (3, 100, False)])
 def test_splash_check_catches_a_wrong_window_and_a_dropped_delta(
         monkeypatch, fault, B, S, packed):

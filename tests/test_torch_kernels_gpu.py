@@ -81,6 +81,83 @@ def test_fused_pool_kernel_matches_plain(cuda, B, S, H, V):
     assert float(tw[-1].abs().max()) == 0.0
 
 
+POOL_FWD_SHAPES = [
+    (5, 256, 768, 50000),   # document length; B not a multiple of 4 a block
+    (17, 64, 768, 50000),   # query length; B not a multiple of 16 a block
+    (3, 200, 768, 50000),   # S not a multiple of the 16-row group
+    (6, 37, 64, 777),       # ragged everywhere, H < 768
+    (2, 1500, 64, 1000),    # S above the rows a block aims at: one a block
+]
+
+
+@pytest.mark.parametrize("B,S,H,V", POOL_FWD_SHAPES)
+def test_pool_forward_bitwise_plain_on_exact_inputs(cuda, B, S, H, V):
+    """Small-integer inputs make every score exact in f32 in any order, so
+    the forward kernel's m and pos equal the plain version's bit for bit:
+    a ragged S and last vocab tile, a fully padded row (m and pos -1e30),
+    and rows with holes in the mask (a live group after a skipped one)."""
+    h, w, bias, mask, _ = _bwd_case(B, S, H, V, seed=B + S + V,
+                                    device=cuda, exact=True)
+    mask[0, 16:48] = 0    # two dead groups inside a row
+    mask[0, 48:S] = 1     # ... and live ones after them
+    if B > 2:
+        mask[1] = 0
+        mask[1, S - 1] = 1  # one valid position, in the last group
+    before = fused_splade_pool.launches
+    m, pos = fused_splade_maxima(h, w, bias, mask)
+    torch.cuda.synchronize()
+    assert fused_splade_pool.launches == before + 1
+    m_ref, pos_ref = fused_splade_pool_plain(h, w, bias, mask)
+    assert torch.equal(m, m_ref)
+    assert torch.equal(pos, pos_ref)
+    assert bool((m[-1] == -1e30).all()) and bool((pos[-1] == -1e30).all())
+    again = fused_splade_maxima(h, w, bias, mask)
+    assert torch.equal(again[0], m) and torch.equal(again[1], pos)
+
+
+@pytest.mark.parametrize("B,S", [(32, 256), (32, 64), (128, 256), (64, 64)])
+def test_pool_forward_at_the_served_and_training_shapes(cuda, B, S):
+    """Model-like inputs at the shapes the serving and training paths give
+    the forward: m and pos within f32 sum order of the plain version, and m
+    bitwise the row-blocked family's."""
+    H, V = 768, 50000
+    h, w, bias, mask, _ = _bwd_case(B, S, H, V, seed=B * S, device=cuda,
+                                    exact=False)
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    m, pos = fused_splade_maxima(hb, wb, bias, mask)
+    m_ref, pos_ref = fused_splade_pool_plain(hb, wb, bias, mask)
+    torch.testing.assert_close(m, m_ref, rtol=1e-4, atol=1e-3)
+    torch.testing.assert_close(pos, pos_ref, rtol=1e-4, atol=1e-3)
+    m2, pos2 = fused_splade_maxima_v2(hb, wb, bias, mask, 0)
+    assert torch.equal(m, m2) and torch.equal(pos, pos2)
+
+
+@pytest.mark.parametrize("B,S,H,V", [(32, 256, 768, 50000),
+                                     (6, 37, 64, 777)])
+def test_pool_forward_block_orders_agree_bitwise(cuda, B, S, H, V):
+    """The measurement entry that numbers the forward's blocks batch range
+    first does the same work: m and pos bitwise the wrapper's."""
+    from splade_tpu_torch.ops import _cuda
+    from splade_tpu_torch.ops.fused_splade import float_from_key, float_key
+
+    h, w, bias, mask, _ = _bwd_case(B, S, H, V, seed=B + S, device=cuda,
+                                    exact=False)
+    hb, wb = h.to(torch.bfloat16), w.to(torch.bfloat16)
+    m, pos = fused_splade_maxima(hb, wb, bias, mask)
+    m2 = torch.empty_like(m)
+    pos_key = torch.full((B, S), int(float_key(torch.tensor(-1e30))),
+                         dtype=torch.int32, device=cuda)
+    maskf = mask.float().contiguous()
+    _cuda.check(_cuda.library().splade_fused_pool_fwd_batch_first(
+        hb.data_ptr(), wb.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
+        m2.data_ptr(), pos_key.data_ptr(), B, S, H, V,
+        torch.cuda.current_stream().cuda_stream),
+        "splade_fused_pool_fwd_batch_first")
+    torch.cuda.synchronize()
+    assert torch.equal(m2, m)
+    assert torch.equal(float_from_key(pos_key), pos)
+
+
 def _bwd_case(B, S, H, V, seed, device, exact):
     """f32 tensors holding bf16 values (the kernels' operands, so the
     gradients come back in f32). exact: small integers, so every score is
@@ -550,6 +627,36 @@ def test_splash_kernels_match_plain(cuda, B, N, S, hw, packed):
     # padded rows included: their lse is finite and agrees
     assert torch.isfinite(lse).all()
     torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+
+
+SPLASH_FWD_SHAPES = [
+    (4, 12, 256, 64, True),    # the V33 micro-batch's length, packed rows
+    (4, 12, 256, 0, True),
+    (2, 12, 512, 64, False),   # the MLM row
+    (2, 12, 512, 0, False),
+    (3, 4, 200, 64, True),     # ragged last tile
+    (3, 4, 200, 0, False),
+]
+
+
+@pytest.mark.parametrize("B,N,S,hw,packed", SPLASH_FWD_SHAPES)
+def test_splash_forward_matches_plain_and_repeats_bitwise(cuda, B, N, S, hw,
+                                                          packed):
+    """The forward alone on strided q, k, v views: out within 2^-7 of its
+    largest value, lse within 1e-4 at every row (the fully padded one
+    included), and a repeat bitwise equal."""
+    q, k, v, seg, _ = _splash_case(B, N, S, 64, packed, 7 * S + hw, cuda)
+    assert not q.is_contiguous() and not v.is_contiguous()
+    before = sa.splash_attention.launches
+    out, lse = sa.splash_attention_forward(q, k, v, seg, hw)
+    torch.cuda.synchronize()
+    assert sa.splash_attention.launches == before + 1
+    out_p, lse_p = sa.splash_attention_plain(q, k, v, seg, hw)
+    assert torch.isfinite(out).all() and torch.isfinite(lse).all()
+    assert _rel(out, out_p) <= SPLASH_RTOL, _rel(out, out_p)
+    torch.testing.assert_close(lse, lse_p, rtol=0, atol=1e-4)
+    out2, lse2 = sa.splash_attention_forward(q, k, v, seg, hw)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.parametrize("B,N,S,hw,packed", SPLASH_SHAPES[1:4])
