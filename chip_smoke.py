@@ -29,7 +29,12 @@ Phases (any failure exits non-zero; nothing is caught):
    inputs, at row_block 8 and 2, to the same checks and tolerances: forward
    against its plain version with m and pos bitwise equal to the per-row
    kernel's; backward checks (a), (b), (c), a repeated backward bitwise
-   equal; its times beside the per-row family's. These training shapes are the
+   equal; its match pass alone, its bitmask bitwise the per-row match
+   pass's on (a) and (b) and the plain one's on (a), every maximum found;
+   its times (the match pass, each gather, each gradient's kernels and the
+   whole backward) beside the per-row family's, the bound, the plain
+   version, the cuBLAS composition and the recomputing kernels this
+   design replaced (PERF.md). These training shapes are the
    row-blocked pool's own path (phase 5) launches its kernels at. The three
    splash attention kernels (``ops/splash_attention.py``) at the training
    micro-batches (B=144, S=256 with packed query rows; B=32, S=512), 12
@@ -85,7 +90,10 @@ Phases (any failure exits non-zero; nothing is caught):
    row-blocked pool family's own path, its public function under autograd:
    the pre-trained model's states, at the training shapes phase 2 held the
    family at, pooled by fused_splade_pool_v2 with a sparsity loss, backward into the model, with the family's launch counts
-   set to 0 before and read after, held against the per-row family's route.
+   set to 0 before and read after (one forward, one match pass and one
+   gather a gradient, a batch), held against the per-row family's route;
+   then its whole backward timed on each of those batches (short texts,
+   mostly padding), with their valid share.
 6. Both training paths with ``attention_impl="splash"`` at full width:
    phase 4 again (warm-up, 3 measured steps through ``Trainer``, a profiled
    step, the bitwise resume, the plain pool route) and phase 5 again (3
@@ -169,6 +177,16 @@ CHECKPOINT_RTOL = SERVE_RTOL
 # row_block values the row-blocked family is held at: the default at these
 # batch sizes, and a smaller one
 V2_ROW_BLOCKS = (8, 2)
+# (B, S, row_block) -> {"dh", "dw": ms} of the row-blocked family's first
+# backward (one kernel a gradient, each recomputing every score with a 64-row
+# W tile resident in shared memory), which its match pass and gathers
+# replaced: PERF.md §6 rows 5-6, on an H100 80GB HBM3 at 700 W, logged
+# beside this run's times (not measured here, so not in the kernels line)
+RECOMPUTE_KERNELS_MS = {
+    (128, 256, 8): {"dh": 111.45, "dw": 44.17},
+    (128, 256, 2): {"dh": 103.97, "dw": 44.34},
+    (64, 64, 8): {"dh": 29.53, "dw": 11.17},
+    (64, 64, 2): {"dh": 38.99, "dw": 11.25}}
 # (B, S) of the pool at training: documents (64 positives + 64 negatives)
 # and unpacked queries. Phase 2 holds every family's forward and backward
 # wrappers against the plain versions at these shapes, and phase 5 launches
@@ -334,8 +352,10 @@ PTXAS_NUMBERS = {
     "registers": re.compile(r"Used (\d+) registers"),
     "static_smem_bytes": re.compile(r"(\d+) bytes smem"),
 }
-#: the kernels this slice redesigned, whose ptxas report phase 1 spells out
-REDESIGNED = ("fused_splade_fwd_kernel", "splash_fwd_kernel")
+#: the kernels this slice redesigned (the row-blocked match pass) or moved
+#: onto the walk it shares (the pool forward), whose ptxas report phase 1
+#: spells out
+REDESIGNED = ("fused_splade_v2_bwd_match_kernel", "fused_splade_fwd_kernel")
 
 
 def ptxas_summary(build_log: str) -> dict:
@@ -774,10 +794,9 @@ def recompute_check(torch, h, w, bias, mask, m, dh1) -> dict:
 
 
 def pool_families() -> dict:
-    """name -> its public pool function, its forward and dh wrappers, the
-    prefix of its backward C entries and its row_block (None for the
-    per-row family): the per-row family and the row-blocked one at each of
-    V2_ROW_BLOCKS."""
+    """name -> its public pool function, its forward and dh wrappers and
+    its row_block (None for the per-row family): the per-row family and the
+    row-blocked one at each of V2_ROW_BLOCKS."""
     from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_dh,
                                                    fused_splade_maxima,
                                                    fused_splade_pool)
@@ -786,14 +805,13 @@ def pool_families() -> dict:
                                                       fused_splade_pool_v2)
 
     fams = {"v1": dict(pool=fused_splade_pool, maxima=fused_splade_maxima,
-                       dh=fused_splade_bwd_dh,
-                       entry="splade_fused_pool_bwd_", row_block=None)}
+                       dh=fused_splade_bwd_dh, row_block=None)}
     for rb in V2_ROW_BLOCKS:
         fams[f"v2 rb={rb}"] = dict(
             pool=lambda *a, rb=rb: fused_splade_pool_v2(*a, rb),
             maxima=lambda *a, rb=rb: fused_splade_maxima_v2(*a, rb),
             dh=lambda *a, rb=rb: fused_splade_bwd_dh_v2(*a, rb),
-            entry="splade_fused_pool_v2_bwd_", row_block=rb)
+            row_block=rb)
     return fams
 
 
@@ -806,19 +824,26 @@ def match_bit_counts(torch, match, S: int):
     return counts.sum(1)
 
 
-def match_check(torch, h, w, bias, mask, m, g_pre, exact: bool) -> dict:
-    """The match pass on its own, through its wrapper. With the forward
-    kernel's maxima m every column of a valid row whose g is not 0 must hold
-    at least one bit (the recompute reaches the forward's maximum bit for
-    bit; one ulp off, it would find almost none), and no bit may stand on an
-    invalid position, a position past S or a g = 0 column. On exact inputs
-    (every score exact in f32 in any order) the bitmask must equal the plain
-    match's bit for bit, every exact tie included."""
+def match_check(torch, h, w, bias, mask, m, g_pre, exact: bool,
+                row_block=None) -> dict:
+    """A match pass on its own, through its wrapper: the per-row family's
+    (``row_block`` None) or the row-blocked family's at ``row_block``. With
+    the forward kernel's maxima m every column of a valid row whose g is
+    not 0 must hold at least one bit (the recompute reaches the forward's
+    maximum bit for bit; one ulp off, it would find almost none), and no
+    bit may stand on an invalid position, a position past S or a g = 0
+    column. On exact inputs (every score exact in f32 in any order) the
+    bitmask must equal the plain match's bit for bit, every exact tie
+    included. The row-blocked bitmask must equal the per-row match pass's
+    bit for bit on any inputs: both keep the same products."""
     from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_match,
                                                    fused_splade_bwd_match_plain)
+    from splade_tpu_torch.ops.fused_splade_v2 import fused_splade_bwd_match_v2
 
     B, S = mask.shape
-    got = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+    got = (fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+           if row_block is None else
+           fused_splade_bwd_match_v2(h, w, bias, mask, m, g_pre, row_block))
     counts = match_bit_counts(torch, got, S)
     live = (g_pre != 0) & (mask.sum(1, keepdim=True) > 0)
     # a word whose bits are the invalid positions (and those past S)
@@ -840,8 +865,15 @@ def match_check(torch, h, w, bias, mask, m, g_pre, exact: bool) -> dict:
                                             m, g_pre)
         out["bits_differing"] = int(match_bit_counts(
             torch, got ^ want, S).sum())
+        del want
+    if row_block is not None:
+        per_row = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+        out["bits_differing_per_row"] = int(match_bit_counts(
+            torch, got ^ per_row, S).sum())
+        del per_row
     out["ok"] = (out["found"] and out["stray"] == 0
-                 and out.get("bits_differing", 0) == 0)
+                 and out.get("bits_differing", 0) == 0
+                 and out.get("bits_differing_per_row", 0) == 0)
     return out
 
 
@@ -856,16 +888,14 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     argmax); (c) with g_pre = 1 the dh kernels must send each column's W row
     to the per-row forward kernel's argmax; a repeated backward of every
     family must be bitwise equal, and the row-blocked forward's maxima the
-    per-row kernel's. The per-row family's match pass is also held alone
+    per-row kernel's. Every family's match pass is also held alone
     (``match_check``: bitwise the plain bitmask on (a), every maximum found
-    on (b)). Then the times of all kernels on the same inputs: the per-row
-    match pass, dh gather and dW gather apart and together, the row-blocked
-    C entries, the plain backward, a cuBLAS composition and the bound.
-    Returns {family: {"dh": ..., "dw": ...}}, the per-row family also with
-    "match"."""
-    from splade_tpu_torch.ops import _cuda
+    on (b), the row-blocked bitmask bitwise the per-row one on both). Then
+    the times of all kernels on the same inputs: each family's match pass,
+    dh gather and dW gather apart, each gradient's kernels together and the
+    whole backward, the plain backward, a cuBLAS composition and the bound.
+    Returns {family: {"match": ..., "dh": ..., "dw": ...}}."""
     from splade_tpu_torch.ops.fused_splade import (PER_ROW, _bwd_operands,
-                                                   dh_hidden_splits,
                                                    fold_cotangent,
                                                    fused_splade_bwd_match_plain,
                                                    fused_splade_bwd_plain,
@@ -875,8 +905,8 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                                                    launch_match,
                                                    launch_match_gather,
                                                    match_words)
-    from splade_tpu_torch.ops.fused_splade_v2 import (dh_vocab_splits_v2,
-                                                      fused_splade_bwd_v2_plain)
+    from splade_tpu_torch.ops.fused_splade_v2 import (
+        ROW_BLOCKED, fused_splade_bwd_match_v2_plain, fused_splade_bwd_v2_plain)
 
     enc = tok(hangul_texts(rng, B, S), max_length=S)
     ids = torch.from_numpy(enc["input_ids"]).cuda()
@@ -922,12 +952,14 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 bool(torch.equal(x, y)) for x, y in zip(got, again))
             del got, again
         del want
-        with torch.no_grad():  # the per-row match pass alone
+        with torch.no_grad():  # every family's match pass alone
             m_in, _ = fused_splade_maxima(*inputs, mask)
-            checks["v1"][f"match_{label}"] = match_check(
-                torch, *inputs, mask, m_in, fold_cotangent(gout, m_in),
-                exact=label == "a")
-        del m_in
+            g_in = fold_cotangent(gout, m_in)
+            for name, fam in families.items():
+                checks[name][f"match_{label}"] = match_check(
+                    torch, *inputs, mask, m_in, g_in, exact=label == "a",
+                    row_block=fam["row_block"])
+        del m_in, g_in
     del exact
     # the forward at this shape: every family's maxima against the plain
     # forward. (c) every family's recompute equals the per-row forward
@@ -957,7 +989,7 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     for name, c in checks.items():
         rc = c["rc"]
         share = rc["top_position_share"]
-        matches = [c[k] for k in ("match_a", "match_b") if k in c]
+        matches = [c[k] for k in ("match_a", "match_b")]
         log(f"  pool backward {name} B={B} S={S}: forward vs plain max |err| "
             f"{c['err_fwd']:.3e} (tol {POOL_TOL}); (a) exact inputs max err "
             + ", ".join(f"{n} {e:.2e}" for n, e in c["err_a"].items())
@@ -982,6 +1014,9 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 f"{x['ties']} extra bits (ties)"
                 + (f", bits differing from the plain bitmask "
                    f"{x['bits_differing']}" if "bits_differing" in x else "")
+                + (f", from the per-row match pass's "
+                   f"{x['bits_differing_per_row']}"
+                   if "bits_differing_per_row" in x else "")
                 for k, x in zip(("a", "b"), matches)))
         if not (c["err_fwd"] <= POOL_TOL
                 and max(c["err_a"].values()) <= BWD_EXACT_RTOL
@@ -994,30 +1029,10 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
 
     # times on prepared operands, with the forward kernel's maxima and with
     # maxima no score reaches (the recompute alone), the forward kernel
-    # beside them. Per-row family: the match pass, each gather from its
-    # bitmask, and each gradient's kernels together. Row-blocked family: its
-    # C entries, which add into their output, so zeroing it is part of the
-    # call, as it is of the wrapper's
-    lib = _cuda.library()
+    # beside them: each family's match pass, each gather from its bitmask,
+    # each gradient's kernels together and the whole backward
     g_pre = fold_cotangent(gout, m_k).contiguous()
     never = torch.full_like(m_k, float("inf"))
-    dw_out = torch.empty((V, H), dtype=torch.float32, device="cuda")
-
-    def entry(fam, which, out, maxima, splits):
-        fn = getattr(lib, fam["entry"] + which)
-        extra = [fam["row_block"]] + ([splits] if which == "dh" else [])
-
-        def run():
-            out.zero_()
-            _cuda.check(fn(
-                h.data_ptr(), w.data_ptr(), bias.data_ptr(), maskf.data_ptr(),
-                maxima.data_ptr(), g_pre.data_ptr(), out.data_ptr(), B, S, H,
-                V, *extra, torch.cuda.current_stream().cuda_stream),
-                fam["entry"] + which)
-            if which == "dh" and splits > 1:
-                out.sum(0)  # the wrapper's ordered sum of the splits
-        return run
-
     g_p = fold_cotangent(gout, m_p)
     valid = maskf > 0
 
@@ -1030,61 +1045,58 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
             return torch.matmul(G, w)
         return torch.matmul(G.view(B * S, V).T, h.view(B * S, H))
 
+    def family_times(fam, ext) -> dict:
+        bits = launch_match(fam, ops, ext)
+        gather = lambda which: launch_gather(
+            fam, which, bits, ops.wb if which == "dh" else ops.hb, ops.g, S)
+        t = dict(
+            match_ms=cuda_ms(torch, lambda: launch_match(fam, ops, ext),
+                             iters=5, warmup=1),
+            match_no_match_ms=cuda_ms(
+                torch, lambda: launch_match(fam, ops_never, ext), iters=3,
+                warmup=1),
+            backward_ms=cuda_ms(torch, lambda: launch_match_gather(
+                fam, ops, ext, ("dh", "dw")), iters=5, warmup=1),
+            splits=list(fam.dh_splits(B, S, H, V)))
+        for which in ("dh", "dw"):
+            t[which] = dict(
+                gather_ms=cuda_ms(torch, lambda: gather(which), iters=5,
+                                  warmup=1),
+                ms=cuda_ms(torch, lambda: launch_match_gather(
+                    fam, ops, ext, (which,)), iters=5, warmup=1),
+                no_match_ms=cuda_ms(torch, lambda: launch_match_gather(
+                    fam, ops_never, ext, (which,)), iters=3, warmup=1))
+        return t
+
     with torch.no_grad():
         library_ms = {which: cuda_ms(torch, lambda: library(which), iters=3,
                                      warmup=1) for which in ("dh", "dw")}
         fwd_ms = cuda_ms(torch, lambda: fused_splade_maxima(h, w, bias, mask),
                          iters=5, warmup=1)
-        plain_ms = {None: cuda_ms(torch, lambda: fused_splade_bwd_plain(
-            hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)}
-        match_plain_ms = cuda_ms(torch, lambda: fused_splade_bwd_match_plain(
-            hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)
         ops = _bwd_operands(h, w, bias, mask, m_k, g_pre)
         ops_never = _bwd_operands(h, w, bias, mask, never, g_pre)
-        bits = launch_match(PER_ROW, ops)
-        gather = lambda which, mb=bits: launch_gather(
-            PER_ROW, which, mb, ops.wb if which == "dh" else ops.hb, ops.g, S)
-        v1 = dict(
-            match_ms=cuda_ms(torch, lambda: launch_match(PER_ROW, ops),
-                             iters=5, warmup=1),
-            match_no_match_ms=cuda_ms(
-                torch, lambda: launch_match(PER_ROW, ops_never), iters=3,
-                warmup=1),
-            backward_ms=cuda_ms(torch, lambda: launch_match_gather(
-                PER_ROW, ops, [], ("dh", "dw")), iters=5, warmup=1))
-        for which in ("dh", "dw"):
-            v1[which] = dict(
-                gather_ms=cuda_ms(torch, lambda: gather(which), iters=5,
-                                  warmup=1),
-                ms=cuda_ms(torch, lambda: launch_match_gather(
-                    PER_ROW, ops, [], (which,)), iters=5, warmup=1),
-                no_match_ms=cuda_ms(torch, lambda: launch_match_gather(
-                    PER_ROW, ops_never, [], (which,)), iters=3, warmup=1))
-        del bits, ops_never
-        times = {"v1": dict(v1, splits=dh_hidden_splits(B, S, H),
-                            forward_ms=fwd_ms)}
+        times = {"v1": dict(family_times(PER_ROW, []), forward_ms=fwd_ms)}
+        plain_ms = {None: cuda_ms(torch, lambda: fused_splade_bwd_plain(
+            hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)}
+        match_plain_ms = {None: cuda_ms(
+            torch, lambda: fused_splade_bwd_match_plain(
+                hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)}
         for name, fam in families.items():
             rb = fam["row_block"]
             if rb is None:
                 continue
-            splits = dh_vocab_splits_v2(B, rb, V)
-            dh_out = torch.empty((splits, B, S, H), dtype=torch.float32,
-                                 device="cuda")
-            times[name] = {which: dict(
-                ms=cuda_ms(torch, entry(fam, which, buf, m_k, splits),
-                           iters=5, warmup=1),
-                no_match_ms=cuda_ms(torch, entry(fam, which, buf, never,
-                                                 splits), iters=3, warmup=1))
-                for which, buf in (("dh", dh_out), ("dw", dw_out))}
-            times[name]["splits"] = splits
+            times[name] = family_times(ROW_BLOCKED, [rb])
             # the family's own forward wrapper at this shape
             times[name]["forward_ms"] = cuda_ms(
                 torch, lambda: fam["maxima"](h, w, bias, mask), iters=5,
                 warmup=1)
-            del dh_out
             plain_ms[rb] = cuda_ms(
                 torch, lambda: fused_splade_bwd_v2_plain(
                     hf, wf, bias, maskf, m_p, g_p, rb), iters=2, warmup=1)
+            match_plain_ms[rb] = cuda_ms(
+                torch, lambda: fused_splade_bwd_match_v2_plain(
+                    hf, wf, bias, maskf, m_p, g_p, rb), iters=2, warmup=1)
+        del ops_never
     nvalid = float(maskf.sum())
     matches = float((g_pre != 0).sum())  # one a (b, v), ties aside
     # the function's own work: the recompute, 2*valid*H*V bf16 operations
@@ -1096,6 +1108,10 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     add_ops = 2.0 * matches * H
     ops_ms = (recompute_ops / H100_BF16_FLOPS + add_ops / H100_FP32_OPS) * 1e3
     shared = h.numel() * 2 + w.numel() * 2 + V * 4 + B * S * 4 + 2 * B * V * 4
+    # the match pass alone: its function is the bitmask, bound by the
+    # recompute (bytes: inputs once, the bitmask written once)
+    mb = match_words(S) * B * V * 4
+    m_bound, m_by = bound(shared + mb, recompute_ops, H100_BF16_FLOPS)
     result = {name: {} for name in families}
     for which, out_bytes in (("dh", B * S * H * 4), ("dw", V * H * 4)):
         bytes_ms = (shared + out_bytes) / H100_BYTES * 1e3
@@ -1104,63 +1120,69 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
         dense_ms = bound(shared + out_bytes, 2 * recompute_ops,
                          H100_BF16_FLOPS)[0]
         for name, fam in families.items():
-            c, t = checks[name], times[name][which]
+            c, tf = checks[name], times[name]
+            t = tf[which]
+            rb = fam["row_block"]
             result[name][which] = dict(
-                shape=f"B={B} S={S} H={H} V={V}", row_block=fam["row_block"],
+                shape=f"B={B} S={S} H={H} V={V}", row_block=rb,
                 max_abs_err=c["abs_a"][which],  # (a): kernel vs plain route
                 forward_max_abs_err=c["err_fwd"],
                 err_exact=c["err_a"][which], err_norm=c["err_b"][which],
                 recompute=c["rc"], repeat_bitwise=c["repeat_bitwise"],
-                ms=t["ms"], no_match_ms=t["no_match_ms"],
-                v1_ms=times["v1"][which]["ms"], dh_splits=times[name]["splits"],
-                forward_ms=fwd_ms,
-                family_forward_ms=times[name]["forward_ms"],
-                plain_ms=plain_ms[fam["row_block"]],
-                plain_computes="dh and dw together",
+                ms=t["ms"], ms_is=f"the match pass and the {which} gather",
+                gather_ms=t["gather_ms"], match_ms=tf["match_ms"],
+                backward_ms=tf["backward_ms"], no_match_ms=t["no_match_ms"],
+                no_match_is="the match pass and the gather with maxima no "
+                            "score reaches",
+                v1_ms=times["v1"][which]["ms"], dh_splits=tf["splits"],
+                forward_ms=fwd_ms, family_forward_ms=tf["forward_ms"],
+                plain_ms=plain_ms[rb], plain_computes="dh and dw together",
                 library_ms=library_ms[which], bound_ms=bound_ms,
                 bound_by=bound_by, matches=matches,
                 bound_dense_contraction_ms=dense_ms)
-            if fam["row_block"] is None:
-                result[name][which].update(
-                    ms_is=f"the match pass and the {which} gather",
-                    gather_ms=t["gather_ms"], match_ms=times[name]["match_ms"],
-                    backward_ms=times[name]["backward_ms"],
-                    no_match_is="the match pass and the gather with maxima "
-                                "no score reaches")
-            log(f"  pool backward {name} {which} B={B} S={S}: kernel "
-                f"{t['ms']:.3f} ms"
-                + (f" (match pass {times[name]['match_ms']:.3f} + {which} "
-                   f"gather {t['gather_ms']:.3f}; the whole backward "
-                   f"{times[name]['backward_ms']:.3f})"
-                   if fam["row_block"] is None else "")
+            # PERF.md's times go to the log only: the kernels line holds
+            # this run's measurements
+            before = RECOMPUTE_KERNELS_MS.get((B, S, rb))
+            log(f"  pool backward {name} {which} B={B} S={S}: kernels "
+                f"{t['ms']:.3f} ms (match pass {tf['match_ms']:.3f} + "
+                f"{which} gather {t['gather_ms']:.3f}; the whole backward "
+                f"{tf['backward_ms']:.3f})"
+                + (f" [the recomputing kernel it replaced: {before[which]} "
+                   "ms, PERF.md]" if before else "")
                 + f" ({t['no_match_ms']:.3f} ms with maxima nothing reaches; "
-                f"forward at this shape {times[name]['forward_ms']:.3f} ms, "
+                f"forward at this shape {tf['forward_ms']:.3f} ms, "
                 f"per-row {fwd_ms:.3f}), plain (dh+dw) "
-                f"{plain_ms[fam['row_block']]:.3f} ms, library "
+                f"{plain_ms[rb]:.3f} ms, library "
                 f"{library_ms[which]:.3f} ms, bound {bound_ms:.3f} ms "
                 f"({bound_by}: {recompute_ops:.3e} bf16 FLOP over "
                 f"{nvalid:.0f} valid tokens + {add_ops:.3e} f32 FLOP over "
                 f"{matches:.0f} matches; dense-contraction convention "
                 f"{dense_ms:.3f} ms)")
-    # the match pass alone: its function is the bitmask, bound by the
-    # recompute (bytes: inputs once, the bitmask written once)
-    mb = match_words(S) * B * V * 4
-    m_bound, m_by = bound(shared + mb, recompute_ops, H100_BF16_FLOPS)
-    ca = checks["v1"]["match_a"]
-    result["v1"]["match"] = dict(
-        shape=f"B={B} S={S} H={H} V={V}",
-        max_abs_err=float(ca["bits_differing"] > 0),
-        bits_differing_exact=ca["bits_differing"],
-        checks={k: checks["v1"][k] for k in ("match_a", "match_b")},
-        ms=times["v1"]["match_ms"], no_match_ms=times["v1"]["match_no_match_ms"],
-        plain_ms=match_plain_ms, bound_ms=m_bound, bound_by=m_by,
-        library_ms=None, forward_ms=fwd_ms, bitmask_mb=mb / 1e6)
-    log(f"  pool backward match pass B={B} S={S}: {times['v1']['match_ms']:.3f} "
-        f"ms ({times['v1']['match_no_match_ms']:.3f} with maxima nothing "
-        f"reaches; the forward {fwd_ms:.3f}), plain {match_plain_ms:.3f} ms, "
-        f"bound {m_bound:.3f} ms ({m_by}), bitmask {mb / 1e6:.1f} MB; dh "
-        f"gather {times['v1']['dh']['gather_ms']:.3f} ms ({times['v1']['splits']}"
-        f" hidden slices), dW gather {times['v1']['dw']['gather_ms']:.3f} ms")
+    for name, fam in families.items():
+        rb, tf = fam["row_block"], times[name]
+        ca, cb = checks[name]["match_a"], checks[name]["match_b"]
+        differ = (ca["bits_differing"] + ca.get("bits_differing_per_row", 0)
+                  + cb.get("bits_differing_per_row", 0))
+        result[name]["match"] = dict(
+            shape=f"B={B} S={S} H={H} V={V}", row_block=rb,
+            max_abs_err=float(differ > 0),
+            bits_differing_exact=ca["bits_differing"],
+            bits_differing_per_row=(None if rb is None else
+                                    {"a": ca["bits_differing_per_row"],
+                                     "b": cb["bits_differing_per_row"]}),
+            checks={"match_a": ca, "match_b": cb},
+            ms=tf["match_ms"], no_match_ms=tf["match_no_match_ms"],
+            v1_ms=times["v1"]["match_ms"], plain_ms=match_plain_ms[rb],
+            bound_ms=m_bound, bound_by=m_by, library_ms=None,
+            forward_ms=fwd_ms, bitmask_mb=mb / 1e6)
+        log(f"  pool backward {name} match pass B={B} S={S}: "
+            f"{tf['match_ms']:.3f} ms ({tf['match_no_match_ms']:.3f} with "
+            f"maxima nothing reaches; the per-row forward {fwd_ms:.3f}, the "
+            f"per-row match pass {times['v1']['match_ms']:.3f}), plain "
+            f"{match_plain_ms[rb]:.3f} ms, bound {m_bound:.3f} ms ({m_by}), "
+            f"bitmask {mb / 1e6:.1f} MB; dh gather "
+            f"{tf['dh']['gather_ms']:.3f} ms (hidden slices, vocab splits "
+            f"{tf['splits']}), dW gather {tf['dw']['gather_ms']:.3f} ms")
     return result
 
 
@@ -2122,7 +2144,10 @@ def v2_path(torch, mlm_model, tok, rng, autocast, shapes) -> dict:
     after. The same batches then go through the per-row family
     (``fused_splade_pool``): the loss must agree within TRAIN_RTOL, the
     gradients' global norm within TRAIN_RTOL and each tensor within
-    TRAIN_GRAD_RTOL."""
+    TRAIN_GRAD_RTOL. On the card, the family's whole backward (its match
+    pass, then both gathers) is also timed on each batch's own states, mask
+    and cotangent, with the batch's valid share: the traffic this path
+    sends (short texts, mostly padding)."""
     from splade_tpu_torch.ops import fused_splade_v2 as v2
     from splade_tpu_torch.ops.fused_splade import fused_splade_pool
 
@@ -2153,8 +2178,9 @@ def v2_path(torch, mlm_model, tok, rng, autocast, shapes) -> dict:
         mlm_model.zero_grad(set_to_none=True)
         return total, norm, grads, tuple(pooled.shape), tuple(tw.shape)
 
-    counters = (v2.fused_splade_pool_v2, v2.fused_splade_bwd_dh_v2,
-                v2.fused_splade_bwd_dw_v2)
+    names = ("fused_splade_pool_v2", "fused_splade_bwd_match_v2",
+             "fused_splade_bwd_dh_v2", "fused_splade_bwd_dw_v2")
+    counters = [getattr(v2, name) for name in names]
     was_training = mlm_model.training
     mlm_model.train()
     if dev.type == "cuda":
@@ -2169,10 +2195,10 @@ def v2_path(torch, mlm_model, tok, rng, autocast, shapes) -> dict:
     seconds = time.perf_counter() - t0
     peak_gb = (torch.cuda.max_memory_allocated() / 1e9
                if dev.type == "cuda" else None)
-    launches = {"fused_splade_pool_v2": counters[0].launches,
-                "fused_splade_bwd_dh_v2": counters[1].launches,
-                "fused_splade_bwd_dw_v2": counters[2].launches}
+    launches = {name: fn.launches for name, fn in zip(names, counters)}
     loss1, norm1, grads1, _, _ = route(fused_splade_pool)
+    backward = [batch_backward_times(torch, mlm_model, ids, mask)
+                for ids, mask in batches] if dev.type == "cuda" else []
     mlm_model.train(was_training)
     loss_err = abs(loss2 - loss1) / max(abs(loss1), 1e-12)
     norm_err = abs(norm2 - norm1) / max(norm1, 1e-12)
@@ -2189,7 +2215,12 @@ def v2_path(torch, mlm_model, tok, rng, autocast, shapes) -> dict:
         f"{loss_err:.2e}), grad_norm {norm2:.6f} vs {norm1:.6f} (rel "
         f"{norm_err:.2e}), worst of {len(tensor_err)} gradients {worst} "
         f"{tensor_err[worst]:.2e} (tol {TRAIN_RTOL} / {TRAIN_GRAD_RTOL}); "
-        f"finite: {finite}")
+        f"finite: {finite}" + "".join(
+            f"; B={x['B']} S={x['S']} ({x['valid_share']:.1%} of positions "
+            f"valid, {x['live_group_share']:.1%} of 16-row groups live, "
+            f"row_block {x['row_block']}): the whole backward "
+            f"{x['backward_ms']:.3f} ms (match pass {x['match_ms']:.3f})"
+            for x in backward))
     if not (p_shape == (last_B, V) and tw_shape == (last_B, last_S)
             and finite and len(grads2) == len(grads1)
             and loss_err <= TRAIN_RTOL and norm_err <= TRAIN_RTOL
@@ -2202,7 +2233,43 @@ def v2_path(torch, mlm_model, tok, rng, autocast, shapes) -> dict:
                 loss_rel_err=loss_err, grad_norm=norm2, grad_norm_v1=norm1,
                 grad_norm_rel_err=norm_err, worst_tensor=worst,
                 worst_tensor_rel_err=tensor_err[worst],
-                tensors=len(tensor_err))
+                tensors=len(tensor_err), backward_on_its_batches=backward)
+
+
+def batch_backward_times(torch, mlm_model, ids, mask) -> dict:
+    """The row-blocked family's backward kernels (its match pass, then the
+    dh and dW gathers) timed on one of v2_path's batches: the batch's own
+    states, mask and the sparsity loss's cotangent, at row_block 0, as the
+    path runs them. Launches here are not the path's: they come after its
+    counts were read."""
+    from splade_tpu_torch.ops import fused_splade_v2 as v2
+    from splade_tpu_torch.ops.fused_splade import (_bwd_operands,
+                                                   fold_cotangent,
+                                                   launch_match,
+                                                   launch_match_gather)
+
+    B, S = mask.shape
+    with torch.no_grad(), torch.autocast("cuda", dtype=torch.bfloat16):
+        h = mlm_model.head_transform(mlm_model.encode(ids, mask))
+    h = h.to(torch.bfloat16).contiguous()
+    w, bias = mlm_model.decoder_weights()
+    w, bias = w.detach().to(torch.bfloat16), bias.detach()
+    with torch.no_grad():
+        m, _ = v2.fused_splade_maxima_v2(h, w, bias, mask)
+        pooled = torch.log1p(torch.relu(m))
+        # d/dpooled of (pooled.mean(0) ** 2).sum()
+        g_pre = fold_cotangent(2.0 * pooled.mean(0, keepdim=True)
+                               .expand(B, -1) / B, m)
+        ops = _bwd_operands(h, w, bias, mask, m, g_pre)
+        ext = v2.ROW_BLOCKED.block_args(ops.hb, 0, True)
+        return dict(
+            B=B, S=S, row_block=ext[0],
+            valid_share=float(mask.float().mean()),
+            live_group_share=live_group_share(torch, mask.float()),
+            match_ms=cuda_ms(torch, lambda: launch_match(
+                v2.ROW_BLOCKED, ops, ext), iters=5, warmup=1),
+            backward_ms=cuda_ms(torch, lambda: launch_match_gather(
+                v2.ROW_BLOCKED, ops, ext, ("dh", "dw")), iters=5, warmup=1))
 
 
 def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
@@ -2770,24 +2837,34 @@ def main() -> int:
             shapes=shapes))
     # the row-blocked family: the headline numbers are row_block 8 at the
     # document shape; every shape and row_block stands under "shapes", the
-    # per-row kernel's time on the same inputs beside each ("v1_ms")
+    # per-row kernels' time on the same inputs beside each ("v1_ms"). Its
+    # backward is its own match pass and the per-row family's gathers: a
+    # gradient's "ms" is the match pass and its gather together, as above
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")
     rb0 = V2_ROW_BLOCKS[0]
-    for name, source, line, shapes in (
-            ("fused_splade_pool_v2", "fused_splade_v2_fwd.cu", 46,
+    v2_bwd = "splade_tpu_torch/csrc/fused_splade_v2_bwd.cu"
+    for name, source, line, also, shapes in (
+            ("fused_splade_pool_v2",
+             "splade_tpu_torch/csrc/fused_splade_v2_fwd.cu", 46, None,
              [x["v2"][rb] for x in (pool_d, pool_q) for rb in V2_ROW_BLOCKS]),
-            ("fused_splade_bwd_dh_v2", "fused_splade_v2_bwd.cu", 65,
-             [x[f"v2 rb={rb}"]["dh"] for x in (bwd_d, bwd_q)
+            ("fused_splade_bwd_match_v2", v2_bwd, 65, 87,
+             [x[f"v2 rb={rb}"]["match"] for x in (bwd_d, bwd_q, bwd_r)
               for rb in V2_ROW_BLOCKS]),
-            ("fused_splade_bwd_dw_v2", "fused_splade_v2_bwd.cu", 87,
-             [x[f"v2 rb={rb}"]["dw"] for x in (bwd_d, bwd_q)
+            ("fused_splade_bwd_dh_v2", v2_bwd, 65, None,
+             [x[f"v2 rb={rb}"]["dh"] for x in (bwd_d, bwd_q, bwd_r)
+              for rb in V2_ROW_BLOCKS]),
+            ("fused_splade_bwd_dw_v2", v2_bwd, 87, None,
+             [x[f"v2 rb={rb}"]["dw"] for x in (bwd_d, bwd_q, bwd_r)
               for rb in V2_ROW_BLOCKS])):
         assert shapes[0]["row_block"] == rb0
         kernels.append(dict(
-            name=name, route="cuda",
-            source=f"splade_tpu_torch/csrc/{source}",
+            name=name, route="cuda", source=source,
+            **({"gather_source": "splade_tpu_torch/csrc/fused_splade_bwd.cu"}
+               if name.endswith(("dh_v2", "dw_v2")) else {}),
             replaces=f"splade_tpu/ops/fused_splade_v2.py:{line}",
+            **({"also_replaces": f"splade_tpu/ops/fused_splade_v2.py:{also}"}
+               if also else {}),
             launches=v2_launches[name],
             launches_by_path={"row-blocked pool under autograd":
                               v2_launches[name]},

@@ -42,12 +42,13 @@ def instrumented_source() -> str:
     body = src[src.index("// ---- 2. the dh gather"):
                src.index("// ---- 3. the dW gather")]
     edits = [
-        ("int S, int H, int V, int J, int slice) {",
-         "int S, int H, int V, int J, int slice, long long* prof) {\n"
+        ("int S, int H, int V, int J, int slice, int range) {",
+         "int S, int H, int V, int J, int slice, int range, "
+         "long long* prof) {\n"
          "  long long t_scan = 0, t_wait = 0, t_add = 0, n_ent = 0;\n"
          "  const long long t0 = clock64();"),
-        ("  for (int v0 = 0; v0 < V; v0 += DH_CW * T) {\n",
-         "  for (int v0 = 0; v0 < V; v0 += DH_CW * T) {\n"
+        ("  for (int v0 = vb; v0 < ve; v0 += DH_CW * T) {\n",
+         "  for (int v0 = vb; v0 < ve; v0 += DH_CW * T) {\n"
          "    const long long ta = clock64();\n"),
         ("    __syncthreads();  // the list is complete\n",
          "    __syncthreads();  // the list is complete\n"
@@ -90,7 +91,7 @@ extern "C" int profile_dh(const void* match, const void* w, const void* g,
   dim3 grid(B * J, (H + slice - 1) / slice);
   fused_splade_bwd_dh_kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(
       (const uint32_t*)match, (const __nv_bfloat16*)w, (const float*)g,
-      (float*)dh, S, H, V, J, slice, (long long*)prof);
+      (float*)dh, S, H, V, J, slice, (V + 31) / 32 * 32, (long long*)prof);
   return (int)cudaGetLastError();
 }
 '''

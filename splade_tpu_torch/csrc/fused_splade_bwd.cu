@@ -22,7 +22,8 @@
 //    or a column past V. Every word is written (zeros for a tile it skips),
 //    so no separate zeroing pass is needed.
 // 2. splade_fused_pool_bwd_dh gathers, for each set bit, g[b, v] W[v, :] into
-//    row 32j + r of dh[b].
+//    row 32j + r of dh[b]. The row-blocked family (fused_splade_v2_bwd.cu)
+//    writes the same bitmask and launches the same two gathers.
 // 3. splade_fused_pool_bwd_dw gathers, for each set bit, g[b, v] h[b, 32j+r, :]
 //    into dW[v].
 //
@@ -62,7 +63,7 @@
 
 namespace {
 
-constexpr int MAX_H = 768;  // the dW gather keeps 24 f32 sums a lane
+constexpr int MAX_H = 768;  // hidden columns a gather block owns (a slice)
 
 // ---- 1. the match pass ------------------------------------------------------
 constexpr int MT = 256;                // 8 warps
@@ -359,11 +360,14 @@ __device__ __forceinline__ void dh_apply(const DhBatch& t, float* acc_s,
   }
 }
 
-// A block owns one (b, j) word row and one slice of the hidden columns; its
+// A block owns one (b, j) word row, one slice of the hidden columns and one
+// range of the vocabulary (the whole of it for the per-row family; the
+// row-blocked family splits it where word rows are few, so that more blocks
+// share the serial walk of a word row's matches); its
 // f32 sums for the word's 32 rows and the slice's columns live in shared
 // memory ([32][width], 96 KB at the full 768 columns, opted in dynamically),
 // each thread owning 4 columns of all 32 rows. The block walks
-// match[b, j, :] in chunks of DH_CW words a thread, read coalesced with the
+// match[b, j, vb:ve] in chunks of DH_CW words a thread, read coalesced with the
 // next chunk in flight, and compacts each chunk's nonzero words with their g
 // into a list in ascending v. Then every thread takes the list in batches of
 // DH_UNROLL matches, their W rows (8 bytes each, coalesced across the block),
@@ -382,7 +386,7 @@ __global__ void __launch_bounds__(DH_MAX_T)
 fused_splade_bwd_dh_kernel(const uint32_t* __restrict__ match,
                            const __nv_bfloat16* __restrict__ w,
                            const float* __restrict__ g, float* __restrict__ dh,
-                           int S, int H, int V, int J, int slice) {
+                           int S, int H, int V, int J, int slice, int range) {
   extern __shared__ __align__(16) float acc_s[];  // [32][width]
   __shared__ int ent_v[DH_MAX_T * DH_CW];
   __shared__ uint32_t ent_bits[DH_MAX_T * DH_CW];
@@ -390,6 +394,9 @@ fused_splade_bwd_dh_kernel(const uint32_t* __restrict__ match,
   __shared__ int warp_n[DH_CW][DH_MAX_T / 32];
   const int gw = blockIdx.x, b = gw / J, j = gw % J;
   const int h0 = blockIdx.y * slice;
+  // this block's vocab range [vb, ve) and its partial of dh
+  const int vb = blockIdx.z * range, ve = min(V, vb + range);
+  dh += (size_t)blockIdx.z * (gridDim.x / J) * S * H;
   const int width = min(slice, H - h0);
   const int T = blockDim.x, tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5, n_warps = T / 32;
@@ -404,11 +411,11 @@ fused_splade_bwd_dh_kernel(const uint32_t* __restrict__ match,
   float gn[DH_CW];
 #pragma unroll
   for (int k = 0; k < DH_CW; ++k) {
-    const int v = k * T + tid;
-    wn[k] = v < V ? mrow[v] : 0u;
-    gn[k] = v < V ? grow[v] : 0.f;
+    const int v = vb + k * T + tid;
+    wn[k] = v < ve ? mrow[v] : 0u;
+    gn[k] = v < ve ? grow[v] : 0.f;
   }
-  for (int v0 = 0; v0 < V; v0 += DH_CW * T) {
+  for (int v0 = vb; v0 < ve; v0 += DH_CW * T) {
     uint32_t wc[DH_CW];
     float gc[DH_CW];
     unsigned nz[DH_CW];
@@ -417,8 +424,8 @@ fused_splade_bwd_dh_kernel(const uint32_t* __restrict__ match,
       wc[k] = wn[k];
       gc[k] = gn[k];
       const int v = v0 + DH_CW * T + k * T + tid;  // the next chunk's words
-      wn[k] = v < V ? mrow[v] : 0u;
-      gn[k] = v < V ? grow[v] : 0.f;
+      wn[k] = v < ve ? mrow[v] : 0u;
+      gn[k] = v < ve ? grow[v] : 0.f;
       nz[k] = __ballot_sync(0xffffffffu, wc[k] != 0u);
       if (lane == 0) warp_n[k][warp] = __popc(nz[k]);
     }
@@ -447,7 +454,7 @@ fused_splade_bwd_dh_kernel(const uint32_t* __restrict__ match,
       }
     }
   }
-  __syncthreads();  // the sums are complete (and zeroed, where V is 0)
+  __syncthreads();  // the sums are complete (and zeroed, where the range is empty)
   // every row of the word below S, its sums 0 where nothing matched
   if (own)
     for (int r = 0; r < 32 && j * 32 + r < S; ++r)
@@ -477,19 +484,20 @@ __device__ __forceinline__ void add_h_row(float* acc, float gg,
 
 __device__ __forceinline__ void load_h_row(uint4* raw,
                                            const __nv_bfloat16* row, int lane,
-                                           int H) {
+                                           int width) {
 #pragma unroll
   for (int q = 0; q < DW_KJ; ++q) {
     const int k = q * 256 + lane * 8;
-    raw[q] = k < H ? *reinterpret_cast<const uint4*>(row + k)
-                   : make_uint4(0u, 0u, 0u, 0u);
+    raw[q] = k < width ? *reinterpret_cast<const uint4*>(row + k)
+                       : make_uint4(0u, 0u, 0u, 0u);
   }
 }
 
-// A warp owns one vocab column v and walks the (b, j) words in ascending
-// order, 32 at a time (lane l reads word k0 + l; the next 32 in flight). Each
-// lane keeps 24 f32 sums of dW[v] (the hidden columns lane*8 + 256q + e) in
-// registers. Where every nonzero word of the 32 holds one bit (no tie), the
+// A warp owns one vocab column v and one slice of up to MAX_H hidden columns
+// (blockIdx.y; a wider H walks the bitmask once a slice) and walks the (b, j)
+// words in ascending order, 32 at a time (lane l reads word k0 + l; the next
+// 32 in flight). Each lane keeps 24 f32 sums of dW[v] (the slice's columns
+// lane*8 + 256q + e) in registers. Where every nonzero word of the 32 holds one bit (no tie), the
 // warp loads DW_UNROLL matched h rows at once and adds them in order; a
 // group with a tie is walked bit by bit. Either way the adds run in
 // ascending (b, j, r).
@@ -501,6 +509,8 @@ fused_splade_bwd_dw_kernel(const uint32_t* __restrict__ match,
   const int lane = threadIdx.x & 31;
   const int v = blockIdx.x * DW_WARPS + (threadIdx.x >> 5);
   if (v >= V) return;  // a whole warp; the kernel has no block barrier
+  const int h0 = blockIdx.y * MAX_H, width = min(MAX_H, H - h0);
+  h += h0;
   const int BJ = B * J;
   float acc[DW_KJ * 8];
 #pragma unroll
@@ -524,7 +534,7 @@ fused_splade_bwd_dw_kernel(const uint32_t* __restrict__ match,
         for (uint32_t bits = __shfl_sync(0xffffffffu, word, L); bits;
              bits &= bits - 1u) {
           uint4 raw[DW_KJ];
-          load_h_row(raw, hb + (size_t)(__ffs(bits) - 1) * H, lane, H);
+          load_h_row(raw, hb + (size_t)(__ffs(bits) - 1) * H, lane, width);
           add_h_row(acc, gg, raw);
         }
       }
@@ -546,7 +556,7 @@ fused_splade_bwd_dw_kernel(const uint32_t* __restrict__ match,
           load_h_row(raw[u],
                      h + ((size_t)(kl / J) * S + (kl % J) * 32 + __ffs(bits) -
                           1) * H,
-                     lane, H);
+                     lane, width);
         }
       }
 #pragma unroll
@@ -554,11 +564,11 @@ fused_splade_bwd_dw_kernel(const uint32_t* __restrict__ match,
         if (gs[u] != 0.f) add_h_row(acc, gs[u], raw[u]);
     }
   }
-  float* out = dw + (size_t)v * H;
+  float* out = dw + (size_t)v * H + h0;
 #pragma unroll
   for (int q = 0; q < DW_KJ; ++q) {
     const int k = q * 256 + lane * 8;
-    if (k < H) {
+    if (k < width) {
       float4* o = reinterpret_cast<float4*>(out + k);
       o[0] = make_float4(acc[q * 8], acc[q * 8 + 1], acc[q * 8 + 2],
                          acc[q * 8 + 3]);
@@ -598,38 +608,44 @@ extern "C" int splade_fused_pool_bwd_match(const void* h, const void* w,
   return (int)cudaGetLastError();
 }
 
-// match [B, ceil(S/32), V] uint32 (the match pass's), w [V,H] bf16,
-// g [B,V] f32, out dh [B,S,H] f32, every element written. The hidden columns
-// are cut into `splits` slices of whole 128-column groups (the wrapper's
-// dh_hidden_splits). H % 8 == 0, H <= 768.
+// match [B, ceil(S/32), V] uint32 (either family's match pass), w [V,H]
+// bf16, g [B,V] f32, out dh [vocab_splits, B, S, H] f32, every element
+// written. The hidden columns are cut into `splits` slices of whole
+// 128-column groups (the wrapper's dh_hidden_splits); the vocabulary into
+// `vocab_splits` ranges of ceil(ceil(V/32) / vocab_splits) * 32 columns, range
+// z summing its matches into partial z (zeros for a range past V), which the
+// wrapper adds in range order. H % 8 == 0; a slice is at most 768 columns.
 extern "C" int splade_fused_pool_bwd_dh(const void* match, const void* w,
                                         const void* g, void* dh, int B, int S,
                                         int H, int V, int splits,
-                                        void* stream) {
-  if (H > MAX_H || H % 8 || splits < 1) return (int)cudaErrorInvalidValue;
+                                        int vocab_splits, void* stream) {
+  if (H % 8 || splits < 1 || vocab_splits < 1)
+    return (int)cudaErrorInvalidValue;
+  const int range = ((V + 31) / 32 + vocab_splits - 1) / vocab_splits * 32;
   const int groups = (H + DH_WARP_COLS - 1) / DH_WARP_COLS;
   const int slice = (groups + splits - 1) / splits * DH_WARP_COLS;
   const int width = slice < H ? slice : H;
+  if (width > MAX_H) return (int)cudaErrorInvalidValue;
   const int threads = (width / DH_COLS + 31) / 32 * 32;
   const int bytes = 32 * width * 4;
   cudaError_t err = opt_in((const void*)fused_splade_bwd_dh_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const int J = (S + 31) / 32;
-  dim3 grid(B * J, (H + slice - 1) / slice);
+  dim3 grid(B * J, (H + slice - 1) / slice, vocab_splits);
   fused_splade_bwd_dh_kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(
       (const uint32_t*)match, (const __nv_bfloat16*)w, (const float*)g,
-      (float*)dh, S, H, V, J, slice);
+      (float*)dh, S, H, V, J, slice, range);
   return (int)cudaGetLastError();
 }
 
 // match as above, h [B,S,H] bf16, g [B,V] f32, out dw [V,H] f32, every
-// element written. H % 8 == 0, H <= 768.
+// element written, in slices of 768 hidden columns. H % 8 == 0.
 extern "C" int splade_fused_pool_bwd_dw(const void* match, const void* h,
                                         const void* g, void* dw, int B, int S,
                                         int H, int V, void* stream) {
-  if (H > MAX_H || H % 8) return (int)cudaErrorInvalidValue;
+  if (H % 8) return (int)cudaErrorInvalidValue;
   const int J = (S + 31) / 32;
-  dim3 grid((V + DW_WARPS - 1) / DW_WARPS);
+  dim3 grid((V + DW_WARPS - 1) / DW_WARPS, (H + MAX_H - 1) / MAX_H);
   fused_splade_bwd_dw_kernel<<<grid, DW_WARPS * 32, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)match, (const __nv_bfloat16*)h, (const float*)g,
       (float*)dw, B, S, H, V, J);

@@ -44,7 +44,8 @@
 //   32-wide k-slices of both h and W (80-byte rows: no bank conflict). The
 //   ring runs on across tiles, so the next tile's first slices load during
 //   this tile's last products and its epilogue. Two blocks an SM (214
-//   registers a thread, 92-112 KB of shared memory a block).
+//   registers a thread, 92-112 KB of shared memory a block). The walk is
+//   fused_splade_walk.cuh, which the row-blocked match pass shares.
 // - The scores stay in the accumulator fragments. + bias in f32, then the
 //   column maxima are reduced on the fragments (folded across a warp's
 //   fragments of one batch row, then over the 8 lanes that share a column
@@ -72,28 +73,17 @@
 #include <stdint.h>
 
 #include "fused_splade_tile.cuh"
-#include "mma_sm90.cuh"
+#include "fused_splade_walk.cuh"
 
 namespace {
 
 using splade_tile::float_from_key;
 using splade_tile::float_key;
 using splade_tile::NEG;
+using namespace splade_walk;
 
-constexpr int FT = 128;                 // 4 warps, each 64 x 64 of a tile
-constexpr int BM = 128, BN = 128;       // rows of a tile x vocab columns
-constexpr int GR = 16;                  // rows of a group (one m16 fragment)
-constexpr int KSL = 32;                 // hidden slice of one ring stage
-constexpr int STAGES = 4;
-constexpr int PLDS = KSL + 8;           // 80-byte rows: conflict-free ldmatrix
-constexpr int STAGE_ELEMS = (BM + BN) * PLDS;
-constexpr int PIPE_BYTES = STAGES * STAGE_ELEMS * 2;
-constexpr int COPIES = BM * (KSL / 8) / FT;  // 16-byte copies a thread, each
-constexpr int GROUPS_A_TILE = BM / GR;
 constexpr int ROWS_PER_BLOCK = 1024;    // positions a block aims at
 constexpr int MAX_RB = 16;              // batch rows a block at most
-static_assert(BM == BN && COPIES * FT == BM * (KSL / 8), "even copies");
-static_assert(splade_tile::BK % KSL == 0, "whole forward k-steps");
 
 // batch rows a block owns at sequence length S
 __host__ __device__ __forceinline__ int rows_a_block(int S) {
@@ -105,19 +95,6 @@ __host__ __device__ __forceinline__ int rows_a_block(int S) {
 __host__ __device__ __forceinline__ int shared_bytes(int S, int RB) {
   const int G = (S + GR - 1) / GR;
   return PIPE_BYTES + RB * BN * 4 + 2 * BM * 4 + BN * 4 + RB * G * 8;
-}
-
-// One halving step of a reduction over lanes: v[0..2n) of this lane and of
-// the lane `bit` apart become v[0..n), the pairwise maxima of the half this
-// lane keeps (the upper one where `upper`).
-template <int n>
-__device__ __forceinline__ void halve(float (&v)[16], bool upper, int bit) {
-#pragma unroll
-  for (int k = 0; k < n; ++k) {
-    const float mine = upper ? v[n + k] : v[k];
-    const float other = upper ? v[k] : v[n + k];
-    v[k] = fmaxf(mine, __shfl_xor_sync(0xffffffffu, other, bit));
-  }
 }
 
 // One fragment row's scores (16 rows x this warp's 64 columns) + bias,
@@ -153,48 +130,6 @@ __device__ __forceinline__ void fragment_maxima(
   }
 }
 
-// Is row r of a live group valid (inside S, mask > 0)?
-__device__ __forceinline__ bool row_valid(int2 e, int r) {
-  return ((unsigned)e.y >> (16 + r)) & 1u;
-}
-
-// The products of one ring stage (KSL of the hidden width) for a warp's 64 x
-// 64 piece: k-slices of 16 in ascending order, each one mma a (fragment row,
-// n8 tile). Fragment rows from `live` on hold no live group and are skipped.
-template <bool kFull>
-__device__ __forceinline__ void slice_products(float (&acc)[4][8][4],
-                                               const __nv_bfloat16* As,
-                                               const __nv_bfloat16* Bs,
-                                               int wm, int wn, int lane,
-                                               int live) {
-  using sm90::ldmatrix_x4;
-  using sm90::mma16816;
-#pragma unroll
-  for (int kk = 0; kk < KSL; kk += 16) {
-    uint32_t bf[4][4];
-#pragma unroll
-    for (int jj = 0; jj < 4; ++jj)  // B = W_tile^T: rows n, columns k
-      ldmatrix_x4(bf[jj], Bs + (wn * 64 + jj * 16 + (lane & 7) +
-                                ((lane >> 4) << 3)) * PLDS +
-                              kk + ((lane >> 3) & 1) * 8);
-    uint32_t af[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      if (kFull || i < live)
-        ldmatrix_x4(af[i], As + (wm * 64 + i * 16 + (lane & 15)) * PLDS +
-                               kk + (lane >> 4) * 8);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      if (!kFull && i >= live) break;
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-        mma16816(acc[i][2 * jj], af[i], bf[jj][0], bf[jj][1]);
-        mma16816(acc[i][2 * jj + 1], af[i], bf[jj][2], bf[jj][3]);
-      }
-    }
-  }
-}
-
 __global__ void __launch_bounds__(FT, 2)
 fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
                         const __nv_bfloat16* __restrict__ w,
@@ -202,16 +137,12 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
                         const float* __restrict__ mask,
                         float* __restrict__ m_out, int* __restrict__ pos_key,
                         int B, int S, int H, int V, int RB, bool vocab_first) {
-  using namespace sm90;  // cp.async
   extern __shared__ __align__(128) unsigned char smem[];
   __shared__ int warp_live[FT / 32];
-  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
   int* colkey = reinterpret_cast<int*>(smem + PIPE_BYTES);   // [RB][BN]
   float* rowmax = reinterpret_cast<float*>(colkey + RB * BN);  // [2][BM]
   float* bias_s = rowmax + 2 * BM;                             // [BN]
-  // a live group: {its first row in [B*S], (its valid rows as 16 bits <<
-  // 16) | its batch row in the block}; a row past S is not valid
-  int2* groups = reinterpret_cast<int2*>(bias_s + BN);
+  int2* groups = reinterpret_cast<int2*>(bias_s + BN);         // [RB * G]
 
   // blocks numbered vocab tile first, so that the blocks that run together
   // share their W tile in L2; or batch range first, which does the same
@@ -225,106 +156,19 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
   const int nb = min(RB, B - b0);
   const int v0 = vt * BN;
   const int n_cols = min(BN, V - v0);
-  const int G = (S + GR - 1) / GR;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
 
   for (int i = tid; i < RB * BN; i += FT) colkey[i] = float_key(NEG);
   if (tid < BN) bias_s[tid] = (tid < n_cols && bias) ? bias[v0 + tid] : 0.f;
-
-  // the live groups of batch rows b0..b0+nb, in order
-  int n_live = 0;
-  for (int i0 = 0; i0 < nb * G; i0 += FT) {
-    const int i = i0 + tid;
-    int2 e = make_int2(0, 0);
-    unsigned bits = 0u;
-    if (i < nb * G) {
-      const int bl = i / G, s0 = (i % G) * GR;
-      const int rows = min(GR, S - s0);
-      const float* mrow = mask + (size_t)(b0 + bl) * S + s0;
-#pragma unroll
-      for (int r = 0; r < GR; ++r)
-        bits |= (unsigned)(r < rows && mrow[r] > 0.f) << r;
-      e = make_int2((b0 + bl) * S + s0, (int)(bits << 16) | bl);
-    }
-    const bool live = bits != 0u;
-    const unsigned vote = __ballot_sync(0xffffffffu, live);
-    if (lane == 0) warp_live[warp] = __popc(vote);
-    __syncthreads();
-    int at = n_live, total = 0;
-#pragma unroll
-    for (int wi = 0; wi < FT / 32; ++wi) {
-      at += wi < warp ? warp_live[wi] : 0;
-      total += warp_live[wi];
-    }
-    if (live) groups[at + __popc(vote & ((1u << lane) - 1u))] = e;
-    n_live += total;
-    __syncthreads();  // warp_live is refilled; the list is complete
-  }
-
-  // the forward's k-loop runs whole 64-wide steps past H on zeros: so does
-  // this one
-  const int k_steps = (H + splade_tile::BK - 1) / splade_tile::BK *
-                      (splade_tile::BK / KSL);
-  const int n_tiles = (n_live * GR + BM - 1) / BM;
-  const int total = n_tiles * k_steps;
-  const int cr = tid >> 2, cq = (tid & 3) * 8;  // copy row (+32 it), column
-
-  auto load_stage = [&](int step) {
-    __nv_bfloat16* As = pipe + (step % STAGES) * STAGE_ELEMS;
-    __nv_bfloat16* Bs = As + BM * PLDS;
-    const int tile = step / k_steps;
-    const int k = (step - tile * k_steps) * KSL + cq;
-    const bool kin = k < H;
-#pragma unroll
-    for (int it = 0; it < COPIES; ++it) {
-      const int r = cr + it * 32;
-      const int gi = tile * GROUPS_A_TILE + (r >> 4);
-      bool ok = kin && gi < n_live;
-      const __nv_bfloat16* src = h;
-      if (ok) {  // only valid rows are read: the others are never used
-        const int2 e = groups[gi];
-        ok = row_valid(e, r & 15);
-        src = h + (size_t)(e.x + (r & 15)) * H + k;
-      }
-      cp_async16(As + r * PLDS + cq, ok ? src : h, ok);
-      const bool wok = kin && v0 + r < V;
-      cp_async16(Bs + r * PLDS + cq, wok ? w + (size_t)(v0 + r) * H + k : w,
-                 wok);
-    }
-  };
+  const int n_live = list_live_groups(mask, b0, nb, S, groups, warp_live,
+                                      nullptr, nullptr);
 
   const int wm = warp >> 1, wn = warp & 1;  // 64-row half, 64-column half
   const int g = lane >> 2, c = 2 * (lane & 3);
-  float acc[4][8][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-#pragma unroll
-  for (int st = 0; st < STAGES - 1; ++st) {
-    if (st < total) load_stage(st);
-    cp_async_commit();
-  }
-  for (int step = 0; step < total; ++step) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage `step` landed; stage step-1 is free to refill
-    if (step + STAGES - 1 < total) load_stage(step + STAGES - 1);
-    cp_async_commit();
-    const int tile = step / k_steps;
-    // fragments of this warp whose group is live (warp-uniform)
-    const int live = min(4, n_live - tile * GROUPS_A_TILE - wm * 4);
-    const __nv_bfloat16* As = pipe + (step % STAGES) * STAGE_ELEMS;
-    const __nv_bfloat16* Bs = As + BM * PLDS;
-    if (live == 4)  // every fragment live: no branch between the products
-      slice_products<true>(acc, As, Bs, wm, wn, lane, 4);
-    else
-      slice_products<false>(acc, As, Bs, wm, wn, lane, live);
-    if (step - tile * k_steps != k_steps - 1) continue;
-
-    // ---- the tile's epilogue: + bias, column and row maxima -------------
+  const auto max_of = [](float a, float b) { return fmaxf(a, b); };
+  // ---- a tile's epilogue: + bias, column and row maxima -------------------
+  walk_tiles(smem, groups, n_live, h, w, v0, V, H,
+             [&](int tile, int live, const float (&acc)[4][8][4]) {
     float cm[8][2];  // column maxima of the fragments folded so far
     int cur = -1;    // their batch row in the block
     // the 8 lanes of a column group (same c, g = 0..7) join their 16
@@ -336,9 +180,9 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
         v[2 * j] = cm[j][0];
         v[2 * j + 1] = cm[j][1];
       }
-      halve<8>(v, lane & 16, 16);
-      halve<4>(v, lane & 8, 8);
-      halve<2>(v, lane & 4, 4);
+      halve<8>(v, lane & 16, 16, max_of);
+      halve<4>(v, lane & 8, 8, max_of);
+      halve<2>(v, lane & 4, 4, max_of);
       int* key = colkey + cur * BN + wn * 64 + 8 * g + c;
       atomicMax(key, float_key(v[0]));
       atomicMax(key + 1, float_key(v[1]));
@@ -379,12 +223,6 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
       }
     }
     if (cur >= 0) flush();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
     __syncthreads();  // both column halves of every row are in rowmax
     for (int row = tid; row < BM; row += FT) {
       const int gi = tile * GROUPS_A_TILE + (row >> 4);
@@ -397,9 +235,8 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
         }
       }
     }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every column key is in
+  });
+  // every column key is in (walk_tiles ends with a barrier)
   for (int i = tid; i < nb * BN; i += FT) {
     const int bl = i / BN, col = i % BN;
     if (col < n_cols)

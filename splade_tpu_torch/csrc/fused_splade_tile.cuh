@@ -14,12 +14,13 @@
 // chunk's shape, on which warp owns a fragment, on how the operands reached
 // shared memory or on which of the two the code issues: the kernels may pick
 // the tiling that suits them while every score stays bitwise the forward's.
-// mma_step below is the WMMA form (the row-blocked family, through
+// mma_step below is the WMMA form (the row-blocked forward, through
 // score_chunk_resident, which stages A one k-step at a time against a W tile
-// that stays in shared memory for its whole hidden width); the match pass
-// issues the same WMMA products from its own cp.async ring; the per-row
-// forward (fused_splade_fwd.cu) issues mma.sync m16n8k16 on fragments loaded
-// by ldmatrix (mma_sm90.cuh), slice by slice in the same order.
+// that stays in shared memory for its whole hidden width); the per-row match
+// pass issues the same WMMA products from its own cp.async ring; the per-row
+// forward and the row-blocked match pass (fused_splade_walk.cuh) issue
+// mma.sync m16n8k16 on fragments loaded by ldmatrix (mma_sm90.cuh), slice by
+// slice in the same order.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -46,17 +46,19 @@ SIGNATURES: Dict[str, List] = {
                                           _I, _I, _I, _I, _P],
     "splade_fused_pool_bwd_match": [_P, _P, _P, _P, _P, _P, _P,
                                     _I, _I, _I, _I, _P],
-    "splade_fused_pool_bwd_dh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # ... B, S, H, V, hidden slices, vocab splits, stream
+    "splade_fused_pool_bwd_dh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                 _P],
     "splade_fused_pool_bwd_dw": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     "splade_rescore_match": [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
     "splade_fused_pool_v2_fwd": [_P, _P, _P, _P, _P, _P,
                                  _I, _I, _I, _I, _I, _P],
-    "splade_fused_pool_v2_bwd_dh": [_P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _I, _P],
-    "splade_fused_pool_v2_bwd_dw": [_P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _I, _P],
-    # (H, RB) -> bytes of dynamic shared memory, not an error code
+    # ... B, S, H, V, the row block, stream
+    "splade_fused_pool_v2_bwd_match": [_P, _P, _P, _P, _P, _P, _P,
+                                       _I, _I, _I, _I, _I, _P],
+    # (H, RB) resp. (S, RB) -> bytes of dynamic shared memory, not an error
+    # code
     "splade_fused_pool_v2_fwd_shared_bytes": [_I, _I],
     "splade_fused_pool_v2_bwd_shared_bytes": [_I, _I],
     "splade_splash_attn_fwd": [_P] * 6 + _SPLASH_TAIL,

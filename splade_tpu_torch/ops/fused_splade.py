@@ -29,7 +29,9 @@ at ``:111``): a match pass recomputes every score of the batch once and
 writes the argmax set as a bitmask ``match[b, j, v]`` (bit r of word j:
 valid position 32j + r reaches m[b, v], and g_pre[b, v] != 0), then a dh
 gather and a dW gather read it. The autograd backward runs the match pass
-once and the gathers it needs. Ties get duplicate gradient, as in the Pallas
+once and the gathers it needs; the row-blocked family
+(``ops/fused_splade_v2.py``) writes the same bitmask with its own match pass
+and launches the same gathers. Ties get duplicate gradient, as in the Pallas
 kernels (autograd through ``amax``, the streamed path's gradient, splits
 them instead). dh and dW come back in the dtypes of h and w.
 
@@ -54,8 +56,10 @@ from splade_tpu_torch.ops.splade_pool import (NEG, masked_max_streamed,
 #: vocab tile of the plain versions: the forward's maxima and the backward's
 #: recompute use the same tile, so the recomputed scores equal m bitwise
 PLAIN_TILE = 8192
-#: the dW gather keeps one row of f32 sums (up to 768 wide) a warp
-MAX_BWD_HIDDEN = 768
+#: hidden columns a gather block owns at most: the dW gather keeps them as
+#: one row of f32 sums a warp, the dh gather as 32 rows in shared memory; a
+#: wider hidden width is cut into slices
+GATHER_SLICE_COLS = 768
 #: hidden columns of one warp of the dh gather (32 threads x 4); a slice of
 #: the hidden width is a whole number of them
 GATHER_COLS = 128
@@ -63,6 +67,8 @@ GATHER_COLS = 128
 #: full-width slice's 96 KB of shared-memory sums allows; with fewer (b, word)
 #: rows it cuts the hidden width into slices
 DH_GATHER_BLOCKS = 264
+#: the gathers' C entries, which both kernel families launch
+GATHER_ENTRY = "splade_fused_pool_bwd_"
 
 
 def match_words(S: int) -> int:
@@ -70,14 +76,41 @@ def match_words(S: int) -> int:
     return -(-S // 32)
 
 
+def min_hidden_slices(H: int) -> int:
+    """The fewest slices of whole GATHER_COLS-column groups that keep each
+    at most GATHER_SLICE_COLS wide: 1 up to H = 768."""
+    groups = max(-(-H // GATHER_COLS), 1)
+    return -(-groups // (GATHER_SLICE_COLS // GATHER_COLS))
+
+
 def dh_hidden_splits(B: int, S: int, H: int) -> int:
     """How many slices of whole GATHER_COLS-column groups the dh gather cuts
     the hidden width into: 1 at the document batch, several at the query
-    batch. Each slice's sums are its own, so nothing is added afterwards."""
+    batch, never fewer than ``min_hidden_slices``. Each slice's sums are its
+    own, so nothing is added afterwards."""
     rows = max(B * match_words(S), 1)
     groups = max(-(-H // GATHER_COLS), 1)
-    want = min(groups, -(-DH_GATHER_BLOCKS // rows))
+    want = max(min_hidden_slices(H),
+               min(groups, -(-DH_GATHER_BLOCKS // rows)))
     return -(-groups // -(-groups // want))
+
+
+def vocab_ranges(V: int, splits: int) -> list:
+    """The dh gather's vocab ranges [(vb, ve), ...], one per split in the
+    order their partial sums are added: ceil(ceil(V/32) / splits) * 32
+    columns each (whole 32-column runs), a range past V empty. The C entry
+    cuts the vocabulary the same way."""
+    size = -(-(-(-V // 32)) // splits) * 32
+    return [(min(z * size, V), min((z + 1) * size, V)) for z in range(splits)]
+
+
+def add_partials(parts: torch.Tensor) -> torch.Tensor:
+    """[splits, ...] partial sums added in split order, into parts[0]:
+    ((p0 + p1) + p2) + ..., the order the plain gather adds them in."""
+    out = parts[0]
+    for z in range(1, parts.shape[0]):
+        out += parts[z]
+    return out
 
 
 def float_key(x: torch.Tensor) -> torch.Tensor:
@@ -140,19 +173,23 @@ def _unpack_tile(match: torch.Tensor, S: int) -> torch.Tensor:
 
 
 def fused_splade_gather_dh_plain(match: torch.Tensor, w: torch.Tensor,
-                                 g_pre: torch.Tensor, S: int) -> torch.Tensor:
+                                 g_pre: torch.Tensor, S: int,
+                                 vocab_splits: int = 1) -> torch.Tensor:
     """The dh gather in plain PyTorch: ``dh[b, s] = Σ_v bit(b, s, v) ·
-    g_pre[b, v] · W[v]`` over vocab tiles. Returns dh [B, S, H] f32."""
+    g_pre[b, v] · W[v]`` over vocab tiles, each of the kernel's vocab ranges
+    (``vocab_ranges``) summed on its own and the ranges' partials added in
+    order. Returns dh [B, S, H] f32."""
     B, _, V = match.shape
-    dh = torch.zeros((B, S, w.shape[1]), dtype=torch.float32,
-                     device=match.device)
+    parts = torch.zeros((vocab_splits, B, S, w.shape[1]), dtype=torch.float32,
+                        device=match.device)
     with torch.autocast(match.device.type, enabled=False):
-        for v0 in range(0, V, PLAIN_TILE):
-            cols = slice(v0, v0 + PLAIN_TILE)
-            G = torch.where(_unpack_tile(match[:, :, cols], S),
-                            g_pre[:, None, cols].to(torch.float32), 0.0)
-            dh += G @ w[cols].to(torch.float32)
-    return dh
+        for part, (vb, ve) in zip(parts, vocab_ranges(V, vocab_splits)):
+            for v0 in range(vb, ve, PLAIN_TILE):
+                cols = slice(v0, min(v0 + PLAIN_TILE, ve))
+                G = torch.where(_unpack_tile(match[:, :, cols], S),
+                                g_pre[:, None, cols].to(torch.float32), 0.0)
+                part += G @ w[cols].to(torch.float32)
+    return add_partials(parts)
 
 
 def fused_splade_gather_dw_plain(match: torch.Tensor, h: torch.Tensor,
@@ -247,22 +284,19 @@ class KernelFamily:
     preparation, the empty batch and the tie, dbias and autocast rules are
     written once."""
 
-    #: the C entries are <prefix>_fwd and <prefix>_bwd_<kernel>
+    #: the C entries are <prefix>_fwd and <prefix>_bwd_match; the gathers'
+    #: (GATHER_ENTRY) are shared
     prefix: str
-    #: (hb, row_block, backward) -> the ints the C entries take after V;
-    #: raises ValueError for what the kernels cannot take
+    #: (hb, row_block, backward) -> the ints the forward and match C entries
+    #: take after V; raises ValueError for what the kernels cannot take
     block_args: Callable
-    #: (B, S, H, V, *block_args) -> the splits of the dh kernel's work (the
-    #: per-row gather: hidden slices; the row-blocked kernel: vocab splits)
+    #: (B, S, H, V) -> (hidden slices, vocab splits) of the dh gather
     dh_splits: Callable
-    #: (fam, BwdOperands, block_args, which) -> {"dh"/"dw": f32 tensor} for
-    #: the names in ``which``: the family's backward kernels on a non-empty
-    #: batch, each launch counted
-    launch_bwd: Callable
     #: the plain versions, taking row_block as their last argument
     plain_fwd: Callable
+    plain_match: Callable
     plain_bwd: Callable
-    #: kernel ("fwd", "dh", "dw", the per-row "match") -> the public function
+    #: kernel ("fwd", "match", "dh", "dw") -> the public function
     #: whose ``launches`` counts it, filled in where those are defined
     counted: Dict[str, Callable] = dataclasses.field(default_factory=dict)
 
@@ -302,42 +336,21 @@ def _launch_bwd(fam: KernelFamily, which, h, w, bias, mask, m, g_pre,
         shapes = {"dh": (B, S, H), "dw": (V, H)}
         return {name: torch.zeros(shapes[name], dtype=torch.float32,
                                   device=ops.hb.device) for name in which}
-    return fam.launch_bwd(fam, ops, extra, which)
+    return launch_match_gather(fam, ops, extra, which)
 
 
-def launch_recompute(fam: KernelFamily, ops: BwdOperands, extra, which
-                     ) -> Dict[str, torch.Tensor]:
-    """One kernel per output, each recomputing the scores itself (the
-    row-blocked family). The output starts at 0: the kernels add into it;
-    dh's vocab splits are summed in a fixed order."""
-    B, S, H, V = ops.dims
-    out = {}
-    for name in which:
-        is_dh = name == "dh"
-        splits = fam.dh_splits(B, S, H, V, *extra) if is_dh else 1
-        buf = torch.zeros(((splits, B, S, H) if is_dh else (V, H)),
-                          dtype=torch.float32, device=ops.hb.device)
-        entry = f"{fam.prefix}_bwd_{name}"
-        code = getattr(_cuda.library(), entry)(
-            ops.ptr("hb"), ops.ptr("wb"), ops.ptr("bias"), ops.ptr("mask"),
-            ops.ptr("m"), ops.ptr("g"), buf.data_ptr(), B, S, H, V, *extra,
-            *([splits] if is_dh else []), _cuda.stream_ptr(ops.hb))
-        _cuda.check(code, entry)
-        fam.counted[name].launches += 1
-        out[name] = (buf[0] if splits == 1 else buf.sum(0)) if is_dh else buf
-    return out
-
-
-def launch_match(fam: KernelFamily, ops: BwdOperands) -> torch.Tensor:
-    """The match pass: the bitmask [B, ceil(S/32), V] (int32 holding the
-    kernel's uint32 words), every word written by the kernel."""
+def launch_match(fam: KernelFamily, ops: BwdOperands, extra=()
+                 ) -> torch.Tensor:
+    """The family's match pass (``extra``: its block arguments): the
+    bitmask [B, ceil(S/32), V] (int32 holding the kernel's uint32 words),
+    every word written by the kernel."""
     B, S, H, V = ops.dims
     match = torch.empty((B, match_words(S), V), dtype=torch.int32,
                         device=ops.hb.device)
     entry = fam.prefix + "_bwd_match"
     code = getattr(_cuda.library(), entry)(
         ops.ptr("hb"), ops.ptr("wb"), ops.ptr("bias"), ops.ptr("mask"),
-        ops.ptr("m"), ops.ptr("g"), match.data_ptr(), B, S, H, V,
+        ops.ptr("m"), ops.ptr("g"), match.data_ptr(), B, S, H, V, *extra,
         _cuda.stream_ptr(ops.hb))
     _cuda.check(code, entry)
     fam.counted["match"].launches += 1
@@ -348,7 +361,8 @@ def launch_gather(fam: KernelFamily, which: str, match: torch.Tensor,
                   x: torch.Tensor, g32: torch.Tensor, S: int) -> torch.Tensor:
     """The dh gather ("dh": x is bf16 w, out [B,S,H]) or the dW gather
     ("dw": x is bf16 h, out [V,H]) from a bitmask [B, ceil(S/32), V], f32,
-    every element written by the kernel."""
+    every element written by the kernel; dh's partials over the family's
+    vocab splits are added in order."""
     B, J, V = match.shape
     H = x.shape[-1]
     if (J != match_words(S) or match.dtype != torch.int32
@@ -358,22 +372,23 @@ def launch_gather(fam: KernelFamily, which: str, match: torch.Tensor,
                          f"{tuple(g32.shape)} and {tuple(x.shape)} do not "
                          f"agree for the {which} gather at S={S}")
     match = match.contiguous()
-    out = torch.empty((B, S, H) if which == "dh" else (V, H),
+    splits = fam.dh_splits(B, S, H, V) if which == "dh" else ()
+    out = torch.empty(((splits[1], B, S, H) if which == "dh" else (V, H)),
                       dtype=torch.float32, device=x.device)
-    extra = [fam.dh_splits(B, S, H, V)] if which == "dh" else []
-    entry = f"{fam.prefix}_bwd_{which}"
+    entry = GATHER_ENTRY + which
     code = getattr(_cuda.library(), entry)(
         match.data_ptr(), x.data_ptr(), g32.data_ptr(), out.data_ptr(),
-        B, S, H, V, *extra, _cuda.stream_ptr(x))
+        B, S, H, V, *splits, _cuda.stream_ptr(x))
     _cuda.check(code, entry)
     fam.counted[which].launches += 1
-    return out
+    return add_partials(out) if which == "dh" else out
 
 
-def launch_match_gather(fam: KernelFamily, ops: BwdOperands, _extra, which
+def launch_match_gather(fam: KernelFamily, ops: BwdOperands, extra, which
                         ) -> Dict[str, torch.Tensor]:
-    """The per-row family: one match pass, then the gathers in ``which``."""
-    match = launch_match(fam, ops)
+    """One match pass, then the gathers in ``which``: one recompute serves
+    both gradients."""
+    match = launch_match(fam, ops, extra)
     S = ops.hb.shape[1]
     return {name: launch_gather(fam, name, match,
                                 ops.wb if name == "dh" else ops.hb, ops.g, S)
@@ -387,6 +402,21 @@ def family_maxima(fam: KernelFamily, h, w, bias, mask, row_block=None
     if h.is_cuda:
         return _launch_fwd(fam, h, w, bias, mask, row_block)
     return fam.plain_fwd(h, w, bias, mask, row_block)
+
+
+def family_match(fam: KernelFamily, h, w, bias, mask, m, g_pre,
+                 row_block=None) -> torch.Tensor:
+    """The argmax bitmask, int32 [B, ceil(S/32), V]: the family's match pass
+    on a CUDA tensor, its plain version on a CPU tensor."""
+    if not h.is_cuda:
+        return fam.plain_match(h, w, bias, mask, m, g_pre, row_block)
+    ops = _bwd_operands(h, w, bias, mask, m, g_pre)
+    extra = fam.block_args(ops.hb, row_block, True)
+    B, S, _, V = ops.dims
+    if B == 0 or S == 0 or V == 0:
+        return torch.zeros((B, match_words(S), V), dtype=torch.int32,
+                           device=ops.hb.device)
+    return launch_match(fam, ops, extra)
 
 
 def family_backward(fam: KernelFamily, which, h, w, bias, mask, m, g_pre,
@@ -458,22 +488,14 @@ def family_pool(fam: KernelFamily, h, w, bias, mask, row_block=None
     return _FusedPool.apply(h, w, bias, mask, fam, row_block)
 
 
-def _per_row_args(hb, _row_block, backward: bool) -> list:
-    if backward and hb.shape[-1] > MAX_BWD_HIDDEN:
-        raise ValueError(f"hidden size {hb.shape[-1]} > {MAX_BWD_HIDDEN}: the "
-                         "dW gather keeps one row of sums per warp")
-    return []
-
-
 # the plain versions are looked up when called, not when the family is made
 PER_ROW = KernelFamily(
-    prefix="splade_fused_pool", block_args=_per_row_args,
-    dh_splits=lambda B, S, H, _V: dh_hidden_splits(B, S, H),
-    launch_bwd=launch_match_gather,
+    prefix="splade_fused_pool", block_args=lambda *_: [],
+    dh_splits=lambda B, S, H, _V: (dh_hidden_splits(B, S, H), 1),
     plain_fwd=lambda h, w, bias, mask, _rb: fused_splade_pool_plain(
         h, w, bias, mask),
-    plain_bwd=lambda h, w, bias, mask, m, g_pre, _rb: fused_splade_bwd_plain(
-        h, w, bias, mask, m, g_pre))
+    plain_match=lambda *args: fused_splade_bwd_match_plain(*args[:6]),
+    plain_bwd=lambda *args: fused_splade_bwd_plain(*args[:6]))
 
 
 def fused_splade_maxima(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -485,19 +507,11 @@ def fused_splade_maxima(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
 def fused_splade_bwd_match(h, w, bias, mask, m, g_pre) -> torch.Tensor:
     """The argmax bitmask, int32 [B, ceil(S/32), V]: the match pass on a
     CUDA tensor, ``fused_splade_bwd_match_plain`` on a CPU tensor."""
-    if not h.is_cuda:
-        return fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre)
-    ops = _bwd_operands(h, w, bias, mask, m, g_pre)
-    B, S, _, V = ops.dims
-    if B == 0 or S == 0 or V == 0:
-        return torch.zeros((B, match_words(S), V), dtype=torch.int32,
-                           device=ops.hb.device)
-    return launch_match(PER_ROW, ops)
+    return family_match(PER_ROW, h, w, bias, mask, m, g_pre)
 
 
 def _gather(which: str, match, x, g_pre, S: int) -> torch.Tensor:
     xb = x.to(torch.bfloat16).contiguous()
-    _per_row_args(xb, None, True)
     g32 = g_pre.to(device=xb.device, dtype=torch.float32).contiguous()
     B, _, V = match.shape
     if B == 0 or S == 0 or V == 0:

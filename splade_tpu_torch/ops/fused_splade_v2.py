@@ -8,16 +8,21 @@ Counterpart of ``splade_tpu/ops/fused_splade_v2.py::fused_splade_pool_v2``
     pooled[b, v] = log1p(relu(m[b, v]))
     token_w[b,s] = log1p(relu(max_v of the same)) * mask[b, s]
 
-with ``row_block`` batch rows handled together: one product
-``[row_block·S, H] × [H, tile]`` per (row block, vocab tile). On the TPU
-that amortises the weight tile's residency over more rows; on the H100 the
-kernels (``csrc/fused_splade_v2_fwd.cu`` replacing ``_fwd_kernel`` at
-``fused_splade_v2.py:46``, ``csrc/fused_splade_v2_bwd.cu`` replacing
-``_bwd_dh_kernel`` at ``:65`` and ``_bwd_dw_kernel`` at ``:87``) keep the W
-tile in shared memory across the row block's rows, where the per-row family
-re-stages it for every chunk. Every score goes through
-``csrc/fused_splade_tile.cuh``, so this family's ``m`` equals the per-row
-family's bit for bit and either backward may recompute either forward.
+with ``row_block`` batch rows handled together. The forward
+(``csrc/fused_splade_v2_fwd.cu``, replacing ``_fwd_kernel`` at
+``fused_splade_v2.py:46``) keeps a 64-row W tile resident in shared memory
+across the row block's rows and computes ``[row_block·S, H] × [H, 64]``
+per block. The backward (``csrc/fused_splade_v2_bwd.cu``, replacing
+``_bwd_dh_kernel`` at ``:65`` and ``_bwd_dw_kernel`` at ``:87``) is "match
+once, gather twice", as the per-row family's: a match pass in which a block
+owns one vocab tile and the live 16-row groups of ``row_block`` batch rows
+recomputes every score once into the per-row family's argmax bitmask
+``[B, ceil(S/32), V]``; then the per-row family's dh gather (its
+vocabulary split into ordered ranges where word rows are few, the ranges'
+partial sums added in order) and dW gather read it. Every score goes
+through ``csrc/fused_splade_tile.cuh``'s arithmetic, so this family's ``m``
+and bitmask equal the per-row family's bit for bit and either backward may
+recompute either forward.
 
 ``row_block=0`` picks the largest of 8, 4, 2, 1 that divides B; a
 ``row_block`` that does not divide B raises ``ValueError``. (The JAX
@@ -28,8 +33,9 @@ compiler and does not carry over.) The gradient rules are
 and dW come back in the dtypes of h and w.
 
 On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors
-they run the plain versions ``fused_splade_pool_v2_plain`` and
-``fused_splade_bwd_v2_plain``. There is no fallback between the two.
+they run the plain versions ``fused_splade_pool_v2_plain``,
+``fused_splade_bwd_v2_plain`` and ``fused_splade_bwd_match_v2_plain``.
+There is no fallback between the two.
 """
 
 from __future__ import annotations
@@ -40,17 +46,29 @@ import torch
 
 from splade_tpu_torch.ops import _cuda
 from splade_tpu_torch.ops.fused_splade import (PLAIN_TILE, KernelFamily,
-                                               family_bwd, family_maxima,
-                                               family_pool, launch_recompute)
+                                               family_bwd, family_match,
+                                               family_maxima, family_pool,
+                                               fused_splade_bwd_match_plain,
+                                               match_words, min_hidden_slices)
 from splade_tpu_torch.ops.splade_pool import NEG
 
-#: vocab columns of the kernels' resident W tile
+#: vocab columns of the forward kernel's resident W tile
 TILE_COLS = 64
+#: vocab columns of a match-pass block
+MATCH_COLS = 128
 #: dynamic shared memory one block may opt into on an H100
 MAX_SHARED_BYTES = 232_448
-#: blocks the dh kernel aims at: one per multiprocessor (the resident tile
-#: leaves room for one); with fewer row blocks it splits the vocabulary
-DH_TARGET_BLOCKS = 132
+#: the match pass's cp.async ring: 4 stages of 128 h rows and 128 W rows,
+#: 32 + 8 bf16 each
+MATCH_RING_BYTES = 4 * 256 * 40 * 2
+#: blocks the dh gather aims at, counting its vocab splits. Each block owns
+#: a word row's full hidden width (one slice up to H = 768: 96 KB of sums,
+#: two blocks an SM; wider, the fewest slices) and one vocab range; more, shorter ranges spread a word row's serial
+#: walk of matches over more blocks. Chosen on an H100 with
+#: scripts/bench_v2_backward.py: 4 ranges at the document batch (1,024 word
+#: rows), the most (16) at the query batch (128).
+DH_SPLIT_BLOCKS = 4096
+MAX_VOCAB_SPLITS = 16
 
 
 def pick_row_block(B: int) -> int:
@@ -68,24 +86,37 @@ def resolve_row_block(B: int, row_block: int) -> int:
     return row_block or pick_row_block(B)
 
 
-def shared_bytes(H: int, row_block: int) -> int:
-    """Dynamic shared memory of the family's largest kernel at hidden width
-    H: the resident W tile, the staged chunk and the row block's vectors.
-    A mirror of the ``shared_bytes`` functions in the two ``.cu`` files,
-    which the launch path asks instead (``_check``); a test on the card
-    holds this mirror equal to them."""
+def fwd_shared_bytes(H: int, row_block: int) -> int:
+    """Dynamic shared memory of the forward kernel at hidden width H: the
+    resident W tile, the staged chunk, the bias and the row block's column
+    keys. A mirror of ``shared_bytes`` in ``fused_splade_v2_fwd.cu``, which
+    the launch path asks instead (``_check``); a test on the card holds
+    the two equal."""
     ld = -(-H // 64) * 64 + 8
     w_tile = -(-TILE_COLS * ld * 2 // 128) * 128
-    fwd = w_tile + 34_816 + 256 + row_block * 256
-    bwd = w_tile + 17_408 + 256 + 2 * row_block * 256 + 512
-    return max(fwd, bwd)
+    return w_tile + 34_816 + 256 + row_block * 256
 
 
-def dh_vocab_splits_v2(B: int, row_block: int, V: int) -> int:
-    """How many vocab splits the dh kernel runs so that B // row_block row
-    blocks fill the card; their partial sums are added in order."""
-    blocks = max(B // max(row_block, 1), 1)
-    return max(1, min(-(-DH_TARGET_BLOCKS // blocks), -(-V // TILE_COLS), 16))
+def match_shared_bytes(S: int, row_block: int) -> int:
+    """Dynamic shared memory of the match pass at sequence length S: the
+    ring, m for the row block's rows and the tile's columns, the bias, the
+    list of 16-row groups and the row and group flags. A mirror of
+    ``shared_bytes`` in ``fused_splade_v2_bwd.cu``, as above."""
+    G = -(-S // 16)
+    return (MATCH_RING_BYTES + row_block * MATCH_COLS * 4 + MATCH_COLS * 4
+            + row_block * G * 8 + row_block * 4 + row_block * G)
+
+
+def dh_vocab_splits_v2(B: int, S: int, V: int) -> int:
+    """How many ordered vocab ranges the dh gather cuts each word row's
+    vocabulary into: enough that its blocks (word rows x ranges) reach
+    DH_SPLIT_BLOCKS, at most one per 32 columns and MAX_VOCAB_SPLITS. A
+    split is only taken while the B·ceil(S/32) word rows are fewer than
+    DH_SPLIT_BLOCKS, so the [splits, B, S, H] f32 partials hold at most
+    about DH_SPLIT_BLOCKS·32·H·4 bytes beyond dh itself: 403 MB at H = 768,
+    302 MB at the document batch (the replaced kernel's held 906 MB)."""
+    want = -(-DH_SPLIT_BLOCKS // max(B * match_words(S), 1))
+    return max(1, min(want, -(-V // 32), MAX_VOCAB_SPLITS))
 
 
 def _row_block_scores(xf, w, bias, valid, v0):
@@ -131,11 +162,11 @@ def fused_splade_bwd_v2_plain(
     mask: torch.Tensor, m: torch.Tensor, g_pre: torch.Tensor,
     row_block: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The backward kernels' arithmetic in plain PyTorch: per row block,
-    recompute the scores as ``fused_splade_pool_v2_plain`` computed them,
-    ``G = 1[masked == m] · g_pre`` with m and g_pre looked up by each
-    flattened row's own b, ``dh = G @ W_tile`` summed over vocab tiles,
-    ``dw = Gᵀ @ h`` summed over row blocks.
+    """The backward's function in plain PyTorch (the family's CPU path):
+    per row block, recompute the scores as ``fused_splade_pool_v2_plain``
+    computed them, ``G = 1[masked == m] · g_pre`` with m and g_pre looked
+    up by each flattened row's own b, ``dh = G @ W_tile`` summed over vocab
+    tiles, ``dw = Gᵀ @ h`` summed over row blocks.
     Returns (dh [B, S, H] f32, dw [V, H] f32)."""
     B, S, H = h.shape
     V = w.shape[0]
@@ -163,33 +194,55 @@ def fused_splade_bwd_v2_plain(
     return dh, dw
 
 
-def _check(h, row_block: int) -> int:
-    """The row block the kernels run at, refused where their shared memory
-    would not fit. For a CUDA tensor the size is the built kernels' own
-    (their C entries report it); ``shared_bytes`` stands in on the CPU."""
-    B, _, H = h.shape
+def fused_splade_bwd_match_v2_plain(
+    h: torch.Tensor, w: torch.Tensor, bias: Optional[torch.Tensor],
+    mask: torch.Tensor, m: torch.Tensor, g_pre: torch.Tensor,
+    row_block: int = 0,
+) -> torch.Tensor:
+    """The match pass in plain PyTorch, row block by row block as the
+    kernel walks it: ``fused_splade_bwd_match_plain`` on each block of
+    ``row_block`` batch rows. Returns int32 [B, ceil(S/32), V]."""
+    B = h.shape[0]
     RB = resolve_row_block(B, row_block)
-    if h.is_cuda:
-        lib = _cuda.library()
-        need = max(lib.splade_fused_pool_v2_fwd_shared_bytes(H, RB),
-                   lib.splade_fused_pool_v2_bwd_shared_bytes(H, RB))
+    if B == 0:
+        return fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre)
+    return torch.cat([fused_splade_bwd_match_plain(
+        h[b0:b0 + RB], w, bias, mask[b0:b0 + RB], m[b0:b0 + RB],
+        g_pre[b0:b0 + RB]) for b0 in range(0, B, RB)])
+
+
+def _check(h, row_block: int, backward: bool) -> int:
+    """The row block the kernels run at, refused where the forward's or the
+    match pass's shared memory would not fit. For a CUDA tensor the sizes are the built kernels' own
+    (their C entries report them); the mirrors stand in on the CPU."""
+    B, S, H = h.shape
+    RB = resolve_row_block(B, row_block)
+    lib = _cuda.library() if h.is_cuda else None
+    if backward:
+        need = (lib.splade_fused_pool_v2_bwd_shared_bytes(S, RB) if lib
+                else match_shared_bytes(S, RB))
+        what = (f"the match pass stages m for {RB} batch rows and lists "
+                f"their 16-row groups at S={S}")
     else:
-        need = shared_bytes(H, RB)
+        need = (lib.splade_fused_pool_v2_fwd_shared_bytes(H, RB) if lib
+                else fwd_shared_bytes(H, RB))
+        what = "the forward keeps a 64-row W tile resident"
     if need > MAX_SHARED_BYTES:
         raise ValueError(
             f"hidden size {H} with row_block {RB} needs {need} bytes of "
-            f"shared memory a block (at most {MAX_SHARED_BYTES}): the "
-            "kernels keep a 64-row W tile resident")
+            f"shared memory a block (at most {MAX_SHARED_BYTES}): {what}")
     return RB
 
 
 # the plain versions are looked up when called, not when the family is made
 ROW_BLOCKED = KernelFamily(
     prefix="splade_fused_pool_v2",
-    block_args=lambda hb, row_block, _backward: [_check(hb, row_block)],
-    dh_splits=lambda B, _S, _H, V, RB: dh_vocab_splits_v2(B, RB, V),
-    launch_bwd=launch_recompute,
+    block_args=lambda hb, row_block, backward: [
+        _check(hb, row_block, backward)],
+    dh_splits=lambda B, S, H, V: (min_hidden_slices(H),
+                                  dh_vocab_splits_v2(B, S, V)),
     plain_fwd=lambda *args: fused_splade_pool_v2_plain(*args),
+    plain_match=lambda *args: fused_splade_bwd_match_v2_plain(*args),
     plain_bwd=lambda *args: fused_splade_bwd_v2_plain(*args))
 
 
@@ -200,18 +253,26 @@ def fused_splade_maxima_v2(h, w, bias, mask, row_block: int = 0
     return family_maxima(ROW_BLOCKED, h, w, bias, mask, row_block)
 
 
+def fused_splade_bwd_match_v2(h, w, bias, mask, m, g_pre,
+                              row_block: int = 0) -> torch.Tensor:
+    """The argmax bitmask, int32 [B, ceil(S/32), V]: the row-blocked match
+    pass on a CUDA tensor, ``fused_splade_bwd_match_v2_plain`` on a CPU
+    tensor."""
+    return family_match(ROW_BLOCKED, h, w, bias, mask, m, g_pre, row_block)
+
+
 def fused_splade_bwd_dh_v2(h, w, bias, mask, m, g_pre,
                            row_block: int = 0) -> torch.Tensor:
-    """dh [B, S, H] f32 of the pool: the row-blocked dh kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    """dh [B, S, H] f32 of the pool: the row-blocked match pass and the dh
+    gather on a CUDA tensor, the plain version on a CPU tensor."""
     return family_bwd(ROW_BLOCKED, "dh", h, w, bias, mask, m, g_pre,
                       row_block)
 
 
 def fused_splade_bwd_dw_v2(h, w, bias, mask, m, g_pre,
                            row_block: int = 0) -> torch.Tensor:
-    """dW [V, H] f32 of the pool: the row-blocked dW kernel on a CUDA
-    tensor, the plain version on a CPU tensor."""
+    """dW [V, H] f32 of the pool: the row-blocked match pass and the dW
+    gather on a CUDA tensor, the plain version on a CPU tensor."""
     return family_bwd(ROW_BLOCKED, "dw", h, w, bias, mask, m, g_pre,
                       row_block)
 
@@ -232,9 +293,12 @@ def fused_splade_pool_v2(
 
 #: kernel launches since the last reset, added where a kernel is launched
 #: and nowhere else (never for the plain versions or an empty batch)
+#: the forward, the match pass, the dh gather and the dW gather
 fused_splade_pool_v2.launches = 0
+fused_splade_bwd_match_v2.launches = 0
 fused_splade_bwd_dh_v2.launches = 0
 fused_splade_bwd_dw_v2.launches = 0
 ROW_BLOCKED.counted.update(fwd=fused_splade_pool_v2,
+                           match=fused_splade_bwd_match_v2,
                            dh=fused_splade_bwd_dh_v2,
                            dw=fused_splade_bwd_dw_v2)

@@ -17,7 +17,9 @@ configs/train_v33.yaml's. So does phase 5 (MLM pre-training with its
 SIGTERM, resume, from_checkpoint, served engine and the row-blocked pool's
 path), whose recipe must be configs/pretrain_mlm.yaml's, and phase 2's
 comparisons of both pool families (on the CPU every family runs its plain
-versions, so they must pass, and a faulty backward must fail). The splash
+versions, so they must pass, and a faulty backward must fail: among them a
+row-blocked match pass that drops the last batch row of each row block and
+a split dh gather that loses one vocab range's partial). The splash
 attention's phase-2 check must pass the plain versions and fail a forward
 whose window is off by one, a dq kernel whose delta is lost and a dk/dv
 kernel fed a zero or stale delta; phase 6 (both
@@ -332,6 +334,10 @@ ptxas info    : Compiling entry function '_ZN52_GLOBAL__N__873ffd15_19_fused_spl
 ptxas info    : Function properties for _ZN52_GLOBAL__N__873ffd15_19_fused_splade_fwd_cu_9202b51223fused_splade_fwd_kernelEPK13__nv_bfloat16S2_PKfS4_PfPiiiiii
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 220 registers, used 1 barriers, 128 bytes smem
+== fused_splade_v2_bwd.cu
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__2a80c9ae_22_fused_splade_v2_bwd_cu_c49c2fea32fused_splade_v2_bwd_match_kernelEPK13__nv_bfloat16S2_PKfS4_S4_S4_Ptiiiii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 210 registers, used 1 barriers, 128 bytes smem
 == splash_attention_bwd.cu
 ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__e2_23_splash_attention_bwd_cu_3c20splash_bwd_dq_kernelIfEEvPK13__nv_bfloat16' for 'sm_90a'
     8 bytes stack frame, 68 bytes spill stores, 68 bytes spill loads
@@ -353,7 +359,10 @@ def test_ptxas_summary_reads_each_kernels_report():
     cs = _load_chip_smoke()
     got = cs.ptxas_summary(PTXAS_SAMPLE)
     assert set(got) == {"fused_splade_fwd_kernel", "splash_bwd_dq_kernel",
-                        "splash_fwd_kernel"}
+                        "splash_fwd_kernel", "fused_splade_v2_bwd_match_kernel"}
+    assert got["fused_splade_v2_bwd_match_kernel"] == [dict(
+        stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
+        registers=210, static_smem_bytes=128)]
     assert got["fused_splade_fwd_kernel"] == [dict(
         stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
         registers=220, static_smem_bytes=128)]
@@ -623,6 +632,78 @@ def test_pool_family_checks_run_on_the_cpu(family):
     assert not lost["ok"]
 
 
+def _drop_each_blocks_last_row(match, rb):
+    """a row-blocked match pass that loses the last batch row of each row
+    block"""
+    match = match.clone()
+    match[rb - 1::rb] = 0
+    return match
+
+
+def _split_backward(lose_a_partial):
+    """The row-blocked backward as its kernels compose it, in plain PyTorch:
+    the match pass, then the dh gather over its vocab ranges (all of them,
+    or all but the last) and the dW gather."""
+    from splade_tpu_torch.ops import fused_splade as fs
+    from splade_tpu_torch.ops import fused_splade_v2 as v2
+
+    def backward(h, w, bias, mask, m, g_pre, row_block=0):
+        match = v2.fused_splade_bwd_match_v2_plain(h, w, bias, mask, m, g_pre,
+                                                   row_block)
+        S, V = h.shape[1], w.shape[0]
+        splits = v2.dh_vocab_splits_v2(h.shape[0], S, V)
+        parts = [fs.fused_splade_gather_dh_plain(
+            match[:, :, vb:ve], w[vb:ve], g_pre[:, vb:ve], S)
+            for vb, ve in fs.vocab_ranges(V, splits)]
+        assert len(parts) > 1  # a split to lose
+        dh = sum(parts[:-1] if lose_a_partial else parts)
+        return dh, fs.fused_splade_gather_dw_plain(match, h, g_pre)
+    return backward
+
+
+@pytest.mark.parametrize("fault", [None, "drop_rows", "lose_a_partial"])
+@pytest.mark.parametrize("rb", [8, 2])
+def test_pool_family_checks_catch_a_faulty_row_blocked_backward(
+        monkeypatch, fault, rb):
+    """Phase 2's checks of the row-blocked backward pass its match pass and
+    its split dh composed as the kernels compose them, and fail a match
+    pass that drops the last batch row of each row block (its bitmask
+    against the per-row one and every maximum found) and a dh that loses
+    one vocab range's partial (checks (a) and (c))."""
+    from splade_tpu_torch.ops import fused_splade, fused_splade_v2
+
+    cs = _load_chip_smoke()
+    assert rb in cs.V2_ROW_BLOCKS
+    fam = cs.pool_families()[f"v2 rb={rb}"]
+    monkeypatch.setattr(fused_splade_v2, "fused_splade_bwd_v2_plain",
+                        _split_backward(fault == "lose_a_partial"))
+    if fault == "drop_rows":
+        real = fused_splade_v2.fused_splade_bwd_match_v2
+        monkeypatch.setattr(
+            fused_splade_v2, "fused_splade_bwd_match_v2",
+            lambda *a: _drop_each_blocks_last_row(real(*a), a[-1]))
+    h, w, bias, mask = _recompute_case(B=8)
+    hx, wx = h.float().round(), (w.float() * 40).round()  # exact scores
+    for inputs, exact in (((hx, wx, bias), True), ((h, w, bias), False)):
+        m, _ = fused_splade.fused_splade_maxima(*inputs, mask)
+        g_pre = fused_splade.fold_cotangent(torch.ones_like(m), m)
+        out = cs.match_check(torch, *inputs, mask, m, g_pre, exact, rb)
+        assert out["ok"] == (fault != "drop_rows"), out
+        if fault == "drop_rows":
+            assert out["bits_differing_per_row"] > 0 and not out["found"]
+    h, w, bias, mask, gout = _family_case()
+    got = cs._kernel_route(torch, fam["pool"], h, w, bias, mask, gout)
+    want = cs._plain_route(torch, h, w, bias, mask, gout)
+    err = float((got[0] - want[0]).abs().max()) / float(want[0].abs().max())
+    assert (err <= cs.BWD_EXACT_RTOL) == (fault != "lose_a_partial"), err
+    hb, wb, bb, mb = _recompute_case(B=8)
+    m, _ = fused_splade.fused_splade_maxima(hb, wb, bb, mb)
+    ones = (mb.sum(1, keepdim=True) > 0).float().expand_as(m)
+    rc = cs.recompute_check(torch, hb, wb, bb, mb, m,
+                            fam["dh"](hb, wb, bb, mb, m, ones))
+    assert rc["ok"] == (fault != "lose_a_partial"), rc
+
+
 def test_mlm_recipe_is_configs_pretrain_mlm_yaml():
     from splade_tpu_torch.train.mlm import MLMConfig
 
@@ -677,8 +758,10 @@ def test_v2_path_runs_on_the_cpu_and_counts_no_launch(pretrained):
     out, _ = pretrained
     v2 = out["v2_path"]
     assert v2["launches"] == {"fused_splade_pool_v2": 0,
+                              "fused_splade_bwd_match_v2": 0,
                               "fused_splade_bwd_dh_v2": 0,
                               "fused_splade_bwd_dw_v2": 0}  # plain on the CPU
+    assert v2["backward_on_its_batches"] == []  # timed on the card only
     assert v2["loss"] > 0 and v2["grad_norm"] > 0
     assert v2["loss_rel_err"] <= 1e-5 and v2["worst_tensor_rel_err"] <= 1e-4
 

@@ -211,6 +211,9 @@ def test_backward_wrappers_on_cpu_are_the_plain_version():
     (4, 64, 768, 6),      # never more slices than 128-column groups
     (1, 16, 64, 1),       # one group: one slice
     (0, 0, 768, 6),       # an empty batch launches nothing; the rule holds
+    (128, 256, 1024, 2),  # wider than 768: never a slice wider than that
+    (64, 64, 1024, 3),
+    (128, 256, 2048, 3),
 ])
 def test_dh_hidden_splits(B, S, H, splits):
     """The dh gather cuts the hidden width, never the vocabulary, into whole
@@ -221,6 +224,7 @@ def test_dh_hidden_splits(B, S, H, splits):
     assert 1 <= splits <= groups
     slice_cols = -(-groups // splits) * 128
     assert -(-H // slice_cols) == splits  # every slice holds columns
+    assert min(slice_cols, H) <= 768
 
 
 def _bitmask_case(seed, B, S, H, V):

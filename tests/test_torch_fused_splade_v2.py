@@ -16,19 +16,16 @@ import pytest
 import torch
 
 from splade_tpu.ops.fused_splade_v2 import fused_splade_pool_v2 as jax_v2
-from splade_tpu_torch.ops.fused_splade import (fold_cotangent,
-                                               fused_splade_bwd_plain,
-                                               fused_splade_pool,
-                                               fused_splade_pool_plain)
-from splade_tpu_torch.ops.fused_splade_v2 import (dh_vocab_splits_v2,
-                                                  fused_splade_bwd_dh_v2,
-                                                  fused_splade_bwd_dw_v2,
-                                                  fused_splade_bwd_v2_plain,
-                                                  fused_splade_maxima_v2,
-                                                  fused_splade_pool_v2,
-                                                  fused_splade_pool_v2_plain,
-                                                  pick_row_block,
-                                                  shared_bytes)
+from splade_tpu_torch.ops.fused_splade import (
+    dh_hidden_splits, fold_cotangent, fused_splade_bwd_match_plain, fused_splade_bwd_plain,
+    fused_splade_gather_dh_plain, fused_splade_pool, fused_splade_pool_plain,
+    vocab_ranges)
+from splade_tpu_torch.ops.fused_splade_v2 import (
+    dh_vocab_splits_v2, fused_splade_bwd_dh_v2, fused_splade_bwd_dw_v2,
+    fused_splade_bwd_match_v2, fused_splade_bwd_match_v2_plain,
+    fused_splade_bwd_v2_plain, fused_splade_maxima_v2, fused_splade_pool_v2,
+    fused_splade_pool_v2_plain, fwd_shared_bytes, match_shared_bytes,
+    pick_row_block)
 
 # tiny shapes: more intra-op threads only contend with the other test
 # workers for the host's cores
@@ -171,22 +168,123 @@ def test_v2_wrappers_on_cpu_are_the_plain_version():
     assert pooled.dtype == tw.dtype == torch.float32
 
 
-@pytest.mark.parametrize("B,rb,V,splits", [
-    (128, 8, 50000, 9),    # 16 row blocks: 9 splits fill 132 multiprocessors
-    (128, 2, 50000, 3),
-    (64, 8, 50000, 16),    # 8 row blocks: capped at 16 splits
-    (3, 1, 100, 2),        # never more splits than vocab tiles
+@pytest.mark.parametrize("B,S,V,splits", [
+    (128, 256, 50000, 4),   # the document batch: 1,024 word rows
+    (64, 64, 50000, 16),    # the query batch: 128 word rows, the most splits
+    (512, 256, 50000, 1),   # 4,096 word rows: enough blocks without a split
+    (16, 512, 50000, 16),
+    (3, 40, 100, 4),        # never more ranges than 32-column runs
 ])
-def test_v2_dh_vocab_splits_and_shared_memory(B, rb, V, splits):
-    assert dh_vocab_splits_v2(B, rb, V) == splits
-    # the resident 64 x 768 bf16 tile and the staging fit one block's
-    # 227 KB; a hidden width of 2048 does not
-    assert shared_bytes(768, rb) <= 232_448 < shared_bytes(2048, rb)
+def test_v2_dh_vocab_splits_and_shared_memory(B, S, V, splits):
+    """The dh gather splits the vocabulary only where word rows are few,
+    its ranges cover the vocabulary in whole 32-column runs, in order; the
+    forward's resident 64 x 768 bf16 tile and the match pass's ring fit
+    one block's 227 KB at every row block the family picks (a hidden width
+    of 2048 does not fit the forward); the backward refuses a sequence
+    whose 16-row groups the match pass cannot list, never a hidden width:
+    past 768 the gathers cut it into slices."""
     from splade_tpu_torch.ops import fused_splade_v2
 
-    assert fused_splade_v2._check(torch.zeros(B, 4, 768), rb) == rb
+    assert dh_vocab_splits_v2(B, S, V) == splits
+    ranges = vocab_ranges(V, splits)
+    assert ranges[0][0] == 0 and ranges[-1][1] == V
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+    assert all(vb % 32 == 0 for vb, _ in ranges)
+    for rb in (1, 2, 4, 8):
+        assert fwd_shared_bytes(768, rb) <= 232_448 < fwd_shared_bytes(2048,
+                                                                      rb)
+        # two match-pass blocks an SM at the training shapes
+        assert 2 * (match_shared_bytes(S, rb) + 1024) <= 233_472
+    shaped = lambda *shape: torch.zeros(()).expand(*shape)  # no storage
+    rb = pick_row_block(B)
+    for backward in (False, True):
+        assert fused_splade_v2._check(shaped(B, S, 768), rb, backward) == rb
     with pytest.raises(ValueError, match="shared memory"):
-        fused_splade_v2._check(torch.zeros(B, 4, 2048), rb)
+        fused_splade_v2._check(shaped(B, 4, 2048), rb, False)
+    assert fused_splade_v2._check(shaped(B, 4, 1024), rb, True) == rb
+    family = fused_splade_v2.ROW_BLOCKED
+    assert family.dh_splits(B, S, 768, V) == (1, splits)
+    assert family.dh_splits(B, S, 1024, V) == (2, splits)
+    # the match pass lists every 16-row group of its row block
+    with pytest.raises(ValueError, match="match pass"):
+        fused_splade_v2._check(shaped(B, 1 << 17, 768), B, True)
+
+
+def _exact_match_case(seed, B, S, H=24, V=300):
+    """Small-integer inputs (every score exact in f32 in any order, exact
+    ties common), a fully padded last row, holes in the mask, g = 0 in
+    every 7th column and a few more."""
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.integers(-2, 3, (B, S, H)).astype(np.float32))
+    w = torch.from_numpy(rng.integers(-2, 3, (V, H)).astype(np.float32))
+    bias = torch.from_numpy(rng.integers(-2, 3, (V,)).astype(np.float32))
+    lengths = rng.integers(1, S + 1, size=(B,))
+    lengths[-1] = 0
+    mask = (np.arange(S)[None] < lengths[:, None]).astype(np.int64)
+    mask[0, 1::5] = 0                     # holes inside a row
+    mask = torch.from_numpy(mask)
+    m, _ = fused_splade_pool_plain(h, w, bias, mask)
+    g_pre = fold_cotangent(torch.from_numpy(
+        rng.normal(size=(B, V)).astype(np.float32)), m)
+    g_pre[:, ::7] = 0.0
+    return h, w, bias, mask, m, g_pre
+
+
+@pytest.mark.parametrize("row_block", [1, 2, 4, 8])
+@pytest.mark.parametrize("S", [40, 37, 64])
+def test_v2_match_plain_equals_the_per_row_bitmask(row_block, S):
+    """The row-blocked match pass's plain version walks the row blocks as
+    the kernel does and gives the per-row plain bitmask bit for bit: exact
+    ties kept, nothing on the padded row, a hole, a g = 0 column or past S
+    (S = 37 and 40 end inside a 16-row group and a 32-position word; V =
+    300 leaves a ragged last vocab tile). On a CPU tensor the wrapper is
+    the plain version and counts no launch."""
+    B = 8
+    h, w, bias, mask, m, g_pre = _exact_match_case(S + row_block, B, S)
+    want = fused_splade_bwd_match_plain(h, w, bias, mask, m, g_pre)
+    got = fused_splade_bwd_match_v2_plain(h, w, bias, mask, m, g_pre,
+                                          row_block)
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    before = fused_splade_bwd_match_v2.launches
+    assert torch.equal(fused_splade_bwd_match_v2(h, w, bias, mask, m, g_pre,
+                                                 row_block), want)
+    assert fused_splade_bwd_match_v2.launches == before
+    r = torch.arange(32, dtype=torch.int32)
+    bits = ((got[:, :, None, :] >> r[None, None, :, None]) & 1).view(
+        B, -1, got.shape[2])
+    assert int(bits[:, :, ::7].sum()) == 0 and int(bits[-1].sum()) == 0
+    assert int(bits[:, S:].sum()) == 0
+    assert int((bits[:, :S] * (mask[:, :, None] == 0)).sum()) == 0
+    live = (g_pre != 0) & (mask.sum(1, keepdim=True) > 0)
+    assert bool((bits.sum(1)[live] >= 1).all())  # every maximum found
+    assert int((bits.sum(1) > 1).sum()) > 0      # exact ties, every one kept
+
+
+@pytest.mark.parametrize("splits", [2, 3, 5])
+def test_v2_split_dh_gather_equals_the_unsplit_one_and_jax(splits):
+    """The dh gather's plain version over ordered vocab ranges equals the
+    unsplit gather within 1e-6 and, from the row-blocked bitmask, the JAX
+    fused_splade_pool_v2 VJP's dh (Pallas, interpret mode) within the
+    gradient tolerance; so does the whole backward through the match pass
+    and both gathers."""
+    from splade_tpu_torch.ops.fused_splade import fused_splade_gather_dw_plain
+
+    B, row_block = 4, 2
+    h, w, bias, mask = (torch.from_numpy(x) for x in _case(17, B, V=300))
+    m, _ = fused_splade_pool_v2_plain(h, w, bias, mask, row_block)
+    p = torch.log1p(torch.relu(m))
+    g_pre = fold_cotangent(torch.cos(p) * p + torch.sin(p), m)
+    match = fused_splade_bwd_match_v2_plain(h, w, bias, mask, m, g_pre,
+                                            row_block)
+    whole = fused_splade_gather_dh_plain(match, w, g_pre, h.shape[1])
+    split = fused_splade_gather_dh_plain(match, w, g_pre, h.shape[1], splits)
+    torch.testing.assert_close(split, whole, rtol=1e-6, atol=1e-6)
+    assert len(vocab_ranges(300, splits)) == splits
+    _, _, want = _jax_out_and_grads(*(x.numpy() for x in (h, w, bias, mask)),
+                                    row_block)
+    np.testing.assert_allclose(split.numpy(), want[0], **GRAD_TOL)
+    dw = fused_splade_gather_dw_plain(match, h, g_pre)
+    np.testing.assert_allclose(dw.numpy(), want[1], **GRAD_TOL)
 
 
 class _RecordingLibrary:
@@ -213,9 +311,9 @@ def test_launchers_count_where_they_launch_and_nowhere_else(
     """Both families go through one set of launchers: each adds one to its
     kernel's count after the C entry returned, never for an empty batch;
     the entry's name and its integer arguments (B, S, H, V, the row block,
-    the dh splits) are the family's. The per-row backward runs its match
-    pass once a call and then the gathers asked for; the row-blocked one
-    runs one recomputing kernel an output."""
+    the dh gather's hidden slices and vocab splits) are the family's. Each
+    backward call runs the family's match pass once and then the gathers
+    asked for, which both families share."""
     from splade_tpu_torch.ops import _cuda, fused_splade, fused_splade_v2
 
     fam = getattr(fused_splade_v2 if family == "ROW_BLOCKED" else fused_splade,
@@ -230,6 +328,7 @@ def test_launchers_count_where_they_launch_and_nowhere_else(
     m, g = torch.zeros(B, V), torch.ones(B, V)
     count = lambda: {k: fn.launches for k, fn in fam.counted.items()}
     zero = dict.fromkeys(fam.counted, 0)
+    assert set(zero) == {"fwd", "match", "dh", "dw"}
 
     fused_splade._launch_fwd(fam, h[:0], w, bias, mask[:0], row_block)
     empty = fused_splade._launch_bwd(fam, ("dh", "dw"), h[:0], w, bias,
@@ -244,24 +343,21 @@ def test_launchers_count_where_they_launch_and_nowhere_else(
     fused_splade._launch_bwd(fam, ("dw",), h, w, bias, mask, m, g, row_block)
     out = fused_splade._launch_bwd(fam, ("dh", "dw"), h, w, bias, mask, m, g,
                                    row_block)
-    assert set(out) == {"dh", "dw"}
-    splits = fam.dh_splits(B, S, H, V, *extra)
+    assert set(out) == {"dh", "dw"} and out["dh"].shape == (B, S, H)
+    hidden, vocab = fam.dh_splits(B, S, H, V)
+    if family == "PER_ROW":  # hidden slices, the whole vocabulary
+        assert (hidden, vocab) == (dh_hidden_splits(B, S, H), 1)
+    else:  # the whole hidden width, ordered vocab ranges
+        assert (hidden, vocab) == (1, dh_vocab_splits_v2(B, S, V)) == (1, 10)
     # the forward: 6 pointers, then the ints and the stream
     assert [(e, a[6:-1]) for e, a in lib.calls[:1]] == [
         (fam.prefix + "_fwd", (B, S, H, V, *extra))]
-    if family == "PER_ROW":
-        # the match pass: 7 pointers; the gathers: 4
-        assert count() == dict(fwd=1, match=3, dh=2, dw=2)
-        ints = [(e, a[7 if e.endswith("_match") else 4:-1])
-                for e, a in lib.calls[1:]]
-        match = (fam.prefix + "_bwd_match", (B, S, H, V))
-        dh = (fam.prefix + "_bwd_dh", (B, S, H, V, splits))
-        dw = (fam.prefix + "_bwd_dw", (B, S, H, V))
-        assert ints == [match, dh, match, dw, match, dh, dw]
-    else:
-        # each recomputing kernel: 7 pointers
-        assert count() == dict(fwd=1, dh=2, dw=2)
-        ints = [(e, a[7:-1]) for e, a in lib.calls[1:]]
-        dh = (fam.prefix + "_bwd_dh", (B, S, H, V, *extra, splits))
-        dw = (fam.prefix + "_bwd_dw", (B, S, H, V, *extra))
-        assert ints == [dh, dw, dh, dw]
+    # one match pass a backward call, then the gathers asked for
+    assert count() == dict(fwd=1, match=3, dh=2, dw=2)
+    # the match pass: 7 pointers; the gathers: 4
+    ints = [(e, a[7 if e.endswith("_match") else 4:-1])
+            for e, a in lib.calls[1:]]
+    match = (fam.prefix + "_bwd_match", (B, S, H, V, *extra))
+    dh = ("splade_fused_pool_bwd_dh", (B, S, H, V, hidden, vocab))
+    dw = ("splade_fused_pool_bwd_dw", (B, S, H, V))
+    assert ints == [match, dh, match, dw, match, dh, dw]

@@ -27,10 +27,10 @@ from splade_tpu_torch.ops.fused_splade import (fold_cotangent,
                                                fused_splade_pool,
                                                fused_splade_pool_plain,
                                                match_words)
-from splade_tpu_torch.ops.fused_splade_v2 import (fused_splade_bwd_dh_v2,
-                                                  fused_splade_bwd_dw_v2,
-                                                  fused_splade_maxima_v2,
-                                                  fused_splade_pool_v2)
+from splade_tpu_torch.ops.fused_splade_v2 import (
+    fused_splade_bwd_dh_v2, fused_splade_bwd_dw_v2, fused_splade_bwd_match_v2,
+    fused_splade_bwd_match_v2_plain, fused_splade_maxima_v2,
+    fused_splade_pool_v2)
 from splade_tpu_torch.ops import splash_attention as sa
 from splade_tpu_torch.ops.rescore_kernel import (rescore_match,
                                                  rescore_match_plain,
@@ -201,6 +201,7 @@ BWD_SHAPES = [
     (2, 256, 768, 50000),   # document length
     (64, 64, 768, 50000),   # the training step's query batch
     (128, 256, 768, 50000),  # the training step's documents (64 + 64)
+    (8, 64, 1024, 5000),    # wider than a gather slice: H cut in slices
 ]
 
 
@@ -385,6 +386,7 @@ V2_SHAPES = [
     (4, 256, 768, 50000, 2),    # document length
     (64, 64, 768, 50000, 0),    # the training step's query batch (picks 8)
     (128, 256, 768, 50000, 4),  # the training step's documents
+    (8, 64, 1024, 5000, 4),     # two dh slices of 512, dW slices 768 + 256
 ]
 
 
@@ -423,14 +425,15 @@ def _kernel_route_v2(h, w, bias, mask, gout, rb):
 @pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES)
 def test_v2_backward_exact_inputs(cuda, B, S, H, V, rb):
     """Check (a) for the row-blocked family, at the per-row family's
-    tolerance; and its sums have the per-row kernels' owner and order
-    (tiles and columns ascending for dh, rows ascending for dW)."""
+    tolerance; one backward call runs one match pass and one gather a
+    gradient."""
     case = _bwd_case(B, S, H, V, seed=B * S + V, device=cuda, exact=True)
-    dh0, dw0 = fused_splade_bwd_dh_v2.launches, fused_splade_bwd_dw_v2.launches
+    counters = (fused_splade_bwd_match_v2, fused_splade_bwd_dh_v2,
+                fused_splade_bwd_dw_v2)
+    before = [fn.launches for fn in counters]
     got = _kernel_route_v2(*case, rb)
     torch.cuda.synchronize()
-    assert (fused_splade_bwd_dh_v2.launches,
-            fused_splade_bwd_dw_v2.launches) == (dh0 + 1, dw0 + 1)
+    assert [fn.launches - n for fn, n in zip(counters, before)] == [1, 1, 1]
     want = _plain_route(*case)
     for name, a, b in zip(("dh", "dw", "dbias"), got, want):
         assert torch.isfinite(a).all(), name
@@ -472,18 +475,96 @@ def test_v2_backward_recomputes_either_forward(cuda, B, S, H, V, rb):
     assert float((dw - dw1).norm() / dw1.norm()) <= 1e-5
 
 
+@pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES + [
+    (8, 200, 768, 50000, 8),    # S not a multiple of 32: a ragged last word
+    (16, 40, 768, 50000, 4),    # a group past S in the last word
+    (128, 256, 768, 50000, 2),  # the documents at the other row block
+    (64, 64, 768, 50000, 2),
+])
+@pytest.mark.parametrize("exact", [True, False], ids=["exact", "model"])
+def test_v2_match_pass_equals_the_per_row_one_bitwise(cuda, B, S, H, V, rb,
+                                                      exact):
+    """The row-blocked match pass's bitmask equals the per-row match
+    pass's bit for bit on the same inputs and maxima, at every row block:
+    both keep fused_splade_tile.cuh's products. Exact inputs also equal
+    the plain row-blocked bitmask; on model-like inputs (holes in the mask,
+    ragged lengths, a padded row, g = 0 columns) every maximum is found.
+    A repeated call is bitwise equal and each call counts one launch."""
+    h, w, bias, mask, gout = _bwd_case(B, S, H, V, seed=B + S + rb,
+                                       device=cuda, exact=exact)
+    mask[0, 1::7] = 0  # holes inside a row
+    m, _ = fused_splade_maxima(h, w, bias, mask)
+    g_pre = fold_cotangent(gout, m)
+    g_pre[:, ::5] = 0.0
+    before = fused_splade_bwd_match_v2.launches
+    got = fused_splade_bwd_match_v2(h, w, bias, mask, m, g_pre, rb)
+    torch.cuda.synchronize()
+    assert fused_splade_bwd_match_v2.launches == before + 1
+    assert got.shape == (B, match_words(S), V) and got.dtype == torch.int32
+    assert torch.equal(got, fused_splade_bwd_match(h, w, bias, mask, m,
+                                                   g_pre))
+    if exact:
+        assert torch.equal(got, fused_splade_bwd_match_v2_plain(
+            h, w, bias, mask, m, g_pre, rb))
+    bits = torch.stack([(got >> r) & 1 for r in range(32)], 2).view(
+        B, -1, V)
+    live = (g_pre != 0) & (mask.sum(1, keepdim=True) > 0)
+    assert bool((bits[:, :S].sum(1)[live] >= 1).all())
+    assert int(bits[:, S:].sum()) == 0 and int(bits[:, :, ::5].sum()) == 0
+    assert int((bits[:, :S] * (mask[:, :, None] == 0)).sum()) == 0
+    assert torch.equal(got, fused_splade_bwd_match_v2(h, w, bias, mask, m,
+                                                      g_pre, rb))
+
+
+@pytest.mark.parametrize("B,S", [(64, 64), (128, 256), (8, 200)])
+@pytest.mark.parametrize("vocab_splits", [1, 3, 16])
+def test_dh_gather_vocab_splits_equal_plain(cuda, B, S, vocab_splits):
+    """The dh gather over ordered vocab ranges against the plain gather over
+    the same ranges, elementwise (only f32 sum order differs within a
+    range), and bitwise the same when repeated."""
+    from splade_tpu_torch.ops import _cuda
+    from splade_tpu_torch.ops.fused_splade import (add_partials,
+                                                   dh_hidden_splits)
+
+    H, V = 768, 50000
+    h, w, _, _, gout = _bwd_case(B, S, H, V, seed=B + S, device=cuda,
+                                 exact=False)
+    match = _random_bitmask(B, S, V, False, seed=S + vocab_splits,
+                            device=cuda)
+    wb = w.to(torch.bfloat16).contiguous()
+    parts = torch.empty((vocab_splits, B, S, H), device=cuda)
+
+    def run():
+        _cuda.check(_cuda.library().splade_fused_pool_bwd_dh(
+            match.data_ptr(), wb.data_ptr(), gout.data_ptr(),
+            parts.data_ptr(), B, S, H, V, dh_hidden_splits(B, S, H),
+            vocab_splits, torch.cuda.current_stream().cuda_stream),
+            "splade_fused_pool_bwd_dh")
+        return add_partials(parts.clone())
+
+    got = run()
+    want = fused_splade_gather_dh_plain(match, wb, gout, S, vocab_splits)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-5 * float(want.abs().max()))
+    assert torch.equal(got, run())
+
+
 @pytest.mark.parametrize("H", [64, 200, 768, 1024, 2048])
 @pytest.mark.parametrize("rb", [1, 2, 4, 8])
 def test_v2_shared_bytes_mirror_equals_the_kernels(cuda, H, rb):
-    """``shared_bytes`` mirrors the layout the two ``.cu`` files compute
-    for themselves; the launch path asks the built kernels."""
+    """``fwd_shared_bytes`` and ``match_shared_bytes`` mirror the layouts
+    the two ``.cu`` files compute for themselves; the launch path asks the
+    built kernels."""
     from splade_tpu_torch.ops import _cuda
-    from splade_tpu_torch.ops.fused_splade_v2 import shared_bytes
+    from splade_tpu_torch.ops.fused_splade_v2 import (fwd_shared_bytes,
+                                                      match_shared_bytes)
 
     lib = _cuda.library()
-    assert shared_bytes(H, rb) == max(
-        lib.splade_fused_pool_v2_fwd_shared_bytes(H, rb),
-        lib.splade_fused_pool_v2_bwd_shared_bytes(H, rb))
+    assert fwd_shared_bytes(H, rb) == lib.splade_fused_pool_v2_fwd_shared_bytes(
+        H, rb)
+    for S in (1, 37, 64, 200, 256, 512):
+        assert match_shared_bytes(S, rb) == (
+            lib.splade_fused_pool_v2_bwd_shared_bytes(S, rb))
 
 
 def test_v2_refuses_a_hidden_width_its_tile_cannot_hold(cuda):
@@ -496,7 +577,8 @@ def test_an_empty_batch_launches_and_counts_nothing(cuda):
     h, w, bias, mask = _pool_case(4, 16, 64, 100, seed=2, device=cuda)
     m, g = torch.zeros(0, 100, device=cuda), torch.ones(0, 100, device=cuda)
     fns = (fused_splade_pool, fused_splade_bwd_match, fused_splade_bwd_dh,
-           fused_splade_bwd_dw, fused_splade_pool_v2, fused_splade_bwd_dh_v2,
+           fused_splade_bwd_dw, fused_splade_pool_v2,
+           fused_splade_bwd_match_v2, fused_splade_bwd_dh_v2,
            fused_splade_bwd_dw_v2)
     before = [fn.launches for fn in fns]
     assert fused_splade_maxima(h[:0], w, bias, mask[:0])[0].shape == (0, 100)
@@ -505,6 +587,8 @@ def test_an_empty_batch_launches_and_counts_nothing(cuda):
     assert fused_splade_gather_dh(match, w, g, 16).shape == (0, 16, 64)
     assert float(fused_splade_gather_dw(match, h[:0], g).abs().max()) == 0
     assert fused_splade_maxima_v2(h[:0], w, bias, mask[:0])[0].shape == (0, 100)
+    assert fused_splade_bwd_match_v2(h[:0], w, bias, mask[:0], m,
+                                     g).shape == (0, 1, 100)
     for dh, dw in ((fused_splade_bwd_dh, fused_splade_bwd_dw),
                    (fused_splade_bwd_dh_v2, fused_splade_bwd_dw_v2)):
         assert dh(h[:0], w, bias, mask[:0], m, g).shape == (0, 16, 64)
