@@ -13,11 +13,12 @@ Phases (any failure exits non-zero; nothing is caught):
    encode (B=32, S=256) with H=768, V=50,000 and a fully padded row, and at
    the training shapes below (pooled values, token weights, m and pos); the
    exact rescore at B=32, C=1000, M=64, T=64 over a 1M-document doc-major
-   block; the pool's kernels at the training shapes (docs B=128, S=256;
-   queries B=64, S=64) and at B=8, S=200 (a ragged last bitmask word): the
-   forward wrapper against the plain forward, and for the backward (the
-   per-row family's match pass, dh gather and dW gather) the whole kernel
-   route against the whole plain route: (a) small-integer inputs
+   block (against exact_rescore and its plain version, a repeated call
+   bitwise equal); the pool's kernels at the training shapes (docs B=128,
+   S=256; queries B=64, S=64) and at B=8, S=200 (a ragged last bitmask
+   word): the forward wrapper against the plain forward, and for the
+   backward (the per-row family's match pass, dh gather and dW gather) the
+   whole kernel route against the whole plain route: (a) small-integer inputs
    elementwise, (b) the model's own states by norm, (c) the recompute
    against the forward kernel's maxima, every row with its exact ties
    counted, a repeated backward bitwise equal; the match pass alone, its
@@ -187,6 +188,17 @@ RECOMPUTE_KERNELS_MS = {
     (128, 256, 2): {"dh": 103.97, "dw": 44.34},
     (64, 64, 8): {"dh": 29.53, "dw": 11.17},
     (64, 64, 2): {"dh": 38.99, "dw": 11.25}}
+# (B, S, row_block) -> ms of the row-blocked family's first forward (a 64-row
+# W tile resident in shared memory, the row block's flattened rows walked in
+# WMMA chunks padding included), which the walk forward replaced: PERF.md §6
+# row 4, on an H100 80GB HBM3 at 700 W, logged beside this run's times (not
+# measured here, so not in the kernels line)
+RESIDENT_TILE_FWD_MS = {(32, 256, 8): 5.616, (32, 64, 8): 1.873,
+                        (32, 256, 2): 5.843, (32, 64, 2): 2.182}
+# ms of the first rescore kernel (one thread a candidate, each slot compared
+# with every query term) at check_rescore's shape: PERF.md §6 rows 7-8, as
+# above
+SCAN_RESCORE_MS = 0.0542
 # (B, S) of the pool at training: documents (64 positives + 64 negatives)
 # and unpacked queries. Phase 2 holds every family's forward and backward
 # wrappers against the plain versions at these shapes, and phase 5 launches
@@ -337,6 +349,20 @@ def cuda_ms(torch, fn, iters: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(torch, fn, iters: int, replays: int = 5) -> float:
+    """Device ms of one ``fn()``, which launches on torch's current stream:
+    a CUDA graph of ``iters`` calls, replayed and timed by CUDA events. A
+    kernel of a few microseconds takes less time than Python needs to
+    launch it, so timed call by call (cuda_ms) it measures the host."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    return cuda_ms(torch, graph.replay, iters=replays, warmup=1) / iters
+
+
 def bound(bytes_moved: float, ops: float, peak_ops: float):
     t_bytes = bytes_moved / H100_BYTES * 1e3
     t_ops = ops / peak_ops * 1e3
@@ -352,10 +378,10 @@ PTXAS_NUMBERS = {
     "registers": re.compile(r"Used (\d+) registers"),
     "static_smem_bytes": re.compile(r"(\d+) bytes smem"),
 }
-#: the kernels this slice redesigned (the row-blocked match pass) or moved
-#: onto the walk it shares (the pool forward), whose ptxas report phase 1
-#: spells out
-REDESIGNED = ("fused_splade_v2_bwd_match_kernel", "fused_splade_fwd_kernel")
+#: the kernels this slice redesigned, whose ptxas report phase 1 spells out:
+#: the exact rescore, and the walk forward that the row-blocked family's
+#: forward now launches too
+REDESIGNED = ("rescore_kernel", "fused_splade_fwd_kernel")
 
 
 def ptxas_summary(build_log: str) -> dict:
@@ -577,10 +603,11 @@ def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
     """The row-blocked forward at ``row_block`` on the inputs the per-row
     kernel was just held at: the wrapper against the plain versions (the
     per-row one's values ``ref``, within POOL_TOL), m and pos bitwise equal
-    to the per-row kernel's, a fully padded row zero, and (timed) the C
-    entry's time beside the per-row kernel's. The bound and the library
-    yardstick are the per-row kernel's: the same function on the same
-    inputs."""
+    to the per-row kernel's (the same walk with ``row_block`` batch rows a
+    block), a fully padded row zero, and (timed) the C entry's time beside
+    the per-row kernel's and the replaced kernel's. The bound and the
+    library yardstick are the per-row kernel's: the same function on the
+    same inputs."""
     from splade_tpu_torch.ops import _cuda
     from splade_tpu_torch.ops.fused_splade import (float_key,
                                                    fused_splade_maxima)
@@ -633,9 +660,13 @@ def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
         ms = cuda_ms(torch, kernel, iters=20)
         plain_ms = cuda_ms(torch, lambda: fused_splade_pool_v2_plain(
             h, w, bias, maskf, row_block), iters=3, warmup=1)
+    replaced = RESIDENT_TILE_FWD_MS.get((B, S, row_block))
     log(f"  pool v2 B={B} S={S} row_block={row_block}: kernel {ms:.4f} ms "
-        f"(per-row kernel {v1['ms']:.4f} ms), plain {plain_ms:.4f} ms, "
-        f"library {v1['library_ms']:.4f} ms, bound {v1['bound_ms']:.4f} ms")
+        f"(per-row kernel {v1['ms']:.4f} ms; the resident-tile kernel it "
+        f"replaced "
+        + (f"{replaced} ms in PERF.md" if replaced else "not measured here")
+        + f"), plain {plain_ms:.4f} ms, library {v1['library_ms']:.4f} ms, "
+        f"bound {v1['bound_ms']:.4f} ms ({v1['bound_ms'] / ms:.1%} of it)")
     out.update(ms=ms, v1_ms=v1["ms"], plain_ms=plain_ms,
                bound_ms=v1["bound_ms"], bound_by=v1["bound_by"],
                library_ms=v1["library_ms"])
@@ -682,10 +713,13 @@ def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
     torch.cuda.synchronize()
     err = max(float((o - r).abs().max()) for o in (out, out_rows)
               for r in (ref, plain))
+    repeat = bool(torch.equal(out, out_rows))
     log(f"  rescore B={B} C={C} M={M} T={T} N={N}: max |err| {err:.3e} "
-        f"(tol {RESCORE_TOL}), nonzero scores {int((ref > 0).sum())}")
-    if not err <= RESCORE_TOL:
-        raise SystemExit("rescore kernel disagrees with exact_rescore")
+        f"(tol {RESCORE_TOL}), nonzero scores {int((ref > 0).sum())}, a "
+        f"repeated call bitwise equal: {repeat}")
+    if not (err <= RESCORE_TOL and repeat):
+        raise SystemExit("rescore kernel disagrees with exact_rescore or "
+                         "with itself")
     lib = _cuda.library()
     ci = cand.to(torch.int32)
     res = torch.empty((B, C), dtype=torch.float32, device="cuda")
@@ -697,21 +731,27 @@ def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
             N, B, C, M, T, torch.cuda.current_stream().cuda_stream),
             "splade_rescore_match")
 
-    ms = cuda_ms(torch, kernel, iters=200, warmup=5)
+    ms = graph_ms(torch, kernel, iters=200)
+    launched_ms = cuda_ms(torch, kernel, iters=200, warmup=5)
     plain_ms = cuda_ms(torch, lambda: rescore_match_plain(*args), iters=5,
                        warmup=1)
     gather_ms = cuda_ms(torch, lambda: exact_rescore(
         d_terms, d_vals, d_scale, sparse_query_dense(q_idx, q_val, V), cand),
         iters=20, warmup=2)
     moved = B * C * 8 + B * C * M * 5 + B * C * 4 + B * T * 8 + B * C * 4
-    ops = float(B) * C * M * T
+    # one table lookup and one multiply-add a doc slot of nonzero value
+    ops = 2.0 * int((d_vals[cand] != 0).sum())
     bound_ms, bound_by = bound(moved, ops, H100_FP32_OPS)
-    log(f"  rescore: kernel {ms:.5f} ms, plain match {plain_ms:.4f} ms, "
+    log(f"  rescore: kernel {ms:.5f} ms in a CUDA graph, {launched_ms:.5f} "
+        f"ms a launch from Python (the scanning kernel it replaced "
+        f"{SCAN_RESCORE_MS} ms in PERF.md, timed launch by launch), plain "
+        f"match {plain_ms:.4f} ms, "
         f"plain gather (exact_rescore) {gather_ms:.4f} ms, bound "
         f"{bound_ms:.5f} ms ({bound_by}: {moved / 1e6:.2f} MB, "
-        f"{ops:.3e} compares)")
+        f"{ops:.3e} lookups and multiply-adds; {bound_ms / ms:.1%} of it)")
     return dict(shape=f"B={B} C={C} M={M} T={T} N={N}", max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, gather_ms=gather_ms,
+                ms=ms, launched_ms=launched_ms, plain_ms=plain_ms,
+                gather_ms=gather_ms,
                 bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
 
 
@@ -2811,7 +2851,7 @@ def main() -> int:
              launches=launches["rescore_match"],
              **{k: resc[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
-             shapes=[resc]),
+             shapes=[resc], ptxas=ptxas["rescore_kernel"]),
     ]
     # the per-row backward: the match pass (the recompute of both Pallas
     # kernels), then each gradient's gather; a gradient's "ms" is its match
@@ -2846,7 +2886,7 @@ def main() -> int:
     v2_bwd = "splade_tpu_torch/csrc/fused_splade_v2_bwd.cu"
     for name, source, line, also, shapes in (
             ("fused_splade_pool_v2",
-             "splade_tpu_torch/csrc/fused_splade_v2_fwd.cu", 46, None,
+             "splade_tpu_torch/csrc/fused_splade_fwd.cu", 46, None,
              [x["v2"][rb] for x in (pool_d, pool_q) for rb in V2_ROW_BLOCKS]),
             ("fused_splade_bwd_match_v2", v2_bwd, 65, 87,
              [x[f"v2 rb={rb}"]["match"] for x in (bwd_d, bwd_q, bwd_r)

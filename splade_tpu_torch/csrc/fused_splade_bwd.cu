@@ -230,7 +230,7 @@ fused_splade_bwd_match_kernel(const __nv_bfloat16* __restrict__ h,
         wmma::load_matrix_sync(af[i], As + (wr * 64 + i * 16) * M_LDS + kk,
                                M_LDS);
 #pragma unroll
-      for (int j = 0; j < WARP_FC; ++j)  // B = W_tile^T, as in mma_step
+      for (int j = 0; j < WARP_FC; ++j)  // B = W_tile^T: W rows read as [k, v]
         wmma::load_matrix_sync(bf[j], Bs + (wc * 32 + j * 16) * M_LDS + kk,
                                M_LDS);
 #pragma unroll

@@ -1,7 +1,10 @@
-// Fused SPLADE vocabulary projection + masked sequence max, forward (Hopper).
+// Fused SPLADE vocabulary projection + masked sequence max, forward (Hopper),
+// for both kernel families of the pool.
 //
 // Replaces splade_tpu/ops/fused_splade.py::_fwd_kernel (the Pallas forward
-// behind fused_splade_pool):
+// behind fused_splade_pool) and splade_tpu/ops/fused_splade_v2.py::_fwd_kernel
+// (:46, launched at :156, behind fused_splade_pool_v2, which hands row_block
+// batch rows to one grid step):
 //
 //     score[b, s, v] = h[b, s, :] . W[v, :] + bias[v]     (invalid s -> -1e30)
 //     m[b, v]        = max_s score[b, s, v]
@@ -9,7 +12,13 @@
 //
 // The [B, S, V] scores never reach device memory. The wrapper
 // (ops/fused_splade.py) fills pos with the key of -1e30, decodes it, and
-// applies log1p(relu) and the mask.
+// applies log1p(relu) and the mask. The two families differ only in how many
+// batch rows a block owns: the per-row family (splade_fused_pool_fwd) about
+// 1,024 positions' worth (rows_a_block), the row-blocked one
+// (splade_fused_pool_v2_fwd) exactly its row_block, as the TPU kernel's grid
+// step does. One kernel and one epilogue serve both, so their m and pos are
+// equal bit for bit: every score keeps one arithmetic and a maximum has no
+// order.
 //
 // What bounds it: the tensor cores, 2*valid*H*V operations (0.32 ms at the
 // served document batch, B=32 S=256 H=768 V=50,000, with about half the
@@ -18,13 +27,16 @@
 // every score chunk stored to shared memory in f32 and read back by both
 // maxima, padded rows computed like valid ones) ran at 6% of that: W (77 MB,
 // more than L2) crossed from device memory once per batch row, and the
-// tensor cores waited on loads. Here:
+// tensor cores waited on loads. The row-blocked family's first version kept
+// a 64 x H W tile resident in shared memory instead (97 KB at H = 768: one
+// block an SM, and H = 2048 did not fit), walked the row block's flattened
+// rows padding included, and ran at 5.6%. Here:
 // - A block owns one tile of BN = 128 vocab columns and the valid rows of RB
-//   batch rows (about 1,024 positions): the flattened list of its live
-//   16-row groups (16 positions of one batch row, at least one of them
-//   valid, with their valid rows as a bitmask), which it builds from the
-//   mask. A group with no valid row is never loaded or multiplied, and
-//   invalid rows are never loaded, so padding costs nothing. The paths pad:
+//   batch rows: the flattened list of its live 16-row groups (16 positions
+//   of one batch row, at least one of them valid, with their valid rows as a
+//   bitmask), which it builds from the mask. A group with no valid row is
+//   never loaded or multiplied, and invalid rows are never loaded, so
+//   padding costs nothing. The paths pad:
 //   served query batches are 10-20% valid (short queries padded to 64,
 //   the batch to a multiple of 8 rows), V33 queries about 30%, V33
 //   documents about 90%. On an H100 (scripts/bench_forward_kernels.py,
@@ -44,8 +56,12 @@
 //   32-wide k-slices of both h and W (80-byte rows: no bank conflict). The
 //   ring runs on across tiles, so the next tile's first slices load during
 //   this tile's last products and its epilogue. Two blocks an SM (214
-//   registers a thread, 92-112 KB of shared memory a block). The walk is
-//   fused_splade_walk.cuh, which the row-blocked match pass shares.
+//   registers a thread, 92-112 KB of shared memory a block at the per-row
+//   family's row counts). The walk is fused_splade_walk.cuh, which the
+//   row-blocked match pass shares. It streams the hidden width, so H does
+//   not bound the shared memory: only the column keys and the group list of
+//   RB batch rows do (shared_bytes(S, RB), which the row-blocked wrapper
+//   asks before it launches).
 // - The scores stay in the accumulator fragments. + bias in f32, then the
 //   column maxima are reduced on the fragments (folded across a warp's
 //   fragments of one batch row, then over the 8 lanes that share a column
@@ -58,16 +74,17 @@
 // What holds it above the bound (reasoned, not measured): the L2 -> shared
 // memory traffic of the two streamed operands (64 operations a byte of
 // it), then the epilogue, which the other block of the SM covers only in
-// part.
+// part. With few batch rows a block (the row-blocked family at a small
+// row_block), each W tile crosses from L2 into shared memory once per batch
+// range, and a range's live groups may fill only part of a 128-row tile.
 //
-// The backward's match pass (fused_splade_bwd.cu) and the row-blocked family
-// find each argmax by equality with this kernel's m, so each score keeps the
-// arithmetic of fused_splade_tile.cuh: bf16 products in k-slices of 16,
-// ascending from a zeroed f32 accumulator up to H rounded to whole 64-wide
-// steps, one HMMA.16816 a slice (what a WMMA 16x16x16 product compiles to on
-// sm_90, one per n8 half), then + bias in f32. The tile shapes and the ring
-// change no product. The ragged last vocab tile (50,000 is not a multiple of
-// BN) is masked here: W is never padded or copied.
+// The backward's match passes find each argmax by equality with this
+// kernel's m, so each score keeps the arithmetic of fused_splade_tile.cuh:
+// bf16 products in k-slices of 16, ascending from a zeroed f32 accumulator up
+// to H rounded to whole 64-wide steps, one HMMA.16816 a slice, then + bias in
+// f32. The tile shapes and the ring change no product. The ragged last vocab
+// tile (50,000 is not a multiple of BN) is masked here: W is never padded or
+// copied.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -85,7 +102,7 @@ using namespace splade_walk;
 constexpr int ROWS_PER_BLOCK = 1024;    // positions a block aims at
 constexpr int MAX_RB = 16;              // batch rows a block at most
 
-// batch rows a block owns at sequence length S
+// batch rows a block of the per-row family owns at sequence length S
 __host__ __device__ __forceinline__ int rows_a_block(int S) {
   return max(1, min(MAX_RB, ROWS_PER_BLOCK / max(S, 1)));
 }
@@ -245,10 +262,11 @@ fused_splade_fwd_kernel(const __nv_bfloat16* __restrict__ h,
   }
 }
 
+// The kernel with RB batch rows a block; a shared-memory size the card
+// refuses comes back as the launch's error.
 int launch(const void* h, const void* w, const void* bias, const void* mask,
-           void* m_out, void* pos_key, int B, int S, int H, int V,
+           void* m_out, void* pos_key, int B, int S, int H, int V, int RB,
            void* stream, bool vocab_first) {
-  const int RB = rows_a_block(S);
   const int bytes = shared_bytes(S, RB);
   // above 48 KB, dynamic shared memory needs the kernel's opt-in
   cudaError_t err = cudaFuncSetAttribute(
@@ -275,7 +293,8 @@ extern "C" int splade_fused_pool_fwd(const void* h, const void* w,
                                      const void* bias, const void* mask,
                                      void* m_out, void* pos_key, int B, int S,
                                      int H, int V, void* stream) {
-  return launch(h, w, bias, mask, m_out, pos_key, B, S, H, V, stream, true);
+  return launch(h, w, bias, mask, m_out, pos_key, B, S, H, V,
+                rows_a_block(S), stream, true);
 }
 
 // The same launch with its blocks numbered batch range first: the same
@@ -285,5 +304,26 @@ extern "C" int splade_fused_pool_fwd(const void* h, const void* w,
 extern "C" int splade_fused_pool_fwd_batch_first(
     const void* h, const void* w, const void* bias, const void* mask,
     void* m_out, void* pos_key, int B, int S, int H, int V, void* stream) {
-  return launch(h, w, bias, mask, m_out, pos_key, B, S, H, V, stream, false);
+  return launch(h, w, bias, mask, m_out, pos_key, B, S, H, V,
+                rows_a_block(S), stream, false);
+}
+
+// The row-blocked family's forward: the same kernel with exactly RB batch
+// rows a block. Arguments as splade_fused_pool_fwd's, RB dividing B; the
+// wrapper refuses an RB whose shared memory exceeds the card's by
+// splade_fused_pool_v2_fwd_shared_bytes.
+extern "C" int splade_fused_pool_v2_fwd(const void* h, const void* w,
+                                        const void* bias, const void* mask,
+                                        void* m_out, void* pos_key, int B,
+                                        int S, int H, int V, int RB,
+                                        void* stream) {
+  if (RB < 1 || B % RB || H % 8) return (int)cudaErrorInvalidValue;
+  return launch(h, w, bias, mask, m_out, pos_key, B, S, H, V, RB, stream,
+                true);
+}
+
+// Dynamic shared memory the forward asks for at sequence length S and RB
+// batch rows a block (a size, not an error code).
+extern "C" int splade_fused_pool_v2_fwd_shared_bytes(int S, int RB) {
+  return shared_bytes(S, RB);
 }

@@ -57,7 +57,7 @@ SIGNATURES: Dict[str, List] = {
     # ... B, S, H, V, the row block, stream
     "splade_fused_pool_v2_bwd_match": [_P, _P, _P, _P, _P, _P, _P,
                                        _I, _I, _I, _I, _I, _P],
-    # (H, RB) resp. (S, RB) -> bytes of dynamic shared memory, not an error
+    # (S, RB) -> bytes of dynamic shared memory, not an error
     # code
     "splade_fused_pool_v2_fwd_shared_bytes": [_I, _I],
     "splade_fused_pool_v2_bwd_shared_bytes": [_I, _I],

@@ -9,20 +9,24 @@ Counterpart of ``splade_tpu/ops/fused_splade_v2.py::fused_splade_pool_v2``
     token_w[b,s] = log1p(relu(max_v of the same)) * mask[b, s]
 
 with ``row_block`` batch rows handled together. The forward
-(``csrc/fused_splade_v2_fwd.cu``, replacing ``_fwd_kernel`` at
-``fused_splade_v2.py:46``) keeps a 64-row W tile resident in shared memory
-across the row block's rows and computes ``[row_block·S, H] × [H, 64]``
-per block. The backward (``csrc/fused_splade_v2_bwd.cu``, replacing
-``_bwd_dh_kernel`` at ``:65`` and ``_bwd_dw_kernel`` at ``:87``) is "match
-once, gather twice", as the per-row family's: a match pass in which a block
-owns one vocab tile and the live 16-row groups of ``row_block`` batch rows
-recomputes every score once into the per-row family's argmax bitmask
-``[B, ceil(S/32), V]``; then the per-row family's dh gather (its
-vocabulary split into ordered ranges where word rows are few, the ranges'
-partial sums added in order) and dW gather read it. Every score goes
-through ``csrc/fused_splade_tile.cuh``'s arithmetic, so this family's ``m``
-and bitmask equal the per-row family's bit for bit and either backward may
-recompute either forward.
+(``splade_fused_pool_v2_fwd`` in ``csrc/fused_splade_fwd.cu``, replacing
+``_fwd_kernel`` at ``fused_splade_v2.py:46``) is the per-row family's
+kernel launched with exactly ``row_block`` batch rows a block: a block owns
+one 128-column vocab tile and walks the row block's live 16-row groups
+against it on the register-resident walk of ``csrc/fused_splade_walk.cuh``,
+streaming 32-wide k-slices of h and W, so the hidden width does not bound
+it; the row block's column keys and group list must fit one block's shared
+memory (``fwd_shared_bytes``). The backward
+(``csrc/fused_splade_v2_bwd.cu``, replacing ``_bwd_dh_kernel`` at ``:65``
+and ``_bwd_dw_kernel`` at ``:87``) is "match once, gather twice", as the
+per-row family's: a match pass in which a block owns one vocab tile and the
+live 16-row groups of ``row_block`` batch rows recomputes every score once
+into the per-row family's argmax bitmask ``[B, ceil(S/32), V]``; then the
+per-row family's dh gather (its vocabulary split into ordered ranges where
+word rows are few, the ranges' partial sums added in order) and dW gather
+read it. Every score goes through ``csrc/fused_splade_tile.cuh``'s
+arithmetic, so this family's ``m`` and bitmask equal the per-row family's
+bit for bit and either backward may recompute either forward.
 
 ``row_block=0`` picks the largest of 8, 4, 2, 1 that divides B; a
 ``row_block`` that does not divide B raises ``ValueError``. (The JAX
@@ -52,15 +56,15 @@ from splade_tpu_torch.ops.fused_splade import (PLAIN_TILE, KernelFamily,
                                                match_words, min_hidden_slices)
 from splade_tpu_torch.ops.splade_pool import NEG
 
-#: vocab columns of the forward kernel's resident W tile
-TILE_COLS = 64
-#: vocab columns of a match-pass block
-MATCH_COLS = 128
+#: vocab columns of a block of the walk (the forward and the match pass)
+TILE_COLS = 128
+#: positions of a tile of the walk: 8 groups of 16
+TILE_ROWS = 128
 #: dynamic shared memory one block may opt into on an H100
 MAX_SHARED_BYTES = 232_448
-#: the match pass's cp.async ring: 4 stages of 128 h rows and 128 W rows,
-#: 32 + 8 bf16 each
-MATCH_RING_BYTES = 4 * 256 * 40 * 2
+#: the walk's cp.async ring: 4 stages of 128 h rows and 128 W rows, 32 + 8
+#: bf16 each
+RING_BYTES = 4 * 256 * 40 * 2
 #: blocks the dh gather aims at, counting its vocab splits. Each block owns
 #: a word row's full hidden width (one slice up to H = 768: 96 KB of sums,
 #: two blocks an SM; wider, the fewest slices) and one vocab range; more, shorter ranges spread a word row's serial
@@ -86,15 +90,15 @@ def resolve_row_block(B: int, row_block: int) -> int:
     return row_block or pick_row_block(B)
 
 
-def fwd_shared_bytes(H: int, row_block: int) -> int:
-    """Dynamic shared memory of the forward kernel at hidden width H: the
-    resident W tile, the staged chunk, the bias and the row block's column
-    keys. A mirror of ``shared_bytes`` in ``fused_splade_v2_fwd.cu``, which
-    the launch path asks instead (``_check``); a test on the card holds
-    the two equal."""
-    ld = -(-H // 64) * 64 + 8
-    w_tile = -(-TILE_COLS * ld * 2 // 128) * 128
-    return w_tile + 34_816 + 256 + row_block * 256
+def fwd_shared_bytes(S: int, row_block: int) -> int:
+    """Dynamic shared memory of the forward at sequence length S: the ring,
+    the row block's column keys, the row maxima of a tile's two column
+    halves, the bias and the list of 16-row groups. A mirror of
+    ``shared_bytes`` in ``fused_splade_fwd.cu``, which the launch path asks
+    instead (``_check``); a test on the card holds the two equal."""
+    G = -(-S // 16)
+    return (RING_BYTES + row_block * TILE_COLS * 4 + 2 * TILE_ROWS * 4
+            + TILE_COLS * 4 + row_block * G * 8)
 
 
 def match_shared_bytes(S: int, row_block: int) -> int:
@@ -103,7 +107,7 @@ def match_shared_bytes(S: int, row_block: int) -> int:
     list of 16-row groups and the row and group flags. A mirror of
     ``shared_bytes`` in ``fused_splade_v2_bwd.cu``, as above."""
     G = -(-S // 16)
-    return (MATCH_RING_BYTES + row_block * MATCH_COLS * 4 + MATCH_COLS * 4
+    return (RING_BYTES + row_block * TILE_COLS * 4 + TILE_COLS * 4
             + row_block * G * 8 + row_block * 4 + row_block * G)
 
 
@@ -213,8 +217,11 @@ def fused_splade_bwd_match_v2_plain(
 
 def _check(h, row_block: int, backward: bool) -> int:
     """The row block the kernels run at, refused where the forward's or the
-    match pass's shared memory would not fit. For a CUDA tensor the sizes are the built kernels' own
-    (their C entries report them); the mirrors stand in on the CPU."""
+    match pass's shared memory would not fit: both keep a row per batch row
+    of the block and list its 16-row groups, so a large row block at a long
+    sequence overflows. The hidden width bounds neither (both stream it).
+    For a CUDA tensor the sizes are the built kernels' own (their C entries
+    report them); the mirrors stand in on the CPU."""
     B, S, H = h.shape
     RB = resolve_row_block(B, row_block)
     lib = _cuda.library() if h.is_cuda else None
@@ -224,13 +231,14 @@ def _check(h, row_block: int, backward: bool) -> int:
         what = (f"the match pass stages m for {RB} batch rows and lists "
                 f"their 16-row groups at S={S}")
     else:
-        need = (lib.splade_fused_pool_v2_fwd_shared_bytes(H, RB) if lib
-                else fwd_shared_bytes(H, RB))
-        what = "the forward keeps a 64-row W tile resident"
+        need = (lib.splade_fused_pool_v2_fwd_shared_bytes(S, RB) if lib
+                else fwd_shared_bytes(S, RB))
+        what = (f"the forward keeps column maxima for {RB} batch rows and "
+                f"lists their 16-row groups at S={S}")
     if need > MAX_SHARED_BYTES:
         raise ValueError(
-            f"hidden size {H} with row_block {RB} needs {need} bytes of "
-            f"shared memory a block (at most {MAX_SHARED_BYTES}): {what}")
+            f"row_block {RB} at S={S} needs {need} bytes of shared memory a "
+            f"block (at most {MAX_SHARED_BYTES}): {what}")
     return RB
 
 

@@ -14,9 +14,12 @@ Kernel: ``csrc/rescore.cu`` replaces both Pallas kernels
 (``_rescore_kernel`` :54 and ``_rescore_kernel_rows`` :127). They differ
 only in a TPU lane layout, so one Hopper kernel is the counterpart of both.
 It is bound by the bytes of the gathered candidate rows (~10 MB, ~3 us at
-B=32, C=1000, M=64): each thread walks one candidate's doc-major row
-straight from device memory (the row gather is fused in) against the query
-staged in shared memory. Term ids must be int32 on the device.
+B=32, C=1000, M=64). A block builds its query row into a hash table in
+shared memory (each term's values summed in ascending t, so a repeated call
+is bitwise), and 8 lanes read each candidate's doc-major row straight from
+device memory (the row gather is fused in), one table lookup a slot. Term
+ids must be int32 on the device; at M % 8 == 0 the rows are read in 16-byte
+(terms) and 8-byte (values) vectors, so they must start aligned.
 
 On a CUDA tensor both functions launch the kernel or raise; on a CPU
 tensor they run ``rescore_match_plain``, the match formulation of
@@ -65,9 +68,9 @@ def _launch(d_terms, d_vals, d_scale, q_idx, q_val, cand) -> torch.Tensor:
                     ("d_scale", d_scale)):
         if t.device != dev or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous on {dev}")
-    # the M % 4 == 0 path reads 16-byte term and 4-byte value vectors
-    if M % 4 == 0 and (d_terms.data_ptr() % 16 or d_vals.data_ptr() % 4):
-        raise ValueError("d_terms / d_vals rows must start 16 / 4-byte "
+    # the M % 8 == 0 path reads 16-byte term and 8-byte value vectors
+    if M % 8 == 0 and (d_terms.data_ptr() % 16 or d_vals.data_ptr() % 8):
+        raise ValueError("d_terms / d_vals rows must start 16 / 8-byte "
                          "aligned")
     out = torch.empty((B, C), dtype=torch.float32, device=dev)
     if B == 0 or C == 0:

@@ -2,7 +2,7 @@
 
 Its served-vs-plain check must pass the port's plain path and fail a
 phase-2 rescore with one wrong term (a dropped document slot, a dropped
-query term), its search_vector check must hold each index's single-query
+query term) or one that counts a duplicated query term once, its search_vector check must hold each index's single-query
 search against the engine and fail one that loses a query term, and its
 document-encode check must run through the encoder.
 Its phase-4 kernel-vs-plain training comparison must pass the sound
@@ -93,15 +93,43 @@ def _drop_query_term(d_terms, d_vals, d_scale, q_idx, q_val, cand):
     return rescore_match_plain(d_terms, d_vals, d_scale, q_idx, q_val, cand)
 
 
-@pytest.mark.parametrize("fault", [None, _drop_doc_slot, _drop_query_term],
-                         ids=["sound", "drop_doc_slot", "drop_query_term"])
-def test_served_check_catches_a_wrong_rescore(setup, monkeypatch, fault):
+def _count_duplicates_once(d_terms, d_vals, d_scale, q_idx, q_val, cand):
+    """A rescore that keeps only the first slot of a repeated query term."""
+    first = torch.ones_like(q_val, dtype=torch.bool)
+    for t in range(1, q_idx.shape[1]):
+        first[:, t] = (q_idx[:, :t] != q_idx[:, t:t + 1]).all(1)
+    return rescore_match_plain(d_terms, d_vals, d_scale, q_idx,
+                               torch.where(first, q_val, 0.0), cand)
+
+
+def _as_duplicates(rescore):
+    """``rescore`` handed the same query with every term in two slots of
+    half its weight: served queries hold each term once, so this is how a
+    duplicated term reaches phase 2 here."""
+    def run(d_terms, d_vals, d_scale, q_idx, q_val, cand):
+        return rescore(d_terms, d_vals, d_scale, torch.cat([q_idx, q_idx], 1),
+                       torch.cat([q_val / 2, q_val / 2], 1), cand)
+    return run
+
+
+@pytest.mark.parametrize("rescore,sound", [
+    (rescore_match_plain, True),
+    (_drop_doc_slot, False),
+    (_drop_query_term, False),
+    (_as_duplicates(rescore_match_plain), True),
+    (_as_duplicates(_count_duplicates_once), False),
+], ids=["sound", "drop_doc_slot", "drop_query_term",
+        "sound_duplicated_terms", "count_duplicated_term_once"])
+def test_served_check_catches_a_wrong_rescore(setup, monkeypatch, rescore,
+                                              sound):
+    """Phase 3's served-vs-plain check passes the plain rescore, also on a
+    query whose terms each come twice, and fails a rescore that drops a doc
+    slot or a query term, or counts a duplicated query term once."""
     cs, _, _, engine, queries, plain = setup
     monkeypatch.setenv("SPLADE_RESCORE", "match")
-    monkeypatch.setattr(postings_index, "rescore_match",
-                        fault or rescore_match_plain)
+    monkeypatch.setattr(postings_index, "rescore_match", rescore)
     served = engine.search_batch(queries, k=50)
-    if fault is None:
+    if sound:
         cs.compare_served("sound", served, plain)
     else:
         with pytest.raises(SystemExit, match="served scores differ"):
@@ -338,6 +366,13 @@ ptxas info    : Used 220 registers, used 1 barriers, 128 bytes smem
 ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__2a80c9ae_22_fused_splade_v2_bwd_cu_c49c2fea32fused_splade_v2_bwd_match_kernelEPK13__nv_bfloat16S2_PKfS4_S4_S4_Ptiiiii' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 210 registers, used 1 barriers, 128 bytes smem
+== rescore.cu
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__5d1e2a9b_10_rescore_cu_0c7f3e2114rescore_kernelILb0EEEvPKiPKaPKfS2_S6_S2_Pfiiiiii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 38 registers, used 1 barriers, 14336 bytes smem
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__5d1e2a9b_10_rescore_cu_0c7f3e2114rescore_kernelILb1EEEvPKiPKaPKfS2_S6_S2_Pfiiiiii' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 1 barriers, 14336 bytes smem
 == splash_attention_bwd.cu
 ptxas info    : Compiling entry function '_ZN56_GLOBAL__N__e2_23_splash_attention_bwd_cu_3c20splash_bwd_dq_kernelIfEEvPK13__nv_bfloat16' for 'sm_90a'
     8 bytes stack frame, 68 bytes spill stores, 68 bytes spill loads
@@ -359,7 +394,10 @@ def test_ptxas_summary_reads_each_kernels_report():
     cs = _load_chip_smoke()
     got = cs.ptxas_summary(PTXAS_SAMPLE)
     assert set(got) == {"fused_splade_fwd_kernel", "splash_bwd_dq_kernel",
-                        "splash_fwd_kernel", "fused_splade_v2_bwd_match_kernel"}
+                        "splash_fwd_kernel", "fused_splade_v2_bwd_match_kernel",
+                        "rescore_kernel"}
+    assert [(r["registers"], r["static_smem_bytes"])
+            for r in got["rescore_kernel"]] == [(38, 14336), (72, 14336)]
     assert got["fused_splade_v2_bwd_match_kernel"] == [dict(
         stack_bytes=0, spill_store_bytes=0, spill_load_bytes=0,
         registers=210, static_smem_bytes=128)]

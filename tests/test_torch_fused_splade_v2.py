@@ -178,11 +178,11 @@ def test_v2_wrappers_on_cpu_are_the_plain_version():
 def test_v2_dh_vocab_splits_and_shared_memory(B, S, V, splits):
     """The dh gather splits the vocabulary only where word rows are few,
     its ranges cover the vocabulary in whole 32-column runs, in order; the
-    forward's resident 64 x 768 bf16 tile and the match pass's ring fit
-    one block's 227 KB at every row block the family picks (a hidden width
-    of 2048 does not fit the forward); the backward refuses a sequence
-    whose 16-row groups the match pass cannot list, never a hidden width:
-    past 768 the gathers cut it into slices."""
+    forward and the match pass, both on the walk, fit two blocks an SM at
+    every row block the family picks, at any hidden width (the walk streams
+    it: 2048 runs); the backward refuses a sequence whose 16-row groups the
+    match pass cannot list, never a hidden width: past 768 the gathers cut
+    it into slices."""
     from splade_tpu_torch.ops import fused_splade_v2
 
     assert dh_vocab_splits_v2(B, S, V) == splits
@@ -191,16 +191,14 @@ def test_v2_dh_vocab_splits_and_shared_memory(B, S, V, splits):
     assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
     assert all(vb % 32 == 0 for vb, _ in ranges)
     for rb in (1, 2, 4, 8):
-        assert fwd_shared_bytes(768, rb) <= 232_448 < fwd_shared_bytes(2048,
-                                                                      rb)
-        # two match-pass blocks an SM at the training shapes
+        # two blocks an SM at the training shapes
+        assert 2 * (fwd_shared_bytes(S, rb) + 1024) <= 233_472
         assert 2 * (match_shared_bytes(S, rb) + 1024) <= 233_472
     shaped = lambda *shape: torch.zeros(()).expand(*shape)  # no storage
     rb = pick_row_block(B)
     for backward in (False, True):
         assert fused_splade_v2._check(shaped(B, S, 768), rb, backward) == rb
-    with pytest.raises(ValueError, match="shared memory"):
-        fused_splade_v2._check(shaped(B, 4, 2048), rb, False)
+        assert fused_splade_v2._check(shaped(B, 4, 2048), rb, backward) == rb
     assert fused_splade_v2._check(shaped(B, 4, 1024), rb, True) == rb
     family = fused_splade_v2.ROW_BLOCKED
     assert family.dh_splits(B, S, 768, V) == (1, splits)
@@ -208,6 +206,34 @@ def test_v2_dh_vocab_splits_and_shared_memory(B, S, V, splits):
     # the match pass lists every 16-row group of its row block
     with pytest.raises(ValueError, match="match pass"):
         fused_splade_v2._check(shaped(B, 1 << 17, 768), B, True)
+
+
+@pytest.mark.parametrize("S,rb,need", [
+    (1, 1, 83_976),
+    (256, 8, 88_576),      # the document batch at the default row block
+    (64, 16, 92_160),      # what the per-row family owns a block at S=64
+    (512, 194, 232_448),   # exactly one block's limit
+    (512, 195, 233_216),
+    (512, 256, 280_064),
+])
+def test_v2_forward_shared_memory_and_its_refusal(S, rb, need):
+    """The forward's shared memory (the walk's ring of 81,920 bytes, a row
+    of 128 column keys a batch row, two rows of 128 row maxima, 128 biases
+    and one int2 a 16-row group) at sequence length S and row block rb:
+    ``_check`` takes a row block whose layout fits one block's 232,448
+    bytes, whatever the hidden width, and refuses a larger one with a
+    message that says why."""
+    from splade_tpu_torch.ops import fused_splade_v2
+
+    assert fwd_shared_bytes(S, rb) == need
+    h = torch.zeros(()).expand(rb, S, 2048)  # no storage
+    if need <= fused_splade_v2.MAX_SHARED_BYTES:
+        assert fused_splade_v2._check(h, rb, False) == rb
+    else:
+        with pytest.raises(ValueError,
+                           match=f"row_block {rb} at S={S} needs {need} "
+                                 "bytes.*forward keeps column maxima"):
+            fused_splade_v2._check(h, rb, False)
 
 
 def _exact_match_case(seed, B, S, H=24, V=300):
@@ -305,13 +331,15 @@ class _RecordingLibrary:
     ("PER_ROW", None, ()),
     ("ROW_BLOCKED", 0, (4,)),       # B = 4: the automatic row block
     ("ROW_BLOCKED", 2, (2,)),
+    ("ROW_BLOCKED", 1, (1,)),
 ])
 def test_launchers_count_where_they_launch_and_nowhere_else(
         monkeypatch, family, row_block, extra):
     """Both families go through one set of launchers: each adds one to its
     kernel's count after the C entry returned, never for an empty batch;
     the entry's name and its integer arguments (B, S, H, V, the row block,
-    the dh gather's hidden slices and vocab splits) are the family's. Each
+    the dh gather's hidden slices and vocab splits) are the family's: the
+    row-blocked forward hands its row block to the walk's C entry. Each
     backward call runs the family's match pass once and then the gathers
     asked for, which both families share."""
     from splade_tpu_torch.ops import _cuda, fused_splade, fused_splade_v2

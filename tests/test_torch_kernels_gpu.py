@@ -390,12 +390,15 @@ V2_SHAPES = [
 ]
 
 
-@pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES)
+@pytest.mark.parametrize("B,S,H,V,rb", V2_SHAPES + [
+    (2, 16, 2048, 100, 2),      # a hidden width the walk streams
+    (16, 512, 768, 5000, 16),   # row_block = B: one batch range a tile
+])
 def test_v2_forward_equals_v1_bitwise_and_plain(cuda, B, S, H, V, rb):
-    """Both families take every score through the same routine, and a
-    maximum has no order: the row-blocked m and pos equal the per-row
-    kernel's bit for bit. Against the plain version only f32 sum order
-    differs."""
+    """Both families launch one kernel and one epilogue, with another
+    number of batch rows a block, and a maximum has no order: the
+    row-blocked m and pos equal the per-row kernel's bit for bit. Against
+    the plain version only f32 sum order differs."""
     h, w, bias, mask = _pool_case(B, S, H, V, seed=B * S + rb, device=cuda)
     before = fused_splade_pool_v2.launches
     with torch.no_grad():
@@ -549,9 +552,9 @@ def test_dh_gather_vocab_splits_equal_plain(cuda, B, S, vocab_splits):
     assert torch.equal(got, run())
 
 
-@pytest.mark.parametrize("H", [64, 200, 768, 1024, 2048])
+@pytest.mark.parametrize("S", [1, 37, 64, 200, 256, 512])
 @pytest.mark.parametrize("rb", [1, 2, 4, 8])
-def test_v2_shared_bytes_mirror_equals_the_kernels(cuda, H, rb):
+def test_v2_shared_bytes_mirror_equals_the_kernels(cuda, S, rb):
     """``fwd_shared_bytes`` and ``match_shared_bytes`` mirror the layouts
     the two ``.cu`` files compute for themselves; the launch path asks the
     built kernels."""
@@ -560,17 +563,21 @@ def test_v2_shared_bytes_mirror_equals_the_kernels(cuda, H, rb):
                                                       match_shared_bytes)
 
     lib = _cuda.library()
-    assert fwd_shared_bytes(H, rb) == lib.splade_fused_pool_v2_fwd_shared_bytes(
-        H, rb)
-    for S in (1, 37, 64, 200, 256, 512):
-        assert match_shared_bytes(S, rb) == (
-            lib.splade_fused_pool_v2_bwd_shared_bytes(S, rb))
+    assert fwd_shared_bytes(S, rb) == (
+        lib.splade_fused_pool_v2_fwd_shared_bytes(S, rb))
+    assert match_shared_bytes(S, rb) == (
+        lib.splade_fused_pool_v2_bwd_shared_bytes(S, rb))
 
 
-def test_v2_refuses_a_hidden_width_its_tile_cannot_hold(cuda):
-    h, w, bias, mask = _pool_case(2, 16, 2048, 100, seed=1, device=cuda)
+def test_v2_refuses_a_row_block_its_shared_memory_cannot_hold(cuda):
+    """256 batch rows a block at S = 512: their column keys and 16-row
+    groups need more than one block's shared memory, so the forward is
+    refused before anything launches."""
+    h, w, bias, mask = _pool_case(256, 512, 64, 100, seed=1, device=cuda)
+    before = fused_splade_pool_v2.launches
     with pytest.raises(ValueError, match="shared memory"):
-        fused_splade_maxima_v2(h, w, bias, mask, 2)
+        fused_splade_maxima_v2(h, w, bias, mask, 256)
+    assert fused_splade_pool_v2.launches == before
 
 
 def test_an_empty_batch_launches_and_counts_nothing(cuda):
@@ -596,7 +603,15 @@ def test_an_empty_batch_launches_and_counts_nothing(cuda):
     assert [fn.launches for fn in fns] == before
 
 
-def _rescore_case(N, M, V, B, T, C, seed, device):
+def _rescore_case(N, M, V, B, T, C, seed, device, query="random"):
+    """Doc-major rows of random lengths (pad id V, value 0) and random
+    candidates. The query: "random" terms with one duplicate and one pad
+    slot; "one_term", every slot the same term, each of weight about 1/T;
+    "colliding", distinct terms that share their first slot in the kernel's
+    largest hash table, and so in every smaller one (the slot is the top
+    bits of the id's product with 2654435769, as in ``csrc/rescore.cu``).
+    The first candidates hold the query's terms, so scores are not all
+    zero."""
     rng = np.random.default_rng(seed)
     d_terms = np.full((N, M), V, np.int32)
     d_vals = np.zeros((N, M), np.int8)
@@ -605,29 +620,87 @@ def _rescore_case(N, M, V, B, T, C, seed, device):
         d_terms[i, :nnz[i]] = rng.choice(V, nnz[i], replace=False)
         d_vals[i, :nnz[i]] = rng.integers(1, 127, nnz[i])
     d_scale = rng.uniform(0.01, 0.1, N).astype(np.float32)
-    q_idx = rng.integers(0, V, (B, T)).astype(np.int32)
-    q_idx[:, 1] = q_idx[:, 0]             # duplicate query terms accumulate
     q_val = rng.uniform(0.1, 2.0, (B, T)).astype(np.float32)
-    q_val[:, -1] = 0.0                    # a pad query slot
+    if query == "one_term":
+        q_idx = np.repeat(rng.integers(0, V, (B, 1)), T, 1).astype(np.int32)
+        q_val /= T
+    elif query == "colliding":
+        ids = np.arange(V, dtype=np.uint64)
+        home = ((ids * 2654435769 % 2 ** 32) >> 22).astype(np.int64)
+        ids = ids[home == np.bincount(home).argmax()]
+        q_idx = np.stack([rng.permutation(ids)[:T] for _ in range(B)])
+        q_idx = q_idx.astype(np.int32)
+    else:
+        q_idx = rng.integers(0, V, (B, T)).astype(np.int32)
+        q_idx[:, 1] = q_idx[:, 0]         # duplicate query terms accumulate
+        q_val[:, -1] = 0.0                # a pad query slot
     cand = rng.integers(0, N, (B, C)).astype(np.int64)
+    for j in range(min(C, 64)):           # plant the query's terms
+        d_terms[cand[:, j], j % M] = q_idx[:, j % T]
+        d_vals[cand[:, j], j % M] = rng.integers(1, 127, B)
     return [torch.from_numpy(x).to(device) for x in
             (d_terms, d_vals, d_scale, q_idx, q_val, cand)]
 
 
-@pytest.mark.parametrize("N,M,V,B,T,C", [
-    (100_000, 64, 50000, 32, 64, 1000),   # the serving shape, vector path
-    (500, 13, 700, 5, 12, 37),            # unaligned B, C and M (scalar path)
+@pytest.mark.parametrize("N,M,V,B,T,C,query", [
+    (100_000, 64, 50000, 32, 64, 1000, "random"),  # the serving shape
+    (500, 13, 700, 5, 12, 37, "random"),   # unaligned B, C and M: scalar path
+    (20_000, 64, 50000, 8, 256, 300, "random"),    # T = MAX_T
+    (20_000, 64, 50000, 8, 64, 300, "one_term"),
+    (20_000, 64, 300_000, 8, 256, 300, "colliding"),
+    (20_000, 24, 50000, 3, 40, 130, "random"),  # M % 8 == 0 but not 64
 ])
-def test_rescore_kernel_matches_plain(cuda, N, M, V, B, T, C):
-    case = _rescore_case(N, M, V, B, T, C, seed=N, device=cuda)
+def test_rescore_kernel_matches_plain(cuda, N, M, V, B, T, C, query):
+    """Both public functions launch the kernel and match the plain version
+    within 1e-4, and a repeated call is bitwise the first (the table sums a
+    duplicated term's values in ascending t, whichever thread inserts it)."""
+    case = _rescore_case(N, M, V, B, T, C, seed=N + T, device=cuda,
+                         query=query)
     before = rescore_match.launches
     out = rescore_match(*case)
     out_rows = rescore_match_rows(*case)
+    again = rescore_match(*case)
     ref = rescore_match_plain(*case)
     torch.cuda.synchronize()
-    assert rescore_match.launches == before + 2
+    assert rescore_match.launches == before + 3
+    assert float(ref.abs().max()) > 0
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
     torch.testing.assert_close(out_rows, ref, rtol=0, atol=1e-4)
+    assert torch.equal(out, again)
+
+
+def test_rescore_clamps_out_of_range_candidates(cuda):
+    """A candidate id below 0 or at or past N reads row 0 or row N - 1, as
+    XLA's gather clamps."""
+    d_terms, d_vals, d_scale, q_idx, q_val, cand = _rescore_case(
+        5000, 64, 50000, 4, 64, 200, seed=3, device=cuda)
+    N = d_terms.shape[0]
+    cand[:, ::7] = N + 5
+    cand[:, 3::7] = -3
+    cand[:, 5::7] = N - 1
+    out = rescore_match(d_terms, d_vals, d_scale, q_idx, q_val, cand)
+    ref = rescore_match_plain(d_terms, d_vals, d_scale, q_idx, q_val,
+                              cand.clamp(0, N - 1))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-4)
+
+
+def test_rescore_refuses_unaligned_rows(cuda):
+    """At M % 8 == 0 the kernel reads 16-byte term and 8-byte value
+    vectors: rows that do not start so aligned are refused, not read."""
+    case = _rescore_case(500, 64, 700, 2, 8, 16, seed=4, device=cuda)
+    d_terms, d_vals = case[0], case[1]
+    shifted_terms = torch.empty(d_terms.numel() + 1, dtype=torch.int32,
+                                device=cuda)[1:].view(d_terms.shape)
+    shifted_vals = torch.empty(d_vals.numel() + 4, dtype=torch.int8,
+                               device=cuda)[4:].view(d_vals.shape)
+    shifted_terms.copy_(d_terms)
+    shifted_vals.copy_(d_vals)
+    before = rescore_match.launches
+    for terms, vals in ((shifted_terms, d_vals), (d_terms, shifted_vals)):
+        with pytest.raises(ValueError, match="aligned"):
+            rescore_match(terms, vals, *case[2:])
+    assert rescore_match.launches == before
 
 
 # ---- the splash attention (ops/splash_attention.py) ------------------------
