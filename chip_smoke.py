@@ -106,14 +106,45 @@ Phases (any failure exits non-zero; nothing is caught):
    gradients are held against the sdpa route on the same weights and batch,
    and throughput, step time, idle share and peak memory are printed
    beside phase 4's and 5's.
+7. Data-parallel training over ``torch.distributed``, each run in
+   processes of its own under a deadline (a hung collective fails the
+   phase). (a) The V33 CLI (``python -m splade_tpu_torch.train v33``,
+   through ``--cli``: the stand-in tokenizer in place of the HF one) on
+   phase 4's recipe, written as a JSON config, and synthetic JSONL
+   triplets, 3 steps: once as one process, once under
+   ``torch.distributed.run --standalone --nproc_per_node 1 ...
+   --distributed`` (NCCL). Every logged step's results and the final
+   model bitwise equal; the gradient all-reduce's ms a step (CUDA events)
+   and triplets/s beside phase 4's; the pool kernels' launches 2 x
+   accumulation a step. (b) Two ranks on this one card over gloo (whose
+   all-reduce takes CUDA tensors through the host: a correctness run, not
+   NCCL's speed), each with half of the recipes' per-step batches on the
+   splash route: V33 through ``Trainer`` (2 steps), again with SIGTERM to
+   rank 1 alone, one step with global in-batch negatives, MLM through
+   ``MLMTrainer`` (2 steps). Held: both ranks' logged numbers identical,
+   and with the parameters bitwise equal to the same halves taken in turn
+   in this process, gradients combined as (g0 + g1) / 2
+   (``emulate_ranks_step``); each rank's launch counts; rank 0's the only
+   checkpoint; after the SIGTERM both ranks stopped at step 2 with one
+   checkpoint. Then, with autocast off (f32), the emulation's first step
+   against one process at the global batch with num_blocks 2, and the
+   ranks' step with global in-batch negatives against one process with
+   them, to twice a noise floor measured first (that process's gradient
+   with the step's micro-batches taken as one, their blocks masked apart),
+   within ``DP_RTOL``. (c) The MLM CLI on phase 5's recipe, 2
+   steps, one process against a world of 1 over NCCL: bitwise. A rank on
+   another card (``cuda:1``) and NCCL across cards are not run: the card
+   machine has one card.
 
-The last five lines are the training JSON, the pre-training JSON, the
-splash training JSON, the kernels' JSON and the run's JSON.
+The last six lines are the training JSON, the pre-training JSON, the
+splash training JSON, the data-parallel JSON, the kernels' JSON and the
+run's JSON.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import http.client
 import json
 import os
@@ -2559,6 +2590,838 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
                 attention_route=attention)
 
 
+# ------------------------------------------------------------ phase 7
+#: every subprocess of phase 7 gets this long: a hung collective fails the
+#: phase, not the run's clock
+DP_TIMEOUT_S = 300.0
+#: ranks of the data-parallel run that shares the one card (phase 7 (b))
+DP_WORLD = 2
+#: the bounds of the tolerance phase 7 (b) holds the ranks' emulation to
+#: against one process at the global batch, both in f32: twice the noise
+#: floor it measures first, within these. A wrong block mask or a lost
+#: division moves the loss and the gradients by far more than the ceiling
+DP_RTOL = (1e-5, 1e-3)
+#: the keys of a step record that are times, not results of the step
+TIME_KEYS = ("time", "samples_per_sec", "tokens_per_sec", "allreduce_ms",
+             "epoch")
+
+
+def launches_on(device: str, want: dict) -> dict:
+    """The launches a run implies on ``device``: none off the card, where
+    every wrapper runs its plain version."""
+    return want if device.startswith("cuda") else dict.fromkeys(want, 0)
+
+
+def state_digest(state: dict) -> str:
+    """sha256 of named tensors' names and f32 bytes, in name order: two
+    state dicts (or models' ``dict(named_parameters())``) have the same
+    digest when every tensor is bitwise equal."""
+    import hashlib
+
+    digest = hashlib.sha256()
+    for name in sorted(state):
+        digest.update(name.encode())
+        digest.update(state[name].detach().float().cpu().numpy().tobytes())
+    return digest.hexdigest()
+
+
+def param_digest(model) -> str:
+    return state_digest(dict(model.named_parameters()))
+
+
+def repo_env(**extra) -> dict:
+    """This environment with the checkout on PYTHONPATH, plus ``extra``."""
+    root = str(Path(__file__).resolve().parent)
+    path = os.environ.get("PYTHONPATH")
+    return dict(os.environ, PYTHONPATH=root + (os.pathsep + path if path
+                                                else ""), **extra)
+
+
+def run_processes(what: str, commands, envs, logs,
+                  timeout_s: float = DP_TIMEOUT_S) -> list:
+    """Start every command at once (output to its log file), wait for all
+    under one deadline. A process still running at the deadline is killed
+    with the others and the phase fails; so does one that exits non-zero.
+    Returns the logs' texts."""
+    procs = []
+    try:
+        for cmd, env, path in zip(commands, envs, logs):
+            with open(path, "w") as out:
+                procs.append(subprocess.Popen(cmd, stdout=out,
+                                              stderr=subprocess.STDOUT,
+                                              env=env))
+        deadline = time.monotonic() + timeout_s
+        for proc in procs:
+            try:
+                proc.wait(timeout=max(deadline - time.monotonic(), 0.1))
+            except subprocess.TimeoutExpired:
+                raise SystemExit(f"{what}: still running after {timeout_s:.0f}"
+                                 " s (a hung collective?); killed") from None
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    texts = [Path(p).read_text() for p in logs]
+    for proc, text in zip(procs, texts):
+        if proc.returncode != 0:
+            raise SystemExit(f"{what}: {' '.join(map(str, proc.args[:6]))} "
+                             f"... exited {proc.returncode}:\n{text[-4000:]}")
+    return texts
+
+
+def accumulated_gradients(torch, model, runs) -> tuple:
+    """One rank's part of a step before its reduction: the micro-batch
+    closures ``runs`` (each -> (loss, metrics)) taken in order from no
+    gradients, losses and metrics summed and gradients accumulated, all
+    divided by their count. -> (metrics with "loss", {name: gradient})."""
+    model.zero_grad(set_to_none=True)
+    sums = {}
+    for run in runs:
+        loss, metrics = run()
+        loss.backward()
+        for k, v in {"loss": loss.detach(),
+                     **{k: v.detach() for k, v in metrics.items()}}.items():
+            sums[k] = v if k not in sums else sums[k] + v
+    grads = {n: p.grad.div_(len(runs)) for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return {k: v / len(runs) for k, v in sums.items()}, grads
+
+
+def combined_gradients(torch, model, rank_runs) -> tuple:
+    """The ranks' reduction taken in one process: each rank's part in turn
+    (``accumulated_gradients``), gradients and metrics combined as
+    (x0 + x1 + ...) / W in rank order. At W = 2 these are the bits of the
+    SUM all-reduce divided by 2. -> (metrics, {name: gradient})."""
+    parts = [accumulated_gradients(torch, model, runs) for runs in rank_runs]
+    world = len(parts)
+
+    def mean(values):
+        total = values[0]
+        for v in values[1:]:
+            total = total + v
+        return total / world
+
+    return ({k: mean([m[k] for m, _ in parts]) for k in parts[0][0]},
+            {n: mean([g[n] for _, g in parts]) for n in parts[0][1]})
+
+
+def emulate_ranks_step(torch, state, clip: float, rank_runs) -> dict:
+    """One optimizer step of ``len(rank_runs)`` data-parallel ranks taken in
+    one process, the reference phase 7 holds the ranks to: the combined
+    gradients (``combined_gradients``) clipped, one AdamW and schedule
+    step. -> the metrics as floats, the clipped norm's mean over ranks among
+    them."""
+    model = state.model
+    model.train()
+    metrics, grads = combined_gradients(torch, model, rank_runs)
+    params = dict(model.named_parameters())
+    for name, g in grads.items():
+        params[name].grad = g
+    grad_norm = torch.nn.utils.clip_grad_norm_([params[n] for n in grads],
+                                               clip)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    out = {k: float(v) for k, v in metrics.items()}
+    total = grad_norm
+    for _ in rank_runs[1:]:
+        total = total + grad_norm
+    out["grad_norm"] = float(total / len(rank_runs))
+    return out
+
+
+def v33_runs(torch, model, cfg, macro, step: int, num_blocks: int = 1):
+    """The micro-batch closures of a V33 step on ``macro`` ([accum, B, ...]
+    device tensors), the trainer's loss with ``num_blocks``."""
+    from splade_tpu_torch.train.trainer import compute_autocast, make_loss_fn
+
+    dev = next(model.parameters()).device
+    loss_fn = make_loss_fn(model, cfg.loss, num_blocks,
+                           packed_query=cfg.model.packed_query_tower,
+                           autocast=lambda: compute_autocast(cfg.model, dev))
+
+    def run(i):
+        def go():
+            loss, metrics = loss_fn({k: v[i] for k, v in macro.items()}, step)
+            return loss, metrics.as_dict()
+        return go
+
+    return [run(i) for i in range(next(iter(macro.values())).shape[0])]
+
+
+def mlm_runs(torch, loss_fn, rank_ids, seed: int, step: int):
+    """Per rank, the micro-batch closures of an MLM step (``rank_ids[r]``:
+    rank r's [accum, B, S] device ids): the masks drawn over the global
+    micro-batch, each rank normalised by the global count of masked
+    positions, summed over ranks in rank order, as the all-reduce sums."""
+    from splade_tpu_torch.train.mlm import mask_seed
+
+    world = len(rank_ids)
+    dev = rank_ids[0].device
+
+    def gen(i):
+        return torch.Generator(device=dev).manual_seed(mask_seed(seed, step,
+                                                                  i))
+
+    totals = []
+    for i in range(rank_ids[0].shape[0]):
+        counts = [loss_fn.mask({"input_ids": ids[i]}, gen(i), world, r)[4]
+                  .sum() for r, ids in enumerate(rank_ids)]
+        total = counts[0]
+        for c in counts[1:]:
+            total = total + c
+        totals.append(total)
+
+    def run(r, i):
+        return lambda: loss_fn({"input_ids": rank_ids[r][i]}, gen(i),
+                               count=lambda t: totals[i], world=world, rank=r)
+
+    return [[run(r, i) for i in range(len(totals))] for r in range(world)]
+
+
+def rank_macro_batches(torch, data, collator, batch: int, seed: int,
+                       accum: int, steps: int, world: int, device) -> list:
+    """[step][rank] -> that rank's macro batch as the Trainer's loader gives
+    it (its slice of the epoch's order, ``batch`` rows a micro-batch), on
+    ``device``."""
+    from splade_tpu_torch.data.pipeline import create_dataloader
+    from splade_tpu_torch.train.trainer import (pin_batch, stack_microbatches,
+                                                to_device)
+
+    out = [[None] * world for _ in range(steps)]
+    for r in range(world):
+        loader = create_dataloader(data, collator, batch, shuffle=True,
+                                   seed=seed, drop_last=True, process_index=r,
+                                   process_count=world, prefetch_depth=0)
+        loader.set_epoch(1)
+        micro = []
+        for mb in loader:
+            micro.append(mb)
+            if len(micro) == accum * steps:
+                break
+        for s in range(steps):
+            host = stack_microbatches(micro[s * accum:(s + 1) * accum])
+            out[s][r] = to_device(pin_batch(host, False), torch.device(device))
+    return out
+
+
+def gradients_against(torch, got, want, what: str, bounds=None,
+                      floor=None) -> dict:
+    """Loss, the gradients' global norm and every gradient tensor
+    (norm-relative) of ``got`` = (metrics, grads) against ``want``. With
+    ``bounds`` the tolerance is twice ``floor``'s error (its own
+    comparison's result), within the bounds; without, the result is
+    returned unjudged (a floor)."""
+    (g_m, g_g), (w_m, w_g) = got, want
+    norm = lambda grads: float(torch.sqrt(sum((g.float() ** 2).sum()
+                                              for g in grads.values())))
+    loss_err = abs(float(g_m["loss"]) - float(w_m["loss"])) / max(
+        abs(float(w_m["loss"])), 1e-30)
+    g_norm, w_norm = norm(g_g), norm(w_g)
+    norm_err = abs(g_norm - w_norm) / max(w_norm, 1e-30)
+    tensor_err = {n: float((g_g[n].float() - w_g[n].float()).norm()
+                           / w_g[n].float().norm().clamp_min(1e-30))
+                  if n in g_g else 1.0 for n in w_g}
+    worst = max(tensor_err, key=tensor_err.get)
+    out = dict(loss=float(g_m["loss"]), loss_ref=float(w_m["loss"]),
+               loss_rel_err=loss_err, grad_norm=g_norm, grad_norm_ref=w_norm,
+               grad_norm_rel_err=norm_err, worst_tensor=worst,
+               worst_tensor_rel_err=tensor_err[worst], tensors=len(w_g))
+    if bounds is None:
+        return out
+    least, most = bounds
+    tol = {k: min(max(2 * floor[k], least), most)
+           for k in ("loss_rel_err", "grad_norm_rel_err",
+                     "worst_tensor_rel_err")}
+    out.update(tolerance=tol, noise_floor={k: floor[k] for k in tol})
+    log(f"  {what}: loss {out['loss']:.6f} vs {out['loss_ref']:.6f} (rel "
+        f"{loss_err:.2e}, tol {tol['loss_rel_err']:.2e}), grad_norm "
+        f"{g_norm:.6f} vs {w_norm:.6f} (rel {norm_err:.2e}, tol "
+        f"{tol['grad_norm_rel_err']:.2e}), worst of {len(w_g)} gradients "
+        f"{worst} {tensor_err[worst]:.2e} (tol "
+        f"{tol['worst_tensor_rel_err']:.2e}); noise floor "
+        + ", ".join(f"{k} {v:.2e}" for k, v in out["noise_floor"].items()))
+    if not all(out[k] <= tol[k] for k in tol):
+        raise SystemExit(f"{what}: the data-parallel step differs from one "
+                         "process at the global batch")
+    return out
+
+
+def dp_worker(spec_path: str) -> int:
+    """One rank of phase 7 (b): ``python chip_smoke.py --dp-worker SPEC``
+    with RANK, WORLD_SIZE and LOCAL_RANK set, every rank on the spec's
+    device over gloo. Four runs through the entry points, from the seed's
+    weights: V33 ``steps`` steps through ``Trainer`` (each step's metrics,
+    all-reduce ms and the kernels' launches; then a checkpoint written to a
+    directory of this rank's name, which only rank 0 may create), V33 again
+    with SIGTERM sent to the last rank during its second step, one V33 step
+    with global in-batch negatives, and MLM ``steps`` steps through
+    ``MLMTrainer``. Writes ``rank{R}.json`` beside the spec. The metric
+    writer keeps its JSONL sink only, as in ``cli_entry``."""
+    sys.modules["torch.utils.tensorboard"] = None
+    import torch
+    import torch.distributed as dist
+
+    from splade_tpu_torch.config import V33Config
+    from splade_tpu_torch.data import TripletCollator, load_training_data
+    from splade_tpu_torch.models.modernbert import ModernBertConfig
+    from splade_tpu_torch.models.splade import SpladeEncoder
+    from splade_tpu_torch.parallel.mesh import agree_any, init_distributed
+    from splade_tpu_torch.train.checkpoint import save_checkpoint
+    from splade_tpu_torch.train.mlm import MLMConfig, MLMTrainer
+    from splade_tpu_torch.train.trainer import Trainer
+
+    global V
+    spec = json.loads(Path(spec_path).read_text())
+    V = spec["vocab"]
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = spec["device"]
+    out = Path(spec_path).parent
+    mesh = init_distributed(device, backend="gloo",
+                            init_method=spec["init_method"])
+    rank = mesh.rank
+    log(f"rank {rank} of {mesh.world} joined over {mesh.backend} on {device}")
+    tok = CharTokenizer()
+    data = load_training_data(spec["train_files"])
+    sync = (torch.cuda.synchronize if device.startswith("cuda")
+            else (lambda: None))
+
+    def v33_trainer(run: str, cfg_dict: dict):
+        cfg = V33Config.from_dict(json.loads(json.dumps(cfg_dict)))
+        cfg.training.output_dir = str(out / f"{run}_rank{rank}")
+        collator = TripletCollator(
+            tok, query_max_length=cfg.data.query_max_length,
+            doc_max_length=cfg.data.doc_max_length,
+            num_hard_negatives=cfg.data.num_hard_negatives)
+        model = SpladeEncoder(ModernBertConfig(**spec["v33_model"]),
+                              pool_impl="kernel", with_token_weights=False,
+                              device=device).init_weights(spec["seed"])
+        return Trainer(cfg, model, data, collator, device=device, mesh=mesh)
+
+    def recorded(trainer):
+        """Every step's metrics as floats, and the all-reduce's ms."""
+        records, ms = [], []
+        real = trainer.step_fn
+
+        def step(state, batch):
+            metrics = real(state, batch)
+            records.append({k: float(v) for k, v in metrics.items()})
+            ms.append(trainer.reducer.last_ms)
+            log(f"rank {rank}: step {state.step} loss {records[-1]['loss']}"
+                f", all-reduce {ms[-1]:.1f} ms")
+            return metrics
+
+        trainer.step_fn = step
+        return records, ms
+
+    def free(*objs):
+        del objs
+        import gc
+
+        gc.collect()
+        if device.startswith("cuda"):
+            torch.cuda.empty_cache()
+
+    result = dict(rank=rank, world=mesh.world, backend=mesh.backend,
+                  device=device)
+    # 1. V33: the recipe's steps, then a checkpoint only rank 0 writes
+    log(f"rank {rank}: V33 run")
+    trainer = v33_trainer("v33", spec["v33"])
+    result["digest_init"] = param_digest(trainer.model)
+    result["total_steps"] = trainer.total_steps
+    trainer.cfg.training.max_steps = spec["steps"]
+    records, ms = recorded(trainer)
+    _reset_launch_counts()
+    sync()
+    t0 = time.perf_counter()
+    state = trainer.train()
+    sync()
+    wall = time.perf_counter() - t0
+    launches = _launch_counts()
+    save_checkpoint(str(out / f"ckpt_rank{rank}"), state, trainer.cfg, epoch=1,
+                    mesh=mesh)
+    result["v33"] = dict(records=records, allreduce_ms=ms, launches=launches,
+                         wall_s=wall, step=state.step,
+                         digest=param_digest(state.model))
+    t0 = time.perf_counter()
+    for _ in range(100):
+        agree_any(False, mesh)
+    result["agree_ms"] = (time.perf_counter() - t0) * 10
+    free(trainer, state)
+    # 2. SIGTERM reaches the last rank only, during the second step
+    log(f"rank {rank}: SIGTERM run")
+    trainer = v33_trainer("sigterm", spec["v33"])
+    trainer.cfg.training.max_steps = spec["steps"] + 1
+    replaced = trainer.install_preemption_handler()
+    real = trainer.step_fn
+
+    def step_then_signal(state, batch):
+        if rank == mesh.world - 1 and state.step == 1:
+            os.kill(os.getpid(), signal.SIGTERM)
+        return real(state, batch)
+
+    trainer.step_fn = step_then_signal
+    try:
+        state = trainer.train()
+    finally:
+        for sig, handler in replaced.items():
+            signal.signal(sig, handler)
+    result["sigterm"] = dict(step=state.step, preempted=trainer._preempted)
+    free(trainer, state)
+    # 3. one step with every rank's positives as candidates, in f32 (the
+    # comparison with one process at the global batch is made in f32)
+    log(f"rank {rank}: global-negatives step")
+    cfg_dict = json.loads(json.dumps(spec["v33"]))
+    cfg_dict["loss"]["global_in_batch_negatives"] = True
+    cfg_dict["model"]["dtype"] = "float32"
+    trainer = v33_trainer("global", cfg_dict)
+    trainer.cfg.training.max_steps = 1
+    records, _ = recorded(trainer)
+    trainer.train()
+    result["global_negatives"] = records
+    free(trainer)
+    # 4. MLM
+    log(f"rank {rank}: MLM run")
+    model = SpladeEncoder(ModernBertConfig(**spec["mlm_model"]),
+                          device=device).init_weights(spec["seed"]).mlm
+    trainer = MLMTrainer(
+        MLMConfig(**dict(spec["mlm"], output_dir=str(out / f"mlm_rank{rank}"))),
+        model, np.load(spec["mlm_rows"]), tok, device=device, mesh=mesh)
+    result["mlm_digest_init"] = param_digest(trainer.model)
+    trainer.cfg.max_steps = spec["steps"]
+    records, ms = recorded(trainer)
+    _reset_launch_counts()
+    state = trainer.train()
+    result["mlm"] = dict(records=records, allreduce_ms=ms,
+                         launches=_launch_counts(), step=state.step,
+                         digest=param_digest(state.model))
+    free(trainer, state)
+    (out / f"rank{rank}.json").write_text(json.dumps(result))
+    dist.destroy_process_group()
+    return 0
+
+
+def data_parallel_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
+                        v33_model, mlm_recipe_: dict, mlm_model,
+                        device: str = "cuda", steps: int = 2,
+                        n_sentences: int = 4000, sentence_words=(12, 28),
+                        worker=None, timeout_s: float = DP_TIMEOUT_S) -> dict:
+    """Phase 7 (b): ``DP_WORLD`` ranks, each its own process on ``device``
+    (one card: every rank on it) over gloo, run ``dp_worker`` on half of
+    the recipes' per-step batches, so the global batches are the recipes'.
+    Held: the ranks' metrics identical across ranks and, with their
+    parameters (digests), bitwise equal to the same halves taken in turn in
+    this process (``emulate_ranks_step``), V33 and MLM; the launch counts
+    each rank's run implies; rank 0's checkpoint the only one; after
+    SIGTERM to the last rank, every rank stopped at the same step with one
+    checkpoint (rank 0's). Then, in f32, the emulation's first step against
+    one process at the global batch with num_blocks = DP_WORLD, and the
+    ranks' step with global in-batch negatives against one process with
+    them, to
+    twice a noise floor measured first: that process's gradient with the
+    step's micro-batches taken as one, their blocks masked apart.
+    ``worker``: the command that starts a rank (default this script's
+    ``--dp-worker``)."""
+    import shutil
+
+    from splade_tpu_torch.config import V33Config
+    from splade_tpu_torch.data import TripletCollator, load_training_data
+    from splade_tpu_torch.models.splade import SpladeEncoder
+    from splade_tpu_torch.train.mlm import (MLMConfig, MLMTrainer,
+                                            pack_corpus, read_corpus)
+    from splade_tpu_torch.train.state import create_train_state
+
+    world = DP_WORLD
+    workdir = Path(workdir).resolve()  # the group's file:// address
+    shutil.rmtree(workdir, ignore_errors=True)
+    (workdir / "corpus").mkdir(parents=True)
+    v33 = json.loads(json.dumps(recipe))
+    v33["data"]["batch_size"] //= world
+    v33["data"]["train_files"] = [str(workdir / "train_*.jsonl")]
+    v33["data"]["val_files"] = []
+    v33["training"].update(log_every_n_steps=1)
+    batch = v33["data"]["batch_size"]
+    accum = v33["training"]["gradient_accumulation_steps"]
+    with open(workdir / "train_000.jsonl", "w", encoding="utf-8") as f:
+        for row in synth_triplets(rng, batch * world * accum * (steps + 1)):
+            f.write(json.dumps(row, ensure_ascii=False) + "\n")
+    mlm = dict(mlm_recipe_, batch_size=mlm_recipe_["batch_size"] // world,
+               data_dir=str(workdir / "corpus"), logging_steps=1,
+               save_steps=0, eval_steps=0, val_fraction=0.0)
+    lo, hi = sentence_words
+    cuts = rng.integers(lo, hi, n_sentences)
+    with open(workdir / "corpus" / "mlm_000.txt", "w", encoding="utf-8") as f:
+        for text, n_words in zip(hangul_texts(rng, n_sentences, hi - 1), cuts):
+            f.write(" ".join(text.split(" ")[:n_words]) + "\n")
+    rows = pack_corpus(read_corpus(mlm["data_dir"]), tok, mlm["max_length"])
+    np.save(workdir / "mlm_rows.npy", rows)
+    # every rank on the one card: an explicit index, which LOCAL_RANK
+    # does not override
+    rank_device = "cuda:0" if device == "cuda" else device
+    spec = dict(vocab=V, seed=seed, device=rank_device, steps=steps,
+                init_method=f"file://{workdir / 'process_group'}",
+                train_files=v33["data"]["train_files"], v33=v33,
+                v33_model=dataclasses.asdict(v33_model), mlm=mlm,
+                mlm_model=dataclasses.asdict(mlm_model),
+                mlm_rows=str(workdir / "mlm_rows.npy"))
+    spec_path = workdir / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    worker = worker or [sys.executable, str(Path(__file__).resolve()),
+                        "--dp-worker"]
+    t0 = time.perf_counter()
+    run_processes("data-parallel ranks",
+                  [worker + [str(spec_path)]] * world,
+                  [repo_env(RANK=str(r), WORLD_SIZE=str(world),
+                            LOCAL_RANK=str(r)) for r in range(world)],
+                  [workdir / f"rank{r}.log" for r in range(world)], timeout_s)
+    ranks_s = time.perf_counter() - t0
+    res = [json.loads((workdir / f"rank{r}.json").read_text())
+           for r in range(world)]
+    v33_runs_, mlm_runs_ = ([r["v33"] for r in res], [r["mlm"] for r in res])
+    log(f"  {world} ranks on {device} over {res[0]['backend']} in "
+        f"{ranks_s:.1f} s; gradient all-reduce ms a step, V33 "
+        + ", ".join(f"rank {r}: {x['allreduce_ms']}" for r, x in
+                    enumerate(v33_runs_))
+        + f"; MLM rank 0: {mlm_runs_[0]['allreduce_ms']}; host agreement "
+        f"on a stop flag {res[0]['agree_ms']:.4f} ms a call")
+
+    # the process rules: identical logs, one writer, one stop step
+    checks = {
+        "V33 metrics identical across ranks":
+            all(x["records"] == v33_runs_[0]["records"] for x in v33_runs_),
+        "MLM metrics identical across ranks":
+            all(x["records"] == mlm_runs_[0]["records"] for x in mlm_runs_),
+        "parameters identical across ranks":
+            len({x["digest"] for x in v33_runs_}) == 1
+            and len({x["digest"] for x in mlm_runs_}) == 1,
+        "global-negative metrics identical across ranks":
+            all(r["global_negatives"] == res[0]["global_negatives"]
+                for r in res),
+        "checkpoints: rank 0's only, nothing written by another rank":
+            any((workdir / "ckpt_rank0").glob("checkpoint_*"))
+            and not [p.name for r in range(1, world)
+                     for p in workdir.glob(f"*_rank{r}")],
+        f"SIGTERM to rank {world - 1}: every rank stopped at step 2":
+            all(r["sigterm"] == {"step": 2, "preempted": True} for r in res),
+        "SIGTERM: one checkpoint, rank 0's":
+            [p.name for p in (workdir / "sigterm_rank0").glob("checkpoint_*")]
+            == ["checkpoint_epoch1_step2"],
+    }
+    for what, runs, want in (
+            ("V33", v33_runs_, expected_launches(v33_model, accum, steps, 2)),
+            ("MLM", mlm_runs_, expected_launches(mlm_model, mlm["grad_accum"],
+                                                 steps, 0))):
+        want = launches_on(device, want)
+        for r, x in enumerate(runs):
+            checks[f"rank {r} {what} launches {x['launches']} == {want}"] = (
+                x["launches"] == want)
+
+    # the emulation: the same halves in turn in this process
+    data = load_training_data(v33["data"]["train_files"])
+    cfg = V33Config.from_dict(json.loads(json.dumps(v33)))
+    collator = TripletCollator(
+        tok, query_max_length=cfg.data.query_max_length,
+        doc_max_length=cfg.data.doc_max_length,
+        num_hard_negatives=cfg.data.num_hard_negatives)
+    macros = rank_macro_batches(torch, data, collator, batch,
+                                cfg.training.seed, accum, steps, world, device)
+    model = SpladeEncoder(v33_model, pool_impl="kernel",
+                          with_token_weights=False,
+                          device=device).init_weights(seed)
+    checks["V33 same start"] = param_digest(model) == res[0]["digest_init"]
+    joined = {k: torch.cat([m[k] for m in macros[0]], dim=1)
+              for k in macros[0][0]}
+    # one process at the global batch: the floor first, then the emulation
+    # and the ranks' global negatives against it, all with autocast off
+    # (f32): under bf16 autocast each micro-batch's weight gradients are
+    # rounded to bf16 before they are summed, a noise that would hide a
+    # fault of half a percent; in f32 the halves and the global batch differ
+    # by the rounding of products and reductions over other row counts
+    # alone
+    f32 = V33Config.from_dict(json.loads(json.dumps(v33)))
+    f32.model.dtype = "float32"
+    at_global = accumulated_gradients(
+        torch, model, v33_runs(torch, model, f32, joined, 0, num_blocks=world))
+    # the floor: the same function at other shapes, the step's accum
+    # micro-batches taken as one (its world x accum blocks, each a rank's
+    # rows of a micro-batch, masked apart). A norm's weight gradient sums
+    # over every row, in an order set by the row count, and cancels: in
+    # f32 it moves by about 1e-4 between row counts on an H100, where the
+    # same count with other rows in it moves it by 1e-6
+    whole = {k: v.reshape(1, accum * v.shape[1], *v.shape[2:])
+             for k, v in joined.items()}
+    floor = gradients_against(torch, accumulated_gradients(
+        torch, model, v33_runs(torch, model, f32, whole, 0,
+                               num_blocks=world * accum)), at_global,
+        "noise floor")
+    emulated = combined_gradients(torch, model, [
+        v33_runs(torch, model, f32, m, 0) for m in macros[0]])
+    vs_global = gradients_against(
+        torch, emulated, at_global,
+        f"V33 two halves (num_blocks 1 each) vs one process at the global "
+        f"batch (num_blocks {world}), first step, f32", DP_RTOL, floor)
+    gcfg = V33Config.from_dict(json.loads(json.dumps(v33)))
+    gcfg.model.dtype = "float32"
+    gcfg.loss.global_in_batch_negatives = True
+    g_metrics, g_grads = accumulated_gradients(
+        torch, model, v33_runs(torch, model, gcfg, joined, 0,
+                               num_blocks=world))
+    g_norm = float(torch.sqrt(sum((g.float() ** 2).sum()
+                                  for g in g_grads.values())))
+    ranks_g = res[0]["global_negatives"][0]
+    global_neg = dict(loss=ranks_g["loss"], loss_ref=float(g_metrics["loss"]),
+                      grad_norm=ranks_g["grad_norm"], grad_norm_ref=g_norm)
+    global_neg["loss_rel_err"] = abs(global_neg["loss"] - global_neg[
+        "loss_ref"]) / abs(global_neg["loss_ref"])
+    global_neg["grad_norm_rel_err"] = abs(g_norm - ranks_g["grad_norm"]) / g_norm
+    gtol = {k: min(max(2 * floor[k], DP_RTOL[0]), DP_RTOL[1])
+            for k in ("loss_rel_err", "grad_norm_rel_err")}
+    log(f"  V33 global in-batch negatives, {world} ranks (every rank's "
+        f"positives gathered) vs one process at the global batch: loss "
+        f"{global_neg['loss']:.6f} vs {global_neg['loss_ref']:.6f} (rel "
+        f"{global_neg['loss_rel_err']:.2e}, tol {gtol['loss_rel_err']:.2e}), "
+        f"grad_norm {ranks_g['grad_norm']:.6f} vs {g_norm:.6f} (rel "
+        f"{global_neg['grad_norm_rel_err']:.2e}, tol "
+        f"{gtol['grad_norm_rel_err']:.2e})")
+    checks["global negatives within tolerance"] = all(
+        global_neg[k] <= gtol[k] for k in gtol)
+    del at_global, emulated, g_grads
+
+    state = create_train_state(model, cfg.training, res[0]["total_steps"])
+    emulation = []
+    for s in range(steps):
+        emulation.append(emulate_ranks_step(
+            torch, state, cfg.training.gradient_clip,
+            [v33_runs(torch, model, cfg, m, state.step) for m in macros[s]]))
+    v33_digest = param_digest(model)
+    checks["V33 ranks == emulation (metrics, bitwise)"] = (
+        [{k: r[k] for k in e} for r, e in
+         zip(v33_runs_[0]["records"], emulation)] == emulation)
+    checks["V33 ranks == emulation (parameters, bitwise)"] = (
+        v33_runs_[0]["digest"] == v33_digest)
+    log("  V33 steps, rank 0 | emulation: " + "; ".join(
+        f"loss {r['loss']!r} | {e['loss']!r}, grad_norm {r['grad_norm']!r} | "
+        f"{e['grad_norm']!r}" for r, e in zip(v33_runs_[0]["records"],
+                                             emulation)))
+    del model, state, macros, joined
+
+    mcfg = MLMConfig(**dict(mlm, batch_size=mlm["batch_size"] * world,
+                            output_dir=str(workdir / "mlm_emulation")))
+    mlm_model_ = SpladeEncoder(mlm_model, device=device).init_weights(seed).mlm
+    trainer = MLMTrainer(mcfg, mlm_model_, rows, tok, device=device)
+    checks["MLM same start"] = (param_digest(trainer.model)
+                                == res[0]["mlm_digest_init"])
+    mlm_emulation = []
+    for s, host in zip(range(steps), trainer._epoch_batches(1)):
+        ids = trainer._to_device(host["input_ids"])
+        b = mlm["batch_size"]
+        rank_ids = [ids[:, r * b:(r + 1) * b] for r in range(world)]
+        mlm_emulation.append(emulate_ranks_step(
+            torch, trainer.state, 1.0,
+            mlm_runs(torch, trainer.loss_fn, rank_ids, mcfg.seed,
+                     trainer.state.step)))
+    mlm_digest = param_digest(trainer.model)
+    checks["MLM ranks == emulation (metrics, bitwise)"] = (
+        [{k: r[k] for k in r} for r in mlm_runs_[0]["records"]]
+        == [{k: e[k] for k in r} for r, e in zip(mlm_runs_[0]["records"],
+                                                 mlm_emulation)])
+    checks["MLM ranks == emulation (parameters, bitwise)"] = (
+        mlm_runs_[0]["digest"] == mlm_digest)
+    log("  MLM steps, rank 0 | emulation: " + "; ".join(
+        f"loss {r['loss']!r} | {e['loss']!r}" for r, e in
+        zip(mlm_runs_[0]["records"], mlm_emulation)))
+    del trainer
+    failed = [k for k, ok in checks.items() if not ok]
+    for k, ok in checks.items():
+        log(f"  {'ok' if ok else 'FAILED'}: {k}")
+    if failed:
+        raise SystemExit(f"data-parallel phase: {failed}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return dict(world=world, backend=res[0]["backend"], device=device,
+                ranks_s=ranks_s, steps=steps,
+                v33=dict(records=v33_runs_[0]["records"],
+                         allreduce_ms=[x["allreduce_ms"] for x in v33_runs_],
+                         launches=[x["launches"] for x in v33_runs_],
+                         wall_s=[x["wall_s"] for x in v33_runs_]),
+                mlm=dict(records=mlm_runs_[0]["records"],
+                         allreduce_ms=[x["allreduce_ms"] for x in mlm_runs_],
+                         launches=[x["launches"] for x in mlm_runs_]),
+                agree_ms=[r["agree_ms"] for r in res],
+                vs_global_batch=vs_global, global_negatives=global_neg,
+                checks=list(checks))
+
+
+def cli_entry(argv) -> int:
+    """``python chip_smoke.py --cli [--model-config JSON] {v33,mlm} ARGS``:
+    the port's training CLI (``python -m splade_tpu_torch.train``) with
+    this script's stand-in tokenizer in place of ``create_tokenizer`` (the
+    card machine has no transformers) and, where given, a model config's
+    fields over the architecture's (the CPU rehearsal's tiny model). Phase
+    7 starts it alone and under ``torch.distributed.run``; its last line
+    is the kernels' launch counts of the run, ``LAUNCHES {...}``. The
+    metric writer keeps its JSONL sink only (TensorBoard, which the card
+    machine lacks, imports TensorFlow where it is installed)."""
+    sys.modules["torch.utils.tensorboard"] = None
+    import torch
+
+    from splade_tpu_torch.models import modernbert
+    from splade_tpu_torch.train import cli, mlm
+    from splade_tpu_torch.utils import tokenizer
+
+    global V
+    over = {}
+    if argv[0] == "--model-config":
+        over, argv = json.loads(argv[1]), argv[2:]
+        V = over.get("vocab_size", V)
+    tok = CharTokenizer()
+    cli.create_tokenizer = tokenizer.create_tokenizer = lambda *a, **k: tok
+    if over:
+        architecture = modernbert.ModernBertConfig
+        modernbert.ModernBertConfig = lambda **kw: architecture(
+            **{**kw, **over})
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    sub, rest = argv[0], argv[1:]
+    rc = (cli.main if sub == "v33" else mlm.main)(rest)
+    print("LAUNCHES " + json.dumps(_launch_counts()), flush=True)
+    return rc
+
+
+
+
+def cli_world1(torch, what: str, sub: str, workdir: Path, args: list,
+               env: dict, model_over, rate_per_step: int,
+               timeout_s: float) -> dict:
+    """The CLI ``sub`` run twice from the same arguments: as one process,
+    then as rank 0 of a world of 1 (``torch.distributed.run --standalone
+    --nproc_per_node 1 ... --distributed``, NCCL on the card). Held: every
+    logged step's results (times aside) and the final model bitwise equal.
+    -> both runs' records, launches, digests, and the world-1 run's
+    all-reduce ms and rate."""
+    script = str(Path(__file__).resolve())
+    head = [script, "--cli"] + (["--model-config", json.dumps(model_over)]
+                                if model_over else [])
+    runs = {}
+    for name, launcher, flag in (
+            ("single", [sys.executable], []),
+            ("world1", [sys.executable, "-m", "torch.distributed.run",
+                        "--standalone", "--nproc_per_node", "1"],
+             ["--distributed"])):
+        out = workdir / name
+        t0 = time.perf_counter()
+        text = run_processes(
+            f"{what} ({name})",
+            [launcher + head + [sub] + flag + args + ["--output-dir",
+                                                      str(out)]],
+            [repo_env(**env)], [workdir / f"{name}.log"], timeout_s)[0]
+        seconds = time.perf_counter() - t0
+        records = [json.loads(line) for line in
+                   (out / "metrics.jsonl").read_text().splitlines()]
+        launches = json.loads([line for line in text.splitlines()
+                               if line.startswith("LAUNCHES ")][-1][9:])
+        state = torch.load(out / "final_model" / "model.pt",
+                           map_location="cpu", weights_only=True)
+        times = [r["time"] for r in records]
+        runs[name] = dict(
+            records=records, launches=launches, state=state,
+            digest=state_digest(state), seconds=seconds,
+            per_s=(rate_per_step * (len(times) - 1) / (times[-1] - times[0])
+                   if len(times) > 1 else None))
+    one, dp = runs["single"], runs["world1"]
+    strip = lambda rs: [{k: v for k, v in r.items() if k not in TIME_KEYS}
+                        for r in rs]
+    same_records = strip(one["records"]) == strip(dp["records"])
+    same_model = (one["state"].keys() == dp["state"].keys()
+                  and all(torch.equal(one["state"][k], dp["state"][k])
+                          for k in one["state"]))
+    reduce_ms = [r.get("allreduce_ms") for r in dp["records"]]
+    log(f"  {what}: {len(dp['records'])} steps, losses one process "
+        f"{[r['loss'] for r in one['records']]} | world 1 "
+        f"{[r['loss'] for r in dp['records']]}: bitwise equal "
+        f"{same_records}; final model digests {one['digest'][:16]} | "
+        f"{dp['digest'][:16]}: bitwise equal {same_model}; gradient "
+        f"all-reduce ms a step {reduce_ms}; "
+        + (f"{dp['per_s']:.1f} vs {one['per_s']:.1f} a second over the "
+           "steps after the first (world 1 | one process); "
+           if dp["per_s"] else "")
+        + f"launches {dp['launches']}; wall {one['seconds']:.1f} | "
+        f"{dp['seconds']:.1f} s a run")
+    if not (same_records and same_model and all(
+            ms is not None for ms in reduce_ms)):
+        raise SystemExit(f"{what}: the world-1 run differs from one process")
+    for run in runs.values():
+        del run["state"]
+    return dict(runs, allreduce_ms=reduce_ms)
+
+
+def v33_cli_phase(torch, rng, workdir, recipe: dict, model_config,
+                  device: str = "cuda", steps: int = 3, model_over=None,
+                  timeout_s: float = DP_TIMEOUT_S) -> dict:
+    """Phase 7 (a): the V33 CLI on the recipe (its config written as JSON,
+    which the CLI reads without PyYAML) and synthetic JSONL triplets,
+    ``steps`` steps, one process against a world of 1 over NCCL
+    (``cli_world1``); each pool kernel launched 2 x accumulation a step."""
+    import shutil
+
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    cfg = json.loads(json.dumps(recipe))
+    batch = cfg["data"]["batch_size"]
+    accum = cfg["training"]["gradient_accumulation_steps"]
+    with open(workdir / "train_000.jsonl", "w", encoding="utf-8") as f:
+        for row in synth_triplets(rng, batch * accum * steps):
+            f.write(json.dumps(row, ensure_ascii=False) + "\n")
+    cfg["data"].update(train_files=[str(workdir / "train_*.jsonl")],
+                       val_files=[])
+    cfg["training"].update(log_every_n_steps=1, max_steps=steps)
+    (workdir / "config.json").write_text(json.dumps(cfg))
+    args = ["--config", str(workdir / "config.json")] + (
+        ["--device", "cpu"] if device == "cpu" else [])
+    out = cli_world1(torch, "V33 CLI", "v33", workdir, args, {}, model_over,
+                     batch * accum, timeout_s)
+    want = launches_on(device, expected_launches(model_config, accum, steps,
+                                                 2))
+    for name in ("single", "world1"):
+        hold_launches(f"V33 CLI ({name})", out[name]["launches"], want)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
+def mlm_cli_phase(torch, rng, workdir, recipe: dict, device="cuda",
+                  steps: int = 2, n_sentences: int = 4000,
+                  sentence_words=(12, 28), env_over=None, model_over=None,
+                  timeout_s: float = DP_TIMEOUT_S) -> dict:
+    """Phase 7 (c): ``python -m splade_tpu_torch.train mlm`` on the recipe
+    (the configuration's defaults, which the recipe is; ``MLM_*`` overrides
+    for logging every step) over a synthetic corpus, ``steps`` steps, one
+    process against a world of 1 over NCCL (``cli_world1``)."""
+    import shutil
+
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    (workdir / "corpus").mkdir(parents=True)
+    lo, hi = sentence_words
+    cuts = rng.integers(lo, hi, n_sentences)
+    with open(workdir / "corpus" / "mlm_000.txt", "w", encoding="utf-8") as f:
+        for text, n_words in zip(hangul_texts(rng, n_sentences, hi - 1), cuts):
+            f.write(" ".join(text.split(" ")[:n_words]) + "\n")
+    env = {"MLM_LOGGING_STEPS": "1", "MLM_SAVE_STEPS": "0",
+           "MLM_EVAL_STEPS": "0", **(env_over or {})}
+    args = ["--data-dir", str(workdir / "corpus"), "--max-steps",
+            str(steps)] + (["--device", "cpu"] if device == "cpu" else [])
+    tokens = (int(env.get("MLM_BATCH_SIZE", recipe["batch_size"]))
+              * int(env.get("MLM_GRAD_ACCUM", recipe["grad_accum"]))
+              * int(env.get("MLM_MAX_LENGTH", recipe["max_length"])))
+    out = cli_world1(torch, "MLM CLI", "mlm", workdir, args, env, model_over,
+                     tokens, timeout_s)
+    shutil.rmtree(workdir, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2821,6 +3684,35 @@ def main() -> int:
                      f"{top(sdpa)}")
         log(line)
     log(f"[6] done in {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
+    # ---- 7. data-parallel training over torch.distributed
+    log("[7] data parallel: the V33 CLI at world 1 over NCCL, V33 and MLM "
+        f"at world {DP_WORLD} on this card over gloo (splash route), the "
+        "MLM CLI at world 1 over NCCL; 22L/768/50K")
+    t0 = time.perf_counter()
+    dp_root = Path(__file__).resolve().parent / "build" / "chip_smoke_dp"
+    dp_v33 = v33_cli_phase(torch, np.random.default_rng([args.seed, 7]),
+                           dp_root / "v33_cli", v33_recipe(),
+                           ModernBertConfig(remat=True))
+    world1 = dp_v33["world1"]
+    log(f"  V33 world 1 over NCCL: {world1['per_s']:.1f} triplets/s over "
+        f"the steps after the first (phase 4, no process group: "
+        f"{training['triplets_per_s']:.1f}, {training['step_ms']:.0f} ms a "
+        f"step); gradient all-reduce {dp_v33['allreduce_ms']} ms a step")
+    dp_world2 = data_parallel_phase(
+        torch, tok, np.random.default_rng([args.seed, 8]),
+        dp_root / "world2", args.seed, v33_recipe(), splash_v33_config,
+        mlm_recipe(), splash_mlm_config)
+    dp_mlm = mlm_cli_phase(torch, np.random.default_rng([args.seed, 9]),
+                           dp_root / "mlm_cli", mlm_recipe())
+    log(f"[7] done in {time.perf_counter() - t0:.1f} s")
+    dp_launches = {
+        "data parallel, V33 CLI world 1": world1["launches"],
+        **{f"data parallel, V33 world {DP_WORLD} rank {r}": x
+           for r, x in enumerate(dp_world2["v33"]["launches"])},
+        **{f"data parallel, MLM world {DP_WORLD} rank {r}": x
+           for r, x in enumerate(dp_world2["mlm"]["launches"])}}
     splash_launches = {
         name: {"V33 training, splash": splash_training["launches"][name],
                "MLM pre-training, splash":
@@ -2835,7 +3727,9 @@ def main() -> int:
              launches=launches["fused_splade_pool"],
              launches_by_path={
                  "serving": launches["fused_splade_pool"],
-                 "training": train_launches["fused_splade_pool"]},
+                 "training": train_launches["fused_splade_pool"],
+                 **{path: got["fused_splade_pool"]
+                    for path, got in dp_launches.items()}},
              **{k: pool_d[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -2869,7 +3763,9 @@ def main() -> int:
             **({"also_replaces": f"splade_tpu/ops/fused_splade.py:{also}"}
                if also else {}),
             launches=train_launches[name],
-            launches_by_path={"training": train_launches[name]},
+            launches_by_path={"training": train_launches[name],
+                              **{path: got[name]
+                                 for path, got in dp_launches.items()}},
             **{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")},
@@ -2926,7 +3822,9 @@ def main() -> int:
             source=f"splade_tpu_torch/csrc/{source}",
             replaces="splade_tpu/models/modernbert.py:140",
             launches=sum(splash_launches[name].values()),
-            launches_by_path=splash_launches[name],
+            launches_by_path={**splash_launches[name],
+                              **{path: got[name]
+                                 for path, got in dp_launches.items()}},
             **{k: shapes[0][k] for k in keys},
             max_abs_err_all=max(x["max_abs_err"] for x in shapes),
             shapes=shapes,
@@ -2945,6 +3843,11 @@ def main() -> int:
     log(json.dumps({"splash": {"training": splash_training,
                                "pretraining": splash_pretraining},
                     "seconds": time.perf_counter() - t_start}))
+    log(json.dumps({"data_parallel": {
+        "v33_cli_world1": dp_v33, "world2_gloo": dp_world2,
+        "mlm_cli_world1": dp_mlm,
+        "phase4_triplets_per_s": training["triplets_per_s"],
+        "phase4_step_ms": training["step_ms"]}}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -2953,4 +3856,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--dp-worker"]:
+        sys.exit(dp_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--cli"]:
+        sys.exit(cli_entry(sys.argv[2:]))
     sys.exit(main())

@@ -94,14 +94,19 @@ def load_config(
     overrides: Optional[Mapping[str, Any]] = None,
     environ: Optional[Mapping[str, str]] = None,
 ) -> V33Config:
-    """Resolve a V33Config: defaults < YAML < env < explicit overrides."""
+    """Resolve a V33Config: defaults < YAML < env < explicit overrides. A
+    ``.json`` path (``save_config``'s resolved config) is read without
+    PyYAML."""
     cfg_dict = V33Config().to_dict()
     if path:
-        import yaml
-
         with open(path) as f:
-            yaml_dict = yaml.safe_load(f) or {}
-        cfg_dict = _deep_merge(cfg_dict, yaml_dict)
+            if Path(path).suffix == ".json":
+                file_dict = json.load(f)
+            else:
+                import yaml
+
+                file_dict = yaml.safe_load(f) or {}
+        cfg_dict = _deep_merge(cfg_dict, file_dict)
     cfg_dict = apply_env_overrides(cfg_dict, environ)
     if overrides:
         cfg_dict = _deep_merge(cfg_dict, overrides)

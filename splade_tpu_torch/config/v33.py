@@ -5,7 +5,7 @@ configures both trainers. Where a key means something else on the GPU, its
 docstring says how the port reads it: ``model.dtype`` selects autocast,
 ``model.remat`` recomputes whole layers, ``model.fused_splade_head`` picks
 the pool (the hand-written kernels by default), ``mesh.num_data`` is the
-number of data-parallel blocks of the loss (1 on one GPU).
+number of data-parallel ranks (processes of ``torch.distributed``).
 """
 
 from __future__ import annotations
@@ -78,7 +78,7 @@ class V33DataConfig:
     train_files: List[str] = field(default_factory=lambda: ["data/v29.0/train_*.jsonl"])
     val_files: List[str] = field(default_factory=lambda: ["data/v29.0/val.jsonl"])
     batch_size: int = 64
-    """Per-device batch size (reference per-GPU batch)."""
+    """Per-rank batch size (reference per-GPU batch)."""
     query_max_length: int = 64
     doc_max_length: int = 256
     num_workers: int = 4
@@ -130,9 +130,10 @@ class V33MeshConfig:
 
     data_axis: str = "data"
     num_data: int = -1
-    """-1 = all devices. The port trains on one GPU: the loss's num_blocks
-    is 1, and a value > 1 is refused until DDP lands (ROADMAP.md §1
-    item 1)."""
+    """-1 (or 0) = every rank of the process group, one process a GPU under
+    torchrun (1 without a process group). Each rank computes the loss on
+    its own ``data.batch_size`` rows, so the global batch is ``batch_size x
+    world``; any other value than the world size is refused."""
 
 
 @dataclass

@@ -9,8 +9,11 @@ As in the JAX package: hard negatives always carry an explicit k axis
 [B, k, V]; the loss is written over the whole batch, and ``num_blocks``
 reproduces per-rank data-parallel semantics on it (InfoNCE and KD
 candidates masked to the caller's contiguous block, FLOPS means taken per
-block then averaged). The JAX module's shard_map ``axis_name`` branch is
-not ported: it has no single-GPU meaning (DDP is ROADMAP.md §1).
+block then averaged). Under ``torch.distributed`` each rank computes the
+loss of its own rows with ``num_blocks`` 1 (``parallel/mesh.py``); with
+``global_in_batch_negatives`` its anchors see every rank's positives
+(``v33_loss``'s ``mesh``), where the JAX module's shard_map branch
+all-gathers them over its ``axis_name``.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ from typing import Dict, NamedTuple, Optional, Union
 import torch
 
 from splade_tpu_torch.config.v33 import V33LossConfig
+from splade_tpu_torch.parallel.mesh import DataMesh, all_gather_rows
 
 Step = Union[int, torch.Tensor]
 
@@ -86,11 +90,13 @@ def _same_block(B: int, num_blocks: int, device) -> torch.Tensor:
 
 def infonce_loss(anchor: torch.Tensor, positive: torch.Tensor,
                  negative: torch.Tensor, temperature: float = 1.0,
-                 num_blocks: int = 1) -> torch.Tensor:
+                 num_blocks: int = 1, label_offset: int = 0) -> torch.Tensor:
     """InfoNCE over in-batch positives + explicit hard negatives
     (reference: losses.py:136-181): scores = [q·p_j / τ | q·n_k / τ], label
-    = own positive's column. num_blocks > 1 masks row i's in-batch
-    candidates to its contiguous B/num_blocks block (with -inf)."""
+    = own positive's column, ``label_offset + i`` for anchor i (positive
+    may hold more rows than anchor: every rank's, with this rank's at
+    ``label_offset``). num_blocks > 1 masks row i's in-batch candidates to
+    its contiguous B/num_blocks block (with -inf)."""
     anchor = anchor.to(torch.float32)
     positive = positive.to(torch.float32)
     negative = _ensure_neg_k(negative).to(torch.float32)
@@ -103,7 +109,7 @@ def infonce_loss(anchor: torch.Tensor, positive: torch.Tensor,
     scores = torch.cat([in_batch, hard], dim=1)              # [B, B+k]
     logz = torch.logsumexp(scores, dim=1)
     idx = torch.arange(B, device=anchor.device)
-    return (logz - scores[idx, idx]).mean()
+    return (logz - scores[idx, idx + label_offset]).mean()
 
 
 def margin_mse_loss(anchor: torch.Tensor, positive: torch.Tensor,
@@ -152,18 +158,38 @@ def v33_loss(
     teacher_pos_scores: Optional[torch.Tensor] = None,
     teacher_neg_scores: Optional[torch.Tensor] = None,
     num_blocks: int = 1,
+    mesh: Optional[DataMesh] = None,
 ) -> tuple:
     """Full V33 loss (reference: losses.py:183-297) -> (loss, LossMetrics).
 
     anchor/positive: [B, V]; negative: [B, V] or [B, k, V]; step: the global
     optimizer step for the λ schedule. With cfg.global_in_batch_negatives
     False (reference parity) InfoNCE and KD candidates are per block; FLOPS
-    is per block in both modes."""
+    is per block in both modes.
+
+    ``mesh``: this rank's place in a data-parallel run whose gradients are
+    summed over ranks and divided by the world size W. With
+    global_in_batch_negatives the candidates are every rank's positives in
+    rank order (``all_gather_rows``) and anchor i's label is rank·B + i.
+    Why that is JAX's gradient: JAX's loss over the global batch is
+    L = (1/W) Σ_r L_r, L_r this rank's loss (its anchors' InfoNCE mean over
+    all W·B candidates, its own FLOPS block), so ∂L/∂θ = (1/W) Σ_r ∂L_r/∂θ.
+    L_r reaches θ through this rank's q and n and through every rank's p.
+    The gather's backward all-reduces ∂L_r/∂P over ranks and hands rank r'
+    its rows, Σ_r ∂L_r/∂p_r', which rank r' carries into θ through its own
+    forward; its gradient is then ∂L_r'/∂θ via q, n plus ∂(Σ_r L_r)/∂θ via
+    p_r', and the SUM over r' divided by W is ∂L/∂θ. KD follows the same
+    candidates: its teacher scores must then be [B, W·B]."""
     negative = _ensure_neg_k(negative)
     dev = anchor.device
     nce_blocks = 1 if cfg.global_in_batch_negatives else num_blocks
-    infonce = infonce_loss(anchor, positive, negative, cfg.temperature,
-                           num_blocks=nce_blocks)
+    candidates, offset = positive, 0
+    if (cfg.global_in_batch_negatives and mesh is not None
+            and mesh.world > 1):
+        candidates = all_gather_rows(positive, mesh)
+        offset = mesh.rank * anchor.shape[0]
+    infonce = infonce_loss(anchor, candidates, negative, cfg.temperature,
+                           num_blocks=nce_blocks, label_offset=offset)
     f_q = flops_loss(anchor, num_blocks)
     f_d = flops_loss(positive, num_blocks)
     f_n = flops_loss(negative.reshape(-1, negative.shape[-1]), num_blocks)
@@ -177,8 +203,14 @@ def v33_loss(
 
     kd = torch.zeros((), dtype=torch.float32, device=dev)
     if cfg.lambda_kd > 0 and teacher_scores is not None:
-        kd = kl_kd_loss(anchor, positive, teacher_scores, cfg.kd_temperature,
-                        num_blocks=nce_blocks)
+        if teacher_scores.shape[-1] != candidates.shape[0]:
+            raise ValueError(
+                f"teacher_scores {tuple(teacher_scores.shape)}: KD scores "
+                f"each anchor against {candidates.shape[0]} in-batch "
+                "candidates (every rank's positives under "
+                "global_in_batch_negatives)")
+        kd = kl_kd_loss(anchor, candidates, teacher_scores,
+                        cfg.kd_temperature, num_blocks=nce_blocks)
         loss = loss + cfg.lambda_kd * kd
     mmse = torch.zeros((), dtype=torch.float32, device=dev)
     if (cfg.lambda_margin_mse > 0 and teacher_pos_scores is not None

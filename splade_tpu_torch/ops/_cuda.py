@@ -6,7 +6,10 @@ into one shared library with a plain C interface, which is loaded with
 ``ctypes``. The library lives under ``build/splade_tpu_torch/`` at the repo
 root, named by a hash of the flags, the sources and the headers they
 include (``csrc/*.cuh``), so an edited source or header is rebuilt and an
-unchanged one is reused. PyTorch's headers are never
+unchanged one is reused. Processes that start together (the ranks of a
+data-parallel run) build once: the build holds an exclusive ``flock`` on
+``build.lock`` in that directory, and a process that waited for it finds the
+library made. PyTorch's headers are never
 included: a build takes seconds, not the minutes of
 ``torch.utils.cpp_extension.load``.
 
@@ -17,6 +20,7 @@ on a non-zero code. A failed build raises too: nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -134,13 +138,22 @@ def build_tag() -> str:
 def build() -> tuple:
     """Compile and link the kernels if the hashed library is absent.
     Returns (library path, compiler log)."""
-    srcs = sources()
-    tag = build_tag()
-    out = BUILD_DIR / f"libsplade_kernels_{tag}.so"
+    out = BUILD_DIR / f"libsplade_kernels_{build_tag()}.so"
     log_path = out.with_suffix(".log")
-    if out.exists():
-        return out, log_path.read_text() if log_path.exists() else ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    if not out.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        # the lock is the open file's: released when it closes or the
+        # process dies, so a killed build leaves nothing that blocks
+        with open(BUILD_DIR / "build.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not out.exists():  # else another process built it meanwhile
+                return _compile_and_link(out, log_path)
+    return out, log_path.read_text() if log_path.exists() else ""
+
+
+def _compile_and_link(out: Path, log_path: Path) -> tuple:
+    srcs = sources()
+    tag = out.stem[len("libsplade_kernels_"):]
     nvcc = _nvcc()
     objs = [BUILD_DIR / f"{src.stem}_{tag}.o" for src in srcs]
     procs = [subprocess.Popen(

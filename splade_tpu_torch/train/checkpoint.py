@@ -15,7 +15,11 @@ Layout (reference: src/train/cli/train_v33_ddp.py:192-286):
   epoch 1 (how V34/V35 fine-tune from V33's final model).
 
 Every file is written to a temporary name and renamed, so a crash mid-write
-never leaves a truncated checkpoint that resume would pick up.
+never leaves a truncated checkpoint that resume would pick up. Given the
+``mesh`` of a data-parallel run, rank 0 alone writes (the parameters and
+optimizer state are the same on every rank), and every rank waits at a
+barrier until the write is done, so none goes on to read a checkpoint half
+written.
 
 ``load_model_state`` reads a model's weights from either format: the port's
 ``model.pt``, or the JAX package's ``model.msgpack`` (flax msgpack) through
@@ -37,6 +41,7 @@ from typing import Any, Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from splade_tpu_torch.parallel.mesh import DataMesh, barrier
 from splade_tpu_torch.train.state import TrainState
 
 logger = logging.getLogger(__name__)
@@ -56,9 +61,20 @@ def _atomic_save(obj: Any, path: Path) -> None:
 
 def save_checkpoint(output_dir: str, state: TrainState, cfg=None,
                     epoch: int = 0, best: Optional[float] = None,
-                    name: Optional[str] = None) -> str:
+                    name: Optional[str] = None,
+                    mesh: DataMesh = DataMesh()) -> str:
+    """Write the checkpoint (rank 0 of ``mesh`` only) -> its path, on every
+    rank."""
     ckpt_name = name or f"checkpoint_epoch{epoch}_step{state.step}"
     path = Path(output_dir) / ckpt_name
+    if mesh.is_main:
+        _write_checkpoint(path, state, cfg, epoch, best)
+    barrier(mesh)
+    return str(path)
+
+
+def _write_checkpoint(path: Path, state: TrainState, cfg, epoch: int,
+                      best: Optional[float]) -> None:
     path.mkdir(parents=True, exist_ok=True)
     _atomic_save(state.model.state_dict(), path / MODEL_FILE)
     _atomic_save({
@@ -73,20 +89,22 @@ def save_checkpoint(output_dir: str, state: TrainState, cfg=None,
         tmp.write_text(json.dumps(cfg.to_dict(), indent=2))
         os.replace(tmp, path / "config.json")
     logger.info("saved checkpoint %s", path)
-    return str(path)
 
 
 def save_final_model(output_dir: str, model, tokenizer=None,
-                     prefix: str = "") -> str:
-    """Final artifact (reference: train_v33_ddp.py:721-730). ``prefix`` is
-    put before every key: the MLM pre-trainer saves its bare model under
-    ``mlm.``, the name it has inside a ``SpladeEncoder``."""
+                     prefix: str = "", mesh: DataMesh = DataMesh()) -> str:
+    """Final artifact (reference: train_v33_ddp.py:721-730), written by
+    rank 0 of ``mesh`` only. ``prefix`` is put before every key: the MLM pre-trainer
+    saves its bare model under ``mlm.``, the name it has inside a
+    ``SpladeEncoder``."""
     path = Path(output_dir) / "final_model"
-    path.mkdir(parents=True, exist_ok=True)
-    _atomic_save({prefix + k: v for k, v in model.state_dict().items()},
-                 path / MODEL_FILE)
-    if tokenizer is not None and hasattr(tokenizer, "save_pretrained"):
-        tokenizer.save_pretrained(str(path))
+    if mesh.is_main:
+        path.mkdir(parents=True, exist_ok=True)
+        _atomic_save({prefix + k: v for k, v in model.state_dict().items()},
+                     path / MODEL_FILE)
+        if tokenizer is not None and hasattr(tokenizer, "save_pretrained"):
+            tokenizer.save_pretrained(str(path))
+    barrier(mesh)
     return str(path)
 
 

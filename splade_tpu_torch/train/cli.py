@@ -6,11 +6,19 @@ Usage:
         [--epochs N] [--batch-size B] [--lr LR] [--output-dir DIR]
         [--lambda-q X] [--lambda-d X] [--grad-accum N] [--seed S]
         [--debug] [--resume] [--checkpoint PATH] [--max-samples N]
-        [--tokenizer PATH] [--device cuda|cpu]
+        [--tokenizer PATH] [--device cuda|cpu] [--distributed]
+
+    torchrun --nproc_per_node N -m splade_tpu_torch.train v33 \
+        --distributed --config configs/train_v33.yaml
 
 CLI flags override env which overrides YAML which overrides defaults
-(reference: train_v33_ddp.py:123-156). It trains on one GPU (``cuda``)
-unless ``--device cpu`` is given, and raises when there is no card.
+(reference: train_v33_ddp.py:123-156); ``--config`` also reads the JSON
+that a run writes as ``resolved_config.json``. It trains on one GPU
+(``cuda``) unless ``--device cpu`` is given, and raises when there is no
+card. ``--distributed`` trains data parallel over ``torch.distributed``,
+one process a GPU (``cuda:{LOCAL_RANK}``, NCCL; gloo with ``--device
+cpu``): ``data.batch_size`` is per rank, rank 0 logs and writes, and a
+resume checkpoint that differs across ranks is refused.
 """
 
 from __future__ import annotations
@@ -32,7 +40,8 @@ POOL_MAPPING = {"auto": "kernel", "fused": "kernel", "xla": "logits"}
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser("splade-tpu-torch v33 trainer")
-    p.add_argument("--config", type=str, default=None)
+    p.add_argument("--config", type=str, default=None,
+                   help="a YAML config, or a .json one (save_config's)")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None)
@@ -49,6 +58,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--tokenizer", type=str, default=None)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel over torch.distributed: one process "
+                        "a GPU under torchrun (NCCL; gloo with --device cpu)")
     return p
 
 
@@ -79,9 +91,38 @@ def overrides_from_args(args: argparse.Namespace) -> Dict[str, Any]:
     return {k: v for k, v in ov.items() if v}
 
 
+def refuse_divergent_resume(ckpt: Optional[str], mesh) -> None:
+    """Every rank restores the checkpoint itself (rank 0 wrote it; sound on
+    a shared filesystem). Ranks that would restore different ones, or only
+    some of them one, would train diverged replicas: refuse, on every rank
+    (``splade_tpu/train/cli.py:152-167``)."""
+    from splade_tpu_torch.parallel.mesh import same_on_all_ranks
+
+    if not same_on_all_ranks(ckpt or "", mesh):
+        raise RuntimeError(
+            f"resume checkpoint differs across ranks (rank {mesh.rank} "
+            f"sees {ckpt!r}): output_dir must be one shared filesystem")
+
+
 def main(argv: Optional[list] = None) -> int:
     args = build_arg_parser().parse_args(argv)
 
+    from splade_tpu_torch.parallel.mesh import DataMesh, init_distributed
+    from splade_tpu_torch.utils.runtime import resolve_device
+
+    # the rank's device is made current before anything touches a card
+    mesh = (init_distributed(args.device) if args.distributed
+            else DataMesh(device=resolve_device(args.device)))
+    try:
+        return _train(args, mesh)
+    finally:
+        if mesh.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, mesh) -> int:
     from splade_tpu_torch.config import load_config, save_config
     from splade_tpu_torch.data import TripletCollator, load_training_data
     from splade_tpu_torch.models.modernbert import ModernBertConfig
@@ -92,14 +133,15 @@ def main(argv: Optional[list] = None) -> int:
     from splade_tpu_torch.train.eval import MidTrainingEvaluator
     from splade_tpu_torch.train.trainer import Trainer
     from splade_tpu_torch.utils.logging import setup_logging
-    from splade_tpu_torch.utils.runtime import resolve_device
 
-    device = resolve_device(args.device)
+    device = mesh.device
     cfg = load_config(args.config, overrides=overrides_from_args(args))
     out_dir = cfg.training.output_dir
-    setup_logging(os.path.join(out_dir, "training.log"))
-    save_config(cfg, os.path.join(out_dir, "resolved_config.json"))
-    logger.info("device: %s", device)
+    setup_logging(os.path.join(out_dir, "training.log"),
+                  is_main_process=mesh.is_main)
+    if mesh.is_main:
+        save_config(cfg, os.path.join(out_dir, "resolved_config.json"))
+    logger.info("device: %s (rank %d of %d)", device, mesh.rank, mesh.world)
     if cfg.model.fused_splade_head not in POOL_MAPPING:
         raise ValueError(
             f"model.fused_splade_head: {cfg.model.fused_splade_head!r} "
@@ -134,11 +176,12 @@ def main(argv: Optional[list] = None) -> int:
         logger.info("no val files; mid-training eval disabled")
 
     trainer = Trainer(cfg, model, train_data, collator, evaluator=evaluator,
-                      output_dir=out_dir, device=device)
+                      output_dir=out_dir, device=device, mesh=mesh)
     trainer.install_preemption_handler()
     ckpt = args.checkpoint
     if args.resume and not ckpt:
         ckpt = find_latest_checkpoint(out_dir)
+    refuse_divergent_resume(ckpt, mesh)
     if ckpt:
         trainer.state, meta = load_checkpoint(ckpt, trainer.state)
         if meta["full_resume"]:
@@ -152,5 +195,5 @@ def main(argv: Optional[list] = None) -> int:
     t0 = time.time()
     state = trainer.train()
     logger.info("training done in %.1f min", (time.time() - t0) / 60)
-    save_final_model(out_dir, state.model, tokenizer)
+    save_final_model(out_dir, state.model, tokenizer, mesh=mesh)
     return 0

@@ -2,7 +2,7 @@
 
 The reference ships ``configs/pretrain_mlm.yaml`` for a trainer module that
 no longer exists there; the JAX package rebuilt it, and this is its
-counterpart on one GPU:
+counterpart on one GPU or data parallel over ``torch.distributed``:
 
 - **Dynamic masking on the device** — the 15% BERT masking (80% ``[MASK]``
   / 10% random / 10% keep) is drawn per micro-batch from a
@@ -21,6 +21,14 @@ counterpart on one GPU:
 - The step is the V33 trainer's: gradient accumulation, the AdamW,
   warmup-cosine schedule and clipping of ``train/state.py``, bf16 autocast
   over f32 parameters under ``dtype: bfloat16``.
+- Data parallel, as the V33 trainer (``train/trainer.py``): each rank
+  takes its contiguous ``batch_size`` rows of every micro-batch of the
+  global batch (``batch_size x world``), its masks are its rows of the
+  draws over the whole global micro-batch, and its cross-entropy is
+  normalised by the global count of masked positions (one all-reduce of
+  the count, without a gradient), scaled so that the gradient all-reduce's
+  SUM divided by the world size gives the global batch's mean and its
+  gradient: what one process computes at the global batch.
 
 Checkpoints hold the bare MLM model; the final model is saved under the
 ``mlm.`` prefix (``save_final_model(..., prefix="mlm.")``), so the V33
@@ -45,8 +53,12 @@ import numpy as np
 import torch
 
 from splade_tpu_torch.config.v33 import V33TrainingConfig
+from splade_tpu_torch.parallel.mesh import (DataMesh, GradReducer,
+                                            all_reduce_mean, all_reduce_sum,
+                                            broadcast_params_)
 from splade_tpu_torch.train.preemption import (HangWatchdog, heartbeat_if_due,
-                                               install_preemption_handler)
+                                               install_preemption_handler,
+                                               stop_agreed)
 from splade_tpu_torch.train.state import TrainState, create_train_state
 from splade_tpu_torch.utils.runtime import DeviceLike, resolve_device
 
@@ -260,28 +272,51 @@ def make_mlm_loss_fn(model, mask_token_id: int, vocab_size: int,
                      special_ids, pad_id: int, mlm_prob: float,
                      max_length: int, autocast=contextlib.nullcontext):
     """Loss over one micro-batch {input_ids [B,S]} with masking on the
-    device: ``loss_fn(micro, rng) -> (loss, metrics)``, ``rng`` a
-    ``torch.Generator`` on the batch's device or ready ``MaskDraws``.
+    device: ``loss_fn(micro, rng, count=None, world=1, rank=0) -> (loss,
+    metrics)``, ``rng`` a ``torch.Generator`` on the batch's device or
+    ready ``MaskDraws``.
 
     P = round(mlm_prob * (max_length - 2)) positions are selected per row
     among the eligible (non-special, non-pad) ones; the encoder runs on the
     corrupted ids, the P selected states are gathered, and the head and the
-    tied projection run on [B, P, H] only."""
+    tied projection run on [B, P, H] only.
+
+    As rank ``rank`` of ``world``: a generator draws over the global
+    micro-batch [world * B, S] and this rank keeps its rows' draws;
+    ``count`` maps this rank's count of masked positions to the global one
+    (an all-reduce), and the loss and accuracy are ``world`` times this
+    rank's sum over the global count, so their mean over ranks is the
+    global batch's. ``loss_fn.mask`` is the masking alone: (corrupted ids,
+    attention mask, positions, labels, weights)."""
     P = masked_positions_per_row(mlm_prob, max_length)
     specials = np.asarray(special_ids, np.int64).reshape(-1)
 
-    def loss_fn(micro: Dict[str, torch.Tensor],
-                rng: Union[torch.Generator, MaskDraws]):
+    def mask(micro: Dict[str, torch.Tensor],
+             rng: Union[torch.Generator, MaskDraws], world: int = 1,
+             rank: int = 0):
         ids = micro["input_ids"].long()
         B, S = ids.shape
         attn = ids != pad_id
         is_special = torch.isin(ids, torch.as_tensor(specials,
                                                      device=ids.device))
         eligible = (attn & ~is_special).to(torch.float32)
-        draws = (rng if isinstance(rng, MaskDraws)
-                 else draw_mask_randoms(rng, B, S, P, vocab_size))
+        if isinstance(rng, MaskDraws):
+            draws = rng
+        else:
+            draws = draw_mask_randoms(rng, world * B, S, P, vocab_size)
+            if world > 1:
+                draws = MaskDraws(*(d[rank * B:(rank + 1) * B]
+                                    for d in draws))
         corrupted, positions, labels, weights = apply_mlm_masking(
             draws, ids, eligible, P, mask_token_id)
+        return corrupted, attn, positions, labels, weights
+
+    def loss_fn(micro: Dict[str, torch.Tensor],
+                rng: Union[torch.Generator, MaskDraws], count=None,
+                world: int = 1, rank: int = 0):
+        corrupted, attn, positions, labels, weights = mask(micro, rng, world,
+                                                           rank)
+        B = corrupted.shape[0]
         with autocast():
             hidden = model.encode(corrupted, attn.long())           # [B,S,H]
             sel = torch.gather(hidden, 1, positions[:, :, None].expand(
@@ -290,23 +325,34 @@ def make_mlm_loss_fn(model, mask_token_id: int, vocab_size: int,
         logits = logits.to(torch.float32)
         logp = torch.log_softmax(logits, dim=-1)
         ce = -torch.gather(logp, 2, labels[..., None])[..., 0]
-        denom = weights.sum() + 1e-6
-        loss = (ce * weights).sum() / denom
-        acc = ((logits.argmax(-1) == labels) * weights).sum() / denom
+        total = weights.sum()
+        if count is not None:
+            total = count(total.detach())
+        denom = total + 1e-6
+        loss = (ce * weights).sum() / denom * world
+        acc = ((logits.argmax(-1) == labels) * weights).sum() / denom * world
         return loss, {"mlm_acc": acc.detach(),
-                      "masked_per_row": (denom / B).detach()}
+                      "masked_per_row": (denom / (B * world)).detach()}
 
+    loss_fn.mask = mask
     return loss_fn
 
 
 def make_mlm_train_step(accum: int, loss_fn, seed: int,
-                        gradient_clip: float = 1.0):
+                        gradient_clip: float = 1.0,
+                        mesh: Optional[DataMesh] = None):
     """(TrainState, batch {input_ids [accum, B, S]} on the device) ->
     metrics dict of device scalars; the state advances by one optimizer
     step. The V33 step's structure (``train/trainer.py``): gradients summed
     over ``accum`` micro-batches, averaged, clipped by global norm, one
     AdamW and one schedule step. Micro-batch i of optimizer step s masks
-    from ``mask_seed(seed, s, i)``."""
+    from ``mask_seed(seed, s, i)``. ``mesh`` with a process group: the
+    batch is this rank's rows, the count of masked positions, the gradients
+    and the metrics are reduced over ranks (``train_step.reducer``)."""
+    distributed = mesh is not None and mesh.distributed
+    reducer = GradReducer(mesh) if distributed else None
+    rank_args = dict(count=lambda t: all_reduce_sum(t, mesh),
+                     world=mesh.world, rank=mesh.rank) if distributed else {}
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
@@ -321,19 +367,23 @@ def make_mlm_train_step(accum: int, loss_fn, seed: int,
         for i in range(accum):
             gen = torch.Generator(device=ids.device).manual_seed(
                 mask_seed(seed, state.step, i))
-            loss, metrics = loss_fn({"input_ids": ids[i]}, gen)
+            loss, metrics = loss_fn({"input_ids": ids[i]}, gen, **rank_args)
             loss.backward()
             for k, v in {"loss": loss.detach(), **metrics}.items():
                 sums[k] = v if k not in sums else sums[k] + v
         params = [p for p in model.parameters() if p.grad is not None]
         for p in params:
             p.grad.div_(accum)
+        if reducer is not None:
+            reducer([p.grad for p in params])
         torch.nn.utils.clip_grad_norm_(params, gradient_clip)
         state.optimizer.step()
         state.scheduler.step()
         state.step += 1
-        return {k: v / accum for k, v in sums.items()}
+        out = {k: v / accum for k, v in sums.items()}
+        return all_reduce_mean(out, mesh) if distributed else out
 
+    train_step.reducer = reducer
     return train_step
 
 
@@ -349,21 +399,25 @@ def _as_training_cfg(cfg: MLMConfig) -> V33TrainingConfig:
 # Trainer
 # --------------------------------------------------------------------------
 class MLMTrainer:
-    """Epoch loop of MLM pre-training on one GPU: ``model`` is a
+    """Epoch loop of MLM pre-training: ``model`` is a
     ``ModernBertForMaskedLM``, ``rows`` the packed corpus
     (``pack_corpus``). It runs on ``cuda`` unless the caller passes
-    ``device="cpu"``."""
+    ``device="cpu"``; ``mesh`` is this rank's place in a data-parallel run
+    (``init_distributed``), None one process. Rank 0 alone writes metrics
+    and checkpoints."""
 
     def __init__(self, cfg: MLMConfig, model, rows: np.ndarray, tokenizer,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, mesh: Optional[DataMesh] = None):
         from splade_tpu_torch.utils.logging import MetricWriter
         from splade_tpu_torch.utils.metrics import MetricsTracker
 
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh or DataMesh(device=self.device)
         self.model = model.to(self.device)
+        broadcast_params_(self.model, self.mesh)
         self.tokenizer = tokenizer
-        self.global_batch = cfg.batch_size
+        self.global_batch = cfg.batch_size * self.mesh.world
         self.accum = cfg.grad_accum
 
         n_val = max(int(len(rows) * cfg.val_fraction), 0)
@@ -389,9 +443,12 @@ class MLMTrainer:
             tokenizer.pad_token_id or 0, cfg.mlm_probability, cfg.max_length,
             autocast=self._autocast)
         self.step_fn = make_mlm_train_step(self.accum, self.loss_fn, cfg.seed,
-                                           tcfg.gradient_clip)
-        self.writer = MetricWriter(f"{cfg.output_dir}/tb")
-        self.tracker = MetricsTracker(cfg.output_dir, best_metric="loss")
+                                           tcfg.gradient_clip, mesh=self.mesh)
+        self.reducer = self.step_fn.reducer  # None without a process group
+        self.writer = MetricWriter(f"{cfg.output_dir}/tb",
+                                   enabled=self.mesh.is_main)
+        self.tracker = MetricsTracker(cfg.output_dir, best_metric="loss",
+                                      enabled=self.mesh.is_main)
         self.start_epoch = 1
         self._preempted = False
         self._watchdog: Optional[HangWatchdog] = None  # armed by train()
@@ -407,14 +464,17 @@ class MLMTrainer:
         return install_preemption_handler(self)
 
     def _epoch_batches(self, epoch: int) -> Iterator[Dict[str, np.ndarray]]:
+        """This rank's rows ([accum, batch_size, S]) of each step's global
+        batch ([accum, batch_size x world, S], the JAX trainer's)."""
         rng = np.random.default_rng(self.cfg.seed + epoch)
         order = rng.permutation(len(self.train_rows))
         rows_per_step = self.global_batch * self.accum
+        lo = self.mesh.rank * self.cfg.batch_size
         for i in range(self.steps_per_epoch):
             sel = order[i * rows_per_step:(i + 1) * rows_per_step]
             ids = self.train_rows[sel].reshape(
                 self.accum, self.global_batch, -1)
-            yield {"input_ids": ids}
+            yield {"input_ids": ids[:, lo:lo + self.cfg.batch_size]}
 
     def _to_device(self, ids: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(ids)).to(self.device)
@@ -450,10 +510,11 @@ class MLMTrainer:
 
         cfg = self.cfg
         logger.info(
-            "MLM pretraining: %d epochs x %d steps (batch %d x accum %d, "
-            "seq %d, %d packed rows) on %s",
-            cfg.epochs, self.steps_per_epoch, self.global_batch, self.accum,
-            cfg.max_length, len(self.train_rows), self.device)
+            "MLM pretraining: %d epochs x %d steps (batch %d = %d x %d ranks, "
+            "accum %d, seq %d, %d packed rows) on %s",
+            cfg.epochs, self.steps_per_epoch, self.global_batch,
+            cfg.batch_size, self.mesh.world, self.accum, cfg.max_length,
+            len(self.train_rows), self.device)
         self._watchdog = HangWatchdog(cfg.watchdog_timeout_s, name="mlm")
         self._last_epoch = self.start_epoch
         try:
@@ -461,7 +522,7 @@ class MLMTrainer:
             # the final save still reads the card: keep the watchdog armed
             save_checkpoint(cfg.output_dir, self.state, cfg,
                             epoch=self._last_epoch,
-                            best=self.tracker.best_value)
+                            best=self.tracker.best_value, mesh=self.mesh)
         finally:
             # an exception must not leave the armed watchdog alive: exit 17
             # would tell a restart supervisor to resume a run that aborted
@@ -484,8 +545,8 @@ class MLMTrainer:
             for i, batch in enumerate(self._epoch_batches(epoch)):
                 if i < done_in_epoch:
                     continue
-                if self._preempted or (cfg.max_steps
-                                       and self.state.step >= cfg.max_steps):
+                if stop_agreed(self) or (cfg.max_steps and self.state.step
+                                         >= cfg.max_steps):
                     break
                 metrics = self.step_fn(
                     self.state,
@@ -502,6 +563,8 @@ class MLMTrainer:
                     host["tokens_per_sec"] = (
                         tokens_per_step * (gstep - run_start_step)
                         / max(time.time() - t0, 1e-9))
+                    if self.reducer is not None:
+                        host["allreduce_ms"] = self.reducer.last_ms
                     self.tracker.log(gstep, host)
                     self.writer.scalars(host, gstep, prefix="train/")
                     logger.info(
@@ -518,11 +581,12 @@ class MLMTrainer:
                         self._watchdog.beat()
                 if cfg.save_steps and gstep % cfg.save_steps == 0:
                     save_checkpoint(cfg.output_dir, self.state, cfg,
-                                    epoch=epoch, best=self.tracker.best_value)
+                                    epoch=epoch, best=self.tracker.best_value,
+                                    mesh=self.mesh)
                     self._watchdog.beat()  # so is a checkpoint write
             self._last_epoch = epoch
-            if self._preempted or (cfg.max_steps
-                                   and self.state.step >= cfg.max_steps):
+            if stop_agreed(self) or (cfg.max_steps
+                                     and self.state.step >= cfg.max_steps):
                 break
 
 
@@ -545,9 +609,27 @@ def main(argv: Optional[list] = None) -> int:
     p.add_argument("--checkpoint", type=str, default=None)
     p.add_argument("--device", type=str, default=None,
                    help="torch device (default cuda)")
+    p.add_argument("--distributed", action="store_true",
+                   help="data parallel over torch.distributed: one process "
+                        "a GPU under torchrun (NCCL; gloo with --device cpu)")
     args = p.parse_args(argv)
 
-    device = resolve_device(args.device)
+    from splade_tpu_torch.parallel.mesh import init_distributed
+
+    # the rank's device is made current before anything touches a card
+    mesh = (init_distributed(args.device) if args.distributed
+            else DataMesh(device=resolve_device(args.device)))
+    try:
+        return _pretrain(args, mesh)
+    finally:
+        if mesh.distributed:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _pretrain(args, mesh: DataMesh) -> int:
+    device = mesh.device
     overrides = {k: v for k, v in {
         "data_dir": args.data_dir, "output_dir": args.output_dir,
         "epochs": args.epochs, "batch_size": args.batch_size,
@@ -562,14 +644,17 @@ def main(argv: Optional[list] = None) -> int:
     from splade_tpu_torch.train.checkpoint import (find_latest_checkpoint,
                                                    load_checkpoint,
                                                    save_final_model)
+    from splade_tpu_torch.train.cli import refuse_divergent_resume
     from splade_tpu_torch.utils.logging import setup_logging
     from splade_tpu_torch.utils.tokenizer import create_tokenizer
 
-    setup_logging(os.path.join(cfg.output_dir, "training.log"))
-    Path(cfg.output_dir).mkdir(parents=True, exist_ok=True)
-    (Path(cfg.output_dir) / "resolved_config.json").write_text(
-        json.dumps(cfg.to_dict(), indent=2))
-    logger.info("device: %s", device)
+    setup_logging(os.path.join(cfg.output_dir, "training.log"),
+                  is_main_process=mesh.is_main)
+    if mesh.is_main:
+        Path(cfg.output_dir).mkdir(parents=True, exist_ok=True)
+        (Path(cfg.output_dir) / "resolved_config.json").write_text(
+            json.dumps(cfg.to_dict(), indent=2))
+    logger.info("device: %s (rank %d of %d)", device, mesh.rank, mesh.world)
 
     tokenizer = create_tokenizer(cfg.tokenizer_path or cfg.model_name)
     logger.info("packing corpus from %s ...", cfg.data_dir)
@@ -585,11 +670,13 @@ def main(argv: Optional[list] = None) -> int:
     logger.info("params: %.1fM",
                 sum(x.numel() for x in model.parameters()) / 1e6)
 
-    trainer = MLMTrainer(cfg, model, rows, tokenizer, device=device)
+    trainer = MLMTrainer(cfg, model, rows, tokenizer, device=device,
+                         mesh=mesh)
     trainer.install_preemption_handler()
     ckpt = args.checkpoint
     if args.resume and not ckpt:
         ckpt = find_latest_checkpoint(cfg.output_dir)
+    refuse_divergent_resume(ckpt, mesh)
     if ckpt:
         trainer.state, meta = load_checkpoint(ckpt, trainer.state)
         if meta["full_resume"]:
@@ -602,7 +689,8 @@ def main(argv: Optional[list] = None) -> int:
     state = trainer.train()
     logger.info("MLM pretraining done in %.1f min", (time.time() - t0) / 60)
     # under the mlm. prefix, so the V33 SPLADE trainer loads it directly
-    save_final_model(cfg.output_dir, state.model, tokenizer, prefix="mlm.")
+    save_final_model(cfg.output_dir, state.model, tokenizer, prefix="mlm.",
+                     mesh=mesh)
     return 0
 
 

@@ -5,6 +5,14 @@ A preempted job gets SIGTERM with a grace window; the handler only sets a
 flag — the training loop checkpoints at the next step boundary and returns
 cleanly. (The reference has no equivalent: a killed run loses everything
 since the last 5-epoch checkpoint, train_v33_ddp.py:698-713.)
+
+Under ``torch.distributed`` a signal may reach one rank only; if that rank
+stopped alone, the others would wait in the next step's collective forever.
+So the loops ask ``stop_agreed`` at every step boundary (and at each epoch's
+end): one all-reduce of a flag over the ranks' gloo host group, which never
+waits on the card, and every rank stops at the same step. The watchdog
+stays per rank: a collective that waits on a dead rank is the hang it
+exists for.
 """
 
 from __future__ import annotations
@@ -12,6 +20,8 @@ from __future__ import annotations
 import logging
 import signal
 import time
+
+from splade_tpu_torch.parallel.mesh import agree_any
 
 logger = logging.getLogger(__name__)
 
@@ -28,6 +38,13 @@ def install_preemption_handler(trainer) -> dict:
 
     return {sig: signal.signal(sig, handler)
             for sig in (signal.SIGTERM, signal.SIGINT)}
+
+
+def stop_agreed(trainer) -> bool:
+    """True on every rank when any rank's ``trainer._preempted`` is set
+    (which it then is on all); ``trainer.mesh`` says who the ranks are."""
+    trainer._preempted = agree_any(trainer._preempted, trainer.mesh)
+    return trainer._preempted
 
 
 class HangWatchdog:

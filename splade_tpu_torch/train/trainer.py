@@ -17,6 +17,17 @@ sets ``_preempted``: the loop stops at the next step boundary, writes a
 checkpoint and returns. Mid-epoch resume is exact: the loader's order is a pure function of
 (seed, epoch) and the step draws no random numbers, so skipping the macro
 batches already consumed reproduces the uninterrupted run bitwise.
+
+Data parallel (``torch.distributed``, one process a GPU under torchrun):
+each rank loads ``data.batch_size`` rows of every micro-batch (its slice of
+the epoch's order), runs its ``accum`` micro-batches with the loss of its
+own rows (num_blocks 1), divides by ``accum``, and the step then takes one
+gradient all-reduce (``parallel/mesh.py``: SUM, divided by the world size)
+before clipping and AdamW; the metrics are averaged the same way. Rank 0's
+parameters are broadcast once at construction. The ranks agree at every
+step boundary whether any of them was signalled to stop
+(``preemption.stop_agreed``), so all stop at the same step. Rank 0 alone
+writes metrics and checkpoints.
 """
 
 from __future__ import annotations
@@ -33,8 +44,12 @@ import torch
 
 from splade_tpu_torch.config.v33 import V33Config, V33LossConfig
 from splade_tpu_torch.losses.v33 import v33_loss
+from splade_tpu_torch.parallel.mesh import (DataMesh, GradReducer,
+                                            all_reduce_mean,
+                                            broadcast_params_)
 from splade_tpu_torch.train.preemption import (HangWatchdog, heartbeat_if_due,
-                                               install_preemption_handler)
+                                               install_preemption_handler,
+                                               stop_agreed)
 from splade_tpu_torch.train.state import TrainState, create_train_state
 from splade_tpu_torch.utils.logging import MetricWriter
 from splade_tpu_torch.utils.metrics import (MetricsTracker, MovingAverage,
@@ -173,9 +188,11 @@ def compute_autocast(model_cfg, device: torch.device):
 
 
 def make_loss_fn(model, loss_cfg: V33LossConfig, num_blocks: int,
-                 packed_query: bool = False, autocast=contextlib.nullcontext):
+                 packed_query: bool = False, autocast=contextlib.nullcontext,
+                 mesh: Optional[DataMesh] = None):
     """(micro-batch of device tensors, step) -> (loss, LossMetrics). The
-    packed forward runs when ``Sd % Sq == 0 and Sd > Sq``."""
+    packed forward runs when ``Sd % Sq == 0 and Sd > Sq``. ``mesh``: see
+    ``v33_loss`` (global in-batch negatives across ranks)."""
 
     def loss_fn(micro: Dict[str, torch.Tensor], step: int):
         B, Sq = micro["query_input_ids"].shape
@@ -200,18 +217,25 @@ def make_loss_fn(model, loss_cfg: V33LossConfig, num_blocks: int,
             teacher_scores=micro.get("teacher_scores"),
             teacher_pos_scores=micro.get("teacher_pos_scores"),
             teacher_neg_scores=micro.get("teacher_neg_scores"),
-            num_blocks=num_blocks,
+            num_blocks=num_blocks, mesh=mesh,
         )
 
     return loss_fn
 
 
-def make_train_step(cfg: V33Config, num_blocks: int = 1):
+def make_train_step(cfg: V33Config, num_blocks: int = 1,
+                    mesh: Optional[DataMesh] = None):
     """(TrainState, batch of [accum, B, ...] device tensors) -> metrics dict
     of device scalars; the state's parameters, optimizer, schedule and step
-    advance by one optimizer step."""
+    advance by one optimizer step. ``num_blocks`` > 1 gives one process
+    the loss of that many ranks over their concatenated rows; ``mesh`` with
+    a process group makes this the step of one rank (its own rows, the
+    gradients and metrics reduced over ranks; ``train_step.reducer`` holds
+    the reduction and its last time)."""
     accum = cfg.training.gradient_accumulation_steps
     clip = cfg.training.gradient_clip
+    reducer = GradReducer(mesh) if mesh is not None and mesh.distributed \
+        else None
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Dict[str, torch.Tensor]:
@@ -220,7 +244,7 @@ def make_train_step(cfg: V33Config, num_blocks: int = 1):
         loss_fn = make_loss_fn(
             model, cfg.loss, num_blocks,
             packed_query=cfg.model.packed_query_tower,
-            autocast=lambda: compute_autocast(cfg.model, device))
+            autocast=lambda: compute_autocast(cfg.model, device), mesh=mesh)
         n_micro = next(iter(batch.values())).shape[0]
         if n_micro != accum:
             raise ValueError(f"batch holds {n_micro} micro-batches, "
@@ -241,6 +265,8 @@ def make_train_step(cfg: V33Config, num_blocks: int = 1):
         params = [p for p in model.parameters() if p.grad is not None]
         for p in params:
             p.grad.div_(accum)
+        if reducer is not None:
+            reducer([p.grad for p in params])
         grad_norm = torch.nn.utils.clip_grad_norm_(params, clip)
         state.optimizer.step()
         state.scheduler.step()
@@ -248,14 +274,29 @@ def make_train_step(cfg: V33Config, num_blocks: int = 1):
         out = {"loss": loss_sum / accum}
         out.update({k: v / accum for k, v in metric_sums.items()})
         out["grad_norm"] = grad_norm.detach()
+        if reducer is not None:
+            out = all_reduce_mean(out, mesh)
         return out
 
+    train_step.reducer = reducer
     return train_step
+
+
+def check_num_data(num_data: int, mesh: DataMesh) -> None:
+    """``mesh.num_data`` -1 or 0 takes the world size; another value must
+    be it."""
+    if num_data > 0 and num_data != mesh.world:
+        raise ValueError(
+            f"mesh.num_data {num_data} is not the world size {mesh.world} "
+            "(one rank a GPU under torchrun; -1 takes the world size)")
 
 
 class Trainer:
     """Epoch loop: data order, logging, eval, checkpointing (reference flow:
-    train_v33_ddp.py:451-736). One GPU: the loss's num_blocks is 1."""
+    train_v33_ddp.py:451-736). ``mesh`` is this rank's place in a
+    data-parallel run (``init_distributed``), None one process.
+    The evaluator runs on every rank (replicated parameters); rank 0
+    writes."""
 
     def __init__(
         self,
@@ -267,27 +308,35 @@ class Trainer:
         evaluator=None,
         output_dir: Optional[str] = None,
         device: DeviceLike = None,
+        mesh: Optional[DataMesh] = None,
     ):
         from splade_tpu_torch.data.pipeline import create_dataloader
 
-        if cfg.mesh.num_data > 1:
-            raise NotImplementedError(
-                f"mesh.num_data {cfg.mesh.num_data}: the port trains on one "
-                "GPU; DDP with per-rank num_blocks is ROADMAP.md §1 item 1")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.mesh = mesh or DataMesh(device=self.device)
+        check_num_data(cfg.mesh.num_data, self.mesh)
         self.model = model.to(self.device)
+        broadcast_params_(self.model, self.mesh)
         self.output_dir = output_dir or cfg.training.output_dir
         if evaluator is None and val_data is not None:
             from splade_tpu_torch.train.eval import MidTrainingEvaluator
 
             evaluator = MidTrainingEvaluator(list(val_data), collator)
         self.evaluator = evaluator
-        self.global_batch = cfg.data.batch_size
+        if self.mesh.world > 1 and getattr(collator, "length_buckets", None):
+            # a bucket is chosen from each rank's own rows, so the ranks'
+            # shapes (and step times) would differ: pad to max, as the JAX
+            # trainer does on a pod
+            logger.warning("data parallel: disabling length bucketing "
+                           "(content-dependent shapes differ across ranks)")
+            collator.length_buckets = None
+        self.global_batch = cfg.data.batch_size * self.mesh.world
         self.accum = cfg.training.gradient_accumulation_steps
         self.loader = create_dataloader(
-            train_data, collator, self.global_batch, shuffle=True,
+            train_data, collator, cfg.data.batch_size, shuffle=True,
             seed=cfg.training.seed, drop_last=True,
+            process_index=self.mesh.rank, process_count=self.mesh.world,
             prefetch_depth=cfg.data.prefetch_depth)
         self.steps_per_epoch = max(len(self.loader) // self.accum, 1)
         self.total_steps = self.steps_per_epoch * cfg.training.num_epochs
@@ -295,9 +344,13 @@ class Trainer:
             self.total_steps = min(self.total_steps, cfg.training.max_steps)
         self.state = create_train_state(self.model, cfg.training,
                                         self.total_steps)
-        self.step_fn = make_train_step(cfg, num_blocks=1)
-        self.writer = MetricWriter(f"{self.output_dir}/tb")
-        self.tracker = MetricsTracker(self.output_dir, best_metric="loss")
+        self.step_fn = make_train_step(cfg, mesh=self.mesh)
+        self.reducer = self.step_fn.reducer  # None without a process group
+        # rank-0 metric sinks (reference: train_v33_ddp.py:377-442)
+        self.writer = MetricWriter(f"{self.output_dir}/tb",
+                                   enabled=self.mesh.is_main)
+        self.tracker = MetricsTracker(self.output_dir, best_metric="loss",
+                                      enabled=self.mesh.is_main)
         self.ema_nonzero_q = MovingAverage(0.9)
         self.ema_nonzero_d = MovingAverage(0.9)
         self.start_epoch = 1
@@ -346,8 +399,9 @@ class Trainer:
         samples = 0
         wd = self._watchdog
         for host_batch in batches:
-            if self._preempted or (cfg.max_steps
-                                   and self.state.step >= cfg.max_steps):
+            if stop_agreed(self):
+                break
+            if cfg.max_steps and self.state.step >= cfg.max_steps:
                 break
             metrics = self.step_fn(self.state,
                                    to_device(host_batch, self.device))
@@ -371,6 +425,8 @@ class Trainer:
                 self.ema_nonzero_d.update(host["nonzero_d"])
                 host["nonzero_q_ema"] = self.ema_nonzero_q.get()
                 host["nonzero_d_ema"] = self.ema_nonzero_d.get()
+                if self.reducer is not None:
+                    host["allreduce_ms"] = self.reducer.last_ms
                 self.tracker.log(gstep, host)
                 self.writer.scalars(host, gstep, prefix="train/")
                 logger.info(
@@ -390,8 +446,9 @@ class Trainer:
 
         cfg = self.cfg.training
         logger.info(
-            "training: %d epochs x %d steps (batch %d x accum %d) on %s",
-            cfg.num_epochs, self.steps_per_epoch, self.global_batch,
+            "training: %d epochs x %d steps (batch %d = %d x %d ranks, "
+            "accum %d) on %s", cfg.num_epochs, self.steps_per_epoch,
+            self.global_batch, self.cfg.data.batch_size, self.mesh.world,
             self.accum, self.device)
         flat = {}
         for section, vals in self.cfg.to_dict().items():
@@ -410,9 +467,12 @@ class Trainer:
                 t0 = time.time()
                 self.train_epoch(epoch)
                 logger.info("epoch %d done in %.1fs", epoch, time.time() - t0)
-                if self._preempted:
+                # a signal may have reached one rank during the epoch's
+                # last step: every rank takes the same branch below
+                if stop_agreed(self):
                     save_checkpoint(self.output_dir, self.state, self.cfg,
-                                    epoch=epoch, best=self.tracker.best_value)
+                                    epoch=epoch, best=self.tracker.best_value,
+                                    mesh=self.mesh)
                     logger.warning("preemption checkpoint written; exiting")
                     break
                 if (self.evaluator is not None
@@ -426,7 +486,8 @@ class Trainer:
                 if (epoch % cfg.save_every_n_epochs == 0
                         or epoch == cfg.num_epochs):
                     save_checkpoint(self.output_dir, self.state, self.cfg,
-                                    epoch=epoch, best=self.tracker.best_value)
+                                    epoch=epoch, best=self.tracker.best_value,
+                                    mesh=self.mesh)
                     self._watchdog.beat()  # the save read the parameters
                 if cfg.max_steps and self.state.step >= cfg.max_steps:
                     break

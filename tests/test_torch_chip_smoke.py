@@ -1136,3 +1136,238 @@ def test_splash_mlm_phase_runs_on_the_cpu(tmp_path):
     route = out["attention_route"]
     assert route["loss_rel_err"] <= 1e-5
     assert route["worst_tensor_rel_err"] <= 1e-3
+
+
+# ------------------------------------------------------------ phase 7
+#: the faults phase 7 (b)'s comparisons must catch, each a change made in
+#: both rank processes (``_faulty_worker``)
+DP_FAULTS = ("sum_without_dividing", "reduce_before_accum", "rank1_checkpoint",
+             "stop_alone", "mlm_local_count")
+
+
+def _faulty_worker(fault: str, spec_path: str) -> int:
+    """``python tests/test_torch_chip_smoke.py dp-worker FAULT SPEC``: one
+    rank of phase 7 (b) with ``fault`` put into the port ("none": as it
+    is)."""
+    import json
+    import sys
+
+    from splade_tpu_torch.parallel.mesh import GradReducer
+    from splade_tpu_torch.train import checkpoint, mlm, trainer
+
+    sys.modules["torch.utils.tensorboard"] = None  # TensorFlow's import time
+    reduce = GradReducer.__call__
+    accum = json.loads(Path(spec_path).read_text())["v33"]["training"][
+        "gradient_accumulation_steps"]
+    if fault == "sum_without_dividing":
+        def summed(self, grads):
+            self.mesh = dataclasses.replace(self.mesh, world=1)
+            reduce(self, grads)
+        GradReducer.__call__ = summed
+    elif fault == "reduce_before_accum":
+        def reduced_first(self, grads):  # (g0·a + g1·a) / W / a
+            for g in grads:
+                g.mul_(accum)
+            reduce(self, grads)
+            for g in grads:
+                g.div_(accum)
+        GradReducer.__call__ = reduced_first
+    elif fault == "rank1_checkpoint":  # every rank writes as rank 0
+        save = checkpoint.save_checkpoint
+        checkpoint.save_checkpoint = lambda *a, mesh, **k: save(
+            *a, mesh=dataclasses.replace(mesh, rank=0), **k)
+    elif fault == "stop_alone":
+        trainer.stop_agreed = lambda tr: tr._preempted
+    elif fault == "mlm_local_count":
+        mlm.all_reduce_sum = lambda t, mesh: t
+    cs = _load_chip_smoke()
+    return cs.dp_worker(spec_path)
+
+
+def _dp_phase(cs, root: Path, fault: str) -> dict:
+    """Phase 7 (b) on the CPU, tiny (2 layers, accumulation 3 so that the
+    order of the divisions shows), ranks from ``_faulty_worker``; a faulty
+    run's ranks get 60 s (a rank that stops alone leaves the other waiting
+    until then). -> its result, or the message it failed with."""
+    import sys
+
+    recipe = _tiny_recipe(cs)
+    recipe["training"]["gradient_accumulation_steps"] = 3
+    v33 = dataclasses.replace(ModernBertConfig.tiny(num_hidden_layers=2),
+                              vocab_size=VOCAB, remat=True)
+    mlm = dataclasses.replace(ModernBertConfig.tiny(num_hidden_layers=2),
+                              vocab_size=VOCAB)
+    mlm_recipe = dict(cs.mlm_recipe(), max_length=32, batch_size=4,
+                      grad_accum=3, dtype="float32")
+    try:
+        return cs.data_parallel_phase(
+            torch, cs.CharTokenizer(), np.random.default_rng(8), root / fault,
+            0, recipe, v33, mlm_recipe, mlm, device="cpu", n_sentences=400,
+            sentence_words=(6, 12), timeout_s=150 if fault == "none" else 60,
+            worker=[sys.executable, str(Path(__file__).resolve()),
+                    "dp-worker", fault])
+    except SystemExit as e:
+        return {"failed": str(e)}
+
+
+@pytest.fixture(scope="module")
+def dp_phases(tmp_path_factory):
+    """Phase 7 (b) as it is and with each of DP_FAULTS, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cs = _load_chip_smoke()
+    root = tmp_path_factory.mktemp("dp")
+    # tiny ranks, a dozen at once: one thread each, and one here for the
+    # emulation, so the ranks and it compute alike
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        with pytest.MonkeyPatch.context() as mp, \
+                ThreadPoolExecutor(len(DP_FAULTS) + 1) as pool:
+            mp.setenv("OMP_NUM_THREADS", "1")
+            runs = {f: pool.submit(_dp_phase, cs, root, f)
+                    for f in ("none",) + DP_FAULTS}
+            return {f: run.result() for f, run in runs.items()}
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_data_parallel_phase_runs_on_the_cpu(dp_phases):
+    out = dp_phases["none"]
+    assert "failed" not in out, out.get("failed")
+    assert out["world"] == 2 and out["backend"] == "gloo"
+    assert len(out["v33"]["records"]) == out["steps"] == 2
+    assert all(len(ms) == 2 and min(ms) > 0
+               for ms in out["v33"]["allreduce_ms"])
+    assert out["vs_global_batch"]["worst_tensor_rel_err"] <= 1e-5
+    assert out["global_negatives"]["loss_rel_err"] <= 1e-5
+    assert out["v33"]["launches"][0] == dict.fromkeys(
+        out["v33"]["launches"][0], 0)  # plain versions on the CPU
+
+
+@pytest.mark.parametrize("fault, check", [
+    ("sum_without_dividing", "ranks == emulation (parameters, bitwise)"),
+    ("reduce_before_accum", "V33 ranks == emulation (parameters, bitwise)"),
+    ("rank1_checkpoint", "checkpoints: rank 0's only"),
+    ("stop_alone", "data-parallel ranks"),
+    ("mlm_local_count", "MLM ranks == emulation"),
+])
+def test_data_parallel_phase_catches_a_fault(dp_phases, fault, check):
+    """Each fault fails the phase, at the check that names it (a rank
+    stopping alone leaves the other waiting in a collective: the ranks'
+    processes fail, or are killed at the phase's deadline)."""
+    got = dp_phases[fault]
+    assert "failed" in got, fault
+    assert check in got["failed"], got["failed"][-2000:]
+
+
+@pytest.mark.parametrize("num_blocks, sound", [(2, True), (1, False)])
+def test_global_batch_ceiling_catches_a_wrong_block_mask(num_blocks, sound):
+    """Phase 7 (b)'s comparison of the two halves with one process at the
+    global batch, at the most it tolerates (the ceiling of DP_RTOL, as a
+    floor that large would give): the global batch with its two blocks
+    passes; with one block (every row a candidate of every other: a wrong
+    mask) it fails."""
+    from splade_tpu_torch.config import V33Config
+    from splade_tpu_torch.data import TripletCollator
+    from splade_tpu_torch.models.splade import SpladeEncoder
+
+    cs = _load_chip_smoke()
+    cfg = V33Config.from_dict(_tiny_recipe(cs))
+    collator = TripletCollator(cs.CharTokenizer(), query_max_length=8,
+                               doc_max_length=32)
+    macros = cs.rank_macro_batches(
+        torch, cs.synth_triplets(np.random.default_rng(3), 16, (6, 12)),
+        collator, 4, 1, 2, 1, 2, "cpu")[0]
+    model = SpladeEncoder(dataclasses.replace(
+        ModernBertConfig.tiny(num_hidden_layers=2), vocab_size=VOCAB),
+        pool_impl="kernel", with_token_weights=False,
+        device="cpu").init_weights(0)
+    joined = {k: torch.cat([m[k] for m in macros], dim=1) for k in macros[0]}
+    at_global = cs.accumulated_gradients(torch, model, cs.v33_runs(
+        torch, model, cfg, joined, 0, num_blocks=num_blocks))
+    halves = cs.combined_gradients(torch, model, [
+        cs.v33_runs(torch, model, cfg, m, 0) for m in macros])
+    ceiling = dict.fromkeys(("loss_rel_err", "grad_norm_rel_err",
+                             "worst_tensor_rel_err"), cs.DP_RTOL[1])
+    if sound:
+        out = cs.gradients_against(torch, halves, at_global, "halves",
+                                   cs.DP_RTOL, ceiling)
+        assert out["worst_tensor_rel_err"] <= 1e-5
+    else:
+        with pytest.raises(SystemExit, match="global batch"):
+            cs.gradients_against(torch, halves, at_global, "halves",
+                                 cs.DP_RTOL, ceiling)
+
+
+def test_cli_phases_run_on_the_cpu(tmp_path, monkeypatch):
+    """Phase 7 (a) and (c) on the CPU, tiny: each CLI as one process and as
+    a world of 1 under torch.distributed.run (gloo), bitwise equal."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")  # tiny processes
+    cs = _load_chip_smoke()
+    over = dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=96,
+                num_hidden_layers=1, num_attention_heads=4,
+                local_attention=8)
+    with ThreadPoolExecutor(2) as pool:
+        v33 = pool.submit(
+            cs.v33_cli_phase, torch, np.random.default_rng(7),
+            tmp_path / "v33", _tiny_recipe(cs), ModernBertConfig(**over),
+            device="cpu", model_over=over, timeout_s=150)
+        mlm = pool.submit(
+            cs.mlm_cli_phase, torch, np.random.default_rng(9),
+            tmp_path / "mlm", cs.mlm_recipe(), device="cpu", n_sentences=400,
+            sentence_words=(6, 12),
+            env_over={"MLM_MAX_LENGTH": "32", "MLM_BATCH_SIZE": "4",
+                      "MLM_GRAD_ACCUM": "2", "MLM_DTYPE": "float32"},
+            model_over=over, timeout_s=150)
+        v33, mlm = v33.result(), mlm.result()
+    assert len(v33["world1"]["records"]) == 3
+    assert v33["world1"]["digest"] == v33["single"]["digest"]
+    assert all(ms is not None for ms in v33["allreduce_ms"])
+    assert len(mlm["world1"]["records"]) == 2
+    assert mlm["world1"]["digest"] == mlm["single"]["digest"]
+
+
+def test_mlm_recipe_is_the_cli_defaults():
+    """Phase 7 (c) runs the MLM CLI without a config: the recipe must be
+    the configuration's defaults."""
+    from splade_tpu_torch.train.mlm import MLMConfig
+
+    cs = _load_chip_smoke()
+    defaults = MLMConfig().to_dict()
+    assert {k: defaults[k] for k in cs.mlm_recipe()} == cs.mlm_recipe()
+
+
+def test_concurrent_builds_link_one_library(tmp_path, monkeypatch):
+    """Two build() calls at once (the ranks of a run starting together)
+    against a stub nvcc: one compile of each source and one link, one
+    library, no temporary left."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from splade_tpu_torch.ops import _cuda
+
+    calls = tmp_path / "calls"
+    stub = tmp_path / "nvcc"
+    stub.write_text(
+        "#!/bin/sh\n"
+        f"echo \"$*\" >> {calls}\n"
+        "while [ $# -gt 1 ]; do [ \"$1\" = -o ] && out=$2; shift; done\n"
+        "sleep 0.3\n"
+        "echo object > \"$out\"\n")
+    stub.chmod(0o755)
+    monkeypatch.setattr(_cuda, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_cuda, "_nvcc", lambda: str(stub))
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(lambda _: _cuda.build(), range(2)))
+    assert built[0][0] == built[1][0] and built[0][0].exists()
+    assert len(list((tmp_path / "build").glob("*.so"))) == 1
+    assert not list((tmp_path / "build").glob("*.tmp"))
+    assert len(calls.read_text().splitlines()) == len(_cuda.sources()) + 1
+
+
+if __name__ == "__main__":
+    import sys
+
+    sys.exit(_faulty_worker(sys.argv[2], sys.argv[3]))

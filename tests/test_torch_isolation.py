@@ -52,6 +52,15 @@ def test_the_third_slices_modules_are_among_the_checked_files(rel):
     assert (ROOT / "splade_tpu" / rel).exists()  # each has its counterpart
 
 
+def test_the_parallel_module_is_among_the_checked_files():
+    """Data parallel has its counterpart of splade_tpu/parallel/mesh.py,
+    checked like every module of the port (the tests' worker processes and
+    chip_smoke.py's ranks import it without jax)."""
+    for rel in ("parallel/__init__.py", "parallel/mesh.py"):
+        assert ROOT / "splade_tpu_torch" / rel in PORT_FILES
+        assert (ROOT / "splade_tpu" / rel).exists()
+
+
 def test_the_splash_attention_module_is_among_the_checked_files():
     """The splash attention has a module of its own in the port (JAX keeps
     its call inside models/modernbert.py) and its kernels' sources ship."""

@@ -430,7 +430,8 @@ def test_trainer_refuses_what_it_does_not_port(jax_params, tmp_path):
                        _samples(), TripletCollator(FakeTokenizer()),
                        device="cpu")
 
-    with pytest.raises(NotImplementedError, match="DDP"):
+    # without a process group the world is one rank: 2 is not its size
+    with pytest.raises(ValueError, match="not the world size 1"):
         make({}, {"num_data": 2})
     # the hang watchdog is ported: a window above 0 is taken, and armed
     # only by train() (tests/test_torch_preemption.py runs it)
