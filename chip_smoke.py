@@ -135,10 +135,45 @@ Phases (any failure exits non-zero; nothing is caught):
    steps, one process against a world of 1 over NCCL: bitwise. A rank on
    another card (``cuda:1``) and NCCL across cards are not run: the card
    machine has one card.
+8. The benchmark path: the port's benchmark CLI (``python -m
+   splade_tpu_torch.benchmark.runner``, through ``--cli bench``: the
+   stand-in tokenizers in place of the HF ones) in processes of its own,
+   on 2,000 synthetic Hangul triplets with 3 negatives each (``--dataset
+   triplet-val --sample-size 500``: 500 queries over 2,000 documents). The
+   sparse model is the seeded 22L/768/50K SpladeEncoder in bf16 through the
+   pool kernel, its decoder bias set so that vectors are as sparse as a
+   trained model's, read through ``--checkpoint`` from a model.pt dir; the
+   dense model is XLM-R at BGE-M3's published shape (24 layers, 1024
+   hidden, 16 heads, 250,002 vocab) with seeded random weights, read as an
+   HF dir through ``--dense-checkpoint`` at 512 tokens. (a) ``--index
+   exact --postings-index`` with the dense model and ``--encodings``: 12
+   methods. (b) ``--index gpu --no-hybrid`` on (a)'s encodings. (c)
+   ``precompute_teacher_scores`` over the 2,000 triplets with the teacher,
+   a second call that must reuse its cache, ``mine_multi_negatives`` with
+   3 negatives. Held: every method present and no query failed; each
+   query's top 10 from the postings row (PostingsIndex + the rescore
+   kernel) and from (b)'s ImpactIndex against the exact CSR search on the
+   same vectors, equal where scores are apart by more than the index's
+   rounding (bf16 or int8 weights); the two kernels against their plain
+   versions at the shapes this path gives them, in this process: 64 corpus
+   documents' vectors (B=32, S=256) and 64 queries' (B=1, S=64, as the
+   runner encodes a query), kernel route against the plain one, and the
+   rescore kernel against ``rescore_match_plain`` at every rescore the
+   postings row makes for each of the run's query vectors (the run's
+   PostingsIndex rebuilt from its encodings with the runner's own serving
+   configuration: the same doc-major block and candidates); the teacher's embeddings of 32 texts: unit
+   norm, its module in f32 against a plain f32 XLM-R forward written here,
+   bf16 against f32 within twice a floor measured first on other weights;
+   the launches the code implies (the pool forward once a document batch
+   and once a distinct query a run, the rescore once a postings query); the
+   mined rows well formed. Printed beside the card's name and power limit:
+   sparse and dense documents/s, each method's latency p50 / p99, the
+   teacher's texts/s in (c), the phase's seconds. Recall with random
+   weights measures nothing and is printed only as a count.
 
-The last six lines are the training JSON, the pre-training JSON, the
-splash training JSON, the data-parallel JSON, the kernels' JSON and the
-run's JSON.
+The last seven lines are the training JSON, the pre-training JSON, the
+splash training JSON, the data-parallel JSON, the benchmark JSON, the
+kernels' JSON and the run's JSON.
 """
 
 from __future__ import annotations
@@ -290,7 +325,8 @@ class CharTokenizer:
     tokenizer (which is not in the repository): one id per non-space
     character, ids 0-3 special, [PAD] = 0. Called with
     ``add_special_tokens=False`` it returns unpadded id lists, as
-    ``pack_corpus`` asks of a tokenizer. ``fill`` counts the valid and the
+    ``pack_corpus`` asks of a tokenizer (one flat list for one string, as the
+    benchmark's BM25 word-piece analyzer asks). ``fill`` counts the valid and the
     padded-to positions of the padded batches it makes, by max_length: the
     masks the encoders and the collator hand the pool forward."""
 
@@ -311,11 +347,13 @@ class CharTokenizer:
         return {"[PAD]": 0, "[CLS]": 1, "[SEP]": 2, "[MASK]": 3}
 
     def __call__(self, texts, padding="max_length", truncation=True,
-                 max_length=64, return_tensors="np", add_special_tokens=True):
+                 max_length=64, return_tensors="np", add_special_tokens=True,
+                 verbose=True):
+        one = isinstance(texts, str)
         all_codes = [[4 + ord(c) % (V - 4) for c in t if not c.isspace()]
-                     for t in texts]
+                     for t in ([texts] if one else texts)]
         if not add_special_tokens:
-            return {"input_ids": all_codes}
+            return {"input_ids": all_codes[0] if one else all_codes}
         ids = np.zeros((len(texts), max_length), np.int64)
         mask = np.zeros((len(texts), max_length), np.int64)
         for i, codes in enumerate(all_codes):
@@ -333,6 +371,39 @@ class CharTokenizer:
         made since ``fill`` was last cleared."""
         with self._lock:
             return {n: v / max(p, 1) for n, (v, p) in self.fill.items()}
+
+
+class DenseCharTokenizer:
+    """Character-level stand-in for BGE-M3's XLM-R tokenizer (which is not
+    in the repository), shaped as XLM-R's: ``<s>`` = 0 first, ``</s>`` = 2
+    last, one id in [4, vocab) per non-space character, padded with the
+    model config's pad id (1 for XLM-R: ``roberta_position_ids`` counts the
+    ids that are not the pad id, so padding of another id would be numbered
+    as tokens)."""
+
+    bos_token_id, eos_token_id = 0, 2
+
+    def __init__(self, vocab_size: int, pad_token_id: int = 1):
+        self.vocab_size = vocab_size
+        self.pad_token_id = pad_token_id
+
+    @classmethod
+    def from_dir(cls, model_dir) -> "DenseCharTokenizer":
+        """The stand-in for the model of an HF dir, from its config.json."""
+        cfg = json.loads((Path(model_dir) / "config.json").read_text())
+        return cls(cfg["vocab_size"], cfg.get("pad_token_id", 1))
+
+    def __call__(self, texts, padding="max_length", truncation=True,
+                 max_length=512, return_tensors="np"):
+        ids = np.full((len(texts), max_length), self.pad_token_id, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for i, t in enumerate(texts):
+            codes = [4 + ord(c) % (self.vocab_size - 4) for c in t
+                     if not c.isspace()][:max_length - 2]
+            codes = [self.bos_token_id] + codes + [self.eos_token_id]
+            ids[i, :len(codes)] = codes
+            mask[i, :len(codes)] = 1
+        return {"input_ids": ids, "attention_mask": mask}
 
 
 def hangul_texts(rng, n: int, words: int) -> list:
@@ -1663,14 +1734,19 @@ def compare_search_vector(name, engine, query: str, k: int = 10) -> None:
                    [engine.search(query, k=k)])
 
 
-def compare_doc_encode(torch, enc, model, texts) -> float:
+def compare_doc_encode(torch, enc, model, texts, max_length=None,
+                       batch_size=None, what: str = "document") -> float:
     """The document vectors the postings engine indexed (pool_impl
-    'kernel', S = doc_max_length) against the plain path's on the same
-    texts, as dense [B, V] rows: within SERVE_RTOL of each row's largest
-    weight. Returns the largest relative difference."""
+    'kernel', S = doc_max_length, the encoder's batch) against the plain
+    path's on the same texts, as dense [B, V] rows: within SERVE_RTOL of
+    each row's largest weight. ``max_length`` and ``batch_size`` give
+    another shape (a query, encoded alone). Returns the largest relative
+    difference."""
     worst = 0.0
-    for i in range(0, len(texts), enc.batch_size):
-        batch = enc.tokenize(texts[i:i + enc.batch_size], enc.doc_max_length)
+    S = max_length or enc.doc_max_length
+    B = batch_size or enc.batch_size
+    for i in range(0, len(texts), B):
+        batch = enc.tokenize(texts[i:i + B], S)
         got = enc.encode_tensor(*batch)
         model.pool_impl = "streamed"
         try:
@@ -1679,11 +1755,11 @@ def compare_doc_encode(torch, enc, model, texts) -> float:
             model.pool_impl = "kernel"
         scale = want.abs().amax(1, keepdim=True).clamp_min(1e-6)
         worst = max(worst, float(((got - want).abs() / scale).max()))
-    log(f"  document encode S={enc.doc_max_length}, {len(texts)} docs: "
+    log(f"  {what} encode B={B} S={S}, {len(texts)} texts: "
         f"kernel == plain path (max relative diff {worst:.2e}, "
         f"tol {SERVE_RTOL})")
     if not worst <= SERVE_RTOL:
-        raise SystemExit("document vectors differ from the plain path")
+        raise SystemExit(f"{what} vectors differ from the plain path")
     return worst
 
 
@@ -3254,16 +3330,753 @@ def data_parallel_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
                 checks=list(checks))
 
 
+# ------------------------------------------------------------ phase 8
+def bge_m3_shape() -> dict:
+    """BGE-M3's published backbone (its config.json: XLM-RoBERTa large),
+    the shape of phase 8's dense model: XlmRobertaConfig's defaults, in
+    HF's names; named here, never downloaded."""
+    from splade_tpu_torch.models.xlmr import XlmRobertaConfig
+
+    shape = dataclasses.asdict(XlmRobertaConfig())
+    del shape["dtype"]
+    return shape
+
+
+#: synthetic triplets written, negatives each, and the queries the runner
+#: samples (--sample-size: 500 x (1 + 3) = 2,000 documents)
+BENCH_TRIPLETS, BENCH_NEGATIVES, BENCH_QUERIES = 2000, 3, 500
+#: words (two syllables each) of a document: past the 256-token cut
+BENCH_DOC_WORDS = (140, 170)
+BENCH_QUERY_WORDS = 6
+BENCH_DENSE_LEN = 512
+#: seeded random weights put nearly every vocab entry's maximum above 0 (a
+#: document of 50K nonzeros); the decoder bias is set to -t, one t for
+#: both, taken from a sample so that documents hold at least about
+#: BENCH_DOC_NNZ nonzeros and queries at least about BENCH_QUERY_NNZ, as a
+#: trained model's sparse vectors are. The smaller threshold wins: with the
+#: seeded model it is the queries', so documents come out near 442
+#: nonzeros, not 256
+BENCH_DOC_NNZ, BENCH_QUERY_NNZ = 256, 24
+#: queries whose vectors the query encode check holds (B=1, S=64)
+BENCH_QUERY_CHECK = 64
+#: the methods of run (a) (tests/test_dense_cli.py's 11 and the postings
+#: row) and of run (b)
+BENCH_METHODS = {
+    "bm25", "neural_sparse", "semantic", "bm25_semantic_rrf", "hybrid_rrf",
+    "hybrid_linear_0.3", "hybrid_linear_0.4", "hybrid_linear_0.5",
+    "hybrid_weighted_rrf", "bm25_sparse_rrf", "triple_rrf",
+    "neural_sparse_postings"}
+BENCH_GPU_METHODS = {"bm25", "neural_sparse"}
+#: the sparse rows whose per-query lists run (a) and (b) record
+BENCH_SPARSE_ROWS = ("neural_sparse", "neural_sparse_postings")
+#: the postings index of --postings-index: the query's strongest terms it
+#: keeps (splade_tpu_torch/benchmark/runner.py, the serving configuration)
+POSTINGS_QUERY_TOP_T = 32
+#: the teacher's f32 module against the plain f32 forward below: the same
+#: function in f32, so only the order of sums differs; relative to the
+#: largest element of the normalized embedding
+TEACHER_F32_RTOL = 1e-4
+#: unit norm of each normalized bf16 embedding
+TEACHER_NORM_ATOL = 1e-3
+BENCH_TIMEOUT_S = 600.0
+#: the sparse encoder's batch (SparseEncoderV33's default: the CLI sets none)
+BENCH_ENCODE_BATCH = 32
+
+
+def bench_triplets(rng, n: int, doc_words=BENCH_DOC_WORDS,
+                   query_words: int = BENCH_QUERY_WORDS,
+                   negatives: int = BENCH_NEGATIVES) -> list:
+    """Hangul triplets whose positive holds the query's words among random
+    ones (so BM25 has something to find), with ``negatives`` random
+    documents each."""
+    stems = ["".join(chr(0xAC00 + int(x)) for x in rng.integers(0, 11172, 2))
+             for _ in range(400)]
+
+    def doc(extra=()):
+        words = [stems[j] for j in rng.integers(
+            0, len(stems), int(rng.integers(*doc_words)))]
+        for w in extra:
+            words.insert(int(rng.integers(0, len(words) + 1)), w)
+        return " ".join(words)
+
+    rows = []
+    for _ in range(n):
+        query = [stems[j] for j in rng.integers(0, len(stems), query_words)]
+        rows.append({"query": " ".join(query), "positive": doc(query),
+                     "negatives": [doc() for _ in range(negatives)]})
+    return rows
+
+
+def sparse_bench_model(torch, tok, texts, queries, seed: int, device: str,
+                       over=None, doc_nnz: int = BENCH_DOC_NNZ,
+                       query_nnz: int = BENCH_QUERY_NNZ):
+    """The seeded SpladeEncoder in bf16, its decoder bias set to -t: t the
+    largest threshold that leaves at least ``doc_nnz`` maxima a document
+    and ``query_nnz`` a query above it, on average over the sample (a
+    uniform bias moves every maximum m[b, v] of the pool by the same
+    amount, so one t serves both: the smaller of the two thresholds, and
+    the other kind of text gets more nonzeros than its target; a vector's
+    values are log1p(m) where m > 0). -> (model, t, the sample's mean
+    nonzeros a document and a query after the shift)."""
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    from splade_tpu_torch.models.modernbert import ModernBertConfig
+    from splade_tpu_torch.models.splade import SpladeEncoder
+
+    cfg = ModernBertConfig(**{"vocab_size": V, "pad_token_id":
+                              tok.pad_token_id, **(over or {})})
+    model = SpladeEncoder(cfg, pool_impl="kernel", device=device)
+    model = model.init_weights(seed).to(torch.bfloat16).eval()
+    enc = SparseEncoderV33(model, tok, filter_special=False, device=device)
+
+    def maxima(sample, max_length):
+        out = []
+        for i in range(0, len(sample), enc.batch_size):
+            rows = enc.encode_tensor(*enc.tokenize(
+                sample[i:i + enc.batch_size], max_length))
+            out.append(torch.expm1(rows).cpu())
+        return torch.cat(out)  # m where m > 0, else 0
+
+    thresholds, sample = [], {}
+    for name, sample_texts, max_length, want in (
+            ("docs", texts, enc.doc_max_length, doc_nnz),
+            ("queries", queries, enc.query_max_length, query_nnz)):
+        m = maxima(sample_texts, max_length)
+        sample[name] = m
+        pos = m[m > 0].sort(descending=True).values
+        thresholds.append(float(pos[min(want * len(m), len(pos)) - 1]))
+    t = min(thresholds)
+    with torch.no_grad():
+        model.mlm.decoder.bias.sub_(t)
+    nnz = {name: float((m > t).sum(1).float().mean())
+           for name, m in sample.items()}
+    return model, t, nnz
+
+
+def xlmr_init(torch, config, seed: int, device: str):
+    """An XlmRobertaEncoder with seeded random weights as HF initializes
+    XLM-R (normal 0.02, unit LayerNorm scales, zero biases), drawn by a
+    generator on the device."""
+    from splade_tpu_torch.models.xlmr import XlmRobertaEncoder
+
+    with torch.device(device):
+        model = XlmRobertaEncoder(config).eval()
+    g = torch.Generator(device=device).manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if "LayerNorm" in name:
+                p.fill_(1.0 if name.endswith("weight") else 0.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.copy_(torch.empty(p.shape, dtype=torch.float32,
+                                    device=device).normal_(0.0, 0.02,
+                                                           generator=g))
+    return model
+
+
+def write_dense_checkpoint(torch, model, shape: dict, path: Path) -> None:
+    """An HF-format XLM-R dir: config.json + pytorch_model.bin (bf16
+    values, the checkpoint BGEM3Teacher.from_hf_dir reads in bf16)."""
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(
+        {"model_type": "xlm-roberta", "architectures": ["XLMRobertaModel"],
+         "hidden_act": "gelu", **shape}, indent=2))
+    torch.save({k: v.to(torch.bfloat16).cpu()
+                for k, v in model.state_dict().items()},
+               path / "pytorch_model.bin")
+
+
+def xlmr_plain_cls(torch, state: dict, shape: dict, ids, mask):
+    """XLM-R's normalized CLS embedding in f32 from HF-named weights,
+    written out here apart from the port's module: RoBERTa positions,
+    post-LN layers, masked keys excluded from every softmax."""
+    F = torch.nn.functional
+    w = lambda k: state[k].float()
+    H, n = shape["hidden_size"], shape["num_attention_heads"]
+    eps, pad = shape["layer_norm_eps"], shape["pad_token_id"]
+    B, S = ids.shape
+    valid = ids.ne(pad).long()
+    pos = torch.cumsum(valid, 1) * valid + pad
+    x = (w("embeddings.word_embeddings.weight")[ids]
+         + w("embeddings.position_embeddings.weight")[pos]
+         + w("embeddings.token_type_embeddings.weight")[0])
+    ln = lambda x, k: F.layer_norm(x, (H,), w(k + ".weight"), w(k + ".bias"),
+                                   eps)
+    x = ln(x, "embeddings.LayerNorm")
+    keys = mask.bool()[:, None, None, :]
+    for i in range(shape["num_hidden_layers"]):
+        pre = f"encoder.layer.{i}."
+        lin = lambda t, k: F.linear(t, w(pre + k + ".weight"),
+                                    w(pre + k + ".bias"))
+        q, k, v = (lin(x, f"attention.self.{r}").view(B, S, n, H // n)
+                   .transpose(1, 2) for r in ("query", "key", "value"))
+        s = (q @ k.transpose(-1, -2)) / (H // n) ** 0.5
+        a = torch.softmax(s.masked_fill(~keys, float("-inf")), -1) @ v
+        a = a.transpose(1, 2).reshape(B, S, H)
+        x = ln(x + lin(a, "attention.output.dense"),
+               pre + "attention.output.LayerNorm")
+        x = ln(x + lin(F.gelu(lin(x, "intermediate.dense")), "output.dense"),
+               pre + "output.LayerNorm")
+    cls = x[:, 0]
+    return cls / cls.norm(dim=-1, keepdim=True)
+
+
+def teacher_cls(torch, model, tok, texts, max_length: int, device: str):
+    enc = tok(texts, padding="max_length", truncation=True,
+              max_length=max_length, return_tensors="np")
+    ids, mask = (torch.from_numpy(enc[k]).to(device)
+                 for k in ("input_ids", "attention_mask"))
+    with torch.no_grad():
+        return model.encode_cls(ids, mask).float(), ids, mask
+
+
+def check_teacher(torch, teacher, shape: dict, texts, seed: int,
+                  device: str) -> dict:
+    """Check 4: the bf16 teacher's embeddings for ``texts`` (unit norm
+    within TEACHER_NORM_ATOL); the same module in f32 against
+    ``xlmr_plain_cls`` within TEACHER_F32_RTOL (a fault in the mask or the
+    positions shows there); the bf16 embeddings' cosine with the f32
+    module's held to twice a floor measured first: bf16 against f32 of a
+    module with the weights of seed + 1."""
+    import dataclasses
+
+    from splade_tpu_torch.models.xlmr import XlmRobertaEncoder
+
+    tok, L = teacher.tokenizer, teacher.max_length
+    f32_cfg = dataclasses.replace(teacher.model.config, dtype=torch.float32)
+
+    def bf16_vs_f32(bf16_model, f32_model):
+        got = teacher_cls(torch, bf16_model, tok, texts, L, device)[0]
+        want, ids, mask = teacher_cls(torch, f32_model, tok, texts, L, device)
+        return got, want, ids, mask, float(
+            (1 - (got * want).sum(-1)).max())
+
+    other = xlmr_init(torch, f32_cfg, seed + 1, device)
+    with torch.device(device):
+        other_bf16 = XlmRobertaEncoder(teacher.model.config).eval()
+    other_bf16.load_state_dict(other.state_dict())
+    floor = bf16_vs_f32(other_bf16, other)[-1]
+    del other, other_bf16
+    tol = 2 * max(floor, 1e-7)
+    with torch.device(device):
+        f32 = XlmRobertaEncoder(f32_cfg).eval()
+    f32.load_state_dict({k: v.float() for k, v in
+                         teacher.model.state_dict().items()})
+    got, want, ids, mask, worst = bf16_vs_f32(teacher.model, f32)
+    with torch.no_grad():
+        plain = xlmr_plain_cls(torch, f32.state_dict(), shape, ids, mask)
+    plain_err = float((want - plain).abs().max() / plain.abs().max())
+    norm_err = float((got.norm(dim=-1) - 1).abs().max())
+    out = dict(texts=len(texts), valid_tokens=[int(x) for x in
+                                               mask.sum(1).tolist()],
+               norm_err=norm_err, f32_vs_plain_rel_err=plain_err,
+               bf16_vs_f32_one_minus_cos=worst, floor_seed=seed + 1,
+               floor=floor, tol=tol)
+    log(f"  teacher, {len(texts)} texts at {L} tokens: unit norm within "
+        f"{norm_err:.1e} (tol {TEACHER_NORM_ATOL}); f32 module vs the plain "
+        f"f32 forward {plain_err:.2e} (tol {TEACHER_F32_RTOL}); bf16 vs f32 "
+        f"1 - cos {worst:.3e}, tolerance {tol:.3e} = 2 x the floor {floor:.3e}"
+        f" measured on seed {seed + 1}'s weights")
+    if not norm_err <= TEACHER_NORM_ATOL:
+        raise SystemExit("teacher: embeddings are not unit norm")
+    if not plain_err <= TEACHER_F32_RTOL:
+        raise SystemExit("teacher: the f32 module differs from the plain "
+                         "XLM-R forward")
+    if not worst <= tol:
+        raise SystemExit("teacher: bf16 embeddings differ from f32 beyond "
+                         "twice the measured floor")
+    return out
+
+
+def read_encodings(path) -> tuple:
+    """The runner's --encodings npz, read as the runner reads it -> (doc
+    ids, [(indices, values)] a document, [N, V] f64 CSR of them)."""
+    from scipy import sparse
+
+    from splade_tpu_torch.benchmark.runner import split_encodings
+
+    doc_ids, vecs = split_encodings(np.load(path, allow_pickle=False))
+    indptr = np.concatenate([[0], np.cumsum([len(i) for i, _ in vecs])])
+    cat = lambda k: (np.concatenate([v[k] for v in vecs]) if vecs
+                     else np.zeros(0))
+    return doc_ids, vecs, sparse.csr_matrix(
+        (cat(1).astype(np.float64), cat(0), indptr), shape=(len(vecs), V))
+
+
+def ranking_tolerances(csr, q, method: str) -> np.ndarray:
+    """[N] how far each document's score may lie from its exact f64 score
+    in ``method``'s index on the query vector ``q`` [V]: 1e-5 of the score
+    for f32 sums ('exact': the CSR index), plus the rounding of the weights
+    the index stores. 'impact' (ImpactIndex, bf16): each product of two
+    weights rounded to bf16 (each within 2^-8 of itself) within 2^-7 of its
+    value. 'postings' (the
+    doc-major block that the rescore reads: int8 weights with one scale a
+    document, max |w| / 127): each weight within half a step, times the
+    query weights of the document's terms."""
+    aq = np.abs(q)
+    slack = 1e-5 * np.abs(csr @ q)
+    if method == "exact":
+        return slack
+    if method == "impact":
+        return slack + 2.0 ** -7 * (abs(csr) @ aq)
+    step = abs(csr).max(axis=1).toarray().ravel() / 127.0
+    return slack + 0.5 * step * ((csr != 0).astype(np.float64) @ aq)
+
+
+def check_rankings(what: str, lists: dict, query_vecs: dict, doc_ids,
+                   csr, method: str, top_t: int = 0, k: int = 10) -> dict:
+    """Check 2: each query's top-k from an index (``lists``: query ->
+    [(doc id, score)]) against the exact CSR search of the same vectors
+    (the query cut to its ``top_t`` strongest terms first, when given, as
+    the postings index cuts it). A list equal to the exact one is
+    identical; otherwise every score it reports must lie within the
+    index's rounding (``ranking_tolerances``) of its document's exact
+    score, and at every rank its document's exact score within the two
+    documents' tolerances of the exact ranking's: what differs is near a
+    tie or the cut-off. -> counts, and the largest gap a differing rank
+    had, relative to the query's top exact score."""
+    row = {d: i for i, d in enumerate(doc_ids)}
+    identical, differing, gap_max, gap_in_tol = 0, 0, 0.0, 0.0
+    for query, got in lists.items():
+        idx, val = (np.asarray(x) for x in query_vecs[query])
+        if top_t and len(val) > top_t:
+            keep = np.argsort(-val.astype(np.float32))[:top_t]
+            idx, val = idx[keep], val[keep]
+        q = np.zeros(V)
+        np.add.at(q, idx.astype(np.int64), val.astype(np.float64))
+        exact = csr @ q
+        order = np.lexsort((np.arange(len(exact)), -exact))
+        want = [i for i in order[:k] if exact[i] > 0]
+        tol = ranking_tolerances(csr, q, method)
+        got_rows = [row[d] for d, _ in got]
+        # entries past the exact list's end may only be documents scoring 0
+        for (d, s), i in zip(got[len(want):], got_rows[len(want):]):
+            if not abs(exact[i]) <= tol[i]:
+                raise SystemExit(f"{what}: {d} of query {query!r} scores "
+                                 f"{exact[i]:.6g} past the exact list's end")
+        got, got_rows = got[:len(want)], got_rows[:len(want)]
+        if len(got) < len(want):
+            raise SystemExit(f"{what}: query {query!r}: {len(got)} results, "
+                             f"the exact search has {len(want)}")
+        for (d, s), i in zip(got, got_rows):
+            if not abs(s - exact[i]) <= tol[i]:
+                raise SystemExit(f"{what}: query {query!r}: {d} scored "
+                                 f"{s:.6g}, exact {exact[i]:.6g} (tol "
+                                 f"{tol[i]:.3g})")
+        if got_rows == want:
+            identical += 1
+            continue
+        differing += 1
+        top = max(exact[want[0]], 1e-12)
+        for g, w in zip(got_rows, want):
+            gap = exact[w] - exact[g]
+            if gap > tol[g] + tol[w]:
+                raise SystemExit(
+                    f"{what}: query {query!r}: rank holds {doc_ids[g]} "
+                    f"({exact[g]:.6g}) where the exact ranking has "
+                    f"{doc_ids[w]} ({exact[w]:.6g}), a gap beyond the "
+                    f"index's rounding ({tol[g] + tol[w]:.3g})")
+            gap_max = max(gap_max, gap / top)
+            gap_in_tol = max(gap_in_tol, gap / max(tol[g] + tol[w], 1e-30))
+    out = dict(queries=len(lists), identical=identical,
+               within_rounding=differing, largest_gap_rel=gap_max,
+               largest_gap_of_tol=gap_in_tol)
+    log(f"  {what}: top-{k} of {len(lists)} queries against the exact CSR "
+        f"search on the same vectors: {identical} identical, {differing} "
+        f"differing only within the index's rounding (largest gap "
+        f"{gap_max:.2e} of the top score, {gap_in_tol:.2f} of the "
+        "tolerance)")
+    return out
+
+
+def check_postings_rescore(torch, index, query_vecs: dict) -> dict:
+    """Check 2b: the rescore kernel against its plain version at the shapes
+    the postings row gives it. Each query vector (``query_vecs``: query ->
+    (term ids, weights)) goes through ``index.search_vector``, as the
+    row's searcher sends it; at each phase-2 rescore that search makes,
+    the kernel's scores (``rescore_match``, which the search then goes on
+    with) and ``rescore_match_plain``'s on the same doc-major block,
+    query and candidates must agree within RESCORE_TOL of the larger of 1
+    and the call's top score. -> the shapes, whether the kernel took its
+    scalar path (rows of M % 8 != 0 terms), the largest error."""
+    from splade_tpu_torch.ops import postings_index, rescore_kernel
+
+    dispatch, calls = postings_index.dispatch_rescore, []
+
+    def compared(d_terms, d_vals, d_scale, q_idx, q_val, cand, *rest, **kw):
+        args = (d_terms, d_vals, d_scale, q_idx, q_val, cand)
+        got = rescore_kernel.rescore_match(*args)
+        want = rescore_kernel.rescore_match_plain(*args)
+        top = max(1.0, float(want.abs().max()))
+        calls.append((tuple(cand.shape), tuple(d_terms.shape),
+                      q_idx.shape[1], float((got - want).abs().max()) / top))
+        return got
+
+    postings_index.dispatch_rescore = compared
+    try:
+        for idx, val in query_vecs.values():
+            index.search_vector(np.asarray(idx, np.int32),
+                                np.asarray(val, np.float32), k=10)
+    finally:
+        postings_index.dispatch_rescore = dispatch
+    if len(calls) != len(query_vecs):
+        raise SystemExit(f"postings rescore: {len(calls)} rescores for "
+                         f"{len(query_vecs)} queries")
+    shapes = sorted({c[:3] for c in calls})
+    worst = max(c[3] for c in calls)
+    M = shapes[0][1][1]
+    out = dict(queries=len(calls), shapes=[
+        f"B={b} C={c} N={n} M={m} T={t}" for (b, c), (n, m), t in shapes],
+        M=M, scalar_path=M % 8 != 0, max_rel_err=worst, tol=RESCORE_TOL)
+    log(f"  rescore at the postings row's shapes ({', '.join(out['shapes'])}"
+        f"; the kernel's {'scalar' if out['scalar_path'] else 'vector'} "
+        f"path, M % 8 = {M % 8}), {len(calls)} queries: kernel == "
+        f"rescore_match_plain (max error {worst:.2e} of max(1, top score),"
+        f" tol {RESCORE_TOL})")
+    if not worst <= RESCORE_TOL:
+        raise SystemExit("postings rescore: the kernel differs from its "
+                         "plain version at the postings row's shapes")
+    return out
+
+
+def bench_entry(argv) -> int:
+    """``python chip_smoke.py --cli [--model-config JSON] bench DUMP ARGS``
+    (through ``cli_entry``, which puts the stand-in tokenizer in place of
+    ``create_tokenizer``): the port's benchmark CLI
+    (``python -m splade_tpu_torch.benchmark.runner ARGS``) with the dense
+    stand-in tokenizer in place of the teacher's. It records what phase 8
+    holds and writes it to DUMP as JSON: each sparse row's per-query list,
+    the query vectors the encoder produced, the runner's failed queries,
+    and the time of each batched encode."""
+    import logging
+
+    from splade_tpu_torch.benchmark import encoders, runner, searchers
+    from splade_tpu_torch.models import teachers
+
+    dump, argv = Path(argv[0]), argv[1:]
+    teachers.teacher_tokenizer = DenseCharTokenizer.from_dir
+    lists, encodes, failed, kept = {}, {}, [], []
+    search = searchers.BaseSearcher.search
+
+    def recording(self, query, k=10):
+        res = search(self, query, k)
+        if self.name in BENCH_SPARSE_ROWS:
+            lists.setdefault(self.name, {})[query] = res.doc_scores
+        return res
+
+    def timed(name, fn):
+        def run(self, texts):
+            t0 = time.perf_counter()
+            out = fn(self, texts)
+            if len(texts) > 1:
+                encodes.setdefault(name, []).append(
+                    (len(texts), time.perf_counter() - t0))
+            return out
+        return run
+
+    class Failures(logging.Handler):
+        def emit(self, record):
+            if str(record.msg).startswith("query %s failed on"):
+                failed.append(record.getMessage())
+
+    searchers.BaseSearcher.search = recording
+    encoders.SparseEncoderV33.encode_documents = timed(
+        "sparse_documents", encoders.SparseEncoderV33.encode_documents)
+    encoders.TeacherDenseEncoder.encode = timed(
+        "dense", encoders.TeacherDenseEncoder.encode)
+    run = runner.BenchmarkRunner.run
+    runner.BenchmarkRunner.run = lambda self: (kept.append(self),
+                                               run(self))[1]
+    logging.getLogger(runner.__name__).addHandler(Failures())
+    rc = runner.main(argv)
+    enc = kept[0].sparse_encoder
+    dump.write_text(json.dumps({
+        "lists": lists, "failed": failed, "encodes": encodes,
+        "query_vectors": {q: [v[0].tolist(), v[1].tolist()]
+                          for q, v in enc._query_cache.items()}}))
+    return rc
+
+
+def bench_launches(n_docs: int, distinct_queries: int,
+                   postings_queries: int) -> dict:
+    """The launches one benchmark run implies: the pool forward once a
+    document batch it encodes (BENCH_ENCODE_BATCH documents) and once a
+    distinct query (the runner memoizes query encodes), the rescore once a
+    query of the postings row, no training kernel."""
+    return {**dict.fromkeys(_counted_kernels(), 0),
+            "fused_splade_pool": -(-n_docs // BENCH_ENCODE_BATCH)
+            + distinct_queries,
+            "rescore_match": postings_queries}
+
+
+def bench_phase(torch, rng, workdir, seed: int, card: str,
+                device: str = "cuda", n_triplets: int = BENCH_TRIPLETS,
+                sample_size: int = BENCH_QUERIES,
+                doc_words=BENCH_DOC_WORDS, sparse_over=None,
+                dense_shape=None, dense_max_length: int = BENCH_DENSE_LEN,
+                doc_nnz: int = BENCH_DOC_NNZ,
+                query_nnz: int = BENCH_QUERY_NNZ, teacher_texts: int = 32,
+                timeout_s: float = BENCH_TIMEOUT_S, cli=None) -> dict:
+    """Phase 8: the port's benchmark CLI on the card, at full width, and the
+    teacher tier's precompute and mining (see the module's docstring).
+    ``cli``: the command that runs ``cli_entry`` (the tests run faulty
+    versions of the port through their own); ``sparse_over`` and
+    ``dense_shape``: the models' widths (the CPU rehearsal's tiny ones)."""
+    import shutil
+
+    from splade_tpu_torch.benchmark.data import load_triplet_benchmark
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    from splade_tpu_torch.benchmark.runner import serving_postings_index
+    from splade_tpu_torch.mining import (mine_multi_negatives,
+                                         precompute_teacher_scores)
+    from splade_tpu_torch.models.teachers import BGEM3Teacher
+    from splade_tpu_torch.models.xlmr import XlmRobertaConfig
+
+    t_phase = time.perf_counter()
+    shape = dense_shape or bge_m3_shape()
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    rows = bench_triplets(rng, n_triplets, doc_words)
+    with open(workdir / "triplets.jsonl", "w", encoding="utf-8") as f:
+        for row in rows:
+            f.write(json.dumps(row, ensure_ascii=False) + "\n")
+    tok = CharTokenizer()
+
+    # the sparse model, its bias calibrated on a sample, as a model.pt dir
+    t0 = time.perf_counter()
+    docs = [r["positive"] for r in rows[:32]] + [r["negatives"][0]
+                                                 for r in rows[:32]]
+    queries = [r["query"] for r in rows[:64]]
+    model, shift, nnz = sparse_bench_model(
+        torch, tok, docs, queries, seed, device, sparse_over, doc_nnz,
+        query_nnz)
+    (workdir / "sparse").mkdir()
+    torch.save(model.state_dict(), workdir / "sparse" / "model.pt")
+    log(f"  sparse model: SpladeEncoder {model.config.num_hidden_layers}L/"
+        f"{model.config.hidden_size}/{model.config.vocab_size}, seeded "
+        f"random weights (seed {seed}), bf16, decoder bias -{shift:.4f}: "
+        f"{nnz['docs']:.0f} nonzeros a document and {nnz['queries']:.0f} a "
+        f"query on the sample")
+    # the dense model at BGE-M3's shape, as an HF dir
+    dense_cfg = XlmRobertaConfig(**shape)
+    dense = xlmr_init(torch, dense_cfg, seed, device)
+    write_dense_checkpoint(torch, dense, shape, workdir / "dense")
+    del dense
+    log(f"  dense model: XLM-R {shape['num_hidden_layers']}L/"
+        f"{shape['hidden_size']}/{shape['vocab_size']}"
+        + (" (BGE-M3's shape)" if dense_shape is None else "")
+        + f", seeded random weights, written in "
+        f"{time.perf_counter() - t0:.1f} s with the sparse one")
+
+    # runs (a) and (b): the CLI in processes of its own
+    cli = cli or [sys.executable, str(Path(__file__).resolve()), "--cli"]
+    head = cli + (["--model-config", json.dumps(sparse_over)]
+                  if sparse_over else [])
+    common = ["--dataset", "triplet-val",
+              "--val-files", str(workdir / "triplets.jsonl"),
+              "--sample-size", str(sample_size),
+              "--checkpoint", str(workdir / "sparse"),
+              "--encodings", str(workdir / "encodings.npz"),
+              "--device", device]
+    runs = {
+        "a": ["--index", "exact", "--postings-index",
+              "--dense-checkpoint", str(workdir / "dense"),
+              "--dense-max-length", str(dense_max_length)],
+        "b": ["--index", "gpu", "--no-hybrid"]}
+    out = {}
+    for name, args in runs.items():
+        t0 = time.perf_counter()
+        text = run_processes(
+            f"benchmark run ({name})",
+            [head + ["bench", str(workdir / f"{name}.json")] + common + args
+             + ["--output-dir", str(workdir / name)]],
+            [repo_env()], [workdir / f"{name}.log"], timeout_s)[0]
+        out[name] = dict(
+            seconds=time.perf_counter() - t0,
+            launches=json.loads([ln for ln in text.splitlines()
+                                 if ln.startswith("LAUNCHES ")][-1][9:]),
+            metrics=json.loads((workdir / name / "metrics.json").read_text()),
+            **json.loads((workdir / f"{name}.json").read_text()))
+
+    # check 1: every method, no failed query
+    for name, want in (("a", BENCH_METHODS), ("b", BENCH_GPU_METHODS)):
+        got = set(out[name]["metrics"]["methods"])
+        if got != want:
+            raise SystemExit(f"benchmark run ({name}): methods {sorted(got)},"
+                             f" expected {sorted(want)}")
+        if out[name]["failed"]:
+            raise SystemExit(f"benchmark run ({name}): "
+                             f"{len(out[name]['failed'])} queries failed: "
+                             f"{out[name]['failed'][:3]}")
+    n_queries = out["a"]["metrics"]["num_queries"]
+    n_docs = out["a"]["metrics"]["num_docs"]
+    log(f"  runs (a) exact + postings + dense, (b) ImpactIndex: "
+        f"{n_queries} queries over {n_docs} documents, every method "
+        f"({len(BENCH_METHODS)} | {len(BENCH_GPU_METHODS)}), 0 failed "
+        "queries")
+
+    # check 2: the device indexes against the exact CSR search
+    doc_ids, vecs, csr = read_encodings(workdir / "encodings.npz")
+    rankings = {
+        "neural_sparse_postings": check_rankings(
+            "run (a) neural_sparse_postings (PostingsIndex + rescore)",
+            out["a"]["lists"]["neural_sparse_postings"],
+            out["a"]["query_vectors"], doc_ids, csr, "postings",
+            top_t=POSTINGS_QUERY_TOP_T),
+        "neural_sparse (exact)": check_rankings(
+            "run (a) neural_sparse (exact CSR)",
+            out["a"]["lists"]["neural_sparse"], out["a"]["query_vectors"],
+            doc_ids, csr, "exact"),
+        "neural_sparse (gpu)": check_rankings(
+            "run (b) neural_sparse (ImpactIndex)",
+            out["b"]["lists"]["neural_sparse"], out["b"]["query_vectors"],
+            doc_ids, csr, "impact")}
+    q_nnz = [len(v[0]) for v in out["a"]["query_vectors"].values()]
+    doc_nnz_run = np.diff(csr.indptr)
+
+    # check 5: launches as the code implies; the dataset as the CLI loads it
+    data = load_triplet_benchmark(str(workdir / "triplets.jsonl"),
+                                  sample_size)
+    distinct = len(set(data.queries.values()))
+    launches = {name: out[name]["launches"] for name in runs}
+    want = {"a": bench_launches(len(data.corpus), distinct,
+                                len(data.queries)),
+            "b": bench_launches(0, distinct, 0)}
+    for name in runs:
+        hold_launches(f"benchmark run ({name})", launches[name],
+                      launches_on(device, want[name]))
+
+    # check 3: the kernels against their plain versions at this path's
+    # shapes: document batches, a query alone, the postings row's rescores
+    enc = SparseEncoderV33(model, tok, device=device)
+    doc_encode_diff = compare_doc_encode(torch, enc, model,
+                                         list(data.corpus.values())[:64])
+    query_encode_diff = compare_doc_encode(
+        torch, enc, model, list(data.queries.values())[:BENCH_QUERY_CHECK],
+        enc.query_max_length, 1, "query")
+    del enc, model
+    postings_rescore = check_postings_rescore(
+        torch, serving_postings_index(len(tok), doc_ids, vecs, device),
+        out["a"]["query_vectors"])
+
+    # check 4: the teacher
+    dense_tok = DenseCharTokenizer.from_dir(workdir / "dense")
+    teacher = BGEM3Teacher.from_hf_dir(str(workdir / "dense"),
+                                       tokenizer=dense_tok, device=device,
+                                       max_length=dense_max_length)
+    texts = [r["query"] for r in rows[:teacher_texts // 2]] + [
+        r["positive"] for r in rows[:teacher_texts - teacher_texts // 2]]
+    teacher_check = check_teacher(torch, teacher, shape, texts, seed, device)
+
+    # (c) teacher scores over every triplet, the cache reused, mining
+    t0 = time.perf_counter()
+    meta = precompute_teacher_scores(str(workdir / "triplets.jsonl"),
+                                     str(workdir / "scored.jsonl"), teacher,
+                                     cache_dir=str(workdir / "cache"))
+    if device.startswith("cuda"):
+        torch.cuda.synchronize()
+    teacher_s = time.perf_counter() - t0
+
+    class NoEncode:
+        def encode(self, texts):
+            raise SystemExit("the second precompute encoded: the cache was "
+                             "not reused")
+
+    meta2 = precompute_teacher_scores(str(workdir / "triplets.jsonl"),
+                                      str(workdir / "scored.jsonl"),
+                                      NoEncode(),
+                                      cache_dir=str(workdir / "cache"))
+    mined = mine_multi_negatives(str(workdir / "scored.jsonl"),
+                                 str(workdir / "mined.jsonl"),
+                                 str(workdir / "cache"),
+                                 num_negatives=BENCH_NEGATIVES)
+    check_mined(workdir / "scored.jsonl", workdir / "mined.jsonl",
+                n_triplets, BENCH_NEGATIVES)
+    if (meta["scored"], meta2["scored"]) != (n_triplets, n_triplets):
+        raise SystemExit(f"teacher precompute scored {meta['scored']} and "
+                         f"{meta2['scored']} of {n_triplets} rows")
+    del teacher
+
+    # item 7: rates and latencies beside the card
+    def per_s(name):
+        n, s = map(sum, zip(*out["a"]["encodes"][name]))
+        return n / s
+
+    latency = {f"{run} {m}": (v["latency_p50_ms"], v["latency_p99_ms"])
+               for run in runs for m, v in sorted(
+                   out[run]["metrics"]["methods"].items())}
+    result = dict(
+        card=card, device=device, queries=n_queries, documents=n_docs,
+        sparse_docs_per_s=per_s("sparse_documents"),
+        dense_docs_per_s=per_s("dense"), dense_max_length=dense_max_length,
+        latency_p50_p99_ms=latency,
+        teacher_texts=meta["unique_texts"],
+        teacher_texts_per_s=meta["unique_texts"] / teacher_s,
+        mined=mined, decoder_bias=-shift,
+        doc_nnz_mean=float(doc_nnz_run.mean()),
+        query_nnz_mean=float(np.mean(q_nnz)),
+        queries_over_postings_top_t=int(sum(n > POSTINGS_QUERY_TOP_T
+                                            for n in q_nnz)),
+        rankings=rankings, launches=launches, doc_encode_max_rel_diff=(
+            doc_encode_diff), query_encode_max_rel_diff=query_encode_diff,
+        postings_rescore=postings_rescore, teacher=teacher_check,
+        run_seconds={name: out[name]["seconds"] for name in runs},
+        recall_at_1={m: v["recall@1"] for m, v in
+                     out["a"]["metrics"]["methods"].items()},
+        seconds=time.perf_counter() - t_phase)
+    log(f"  {card}: sparse {result['sparse_docs_per_s']:.1f} documents/s "
+        f"(S=256), dense {result['dense_docs_per_s']:.1f} documents/s at "
+        f"{dense_max_length} tokens, teacher {result['teacher_texts_per_s']:.1f}"
+        f" texts/s over {meta['unique_texts']} texts in (c); documents hold "
+        f"{result['doc_nnz_mean']:.0f} nonzeros, queries "
+        f"{result['query_nnz_mean']:.1f} ({result['queries_over_postings_top_t']}"
+        f" over the postings row's {POSTINGS_QUERY_TOP_T}); runs "
+        + ", ".join(f"({k}) {v:.1f} s" for k, v in
+                    result["run_seconds"].items()))
+    log("  latency p50 / p99 ms: " + "; ".join(
+        f"{k} {a:.2f} / {b:.2f}" for k, (a, b) in latency.items()))
+    log("  recall@1 with random weights (measures nothing of the method): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in
+                    sorted(result["recall_at_1"].items())))
+    shutil.rmtree(workdir, ignore_errors=True)
+    return result
+
+
+def check_mined(scored_path, mined_path, n_rows: int, negatives: int) -> None:
+    """Check 6: teacher scores in [-1.01, 1.01]; every mined row has
+    ``negatives`` negatives and as many teacher scores, none of them its
+    own positive."""
+    scored = [json.loads(ln) for ln in
+              Path(scored_path).read_text().splitlines()]
+    mined = [json.loads(ln) for ln in
+             Path(mined_path).read_text().splitlines()]
+    scores = [s for r in scored for s in
+              [r["teacher_pos_score"]] + r["teacher_neg_scores"]]
+    if len(mined) != n_rows or not all(-1.01 <= s <= 1.01 for s in scores):
+        raise SystemExit("teacher scores out of [-1.01, 1.01], or rows lost")
+    for r in mined:
+        if (len(r.get("negatives", [])) != negatives
+                or len(r.get("teacher_neg_scores", [])) != negatives
+                or r["positive"] in r["negatives"]):
+            raise SystemExit(f"mined row malformed: {str(r)[:300]}")
+    log(f"  (c) teacher scores of {len(scored)} rows within [-1.01, 1.01]; "
+        f"{len(mined)} rows mined with {negatives} negatives and their "
+        "scores each, no positive among its negatives")
+
+
 def cli_entry(argv) -> int:
-    """``python chip_smoke.py --cli [--model-config JSON] {v33,mlm} ARGS``:
-    the port's training CLI (``python -m splade_tpu_torch.train``) with
-    this script's stand-in tokenizer in place of ``create_tokenizer`` (the
-    card machine has no transformers) and, where given, a model config's
-    fields over the architecture's (the CPU rehearsal's tiny model). Phase
-    7 starts it alone and under ``torch.distributed.run``; its last line
-    is the kernels' launch counts of the run, ``LAUNCHES {...}``. The
-    metric writer keeps its JSONL sink only (TensorBoard, which the card
-    machine lacks, imports TensorFlow where it is installed)."""
+    """``python chip_smoke.py --cli [--model-config JSON] {v33,mlm,bench}
+    ARGS``: the port's training CLI (``python -m splade_tpu_torch.train``),
+    or its benchmark CLI through ``bench_entry``, with this script's
+    stand-in tokenizer in place of ``create_tokenizer`` (the card machine
+    has no transformers) and, where given, a model config's fields over the
+    architecture's (the CPU rehearsal's tiny model). Phase 7 starts the
+    training CLIs alone and under ``torch.distributed.run``, phase 8 the
+    benchmark; the last line is the kernels' launch counts of the run,
+    ``LAUNCHES {...}`` (the rescore's too, for the benchmark). The metric
+    writer keeps its JSONL sink only (TensorBoard, which the card machine
+    lacks, imports TensorFlow where it is installed)."""
     sys.modules["torch.utils.tensorboard"] = None
     import torch
 
@@ -3285,11 +4098,17 @@ def cli_entry(argv) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     sub, rest = argv[0], argv[1:]
-    rc = (cli.main if sub == "v33" else mlm.main)(rest)
-    print("LAUNCHES " + json.dumps(_launch_counts()), flush=True)
+    launches = _launch_counts
+    if sub == "bench":
+        from splade_tpu_torch.ops.rescore_kernel import rescore_match
+
+        rc = bench_entry(rest)
+        launches = lambda: {**_launch_counts(),
+                            "rescore_match": rescore_match.launches}
+    else:
+        rc = (cli.main if sub == "v33" else mlm.main)(rest)
+    print("LAUNCHES " + json.dumps(launches()), flush=True)
     return rc
-
-
 
 
 def cli_world1(torch, what: str, sub: str, workdir: Path, args: list,
@@ -3707,6 +4526,19 @@ def main() -> int:
     dp_mlm = mlm_cli_phase(torch, np.random.default_rng([args.seed, 9]),
                            dp_root / "mlm_cli", mlm_recipe())
     log(f"[7] done in {time.perf_counter() - t0:.1f} s")
+
+    # ---- 8. the benchmark path
+    log("[8] benchmark path: the benchmark CLI at full width (sparse "
+        "22L/768/50K, dense XLM-R at BGE-M3's shape), exact, postings, "
+        "ImpactIndex and dense rows; the teacher's precompute and mining")
+    benchmark = bench_phase(
+        torch, np.random.default_rng([args.seed, 10]),
+        Path(__file__).resolve().parent / "build" / "chip_smoke_bench",
+        args.seed, card)
+    log(f"[8] done in {benchmark['seconds']:.1f} s")
+    bench_by_path = {name: {f"benchmark run ({run})": got[name]
+                            for run, got in benchmark["launches"].items()}
+                     for name in ("fused_splade_pool", "rescore_match")}
     dp_launches = {
         "data parallel, V33 CLI world 1": world1["launches"],
         **{f"data parallel, V33 world {DP_WORLD} rank {r}": x
@@ -3729,7 +4561,8 @@ def main() -> int:
                  "serving": launches["fused_splade_pool"],
                  "training": train_launches["fused_splade_pool"],
                  **{path: got["fused_splade_pool"]
-                    for path, got in dp_launches.items()}},
+                    for path, got in dp_launches.items()},
+                 **bench_by_path["fused_splade_pool"]},
              **{k: pool_d[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -3743,6 +4576,8 @@ def main() -> int:
              replaces="splade_tpu/ops/rescore_kernel.py:54",
              also_replaces="splade_tpu/ops/rescore_kernel.py:127",
              launches=launches["rescore_match"],
+             launches_by_path={"serving": launches["rescore_match"],
+                               **bench_by_path["rescore_match"]},
              **{k: resc[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
              shapes=[resc], ptxas=ptxas["rescore_kernel"]),
@@ -3848,6 +4683,8 @@ def main() -> int:
         "mlm_cli_world1": dp_mlm,
         "phase4_triplets_per_s": training["triplets_per_s"],
         "phase4_step_ms": training["step_ms"]}}))
+    log(json.dumps({"benchmark": benchmark,
+                    "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,13 +1,16 @@
-"""Benchmark- and serving-side SPLADE encoder: texts -> sparse vectors.
+"""Benchmark- and serving-side encoders: texts -> sparse or dense vectors.
 
-Counterpart of ``splade_tpu/benchmark/encoders.py::SparseEncoderV33``:
+Counterpart of ``splade_tpu/benchmark/encoders.py``. ``SparseEncoderV33``:
 batched encoding on the device, the banned-token mask (special tokens and
 "["/"<"-prefixed markers), documents as nonzero (indices, values) arrays
 with an optional per-doc top-k, queries truncated to their strongest
 ``query_top_k`` tokens by a top-k on the device, so only [B, k] pairs reach
 the host. ``from_checkpoint`` loads a training checkpoint (the port's
 ``model.pt`` or the JAX package's ``model.msgpack``), ``from_hf_dir`` an
-exported HF dir, ``from_any`` whichever the path holds.
+exported HF dir, ``from_any`` whichever the path holds. The dense
+baselines: ``TeacherDenseEncoder`` (the BGE-M3 teacher of
+``models/teachers.py``) and ``PrecomputedDenseEncoder`` (an external
+model's embeddings, precomputed to disk).
 """
 
 from __future__ import annotations
@@ -188,3 +191,81 @@ class SparseEncoderV33:
         model.mlm.load_state_dict(state)
         return cls(model.to(torch.bfloat16), tokenizer, device=device,
                    **kwargs)
+
+
+class DenseEncoderBase:
+    """Interface for dense baseline encoders: [N, dim] normalized
+    embeddings."""
+
+    dim: int = 0
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        raise NotImplementedError
+
+
+class TeacherDenseEncoder(DenseEncoderBase):
+    """Runnable dense (BGE-M3) baseline for the benchmark harness, backed
+    by the XLM-R teacher, so the ``semantic`` baseline and every
+    sparse+dense hybrid run from the CLI through ``--dense-checkpoint``."""
+
+    def __init__(self, teacher):
+        self.teacher = teacher
+        self.dim = int(teacher.model.config.hidden_size)
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        return self.teacher.encode(texts)
+
+    @classmethod
+    def from_hf_dir(cls, model_dir: str, max_length: int = 512,
+                    batch_size: int = 16, tokenizer=None,
+                    device: DeviceLike = None) -> "TeacherDenseEncoder":
+        from splade_tpu_torch.models.teachers import BGEM3Teacher
+
+        return cls(BGEM3Teacher.from_hf_dir(
+            model_dir, tokenizer=tokenizer, device=device,
+            max_length=max_length, batch_size=batch_size))
+
+
+class PrecomputedDenseEncoder(DenseEncoderBase):
+    """Embeddings from an external model, precomputed to disk: compute
+    them with any service offline, save them with :meth:`save_embeddings`,
+    and plug the file into the benchmark runner through
+    ``--external-dense``. Lookup is md5(text) -> L2-normalized vector."""
+
+    def __init__(self, path: str):
+        import hashlib
+
+        z = np.load(path, allow_pickle=False)
+        self._hash = hashlib.md5
+        hashes = [h.decode() if isinstance(h, bytes) else str(h)
+                  for h in z["hashes"]]
+        emb = np.asarray(z["embeddings"], np.float32)
+        emb /= np.maximum(np.linalg.norm(emb, axis=1, keepdims=True), 1e-9)
+        self._table = dict(zip(hashes, emb))
+        self.dim = int(emb.shape[1])
+
+    def encode(self, texts: Sequence[str]) -> np.ndarray:
+        out = np.zeros((len(texts), self.dim), np.float32)
+        missing = 0
+        for i, t in enumerate(texts):
+            v = self._table.get(self._hash(t.encode("utf-8")).hexdigest())
+            if v is None:
+                missing += 1
+            else:
+                out[i] = v
+        if missing:
+            raise KeyError(
+                f"{missing}/{len(texts)} texts missing from the precomputed "
+                "embedding table — re-run the offline embedding job over the "
+                "full corpus+queries")
+        return out
+
+    @staticmethod
+    def save_embeddings(path: str, texts: Sequence[str],
+                        embeddings: np.ndarray) -> None:
+        import hashlib
+
+        hashes = np.asarray(
+            [hashlib.md5(t.encode("utf-8")).hexdigest() for t in texts])
+        np.savez_compressed(path, hashes=hashes,
+                            embeddings=np.asarray(embeddings, np.float32))

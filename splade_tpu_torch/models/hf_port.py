@@ -81,16 +81,11 @@ def strip_wrapper_prefix(state: Dict[str, Any]) -> Dict[str, Any]:
             for k, v in state.items()}
 
 
-def load_hf_checkpoint(model_dir: str,
-                       config: Optional[ModernBertConfig] = None,
-                       **config_over: Any
-                       ) -> Tuple[ModernBertConfig, Dict[str, torch.Tensor]]:
-    """HF ModernBERT dir (config.json + ``*.safetensors`` or
-    ``pytorch_model*.bin``) -> (config, state dict in the port's names)."""
+def read_hf_state(model_dir: str) -> Dict[str, Any]:
+    """Every weight file of an HF-format dir as one state dict:
+    ``*.safetensors`` when there are any (``safetensors`` is imported then
+    only), else ``pytorch_model*.bin`` and ``model*.pt``."""
     d = Path(model_dir)
-    if config is None:
-        hf_cfg = json.loads((d / "config.json").read_text())
-        config = ModernBertConfig.from_hf_dict(hf_cfg, **config_over)
     state: Dict[str, Any] = {}
     st_files = sorted(d.glob("*.safetensors"))
     if st_files:
@@ -104,7 +99,20 @@ def load_hf_checkpoint(model_dir: str,
                                     weights_only=True))
     if not state:
         raise FileNotFoundError(f"no weight files under {model_dir}")
-    state = strip_wrapper_prefix(state)
+    return state
+
+
+def load_hf_checkpoint(model_dir: str,
+                       config: Optional[ModernBertConfig] = None,
+                       **config_over: Any
+                       ) -> Tuple[ModernBertConfig, Dict[str, torch.Tensor]]:
+    """HF ModernBERT dir (config.json + ``*.safetensors`` or
+    ``pytorch_model*.bin``) -> (config, state dict in the port's names)."""
+    d = Path(model_dir)
+    if config is None:
+        hf_cfg = json.loads((d / "config.json").read_text())
+        config = ModernBertConfig.from_hf_dict(hf_cfg, **config_over)
+    state = strip_wrapper_prefix(read_hf_state(model_dir))
     if "decoder.weight" not in state:
         state["decoder.weight"] = state["model.embeddings.tok_embeddings.weight"]
     return config, state

@@ -1,9 +1,20 @@
-"""The k -> tier quantizer shared by the serving engine and the postings
-index (counterpart of ``splade_tpu/utils/text.py::quantize_to_tier``)."""
+"""Text helpers: the k -> tier quantizer shared by the serving engine and
+the postings index, and the Hangul test of the BM25 analyzers
+(counterparts of ``splade_tpu/utils/text.py::quantize_to_tier`` and
+``::is_hangul_char``)."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
+
+
+def is_hangul_char(ch: str, include_jamo: bool = False) -> bool:
+    """True for a precomposed Hangul syllable (U+AC00–U+D7A3); with
+    include_jamo also conjoining Jamo (U+1100–U+11FF) — analyzers that
+    stem decomposed forms want the wider set, data filters the narrow."""
+    if "가" <= ch <= "힣":
+        return True
+    return include_jamo and "ᄀ" <= ch <= "ᇿ"
 
 
 def quantize_to_tier(k: int, tiers: Sequence[int],

@@ -25,9 +25,15 @@ whose window is off by one, a dq kernel whose delta is lost and a dk/dv
 kernel fed a zero or stale delta; phase 6 (both
 training paths with attention_impl="splash") runs at a tiny size, its route
 comparison must fail a backward that loses dv, and the launch counts it
-expects must be the ones the code implies."""
+expects must be the ones the code implies. Phase 8 (the benchmark CLI, the
+teacher check, precompute and mining) runs at a tiny size, and fails a run
+in which one query failed or the postings row is off by one document, a
+teacher that ignores the mask or the RoBERTa position offset, a launch
+count short by one and a ranking that differs beyond the index's
+rounding."""
 
 import dataclasses
+import json
 import importlib.util
 import math
 from pathlib import Path
@@ -1367,7 +1373,361 @@ def test_concurrent_builds_link_one_library(tmp_path, monkeypatch):
     assert len(calls.read_text().splitlines()) == len(_cuda.sources()) + 1
 
 
+# ------------------------------------------------------------ phase 8
+#: phase 8's models on the CPU: a one-layer ModernBERT and a two-layer
+#: XLM-R, both at tiny widths
+BENCH_SPARSE = dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=96,
+                    num_hidden_layers=1, num_attention_heads=4,
+                    local_attention=8)
+BENCH_DENSE = dict(vocab_size=300, hidden_size=32, intermediate_size=64,
+                   num_hidden_layers=2, num_attention_heads=4,
+                   max_position_embeddings=80, type_vocab_size=1,
+                   layer_norm_eps=1e-5, pad_token_id=1)
+#: faults phase 8's checks must catch, each put into the benchmark CLI's
+#: process (``_faulty_bench``)
+BENCH_FAULTS = ("query_raises", "postings_off_by_one")
+
+
+def _faulty_bench(fault: str, argv) -> int:
+    """``python tests/test_torch_chip_smoke.py bench-worker FAULT ARGS``:
+    ``cli_entry(ARGS)`` with ``fault`` put into the port ("none": as it
+    is): the neural_sparse searcher raising on one query (the runner logs
+    it and exits 0), or the postings index answering with its ranking off
+    by one document."""
+    from splade_tpu_torch.benchmark import searchers
+    from splade_tpu_torch.ops.postings_index import PostingsIndex
+
+    if fault == "query_raises":
+        search, first = searchers.NeuralSparseSearcher._search, []
+
+        def failing(self, query, k):
+            first[:] = first or [query]
+            if query == first[0]:
+                raise RuntimeError("index shard down")
+            return search(self, query, k)
+        searchers.NeuralSparseSearcher._search = failing
+    elif fault == "postings_off_by_one":
+        search_vector = PostingsIndex.search_vector
+        PostingsIndex.search_vector = (
+            lambda self, idx, val, k=10: search_vector(self, idx, val,
+                                                       k + 1)[1:])
+    return _load_chip_smoke().cli_entry(argv)
+
+
+def _bench_phase(cs, root: Path, fault: str) -> dict:
+    """Phase 8 on the CPU, tiny: 40 triplets, 12 queries over 48
+    documents, 48-token dense encodes, the CLI through ``_faulty_bench``.
+    -> its result, or the message it failed with."""
+    import sys
+
+    try:
+        return cs.bench_phase(
+            torch, np.random.default_rng(10), root / fault, 0, "cpu",
+            device="cpu", n_triplets=40, sample_size=12, doc_words=(20, 30),
+            sparse_over=BENCH_SPARSE, dense_shape=BENCH_DENSE,
+            dense_max_length=48, doc_nnz=24, query_nnz=8, teacher_texts=8,
+            timeout_s=150, cli=[sys.executable, str(Path(__file__).resolve()),
+                                "bench-worker", fault])
+    except SystemExit as e:
+        return {"failed": str(e)}
+
+
+@pytest.fixture(scope="module")
+def bench_phases(tmp_path_factory):
+    """Phase 8 as it is and with each of BENCH_FAULTS, all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    cs = _load_chip_smoke()
+    root = tmp_path_factory.mktemp("bench")
+    with pytest.MonkeyPatch.context() as mp, \
+            ThreadPoolExecutor(len(BENCH_FAULTS) + 1) as pool:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        runs = {f: pool.submit(_bench_phase, cs, root, f)
+                for f in ("none",) + BENCH_FAULTS}
+        return {f: run.result() for f, run in runs.items()}
+
+
+def test_bench_phase_runs_on_the_cpu(bench_phases):
+    out = bench_phases["none"]
+    assert "failed" not in out, out.get("failed")
+    assert (out["queries"], out["documents"]) == (12, 48)
+    assert {k.split(" ", 1)[1] for k in out["latency_p50_p99_ms"]} == (
+        _load_chip_smoke().BENCH_METHODS)
+    for name, got in out["rankings"].items():
+        assert got["queries"] == 12, name
+        assert got["identical"] + got["within_rounding"] == 12, name
+    assert out["rankings"]["neural_sparse (exact)"]["identical"] == 12
+    assert all(set(v.values()) == {0} for v in out["launches"].values())
+    assert out["launches"]["a"].keys() >= {"fused_splade_pool",
+                                           "rescore_match"}
+    assert out["mined"]["mined"] == 40 and out["teacher_texts"] == 200
+    assert out["teacher"]["f32_vs_plain_rel_err"] <= 1e-4
+    assert 0 < out["teacher"]["bf16_vs_f32_one_minus_cos"] <= (
+        out["teacher"]["tol"])
+    assert out["doc_encode_max_rel_diff"] <= 1e-4
+    assert out["query_encode_max_rel_diff"] <= 1e-4
+    rescore = out["postings_rescore"]
+    assert rescore["queries"] == 12 and rescore["max_rel_err"] == 0.0
+    assert rescore["shapes"] == [f"B=8 C=48 N=48 M={rescore['M']} T=32"]
+    assert rescore["scalar_path"] == (rescore["M"] % 8 != 0)
+    assert 8 <= out["doc_nnz_mean"] and 1 <= out["query_nnz_mean"]
+
+
+@pytest.mark.parametrize("fault, check", [
+    ("query_raises", "queries failed"),
+    ("postings_off_by_one", "neural_sparse_postings"),
+])
+def test_bench_phase_catches_a_fault(bench_phases, fault, check):
+    """The run exits 0 with a query failed, or with the postings row off by
+    one document; the phase must not."""
+    got = bench_phases[fault]
+    assert "failed" in got, fault
+    assert check in got["failed"], got["failed"][-2000:]
+
+
+def _postings_case(cs, seed=3):
+    """40 documents of 5-30 terms over a 512-term vocab, and 6 queries of
+    4 terms taken from them, in the postings row's index. Weights lie on
+    the int8 grid of the doc-major block (each document's largest is 2.0,
+    the others multiples of 2/127), so it stores them exactly."""
+    from scipy import sparse
+
+    from splade_tpu_torch.benchmark.runner import serving_postings_index
+
+    rng = np.random.default_rng(seed)
+    ids, vecs = [f"d{i}" for i in range(40)], []
+    for _ in ids:
+        terms = np.sort(rng.choice(512, int(rng.integers(5, 31)), False))
+        steps = rng.integers(6, 128, len(terms))
+        steps[0] = 127
+        vecs.append((terms.astype(np.int32),
+                     (steps * (2.0 / 127)).astype(np.float32)))
+    queries = {f"q{j}": (rng.choice(vecs[3 * j][0], 4, False).tolist(),
+                         rng.uniform(0.2, 1.5, 4).tolist()) for j in range(6)}
+    csr = sparse.csr_matrix(
+        (np.concatenate([v for _, v in vecs]).astype(np.float64),
+         np.concatenate([t for t, _ in vecs]),
+         np.concatenate([[0], np.cumsum([len(t) for t, _ in vecs])])),
+        shape=(len(vecs), cs.V))
+    return serving_postings_index(512, ids, vecs, "cpu"), ids, csr, queries
+
+
+def test_postings_rescore_check_catches_a_shift_within_int8_rounding(
+        monkeypatch):
+    """Check 2b holds the rescore at the postings row's own shapes (B = the
+    index's batch pad, C = the corpus, M = the longest document) and fails
+    a rescore whose scores are all 5e-4 high: the ranking check, whose
+    tolerance is the int8 rounding of the doc-major block, passes that
+    one."""
+    from splade_tpu_torch.ops import rescore_kernel
+
+    cs = _load_chip_smoke()
+    index, ids, csr, queries = _postings_case(cs)
+    dispatch = postings_index.dispatch_rescore
+    out = cs.check_postings_rescore(torch, index, queries)
+    assert postings_index.dispatch_rescore is dispatch
+    M = max(len(t) for t in index._doc_idx)
+    assert out["shapes"] == [f"B=8 C=40 N=40 M={M} T=32"]
+    assert (out["queries"], out["M"], out["max_rel_err"]) == (6, M, 0.0)
+    assert out["scalar_path"] == (M % 8 != 0)
+    def served():
+        return {q: index.search_vector(np.asarray(i, np.int32),
+                                       np.asarray(v, np.float32))
+                for q, (i, v) in queries.items()}
+    before = served()
+    sound = rescore_kernel.rescore_match
+    monkeypatch.setattr(rescore_kernel, "rescore_match",
+                        lambda *a: sound(*a) + 5e-4)
+    # the postings row served through the shifted rescore
+    monkeypatch.setattr(postings_index, "dispatch_rescore",
+                        lambda *a, **k: rescore_kernel.rescore_match(*a[:6]))
+    lists = served()
+    for q, got in lists.items():  # documents scoring 0 now score 5e-4
+        n = len(before[q])
+        assert [d for d, _ in got[:n]] == [d for d, _ in before[q]]
+        assert np.allclose([s for _, s in got],
+                           [s + 5e-4 for _, s in before[q]]
+                           + [5e-4] * (len(got) - n), atol=1e-6)
+    cs.check_rankings("shifted", lists, queries, ids, csr, "postings",
+                      top_t=cs.POSTINGS_QUERY_TOP_T)
+    with pytest.raises(SystemExit, match="at the postings row's shapes"):
+        cs.check_postings_rescore(torch, index, queries)
+
+
+@pytest.mark.parametrize("faulty_rows", [(), (1,), (32,)])
+def test_query_encode_check_holds_the_pool_at_one_row(monkeypatch,
+                                                      faulty_rows):
+    """Check 3 encodes queries alone (B=1, S=64) as the runner does: a pool
+    forward 1e-3 off at one row fails it, though the document check at
+    B=32 passes it; a pool off at B=32 fails the document check."""
+    from splade_tpu_torch.models import splade
+
+    cs = _load_chip_smoke()
+    tok = cs.CharTokenizer()
+    rows = cs.bench_triplets(np.random.default_rng(4), 8, (20, 30))
+    docs = [r["positive"] for r in rows] + [r["negatives"][0] for r in rows]
+    queries = [r["query"] for r in rows]
+    model = cs.sparse_bench_model(torch, tok, docs, queries, 0, "cpu",
+                                  BENCH_SPARSE, 24, 8)[0]
+    pool = splade.fused_splade_pool
+
+    def faulty(h, *rest):
+        m, pos = pool(h, *rest)
+        return (m * (1 + 1e-3) if h.shape[0] in faulty_rows else m), pos
+    monkeypatch.setattr(splade, "fused_splade_pool", faulty)
+    enc = SparseEncoderV33(model, tok, device="cpu")
+    docs = (docs * 2)[:32]
+
+    def check(what):
+        if what == "query":
+            return cs.compare_doc_encode(torch, enc, model, queries,
+                                         enc.query_max_length, 1, "query")
+        return cs.compare_doc_encode(torch, enc, model, docs)
+    for what, rows_of in (("query", 1), ("document", 32)):
+        if rows_of in faulty_rows:
+            with pytest.raises(SystemExit, match=f"{what} vectors differ"):
+                check(what)
+        else:
+            assert check(what) <= cs.SERVE_RTOL
+
+
+def _tiny_teacher(cs, seed=0):
+    from splade_tpu_torch.models.teachers import BGEM3Teacher
+    from splade_tpu_torch.models.xlmr import XlmRobertaConfig
+
+    cfg = XlmRobertaConfig(**BENCH_DENSE, dtype=torch.bfloat16)
+    return BGEM3Teacher(cs.xlmr_init(torch, cfg, seed, "cpu"),
+                        cs.DenseCharTokenizer(BENCH_DENSE["vocab_size"]),
+                        max_length=40, device="cpu")
+
+
+def _ignore_the_mask(monkeypatch):
+    from splade_tpu_torch.models import xlmr
+
+    forward = xlmr.XlmRobertaEncoder.forward
+    monkeypatch.setattr(xlmr.XlmRobertaEncoder, "forward",
+                        lambda self, ids, mask: forward(
+                            self, ids, torch.ones_like(mask)))
+
+
+def _drop_the_position_offset(monkeypatch):
+    from splade_tpu_torch.models import xlmr
+
+    monkeypatch.setattr(xlmr, "roberta_position_ids",
+                        lambda ids, pad: torch.cumsum(
+                            (ids != pad).long(), 1) * (ids != pad).long())
+
+
+@pytest.mark.parametrize("fault", [None, _ignore_the_mask,
+                                   _drop_the_position_offset])
+def test_teacher_check_catches_a_faulty_teacher(monkeypatch, fault):
+    """Check 4 passes the port's teacher, and fails one that ignores the
+    attention mask or numbers positions without RoBERTa's offset (both
+    seen by the plain f32 forward of chip_smoke.py)."""
+    cs = _load_chip_smoke()
+    teacher = _tiny_teacher(cs)
+    texts = ["가나다 라마", "문서 검색 모델 학습 평가 데이터", "짧은", "한국어 질의 벡터"]
+    if fault is None:
+        out = cs.check_teacher(torch, teacher, BENCH_DENSE, texts, 0, "cpu")
+        assert out["f32_vs_plain_rel_err"] <= cs.TEACHER_F32_RTOL
+        assert out["norm_err"] <= cs.TEACHER_NORM_ATOL
+        assert len(set(out["valid_tokens"])) == 4  # padded rows of each length
+        return
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match="plain XLM-R forward"):
+        cs.check_teacher(torch, teacher, BENCH_DENSE, texts, 0, "cpu")
+
+
+def test_dense_stand_in_pads_with_the_configs_pad_id(tmp_path):
+    from splade_tpu_torch.models.xlmr import roberta_position_ids
+
+    cs = _load_chip_smoke()
+    (tmp_path / "config.json").write_text(json.dumps(BENCH_DENSE))
+    tok = cs.DenseCharTokenizer.from_dir(tmp_path)
+    enc = tok(["가 나다", ""], max_length=6)
+    codes = [4 + ord(c) % (BENCH_DENSE["vocab_size"] - 4) for c in "가나다"]
+    assert enc["input_ids"].tolist() == [[0, *codes, 2, 1], [0, 2, 1, 1, 1, 1]]
+    assert (enc["input_ids"][enc["attention_mask"] == 0] == 1).all()
+    assert enc["input_ids"][enc["attention_mask"] == 1].min() != 1
+    pos = roberta_position_ids(torch.from_numpy(enc["input_ids"]), 1)
+    assert pos[0].tolist() == [2, 3, 4, 5, 6, 1]  # <s> 가 나 다 </s> pad
+    assert pos[1].tolist() == [2, 3, 1, 1, 1, 1]
+
+
+def test_bench_launches_follow_the_code_and_a_short_count_fails():
+    """Run (a): one pool launch a batch of 32 documents and a distinct
+    query, one rescore a postings query; run (b) the queries only; a count
+    short by one fails."""
+    cs = _load_chip_smoke()
+    a = cs.bench_launches(2000, 500, 500)
+    b = cs.bench_launches(0, 500, 0)
+    assert (a["fused_splade_pool"], a["rescore_match"]) == (63 + 500, 500)
+    assert (b["fused_splade_pool"], b["rescore_match"]) == (500, 0)
+    assert a.keys() == b.keys() == set(cs._counted_kernels()) | {
+        "rescore_match"}
+    assert not any(v for k, v in a.items()
+                   if k not in ("fused_splade_pool", "rescore_match"))
+    cs.hold_launches("run (a)", dict(a), a)
+    for name in ("fused_splade_pool", "rescore_match"):
+        short = dict(a, **{name: a[name] - 1})
+        with pytest.raises(SystemExit, match="kernel launches"):
+            cs.hold_launches("run (a)", short, a)
+
+
+def _ranking_case(cs):
+    """Three documents, one query of two terms: d1 and d2 tie exactly."""
+    from scipy import sparse
+
+    dense = np.zeros((3, cs.V))
+    dense[0, [1, 2]] = [1.0, 0.50]
+    dense[1, [1, 3]] = [1.0, 0.25]    # 1.0: a near tie with doc 2 at q·d
+    dense[2, [1, 2, 4]] = [0.999, 0.002, 9.0]
+    q = ([1, 2], [1.0, 0.5])
+    return ["d0", "d1", "d2"], sparse.csr_matrix(dense), {"q": q}
+
+
+def test_ranking_check_tolerates_rounding_and_catches_a_wrong_document():
+    cs = _load_chip_smoke()
+    ids, csr, qv = _ranking_case(cs)
+    exact = [["d0", 1.25], ["d1", 1.0], ["d2", 1.0]]
+    out = cs.check_rankings("t", {"q": exact}, qv, ids, csr, "impact", k=3)
+    assert (out["identical"], out["within_rounding"]) == (1, 0)
+    # d1 (1.0) and d2 (1.000) swapped: within bf16 rounding of each other
+    swapped = [["d0", 1.25], ["d2", 1.0], ["d1", 1.0]]
+    out = cs.check_rankings("t", {"q": swapped}, qv, ids, csr, "impact", k=3)
+    assert out["within_rounding"] == 1 and out["largest_gap_of_tol"] <= 1
+    # off by one document: d0 dropped, a doc scoring 0 appended
+    for wrong in ([["d1", 1.0], ["d2", 1.0]],
+                  [["d1", 1.0], ["d0", 1.25], ["d2", 1.0]],
+                  [["d0", 1.3], ["d1", 1.0], ["d2", 1.0]]):
+        with pytest.raises(SystemExit):
+            cs.check_rankings("t", {"q": wrong}, qv, ids, csr, "impact", k=3)
+
+
+def test_check_mined_refuses_malformed_rows(tmp_path):
+    cs = _load_chip_smoke()
+    scored = {"query": "q", "positive": "p", "negatives": ["a", "b"],
+              "teacher_pos_score": 0.5, "teacher_neg_scores": [0.1, 0.2]}
+    (tmp_path / "s.jsonl").write_text(json.dumps(scored))
+    good = dict(scored, negatives=["x", "y"])
+    for row, ok in ((good, True), (dict(good, negatives=["p", "y"]), False),
+                    (dict(good, teacher_neg_scores=[0.1]), False)):
+        (tmp_path / "m.jsonl").write_text(json.dumps(row))
+        if ok:
+            cs.check_mined(tmp_path / "s.jsonl", tmp_path / "m.jsonl", 1, 2)
+        else:
+            with pytest.raises(SystemExit):
+                cs.check_mined(tmp_path / "s.jsonl", tmp_path / "m.jsonl", 1,
+                               2)
+    (tmp_path / "s.jsonl").write_text(json.dumps(
+        dict(scored, teacher_pos_score=1.2)))
+    with pytest.raises(SystemExit, match="out of"):
+        cs.check_mined(tmp_path / "s.jsonl", tmp_path / "m.jsonl", 1, 2)
+
+
 if __name__ == "__main__":
     import sys
 
+    if sys.argv[1] == "bench-worker":
+        sys.exit(_faulty_bench(sys.argv[2], sys.argv[3:]))
     sys.exit(_faulty_worker(sys.argv[2], sys.argv[3]))

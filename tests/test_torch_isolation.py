@@ -176,3 +176,77 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
     # asked for explicitly, the CPU is fine
     assert resolve_device("cpu").type == "cpu"
     assert PostingsIndex(100, device="cpu").device.type == "cpu"
+
+
+#: the benchmark harness, evaluation and teacher tier: each module of the
+#: port beside its counterpart in splade_tpu
+BENCHMARK_TIER = [
+    "benchmark/metrics.py", "benchmark/fusion.py", "benchmark/bm25.py",
+    "benchmark/index.py", "benchmark/config.py", "benchmark/data.py",
+    "benchmark/record.py", "benchmark/report.py", "benchmark/searchers.py",
+    "evaluation/__init__.py", "evaluation/ranking_metrics.py",
+    "models/xlmr.py", "models/teachers.py", "benchmark/encoders.py",
+    "mining/__init__.py", "mining/teacher_scores.py",
+    "mining/multi_negatives.py", "benchmark/runner.py",
+    "benchmark/__init__.py"]
+#: module -> the optional libraries it may import, inside functions only
+LAZY_IMPORTS = {
+    "models/teachers.py": ("transformers",),
+    "models/hf_port.py": ("safetensors",),
+    "benchmark/data.py": ("datasets",),
+    "benchmark/bm25.py": ("kiwipiepy", "MeCab"),
+}
+
+
+@pytest.mark.parametrize("rel", BENCHMARK_TIER)
+def test_the_benchmark_tiers_modules_are_among_the_checked_files(rel):
+    assert ROOT / "splade_tpu_torch" / rel in PORT_FILES
+    assert (ROOT / "splade_tpu" / rel).exists()
+
+
+@pytest.mark.parametrize("rel", sorted(LAZY_IMPORTS))
+def test_optional_libraries_are_imported_inside_functions(rel):
+    for module in LAZY_IMPORTS[rel]:
+        assert _function_level_only(ROOT / "splade_tpu_torch" / rel, module)
+
+
+def test_package_imports_without_the_benchmarks_optional_libraries():
+    """Neither the card machine nor a minimal install has datasets,
+    kiwipiepy or MeCab (nor transformers and safetensors): every module,
+    the benchmark tier's included, imports without them."""
+    code = (
+        "import sys\n"
+        "for m in ('transformers', 'safetensors', 'datasets', 'kiwipiepy',\n"
+        "          'MeCab', 'jax', 'flax', 'optax', 'msgpack', 'yaml'):\n"
+        "    sys.modules[m] = None\n"
+        "import importlib, pkgutil, splade_tpu_torch\n"
+        "names = [m.name for m in pkgutil.walk_packages(\n"
+        "    splade_tpu_torch.__path__, 'splade_tpu_torch.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "assert 'splade_tpu_torch.benchmark.runner' in names\n"
+        "assert 'splade_tpu_torch.models.teachers' in names\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_benchmark_entry_points_without_a_device_raise_when_no_card(
+        monkeypatch, tmp_path):
+    from splade_tpu_torch.benchmark.data import BenchmarkData
+    from splade_tpu_torch.benchmark.encoders import TeacherDenseEncoder
+    from splade_tpu_torch.benchmark.runner import BenchmarkRunner
+    from splade_tpu_torch.benchmark.runner import main as bench_main
+    from splade_tpu_torch.models.teachers import BGEM3Teacher
+    from splade_tpu_torch.models.xlmr import XlmRobertaConfig, XlmRobertaEncoder
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    (tmp_path / "config.json").write_text("{}")
+    data = BenchmarkData("empty", {}, {}, {})
+    model = XlmRobertaEncoder(XlmRobertaConfig.tiny())
+    for make in (lambda: BenchmarkRunner(data),
+                 lambda: bench_main(["--dataset", "triplet-val"]),
+                 lambda: BGEM3Teacher(model, None),
+                 lambda: TeacherDenseEncoder.from_hf_dir(str(tmp_path))):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
