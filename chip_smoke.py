@@ -146,15 +146,22 @@ Phases (any failure exits non-zero; nothing is caught):
    dense model is XLM-R at BGE-M3's published shape (24 layers, 1024
    hidden, 16 heads, 250,002 vocab) with seeded random weights, read as an
    HF dir through ``--dense-checkpoint`` at 512 tokens. (a) ``--index
-   exact --postings-index`` with the dense model and ``--encodings``: 12
-   methods. (b) ``--index gpu --no-hybrid`` on (a)'s encodings. (c)
+   exact --postings-index --cluster-index`` with the dense model and
+   ``--encodings``: 13 methods. (b) ``--index gpu --no-hybrid`` on (a)'s encodings. (c)
    ``precompute_teacher_scores`` over the 2,000 triplets with the teacher,
    a second call that must reuse its cache, ``mine_multi_negatives`` with
    3 negatives. Held: every method present and no query failed; each
    query's top 10 from the postings row (PostingsIndex + the rescore
    kernel) and from (b)'s ImpactIndex against the exact CSR search on the
    same vectors, equal where scores are apart by more than the index's
-   rounding (bf16 or int8 weights); the two kernels against their plain
+   rounding (bf16 or int8 weights), and the cluster row's (ClusterIndex:
+   the cluster and postings union, the same rescore; an approximate index)
+   so against the exact search over the candidates each query's search
+   rescored (the union, recorded on an index rebuilt from the encodings
+   with the runner's configuration, whose probed clusters are held against
+   a plain numpy reading of the summaries, ``cluster_probe_check``), its
+   recall@10 against the search over every document printed; the two
+   kernels against their plain
    versions at the shapes this path gives them, in this process: 64 corpus
    documents' vectors (B=32, S=256) and 64 queries' (B=1, S=64, as the
    runner encodes a query), kernel route against the plain one, and the
@@ -165,15 +172,52 @@ Phases (any failure exits non-zero; nothing is caught):
    norm, its module in f32 against a plain f32 XLM-R forward written here,
    bf16 against f32 within twice a floor measured first on other weights;
    the launches the code implies (the pool forward once a document batch
-   and once a distinct query a run, the rescore once a postings query); the
-   mined rows well formed. Printed beside the card's name and power limit:
+   and once a distinct query a run, the rescore once a query of each of the
+   postings and cluster rows); the mined rows well formed. Printed beside the card's name and power limit:
    sparse and dense documents/s, each method's latency p50 / p99, the
    teacher's texts/s in (c), the phase's seconds. Recall with random
    weights measures nothing and is printed only as a count.
+9. Train -> HF export -> serve, through the two indexes of one card that
+   phase 3 does not serve. (a) Phase 5's saved pre-trained model
+   (22L/768/50K, ``final_model/model.pt``) through the export CLI
+   (``python -m splade_tpu_torch.export``, run as ``python chip_smoke.py
+   --cli export ...`` with the stand-in tokenizer) in a process of its own;
+   the dir holds config.json and model.safetensors, whose header the port's
+   reader parses; ``load_hf_checkpoint`` gives every saved tensor bitwise
+   and no other; 64 documents (B=32, S=256) encoded by the exported model
+   are bitwise the saved model's vectors and within SERVE_RTOL of the plain
+   route. (b) A ``TieredPostingsIndex`` (cold P=256, 2,048 hot terms of
+   8,192 more postings, T=64, C=1,000) over phase 3's 1,000,000 synthetic
+   documents plus 256 the exported model encodes (its 64 strongest terms
+   each), served behind the HTTP server as phase 3 serves (``drive``:
+   batched /search at k=10 and 100 held against the same index's plain
+   path, single-query latency, /encode, /index then /search through the
+   delta); launches held at one pool forward and one rescore a batch; one
+   warmed B=32 batch under ``utils/profiling.py::profile_fn`` (wall, busy,
+   idle share, top kernels). (c) A ``ClusterIndex`` (G=64, L=32 probes,
+   a 64-posting side of 128 candidates, T=64) over the same documents, its
+   host build time and summary bytes printed, served and held as (b); no
+   served list holds a document twice; at a B=32 search the rescore kernel
+   against ``rescore_match_plain`` on the union it is given (C = L*G + 128
+   = 2,176 candidates with duplicates and the pad row, doc id n): within
+   CLUSTER_RESCORE_TOL of max(1, top score), pad candidates scoring 0 and
+   each duplicate's copies bitwise equal, and its time in a CUDA graph
+   beside the byte bound (each distinct row read once); the clusters that
+   union probed against a plain numpy reading of the summaries
+   (``cluster_probe_check``: ties within PROBE_RTOL allowed); recall@10 of
+   both indexes against the exact search is printed, not held. (d) The server CLI (``python -m
+   splade_tpu_torch.serving.server --checkpoint <export dir>``, run as
+   ``python chip_smoke.py --cli serve ...``, which keeps SERVE_DOC_TOP_K
+   terms a document) over 2,000 synthetic documents with ``--index tiered --rescore 1000`` and with ``--index cluster
+   --posting-scoring sort``, each writing its ``--index-cache``; both
+   restarted from their caches alone. Held: each cache records the kind
+   asked for, each restart logs loading that kind and returns the cold
+   run's results (SERVE_RTOL). The launch counts of (b) and (c) are read
+   around each path alone.
 
-The last seven lines are the training JSON, the pre-training JSON, the
+The last eight lines are the training JSON, the pre-training JSON, the
 splash training JSON, the data-parallel JSON, the benchmark JSON, the
-kernels' JSON and the run's JSON.
+serving JSON of phase 9, the kernels' JSON and the run's JSON.
 """
 
 from __future__ import annotations
@@ -365,6 +409,13 @@ class CharTokenizer:
             tally[0] += int(mask.sum())
             tally[1] += mask.size
         return {"input_ids": ids, "attention_mask": mask}
+
+    def save_pretrained(self, path) -> None:
+        """What an HF tokenizer writes beside a model: here a note naming
+        the stand-in (it is defined by this file, not by files)."""
+        (Path(path) / "tokenizer_config.json").write_text(json.dumps(
+            {"tokenizer_class": "CharTokenizer (chip_smoke.py stand-in)",
+             "vocab_size": V, "pad_token_id": self.pad_token_id}))
 
     def valid_share(self) -> dict:
         """max_length -> the share of valid positions in the padded batches
@@ -777,7 +828,6 @@ def check_pool_v2(torch, h, w, bias_param, bias, mask, row_block: int,
 
 def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
                   C: int = 1000, M: int = 64, T: int = 64) -> dict:
-    from splade_tpu_torch.ops import _cuda
     from splade_tpu_torch.ops.postings_index import (exact_rescore,
                                                      sparse_query_dense)
     from splade_tpu_torch.ops.rescore_kernel import (rescore_match,
@@ -822,39 +872,84 @@ def check_rescore(torch, enc, rng, syn_terms, syn_vals, B: int = 32,
     if not (err <= RESCORE_TOL and repeat):
         raise SystemExit("rescore kernel disagrees with exact_rescore or "
                          "with itself")
+    timed, kernel = time_rescore(torch, *args, plain_iters=5)
+    launched_ms = cuda_ms(torch, kernel, iters=200, warmup=5)
+    gather_ms = cuda_ms(torch, lambda: exact_rescore(
+        d_terms, d_vals, d_scale, sparse_query_dense(q_idx, q_val, V), cand),
+        iters=20, warmup=2)
+    log(f"  rescore: kernel {timed['ms']:.5f} ms in a CUDA graph, "
+        f"{launched_ms:.5f} ms a launch from Python (the scanning kernel it "
+        f"replaced {SCAN_RESCORE_MS} ms in PERF.md, timed launch by "
+        f"launch), plain match {timed['plain_ms']:.4f} ms, plain gather "
+        f"(exact_rescore) {gather_ms:.4f} ms, {rescore_bound_text(timed)}")
+    return dict(timed, shape=f"B={B} C={C} M={M} T={T} N={N}",
+                max_abs_err=err, launched_ms=launched_ms,
+                gather_ms=gather_ms)
+
+
+def rescore_bound(torch, d_vals, q_idx, cand) -> tuple:
+    """(bound ms, what bounds it, bytes, operations, distinct rows) of one
+    rescore of the candidates ``cand`` [B, C] of the doc-major block: each
+    distinct document row the candidates name read once (M int32 terms, M
+    int8 values and an f32 scale), each int32 candidate id read and each
+    f32 score written once, the queries (T int32 ids and T f32 weights a
+    row) read once; one table lookup and one multiply-add a nonzero slot
+    of each distinct (query, candidate) pair, at the f32 peak. A
+    duplicated candidate, or the pad row of a cluster union, counts
+    once."""
+    B, C = cand.shape
+    N, M = d_vals.shape
+    T = q_idx.shape[1]
+    rows = torch.unique(cand).numel()
+    moved = rows * (5 * M + 4) + B * C * 8 + B * T * 8
+    pairs = torch.unique(cand.long() + N * torch.arange(
+        B, device=cand.device)[:, None])
+    ops = 2.0 * int((d_vals[pairs % N] != 0).sum())
+    return (*bound(moved, ops, H100_FP32_OPS), moved, ops, rows)
+
+
+def rescore_bound_text(timed: dict) -> str:
+    return (f"bound {timed['bound_ms']:.5f} ms ({timed['bound_by']}: "
+            f"{timed['moved_bytes'] / 1e6:.2f} MB over "
+            f"{timed['distinct_rows']} distinct rows, {timed['ops']:.3e} "
+            f"lookups and multiply-adds; {timed['bound_ms'] / timed['ms']:.1%}"
+            " of it)")
+
+
+def time_rescore(torch, d_terms, d_vals, d_scale, q_idx, q_val, cand,
+                 plain_iters: int) -> tuple:
+    """On the card: the rescore kernel's C entry on these inputs, timed in
+    a CUDA graph (``graph_ms``), ``rescore_match_plain``'s time on them and
+    the bound (``rescore_bound``). Neither goes through the counted
+    wrapper. -> (those numbers, the launch as a closure)."""
+    from splade_tpu_torch.ops import _cuda
+    from splade_tpu_torch.ops.rescore_kernel import rescore_match_plain
+
+    B, C = cand.shape
+    N, M = d_terms.shape
+    T = q_idx.shape[1]
     lib = _cuda.library()
-    ci = cand.to(torch.int32)
-    res = torch.empty((B, C), dtype=torch.float32, device="cuda")
+    qi = q_idx.to(torch.int32).contiguous()
+    qv = q_val.to(torch.float32).contiguous()
+    ci = cand.to(torch.int32).contiguous()
+    res = torch.empty((B, C), dtype=torch.float32, device=cand.device)
 
     def kernel():
         _cuda.check(lib.splade_rescore_match(
             d_terms.data_ptr(), d_vals.data_ptr(), d_scale.data_ptr(),
-            q_idx.data_ptr(), q_val.data_ptr(), ci.data_ptr(), res.data_ptr(),
+            qi.data_ptr(), qv.data_ptr(), ci.data_ptr(), res.data_ptr(),
             N, B, C, M, T, torch.cuda.current_stream().cuda_stream),
             "splade_rescore_match")
 
     ms = graph_ms(torch, kernel, iters=200)
-    launched_ms = cuda_ms(torch, kernel, iters=200, warmup=5)
-    plain_ms = cuda_ms(torch, lambda: rescore_match_plain(*args), iters=5,
-                       warmup=1)
-    gather_ms = cuda_ms(torch, lambda: exact_rescore(
-        d_terms, d_vals, d_scale, sparse_query_dense(q_idx, q_val, V), cand),
-        iters=20, warmup=2)
-    moved = B * C * 8 + B * C * M * 5 + B * C * 4 + B * T * 8 + B * C * 4
-    # one table lookup and one multiply-add a doc slot of nonzero value
-    ops = 2.0 * int((d_vals[cand] != 0).sum())
-    bound_ms, bound_by = bound(moved, ops, H100_FP32_OPS)
-    log(f"  rescore: kernel {ms:.5f} ms in a CUDA graph, {launched_ms:.5f} "
-        f"ms a launch from Python (the scanning kernel it replaced "
-        f"{SCAN_RESCORE_MS} ms in PERF.md, timed launch by launch), plain "
-        f"match {plain_ms:.4f} ms, "
-        f"plain gather (exact_rescore) {gather_ms:.4f} ms, bound "
-        f"{bound_ms:.5f} ms ({bound_by}: {moved / 1e6:.2f} MB, "
-        f"{ops:.3e} lookups and multiply-adds; {bound_ms / ms:.1%} of it)")
-    return dict(shape=f"B={B} C={C} M={M} T={T} N={N}", max_abs_err=err,
-                ms=ms, launched_ms=launched_ms, plain_ms=plain_ms,
-                gather_ms=gather_ms,
-                bound_ms=bound_ms, bound_by=bound_by, library_ms=None)
+    plain_ms = cuda_ms(torch, lambda: rescore_match_plain(
+        d_terms, d_vals, d_scale, q_idx, q_val, cand), iters=plain_iters,
+        warmup=1)
+    bound_ms, bound_by, moved, ops, rows = rescore_bound(torch, d_vals,
+                                                         q_idx, cand)
+    return dict(ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
+                bound_by=bound_by, moved_bytes=moved, ops=ops,
+                distinct_rows=rows, library_ms=None), kernel
 
 
 def _kernel_route(torch, pool, h, w, bias, mask, gout):
@@ -1632,20 +1727,6 @@ def drive(name: str, engine, model, queries, doc_text: str) -> dict:
     return summary
 
 
-def summarize_spans(spans, n_top: int = 8):
-    """(busy microseconds, {name: ms} of the n_top largest) from device
-    spans (start_us, end_us, name) sorted by start: busy is the union of
-    the intervals; names are cut to 60 characters and kernels that then
-    share a name (template instances of one kind) are added together."""
-    busy_us, end_us, by_name = 0.0, float("-inf"), {}
-    for start, end, kname in spans:
-        busy_us += max(0.0, end - max(start, end_us))
-        end_us = max(end_us, end)
-        by_name[kname[:60]] = by_name.get(kname[:60], 0.0) + (end - start)
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:n_top]
-    return busy_us, {k: v / 1e3 for k, v in top}
-
-
 #: the port's own kernels among a trace's device spans, by function name
 PORT_KERNEL = re.compile(r"((?:fused_splade|splash|rescore)\w*_kernel)")
 #: the per-row pool backward's kernels (the match pass and the gathers)
@@ -1668,8 +1749,9 @@ def device_profile(torch, fn) -> dict:
     """Host wall clock of ``fn()`` ended by a synchronize, against the union
     of the device's kernel and copy intervals in a torch.profiler trace,
     and the device items that take most time."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from splade_tpu_torch.utils.profiling import device_spans, summarize_spans
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1678,8 +1760,7 @@ def device_profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    spans = sorted((e.time_range.start, e.time_range.end, e.name)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    spans = device_spans(prof)
     if not spans:
         return dict(wall_ms=wall_ms, device_busy_ms=None)
     busy_us, top = summarize_spans(spans)
@@ -1991,9 +2072,10 @@ def device_gb_in_use(torch, device: str):
 
 def _counted_kernels() -> dict:
     """name -> the wrapper whose ``launches`` counts that kernel, for the
-    kernels a training path can launch: the per-row pool family and the
-    splash attention."""
-    from splade_tpu_torch.ops import fused_splade, splash_attention
+    kernels a training or serving path can launch: the per-row pool family,
+    the splash attention and the exact rescore."""
+    from splade_tpu_torch.ops import (fused_splade, rescore_kernel,
+                                      splash_attention)
 
     return {"fused_splade_pool": fused_splade.fused_splade_pool,
             "fused_splade_bwd_match": fused_splade.fused_splade_bwd_match,
@@ -2003,7 +2085,8 @@ def _counted_kernels() -> dict:
             "splash_attention_bwd_dq":
                 splash_attention.splash_attention_bwd_dq,
             "splash_attention_bwd_dkv":
-                splash_attention.splash_attention_bwd_dkv}
+                splash_attention.splash_attention_bwd_dkv,
+            "rescore_match": rescore_kernel.rescore_match}
 
 
 def _launch_counts() -> dict:
@@ -2023,7 +2106,7 @@ def expected_launches(model_config, accum: int, steps: int,
     the backward's match pass once with its two gathers;
     with attention_impl "splash" every layer launches the attention forward
     once (twice under layer recompute, whose backward re-runs it) and each
-    backward kernel once; with "sdpa" none."""
+    backward kernel once; with "sdpa" none; the rescore never."""
     layers = (model_config.num_hidden_layers
               if model_config.attention_impl == "splash" else 0)
     micro = accum * steps
@@ -2034,7 +2117,8 @@ def expected_launches(model_config, accum: int, steps: int,
             "splash_attention": layers * (2 if model_config.remat else 1)
             * micro,
             "splash_attention_bwd_dq": layers * micro,
-            "splash_attention_bwd_dkv": layers * micro}
+            "splash_attention_bwd_dkv": layers * micro,
+            "rescore_match": 0}
 
 
 def hold_launches(what: str, got: dict, want: dict) -> None:
@@ -2422,8 +2506,8 @@ def batch_backward_times(torch, mlm_model, ids, mask) -> dict:
 def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
               model_config, steps: int = 3, device: str = "cuda",
               n_sentences: int = 20_000, sentence_words=(12, 28),
-              v2_shapes=TRAIN_POOL_SHAPES, checkpoint_config=None
-              ) -> dict:
+              v2_shapes=TRAIN_POOL_SHAPES, checkpoint_config=None,
+              keep_final=None) -> dict:
     """MLM pre-training through the port's entry points: a synthetic Hangul
     corpus written as a text shard, read_corpus -> pack_corpus ->
     MLMTrainer. One run of train(): a warm-up step, ``steps`` measured
@@ -2435,7 +2519,9 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
     SparseEncoderV33.from_checkpoint into a served engine, and the
     row-blocked pool's path (``v2_path``). ``checkpoint_config`` is handed
     to from_checkpoint (None: the architecture's widths with the
-    tokenizer's vocabulary, as a user loads a full-size model)."""
+    tokenizer's vocabulary, as a user loads a full-size model).
+    ``keep_final``: where the final model dir moves to before the work
+    dir is removed (phase 9 exports it)."""
     import shutil
 
     from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
@@ -2650,6 +2736,10 @@ def mlm_phase(torch, tok, rng, workdir, seed: int, recipe: dict,
     del engine
 
     v2 = v2_path(torch, state.model, tok, rng, trainer._autocast, v2_shapes)
+    if keep_final is not None:
+        shutil.rmtree(keep_final, ignore_errors=True)
+        Path(keep_final).parent.mkdir(parents=True, exist_ok=True)
+        shutil.move(final, str(keep_final))
     shutil.rmtree(workdir, ignore_errors=True)
     return dict(recipe=recipe, model_params=n_params, rows=len(rows),
                 steps=[{k: r[k] for k in ("step", "loss", "mlm_acc",
@@ -3365,12 +3455,14 @@ BENCH_METHODS = {
     "bm25", "neural_sparse", "semantic", "bm25_semantic_rrf", "hybrid_rrf",
     "hybrid_linear_0.3", "hybrid_linear_0.4", "hybrid_linear_0.5",
     "hybrid_weighted_rrf", "bm25_sparse_rrf", "triple_rrf",
-    "neural_sparse_postings"}
+    "neural_sparse_postings", "neural_sparse_cluster"}
 BENCH_GPU_METHODS = {"bm25", "neural_sparse"}
 #: the sparse rows whose per-query lists run (a) and (b) record
-BENCH_SPARSE_ROWS = ("neural_sparse", "neural_sparse_postings")
-#: the postings index of --postings-index: the query's strongest terms it
-#: keeps (splade_tpu_torch/benchmark/runner.py, the serving configuration)
+BENCH_SPARSE_ROWS = ("neural_sparse", "neural_sparse_postings",
+                     "neural_sparse_cluster")
+#: the postings index of --postings-index and the cluster index of
+#: --cluster-index: the query's strongest terms each keeps
+#: (splade_tpu_torch/benchmark/runner.py)
 POSTINGS_QUERY_TOP_T = 32
 #: the teacher's f32 module against the plain f32 forward below: the same
 #: function in f32, so only the order of sums differs; relative to the
@@ -3624,7 +3716,8 @@ def ranking_tolerances(csr, q, method: str) -> np.ndarray:
 
 
 def check_rankings(what: str, lists: dict, query_vecs: dict, doc_ids,
-                   csr, method: str, top_t: int = 0, k: int = 10) -> dict:
+                   csr, method: str, top_t: int = 0, k: int = 10,
+                   allowed=None) -> dict:
     """Check 2: each query's top-k from an index (``lists``: query ->
     [(doc id, score)]) against the exact CSR search of the same vectors
     (the query cut to its ``top_t`` strongest terms first, when given, as
@@ -3633,10 +3726,14 @@ def check_rankings(what: str, lists: dict, query_vecs: dict, doc_ids,
     index's rounding (``ranking_tolerances``) of its document's exact
     score, and at every rank its document's exact score within the two
     documents' tolerances of the exact ranking's: what differs is near a
-    tie or the cut-off. -> counts, and the largest gap a differing rank
+    tie or the cut-off. ``allowed`` (query -> the document rows an
+    approximate index rescored: its candidates) restricts the exact search
+    to them; the share of the unrestricted exact top-k found is then
+    reported as recall. -> counts, and the largest gap a differing rank
     had, relative to the query's top exact score."""
     row = {d: i for i, d in enumerate(doc_ids)}
     identical, differing, gap_max, gap_in_tol = 0, 0, 0.0, 0.0
+    found, asked = 0, 0
     for query, got in lists.items():
         idx, val = (np.asarray(x) for x in query_vecs[query])
         if top_t and len(val) > top_t:
@@ -3645,10 +3742,18 @@ def check_rankings(what: str, lists: dict, query_vecs: dict, doc_ids,
         q = np.zeros(V)
         np.add.at(q, idx.astype(np.int64), val.astype(np.float64))
         exact = csr @ q
+        got_rows = [row[d] for d, _ in got]
+        if allowed is not None:
+            everywhere = np.lexsort((np.arange(len(exact)), -exact))[:k]
+            best = {i for i in everywhere if exact[i] > 0}
+            found += len(best & set(got_rows))
+            asked += len(best)
+            keep = np.zeros(len(exact), bool)
+            keep[sorted(allowed[query])] = True
+            exact = np.where(keep, exact, 0.0)
         order = np.lexsort((np.arange(len(exact)), -exact))
         want = [i for i in order[:k] if exact[i] > 0]
         tol = ranking_tolerances(csr, q, method)
-        got_rows = [row[d] for d, _ in got]
         # entries past the exact list's end may only be documents scoring 0
         for (d, s), i in zip(got[len(want):], got_rows[len(want):]):
             if not abs(exact[i]) <= tol[i]:
@@ -3681,12 +3786,57 @@ def check_rankings(what: str, lists: dict, query_vecs: dict, doc_ids,
     out = dict(queries=len(lists), identical=identical,
                within_rounding=differing, largest_gap_rel=gap_max,
                largest_gap_of_tol=gap_in_tol)
+    if allowed is not None:
+        out["recall"] = found / max(asked, 1)
     log(f"  {what}: top-{k} of {len(lists)} queries against the exact CSR "
-        f"search on the same vectors: {identical} identical, {differing} "
+        f"search on the same vectors"
+        + (" over the candidates each query's search rescored"
+           if allowed is not None else "")
+        + f": {identical} identical, {differing} "
         f"differing only within the index's rounding (largest gap "
         f"{gap_max:.2e} of the top score, {gap_in_tol:.2f} of the "
-        "tolerance)")
+        "tolerance)"
+        + (f"; recall@{k} against the search over every document "
+           f"{out['recall']:.3f} (printed, not held)"
+           if allowed is not None else ""))
     return out
+
+
+def cluster_unions(torch, index, query_vecs: dict, csr) -> dict:
+    """query -> the document rows a ClusterIndex's search of that query
+    vector rescores (its candidate union, the pad row left out), recorded
+    at its one phase-2 rescore, where the clusters it probed are held
+    against a plain reading of the documents ``csr``
+    (``cluster_probe_check``)."""
+    from splade_tpu_torch.ops import cluster_index
+
+    dispatch, seen, probes = cluster_index.dispatch_rescore, [], []
+
+    def recording(d_terms, d_vals, d_scale, q_idx, q_val, cand, *rest, **kw):
+        seen.append(cand[0].tolist())
+        # row 0 is the query; the rest pad the batch
+        probes.append(cluster_probe_check(torch, index, csr, q_idx[:1],
+                                          q_val[:1], cand[:1]))
+        return dispatch(d_terms, d_vals, d_scale, q_idx, q_val, cand, *rest,
+                        **kw)
+
+    cluster_index.dispatch_rescore = recording
+    unions = {}
+    try:
+        for query, (idx, val) in query_vecs.items():
+            index.search_vector(np.asarray(idx, np.int32),
+                                np.asarray(val, np.float32), k=10)
+            unions[query] = {i for i in seen.pop() if i < len(index)}
+    finally:
+        cluster_index.dispatch_rescore = dispatch
+    log(f"  cluster row's probes of {len(probes)} queries "
+        f"({probes[0]['probes']} of {probes[0]['clusters']} clusters) == a "
+        "plain f32 reading of the summaries: "
+        f"{sum(p['tied_queries'] for p in probes)} queries with a cluster "
+        "left out tied with one probed, largest gap "
+        f"{max(p['max_gap'] for p in probes):.2e} of the top summary score "
+        f"(tol {PROBE_RTOL})")
+    return unions
 
 
 def check_postings_rescore(torch, index, query_vecs: dict) -> dict:
@@ -3798,15 +3948,16 @@ def bench_entry(argv) -> int:
 
 
 def bench_launches(n_docs: int, distinct_queries: int,
-                   postings_queries: int) -> dict:
+                   rescored_queries: int) -> dict:
     """The launches one benchmark run implies: the pool forward once a
     document batch it encodes (BENCH_ENCODE_BATCH documents) and once a
     distinct query (the runner memoizes query encodes), the rescore once a
-    query of the postings row, no training kernel."""
+    query of each row that rescores (the postings and the cluster row), no
+    training kernel."""
     return {**dict.fromkeys(_counted_kernels(), 0),
             "fused_splade_pool": -(-n_docs // BENCH_ENCODE_BATCH)
             + distinct_queries,
-            "rescore_match": postings_queries}
+            "rescore_match": rescored_queries}
 
 
 def bench_phase(torch, rng, workdir, seed: int, card: str,
@@ -3826,7 +3977,8 @@ def bench_phase(torch, rng, workdir, seed: int, card: str,
 
     from splade_tpu_torch.benchmark.data import load_triplet_benchmark
     from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
-    from splade_tpu_torch.benchmark.runner import serving_postings_index
+    from splade_tpu_torch.benchmark.runner import (benchmark_cluster_index,
+                                                   serving_postings_index)
     from splade_tpu_torch.mining import (mine_multi_negatives,
                                          precompute_teacher_scores)
     from splade_tpu_torch.models.teachers import BGEM3Teacher
@@ -3880,7 +4032,7 @@ def bench_phase(torch, rng, workdir, seed: int, card: str,
               "--encodings", str(workdir / "encodings.npz"),
               "--device", device]
     runs = {
-        "a": ["--index", "exact", "--postings-index",
+        "a": ["--index", "exact", "--postings-index", "--cluster-index",
               "--dense-checkpoint", str(workdir / "dense"),
               "--dense-max-length", str(dense_max_length)],
         "b": ["--index", "gpu", "--no-hybrid"]}
@@ -3911,7 +4063,7 @@ def bench_phase(torch, rng, workdir, seed: int, card: str,
                              f"{out[name]['failed'][:3]}")
     n_queries = out["a"]["metrics"]["num_queries"]
     n_docs = out["a"]["metrics"]["num_docs"]
-    log(f"  runs (a) exact + postings + dense, (b) ImpactIndex: "
+    log(f"  runs (a) exact + postings + cluster + dense, (b) ImpactIndex: "
         f"{n_queries} queries over {n_docs} documents, every method "
         f"({len(BENCH_METHODS)} | {len(BENCH_GPU_METHODS)}), 0 failed "
         "queries")
@@ -3924,6 +4076,17 @@ def bench_phase(torch, rng, workdir, seed: int, card: str,
             out["a"]["lists"]["neural_sparse_postings"],
             out["a"]["query_vectors"], doc_ids, csr, "postings",
             top_t=POSTINGS_QUERY_TOP_T),
+        # an approximate index: ranked exactly within the candidates each
+        # search rescored (its union, rebuilt below from the encodings with
+        # the runner's configuration), with the postings row's rounding
+        "neural_sparse_cluster": check_rankings(
+            "run (a) neural_sparse_cluster (ClusterIndex + rescore)",
+            out["a"]["lists"]["neural_sparse_cluster"],
+            out["a"]["query_vectors"], doc_ids, csr, "postings",
+            top_t=POSTINGS_QUERY_TOP_T, allowed=cluster_unions(
+                torch, benchmark_cluster_index(len(tok), doc_ids, vecs,
+                                               device),
+                out["a"]["query_vectors"], csr)),
         "neural_sparse (exact)": check_rankings(
             "run (a) neural_sparse (exact CSR)",
             out["a"]["lists"]["neural_sparse"], out["a"]["query_vectors"],
@@ -3941,7 +4104,7 @@ def bench_phase(torch, rng, workdir, seed: int, card: str,
     distinct = len(set(data.queries.values()))
     launches = {name: out[name]["launches"] for name in runs}
     want = {"a": bench_launches(len(data.corpus), distinct,
-                                len(data.queries)),
+                                2 * len(data.queries)),
             "b": bench_launches(0, distinct, 0)}
     for name in runs:
         hold_launches(f"benchmark run ({name})", launches[name],
@@ -4065,16 +4228,568 @@ def check_mined(scored_path, mined_path, n_rows: int, negatives: int) -> None:
         "scores each, no positive among its negatives")
 
 
+# ------------------------------------------------------------ phase 9
+#: phase 9's indexes over phase 3's corpus
+TIERED_CONFIG = dict(n_postings=256, hot_terms=2048, hot_postings=8192,
+                     query_top_t=64, rescore_candidates=1000)
+CLUSTER_CONFIG = dict(cluster_size=64, n_probes=32, posting_cap=64,
+                      posting_candidates=128, query_top_t=64)
+#: (a) the documents both the saved and the exported model encode
+EXPORT_CHECK_DOCS = 64
+#: documents the exported model encodes into phase 9's indexes, and the
+#: terms each keeps (phase 3's encoder)
+SERVE_TEXT_DOCS, SERVE_DOC_TOP_K = 256, 64
+SERVE_QUERIES = 32
+#: (c) the rescore kernel against its plain version on the cluster union:
+#: one f32 sum a candidate in another order, relative to max(1, top score)
+CLUSTER_RESCORE_TOL = 1e-6
+#: (c) and phase 8's cluster row: the probed clusters against a plain
+#: reading of the summaries, ties allowed within this share of the query's
+#: top summary score (f32 sums of up to T bf16 products in another order)
+PROBE_RTOL = 1e-5
+#: (d) the server CLI's corpus
+CLI_DOCS = 2000
+SERVE_TIMEOUT_S = 300.0
+#: (d) each index the server CLI builds, and what it is asked for
+CLI_INDEXES = {"tiered": ["--index", "tiered", "--rescore", "1000"],
+               "cluster": ["--index", "cluster", "--posting-scoring",
+                           "sort"]}
+
+
+def export_check(torch, tok, final_dir, out_dir, texts, device: str,
+                 cli, model_config=None,
+                 timeout_s: float = SERVE_TIMEOUT_S) -> tuple:
+    """Phase 9 (a): the export CLI on a saved model in a process of its own
+    (``cli``: the command that runs ``cli_entry``), then the dir's files
+    (the port's reader parses the safetensors header), every saved tensor
+    bitwise through ``load_hf_checkpoint`` and no other, and ``texts``
+    encoded by the exported model bitwise the saved model's vectors and
+    within SERVE_RTOL of the plain route. -> (result, the exported
+    model's encoder)."""
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    from splade_tpu_torch.models.hf_port import load_hf_checkpoint
+    from splade_tpu_torch.train.checkpoint import load_model_state
+    from splade_tpu_torch.utils import safetensors_io
+
+    out_dir = Path(out_dir)
+    # the heads are not in the weights: a config other than the
+    # architecture's names them (the window is the architecture's)
+    heads = (["--num-attention-heads", str(model_config.num_attention_heads)]
+             if model_config is not None else [])
+    t0 = time.perf_counter()
+    run_processes("export", [cli + ["export", "--checkpoint", str(final_dir),
+                                    "--output", str(out_dir)] + heads],
+                  [repo_env()], [out_dir.parent / "export.log"], timeout_s)
+    export_s = time.perf_counter() - t0
+    files = sorted(p.name for p in out_dir.iterdir())
+    if not {"config.json", "model.safetensors"} <= set(files):
+        raise SystemExit(f"export: the HF dir holds {files}")
+    entries, meta, _ = safetensors_io.read_header(
+        (out_dir / "model.safetensors").read_bytes())
+    hf_cfg = json.loads((out_dir / "config.json").read_text())
+    saved = load_model_state(str(final_dir))
+    cfg, state = load_hf_checkpoint(str(out_dir))
+    layers = len({k.split(".")[2] for k in saved
+                  if k.startswith("model.layers.")})
+    differ = sorted(k for k in set(saved) | set(state)
+                    if k not in saved or k not in state
+                    or not torch.equal(saved[k], state[k]))
+    log(f"  export CLI in {export_s:.1f} s: {files}; model.safetensors "
+        f"{(out_dir / 'model.safetensors').stat().st_size / 1e6:.1f} MB, "
+        f"{len(entries)} tensors, metadata {meta}; config "
+        f"{hf_cfg['num_hidden_layers']}L/{hf_cfg['hidden_size']}/"
+        f"{hf_cfg['vocab_size']} (saved model: {layers} layers); reloaded "
+        f"through load_hf_checkpoint: {len(saved) - len(differ)} of "
+        f"{len(saved)} saved tensors bitwise, differing or missing "
+        f"{differ[:4]}")
+    if differ or cfg.num_hidden_layers != layers or meta != {"format": "pt"}:
+        raise SystemExit("export: the reloaded model is not the saved one")
+    saved_enc = SparseEncoderV33.from_checkpoint(str(final_dir), tok,
+                                                 device=device,
+                                                 config=model_config)
+    enc = SparseEncoderV33.from_hf_dir(str(out_dir), tok, device=device)
+    same = True
+    with torch.no_grad():
+        for i in range(0, len(texts), enc.batch_size):
+            batch = enc.tokenize(texts[i:i + enc.batch_size],
+                                 enc.doc_max_length)
+            same &= bool(torch.equal(enc.encode_tensor(*batch),
+                                     saved_enc.encode_tensor(*batch)))
+    log(f"  {len(texts)} documents (B={enc.batch_size}, "
+        f"S={enc.doc_max_length}) encoded by the exported model bitwise the "
+        f"saved model's vectors: {same}")
+    if not same:
+        raise SystemExit("export: the exported model encodes differently")
+    del saved_enc
+    diff = compare_doc_encode(torch, enc, enc.model, texts)
+    return dict(export_s=export_s, files=files, tensors=len(entries),
+                layers=cfg.num_hidden_layers,
+                safetensors_bytes=(out_dir / "model.safetensors"
+                                   ).stat().st_size,
+                bitwise=True, doc_encode_max_rel_diff=diff), enc
+
+
+def exact_topk_ids(csr, query_vecs, doc_ids, k: int = 10) -> list:
+    """Each query vector's exact top-k document ids over a CSR [N, V]."""
+    out = []
+    for idx, val in query_vecs:
+        q = np.zeros(csr.shape[1], np.float32)
+        np.add.at(q, np.asarray(idx, np.int64), np.asarray(val, np.float32))
+        scores = csr @ q
+        top = np.argsort(-scores, kind="stable")[:k]
+        out.append([doc_ids[i] for i in top if scores[i] > 0])
+    return out
+
+
+def no_duplicates(name: str, lists) -> None:
+    for res in lists:
+        ids = [d for d, _ in res]
+        if len(ids) != len(set(ids)):
+            raise SystemExit(f"{name}: a result list holds a document twice:"
+                             f" {ids[:12]}")
+
+
+def serve_index(torch, name: str, index, enc, tok, queries, doc_text: str,
+                exact, profile_dir, device: str) -> dict:
+    """Phase 9 (b) and (c): ``index`` (built) served behind the HTTP server
+    (``drive``), its launches counted around the path alone and held at
+    one pool forward and one rescore a batch; no result list holding a
+    document twice; recall@10 against the exact search (``exact``: (csr,
+    doc ids)), printed; one warmed B=32 batch under ``profile_fn``.
+    -> (result, the engine)."""
+    from splade_tpu_torch.serving.engine import ServingEngine
+    from splade_tpu_torch.utils.profiling import profile_fn
+
+    engine = ServingEngine(enc.model, tok, index, query_top_k=64,
+                           device=device)
+    n_docs = len(index)  # before drive's /index adds one
+    k10 = engine.search_batch(queries, k=10)
+    no_duplicates(f"{name} k=10", k10)
+    no_duplicates(f"{name} k=100", engine.search_batch(queries, k=100))
+    q_vecs = enc.encode_queries(queries)
+    want = exact_topk_ids(exact[0], q_vecs, exact[1])
+    recall = float(np.mean([len({d for d, _ in got} & set(w)) / max(len(w), 1)
+                            for got, w in zip(k10, want)]))
+    served = drive(name, engine, enc.model, queries, doc_text)
+    per_batch = {k: v["per_batch"] for k, v in
+                 served["kernel_launches"].items()}
+    if device.startswith("cuda") and per_batch != {"fused_splade_pool": 1.0,
+                                                   "rescore_match": 1.0}:
+        raise SystemExit(f"{name}: launches a batch {per_batch}, expected "
+                         "one pool forward and one rescore")
+    prof = profile_fn(engine.search_batch, (queries[:32], 100),
+                      str(profile_dir), steps=1)
+    top = list(prof["top_kernels_ms"].items())
+    log(f"  {name}: recall@10 against the exact search over "
+        f"{len(queries)} queries {recall:.3f} (printed, not held); one "
+        f"warmed B={len(queries[:32])} k=100 batch under profile_fn: wall "
+        f"{prof['wall_ms']:.2f} ms"
+        + (f", device busy {prof['device_busy_ms']:.2f} ms (idle "
+           f"{prof['device_idle_share']:.1%}) over {prof['device_ops']} "
+           "device ops; top: " + ", ".join(f"{k[:40]} {v:.3f}"
+                                          for k, v in top[:5])
+           if prof["device_busy_ms"] is not None
+           else "; the profiler saw no device activity, not measured"))
+    return dict(served=served, recall_at_10=recall, profile=prof,
+                docs=n_docs), engine
+
+
+def union_rescore_check(torch, d_terms, d_vals, d_scale, q_idx, q_val,
+                        cand, got, want) -> dict:
+    """The rescore kernel's scores ``got`` on a cluster union against its
+    plain version's ``want``: within CLUSTER_RESCORE_TOL of max(1, the top
+    score), every pad candidate (doc id n, the block's last row) scoring
+    0, every copy of a duplicated candidate bitwise its first's; the union
+    must hold pad slots and duplicates."""
+    B, C = cand.shape
+    N, M = d_terms.shape
+    T = q_idx.shape[1]
+    err = float((got - want).abs().max()) / max(1.0,
+                                                float(want.abs().max()))
+    pad = cand == N - 1
+    pad_nonzero = int((got[pad] != 0).sum())
+    ids, perm = torch.sort(cand, dim=1, stable=True)
+    sc = got.gather(1, perm)
+    dup = ids[:, 1:] == ids[:, :-1]
+    dup_unequal = int((dup & (sc[:, 1:] != sc[:, :-1])).sum())
+    out = dict(shape=f"B={B} C={C} M={M} T={T} N={N}", max_abs_err=err,
+               tol=CLUSTER_RESCORE_TOL, pad_candidates=int(pad.sum()),
+               duplicate_candidates=int(dup.sum()),
+               pad_nonzero=pad_nonzero, duplicates_unequal=dup_unequal)
+    log(f"  cluster rescore at {out['shape']} (the union: "
+        f"{out['duplicate_candidates']} duplicate candidates, "
+        f"{out['pad_candidates']} pad slots = doc id {N - 1}): kernel == "
+        f"rescore_match_plain within {err:.2e} of max(1, top score) (tol "
+        f"{CLUSTER_RESCORE_TOL}); pad candidates scoring other than 0: "
+        f"{pad_nonzero}; duplicate copies scoring other than their first: "
+        f"{dup_unequal}")
+    if not (err <= CLUSTER_RESCORE_TOL and pad_nonzero == 0
+            and dup_unequal == 0 and out["pad_candidates"] > 0
+            and out["duplicate_candidates"] > 0):
+        raise SystemExit("cluster rescore: the kernel differs from its plain "
+                         "version on the union, or a pad or duplicate "
+                         "candidate scores wrong")
+    return out
+
+
+def cluster_probe_check(torch, index, csr, q_idx, q_val, cand) -> dict:
+    """The clusters a ClusterIndex's phase 1a probed, read from the union
+    ``cand`` [B, L*G (+ C_p)] it handed the rescore (G slots a probed
+    cluster's member row), against plain numpy: the member rows copied from
+    the device (they must partition the n documents, pad id n), each
+    cluster's summary of the queries' terms recomputed from ``csr`` (the
+    index's documents in its order: the max of the members' weights,
+    rounded to bf16 as the index stores it), dotted in f32 with the query
+    rounded to bf16. Held: each probed row is its cluster's whole member
+    row, no cluster probed twice, and no cluster left out scoring more
+    than PROBE_RTOL of the query's top summary score above one probed. A
+    fault in the summary product, the top-L or the member gather fails
+    it."""
+    cdocs = index._built[1].cpu().numpy()
+    K, G = cdocs.shape
+    n, vocab = index._base_n, index.vocab_size
+    L = min(index.n_probes, K)
+    real = cdocs < n
+    if not np.array_equal(np.sort(cdocs[real]), np.arange(n)):
+        raise SystemExit("cluster probes: the member rows do not partition "
+                         "the documents")
+    cluster_of = np.empty(n, np.int64)
+    cluster_of[cdocs[real]] = np.nonzero(real)[0]
+    bf16 = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(
+        torch.bfloat16).float().numpy()
+    qi = q_idx.cpu().numpy().astype(np.int64)
+    B = len(qi)
+    qd = np.zeros((B, vocab + 1), np.float32)
+    np.add.at(qd, (np.arange(B)[:, None], qi), q_val.float().cpu().numpy())
+    qd = bf16(qd[:, :vocab])
+    terms = np.flatnonzero(qd.any(0))
+    sub = (csr if csr.shape[0] == n else csr[:n])[:, terms].tocoo()
+    summary = np.zeros((len(terms), K), np.float32)
+    np.maximum.at(summary, (sub.col, cluster_of[sub.row]),
+                  sub.data.astype(np.float32))
+    ref = qd[:, terms] @ bf16(summary)                      # [B, K] f32
+    rows = cand[:, :L * G].cpu().numpy().reshape(B, L, G)
+    if (rows[:, :, 0] >= n).any():
+        raise SystemExit("cluster probes: a probed row starts with the pad "
+                         "id")
+    probed = cluster_of[rows[:, :, 0]]
+    if not np.array_equal(rows, cdocs[probed]):
+        raise SystemExit("cluster probes: a probed row is not one cluster's "
+                         "member row")
+    gaps = []
+    for b in range(B):
+        if len(set(probed[b].tolist())) != L:
+            raise SystemExit(f"cluster probes: query {b} probes a cluster "
+                             "twice")
+        left = np.ones(K, bool)
+        left[probed[b]] = False
+        best_left = ref[b][left].max() if left.any() else -np.inf
+        gaps.append(float(best_left - ref[b][probed[b]].min())
+                    / max(float(ref[b].max()), np.finfo(np.float32).tiny))
+    out = dict(queries=B, clusters=K, probes=L, max_gap=max(gaps),
+               tied_queries=sum(g >= 0 for g in gaps), tol=PROBE_RTOL)
+    if out["max_gap"] > PROBE_RTOL:
+        raise SystemExit(f"cluster probes: a cluster left out scores "
+                         f"{out['max_gap']:.2e} of the top summary score "
+                         f"above one probed (tol {PROBE_RTOL})")
+    return out
+
+
+def cluster_rescore_check(torch, engine, queries, csr) -> dict:
+    """Phase 9 (c): at one batched search, the rescore kernel on the union
+    the cluster index hands it (``rescore_match``, which the search goes on
+    with) against ``rescore_match_plain`` on the same doc-major block,
+    queries and candidates (``union_rescore_check``, before the search goes
+    on), and the clusters that union probed against a plain reading of the
+    index's documents ``csr`` (``cluster_probe_check``). On the card, the
+    kernel's time in a CUDA graph beside its byte bound and the plain
+    version's time at these shapes."""
+    from splade_tpu_torch.ops import cluster_index, rescore_kernel
+
+    dispatch, calls = cluster_index.dispatch_rescore, []
+
+    def compared(d_terms, d_vals, d_scale, q_idx, q_val, cand, *rest, **kw):
+        args = (d_terms, d_vals, d_scale, q_idx, q_val, cand)
+        got = rescore_kernel.rescore_match(*args)
+        calls.append((args, union_rescore_check(
+            torch, *args, got, rescore_kernel.rescore_match_plain(*args))))
+        return got
+
+    cluster_index.dispatch_rescore = compared
+    try:
+        engine.search_batch(queries, k=10)
+    finally:
+        cluster_index.dispatch_rescore = dispatch
+    if len(calls) != 1:
+        raise SystemExit(f"cluster rescore: {len(calls)} rescores in one "
+                         "batch")
+    (d_terms, d_vals, d_scale, q_idx, q_val, cand), out = calls[0]
+    probes = cluster_probe_check(torch, engine.index, csr, q_idx, q_val, cand)
+    log(f"  cluster probes of {probes['queries']} queries ({probes['probes']}"
+        f" of {probes['clusters']} clusters) == a plain f32 reading of the "
+        f"summaries: {probes['tied_queries']} queries with a cluster left "
+        f"out tied with one probed, largest gap {probes['max_gap']:.2e} of "
+        f"the top summary score (tol {PROBE_RTOL})")
+    out = dict(out, probes=probes)
+    if not cand.is_cuda:
+        return dict(out, ms=None, plain_ms=None, bound_ms=None,
+                    bound_by=None, library_ms=None)
+    timed, _ = time_rescore(torch, d_terms, d_vals, d_scale, q_idx, q_val,
+                            cand, plain_iters=3)
+    log(f"  cluster rescore: kernel {timed['ms']:.5f} ms in a CUDA graph, "
+        f"plain match {timed['plain_ms']:.4f} ms, "
+        f"{rescore_bound_text(timed)}")
+    return dict(out, **timed)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def serve_cli_runs(what: str, commands, logs, queries,
+                   timeout_s: float) -> list:
+    """Start each server command (``--port`` given), wait until every one
+    answers /healthz, send each the batched /search at k=10 and k=100, stop
+    them (SIGINT, the server's clean stop; killed if they linger). -> per
+    server: {k: results}, its log's text."""
+    procs, out = [], []
+    try:
+        for cmd, path in zip(commands, logs):
+            with open(path, "w") as f:
+                procs.append(subprocess.Popen(cmd, stdout=f,
+                                              stderr=subprocess.STDOUT,
+                                              env=repo_env()))
+        deadline = time.monotonic() + timeout_s
+        for cmd, proc in zip(commands, procs):
+            addr = ("127.0.0.1", int(cmd[cmd.index("--port") + 1]))
+            while True:
+                if proc.poll() is not None:
+                    raise SystemExit(f"{what}: a server exited "
+                                     f"{proc.returncode} before it served")
+                if time.monotonic() > deadline:
+                    raise SystemExit(f"{what}: a server did not answer in "
+                                     f"{timeout_s:.0f} s")
+                try:
+                    _http(addr, "GET", "/healthz")
+                    break
+                except OSError:
+                    time.sleep(0.5)
+            results = {}
+            for k in (10, 100):
+                got, _ = _http(addr, "POST", "/search",
+                               {"queries": queries, "k": k})
+                results[k] = [[(r["doc_id"], r["score"]) for r in rs]
+                              for rs in got["results"]]
+            out.append(results)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.send_signal(signal.SIGINT)
+        for proc in procs:
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait()
+    return out, [Path(p).read_text() for p in logs]
+
+
+def cli_launches(text: str) -> dict:
+    lines = [ln for ln in text.splitlines() if ln.startswith("LAUNCHES ")]
+    return json.loads(lines[-1][9:]) if lines else {}
+
+
+def server_cli_check(workdir, export_dir, texts, queries, device: str, cli,
+                     timeout_s: float = SERVE_TIMEOUT_S) -> dict:
+    """Phase 9 (d): the server CLI (``cli`` + ``serve``) from the export
+    dir over ``texts`` as a JSONL corpus, once a CLI_INDEXES entry with its
+    ``--index-cache`` (the servers run at once), then each restarted from
+    its cache alone. Held: each cache records the kind asked for; each
+    restart logs that it loaded that kind and returns the cold run's
+    results (compare_served)."""
+    from splade_tpu_torch.ops.postings_index import PostingsIndex
+
+    workdir = Path(workdir)
+    docs = workdir / "cli_docs.jsonl"
+    docs.write_text("\n".join(json.dumps({"id": f"cli{i}", "text": t},
+                                         ensure_ascii=False)
+                              for i, t in enumerate(texts)))
+    head = lambda kind: cli + [
+        "serve", "--checkpoint", str(export_dir), "--device", device,
+        "--host", "127.0.0.1", "--port", str(free_port()), "--index-cache",
+        str(workdir / f"{kind}.npz")]
+    kinds = list(CLI_INDEXES)
+    t0 = time.perf_counter()
+    cold, cold_logs = serve_cli_runs(
+        "server CLI (cold)",
+        [head(k) + ["--docs", str(docs)] + CLI_INDEXES[k] for k in kinds],
+        [workdir / f"{k}_cold.log" for k in kinds], queries, timeout_s)
+    cold_s = time.perf_counter() - t0
+    for kind in kinds:
+        with np.load(workdir / f"{kind}.npz", allow_pickle=False) as z:
+            got = PostingsIndex.sniff_kind(z)
+        if got != kind:
+            raise SystemExit(f"server CLI: --index {kind} wrote a {got!r} "
+                             "cache")
+    t0 = time.perf_counter()
+    warm, warm_logs = serve_cli_runs(
+        "server CLI (from the cache)", [head(k) for k in kinds],
+        [workdir / f"{k}_warm.log" for k in kinds], queries, timeout_s)
+    warm_s = time.perf_counter() - t0
+    result = dict(cold_s=cold_s, warm_s=warm_s, docs=len(texts))
+    for kind, c, w, text in zip(kinds, cold, warm, warm_logs):
+        sniffed = re.findall(r"loading persisted (\w+) index", text)
+        if sniffed != [kind]:
+            raise SystemExit(f"server CLI: the restart from a {kind} cache "
+                             f"loaded {sniffed}")
+        for k in (10, 100):
+            no_duplicates(f"server CLI {kind} k={k}", c[k] + w[k])
+            compare_served(f"server CLI {kind} k={k} (the restart from the "
+                           "cache as served, the cold run as plain)", w[k],
+                           c[k])
+        result[kind] = dict(sniffed=sniffed[0], results=sum(
+            len(r) for r in w[10]))
+    result["launches"] = [cli_launches(t) for t in cold_logs + warm_logs]
+    log(f"  server CLI from the export dir over {len(texts)} documents: "
+        f"{', '.join(kinds)} built with --index-cache in {cold_s:.1f} s "
+        f"(both at once), restarted from the caches in {warm_s:.1f} s; "
+        "each cache holds its kind and each restart loaded it and answered "
+        "as the cold run")
+    return result
+
+
+def serve_phase(torch, tok, rng, workdir, final_dir, syn_terms, syn_vals,
+                card: str, device: str = "cuda", model_config=None,
+                tiered=TIERED_CONFIG, cluster=CLUSTER_CONFIG,
+                n_text_docs: int = SERVE_TEXT_DOCS,
+                n_queries: int = SERVE_QUERIES, cli_docs: int = CLI_DOCS,
+                cli=None, timeout_s: float = SERVE_TIMEOUT_S) -> dict:
+    """Phase 9: train -> HF export -> serve (see the module's docstring).
+    ``final_dir``: the saved model (phase 5's); ``syn_terms``/``syn_vals``:
+    phase 3's corpus; ``cli``: the command that runs ``cli_entry`` (the
+    tests run faulty versions through their own); ``model_config`` and the
+    index configs: the CPU rehearsal's tiny ones."""
+    import shutil
+
+    from scipy import sparse
+
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
+    from splade_tpu_torch.ops.tiered_postings import TieredPostingsIndex
+
+    t_phase = time.perf_counter()
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    cli = cli or [sys.executable, str(Path(__file__).resolve()), "--cli"]
+    if model_config is not None:
+        cli = cli + ["--model-config", json.dumps(
+            {"vocab_size": model_config.vocab_size})]
+    texts = hangul_texts(rng, max(n_text_docs, EXPORT_CHECK_DOCS), 60)
+    queries = hangul_texts(rng, n_queries, 6)
+    cli_texts = hangul_texts(rng, cli_docs, 40)
+
+    # (a) the export
+    exported, enc = export_check(torch, tok, final_dir, workdir / "hf",
+                                 texts[:EXPORT_CHECK_DOCS], device, cli,
+                                 model_config, timeout_s)
+    doc_enc = SparseEncoderV33(enc.model, tok, doc_top_k=SERVE_DOC_TOP_K,
+                               device=device)
+    ids = [f"syn{i}" for i in range(len(syn_terms))] + [
+        f"text{i}" for i in range(n_text_docs)]
+
+    def build(cls, config, vecs):
+        t0 = time.perf_counter()
+        index = cls(V, device=device, **config)
+        index.add_csr(ids[:len(syn_terms)], syn_terms, syn_vals)
+        index.add_batch(ids[len(syn_terms):], vecs)
+        index.build()
+        return index, time.perf_counter() - t0
+
+    # (b) tiered: the path's launches from the documents' encode on
+    _reset_launch_counts()
+    vecs = doc_enc.encode_documents(texts[:n_text_docs])
+    indptr = np.concatenate([np.arange(len(syn_terms) + 1)
+                             * syn_terms.shape[1],
+                             len(syn_terms) * syn_terms.shape[1]
+                             + np.cumsum([len(i) for i, _ in vecs])])
+    exact = (sparse.csr_matrix(
+        (np.concatenate([syn_vals.ravel()] + [v for _, v in vecs]),
+         np.concatenate([syn_terms.ravel()] + [i for i, _ in vecs]),
+         indptr), shape=(len(ids), V)), ids)
+    index, build_s = build(TieredPostingsIndex, tiered, vecs)
+    log(f"  tiered index: {len(index)} documents, cold P="
+        f"{index.n_postings} + {index.n_hot} hot terms x "
+        f"{index.hot_postings}, truncated {index.truncated_postings} "
+        f"postings, scoring {index.resolved_scoring()}, "
+        f"{index.memory_bytes() / 1e6:.0f} MB on the device, host build "
+        f"{build_s:.1f} s")
+    tiered_out, engine = serve_index(
+        torch, "tiered", index, enc, tok, queries, texts[3], exact,
+        workdir / "profile_tiered", device)
+    tiered_out.update(build_s=build_s, memory_bytes=index.memory_bytes(),
+                      n_hot=index.n_hot, launches=_launch_counts())
+    del engine, index
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    # (c) cluster
+    _reset_launch_counts()
+    index, build_s = build(ClusterIndex, cluster, vecs)
+    summary_bytes = index._built[0].numel() * index._built[0].element_size()
+    log(f"  cluster index: {len(index)} documents in {index.n_clusters} "
+        f"clusters of up to {index.cluster_size}, summary [{V}, "
+        f"{index.n_clusters}] bf16 {summary_bytes / 1e9:.3f} GB, "
+        f"{index.memory_bytes() / 1e6:.0f} MB on the device, host build "
+        f"{build_s:.1f} s (clustering, summaries, postings side, doc-major "
+        "block, upload)")
+    cluster_out, engine = serve_index(
+        torch, "cluster", index, enc, tok, queries, texts[3], exact,
+        workdir / "profile_cluster", device)
+    cluster_out.update(build_s=build_s, memory_bytes=index.memory_bytes(),
+                       summary_bytes=summary_bytes,
+                       n_clusters=index.n_clusters,
+                       launches=_launch_counts())
+    cluster_out["rescore"] = cluster_rescore_check(torch, engine, queries,
+                                                   exact[0])
+    del engine, index, doc_enc, enc
+    if device.startswith("cuda"):
+        torch.cuda.empty_cache()
+
+    # (d) the server CLI from the export dir
+    cli_out = server_cli_check(workdir, workdir / "hf", cli_texts, queries,
+                               device, cli, timeout_s)
+    result = dict(card=card, export=exported, tiered=tiered_out,
+                  cluster=cluster_out, server_cli=cli_out,
+                  seconds=time.perf_counter() - t_phase)
+    log(f"  {card}: phase 9 in {result['seconds']:.1f} s; single-query "
+        f"/search p50 / p99 ms: tiered {tiered_out['served']['p50_ms']:.2f}"
+        f" / {tiered_out['served']['p99_ms']:.2f}, cluster "
+        f"{cluster_out['served']['p50_ms']:.2f} / "
+        f"{cluster_out['served']['p99_ms']:.2f}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return result
+
+
 def cli_entry(argv) -> int:
-    """``python chip_smoke.py --cli [--model-config JSON] {v33,mlm,bench}
-    ARGS``: the port's training CLI (``python -m splade_tpu_torch.train``),
-    or its benchmark CLI through ``bench_entry``, with this script's
-    stand-in tokenizer in place of ``create_tokenizer`` (the card machine
-    has no transformers) and, where given, a model config's fields over the
-    architecture's (the CPU rehearsal's tiny model). Phase 7 starts the
-    training CLIs alone and under ``torch.distributed.run``, phase 8 the
-    benchmark; the last line is the kernels' launch counts of the run,
-    ``LAUNCHES {...}`` (the rescore's too, for the benchmark). The metric
+    """``python chip_smoke.py --cli [--model-config JSON]
+    {v33,mlm,bench,export,serve} ARGS``: the port's training CLI (``python
+    -m splade_tpu_torch.train``), its benchmark CLI through
+    ``bench_entry``, its export CLI (``python -m splade_tpu_torch.export``)
+    or its server CLI (``python -m splade_tpu_torch.serving.server``, which
+    stops on SIGINT), with this script's stand-in tokenizer in place of
+    ``create_tokenizer`` (the card machine has no transformers) and, where
+    given, a model config's fields over the architecture's (the CPU
+    rehearsal's tiny model; export and serve take the architecture from the
+    weights and the HF dir, and only the vocabulary from it). Phase 7
+    starts the training CLIs alone and under ``torch.distributed.run``,
+    phase 8 the benchmark, phase 9 the export and the server; the last line
+    is the kernels' launch counts of the run, ``LAUNCHES {...}``. The
+    server keeps SERVE_DOC_TOP_K terms an indexed document. The metric
     writer keeps its JSONL sink only (TensorBoard, which the card machine
     lacks, imports TensorFlow where it is installed)."""
     sys.modules["torch.utils.tensorboard"] = None
@@ -4091,23 +4806,31 @@ def cli_entry(argv) -> int:
         V = over.get("vocab_size", V)
     tok = CharTokenizer()
     cli.create_tokenizer = tokenizer.create_tokenizer = lambda *a, **k: tok
-    if over:
+    sub, rest = argv[0], argv[1:]
+    if over and sub not in ("export", "serve"):
         architecture = modernbert.ModernBertConfig
         modernbert.ModernBertConfig = lambda **kw: architecture(
             **{**kw, **over})
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    sub, rest = argv[0], argv[1:]
-    launches = _launch_counts
     if sub == "bench":
-        from splade_tpu_torch.ops.rescore_kernel import rescore_match
-
         rc = bench_entry(rest)
-        launches = lambda: {**_launch_counts(),
-                            "rescore_match": rescore_match.launches}
+    elif sub == "export":
+        from splade_tpu_torch.export.__main__ import main as export_main
+
+        rc = export_main(rest)
+    elif sub == "serve":
+        from splade_tpu_torch.serving import engine, server
+
+        # random weights make dense documents: keep phase 3's terms a
+        # document, as the encoder phase 9 (b) and (c) index with does
+        build = engine.build_engine_from_docs
+        engine.build_engine_from_docs = lambda *a, **kw: build(
+            *a, **{**kw, "doc_top_k": SERVE_DOC_TOP_K})
+        rc = server.main(rest)
     else:
         rc = (cli.main if sub == "v33" else mlm.main)(rest)
-    print("LAUNCHES " + json.dumps(launches()), flush=True)
+    print("LAUNCHES " + json.dumps(_launch_counts()), flush=True)
     return rc
 
 
@@ -4349,8 +5072,7 @@ def main() -> int:
     dense_docs = hangul_texts(rng, 10_000, 80)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    fused_splade_pool.launches = 0
-    rescore_match.launches = 0
+    _reset_launch_counts()
     tok.fill.clear()
     t0 = time.perf_counter()
     index = PostingsIndex(V, n_postings=256, query_top_t=64,
@@ -4426,9 +5148,12 @@ def main() -> int:
     log("[5] pre-training path: the MLM recipe at 22L/768/50K, preemption, "
         "from_checkpoint, the row-blocked pool under autograd")
     t0 = time.perf_counter()
+    serve_model = (Path(__file__).resolve().parent / "build"
+                   / "chip_smoke_serve_model" / "final_model")
     pretraining = mlm_phase(
         torch, tok, rng, Path(__file__).resolve().parent / "build"
-        / "chip_smoke_mlm", args.seed, mlm_recipe(), ModernBertConfig())
+        / "chip_smoke_mlm", args.seed, mlm_recipe(), ModernBertConfig(),
+        keep_final=serve_model)
     v2_launches = pretraining["v2_path"]["launches"]
     log(f"[5] done in {time.perf_counter() - t0:.1f} s; row-blocked kernel "
         f"launches on the path {v2_launches}")
@@ -4536,6 +5261,28 @@ def main() -> int:
         Path(__file__).resolve().parent / "build" / "chip_smoke_bench",
         args.seed, card)
     log(f"[8] done in {benchmark['seconds']:.1f} s")
+
+    # ---- 9. train -> HF export -> serve
+    log("[9] train -> HF export -> serve: phase 5's model through the "
+        "export CLI, the tiered and the cluster index over phase 3's corpus "
+        "behind the HTTP server, the server CLI from the export dir")
+    import shutil
+
+    serving9 = serve_phase(
+        torch, tok, np.random.default_rng([args.seed, 11]),
+        Path(__file__).resolve().parent / "build" / "chip_smoke_serve",
+        serve_model, syn_terms, syn_vals, card)
+    shutil.rmtree(serve_model.parent, ignore_errors=True)
+    log(f"[9] done in {serving9['seconds']:.1f} s")
+    serve9_by_path = {
+        name: {"serving, tiered (phase 9)":
+                   serving9["tiered"]["launches"][name],
+               "serving, cluster (phase 9)":
+                   serving9["cluster"]["launches"][name],
+               "server CLI (phase 9)": sum(
+                   run.get(name, 0)
+                   for run in serving9["server_cli"]["launches"])}
+        for name in ("fused_splade_pool", "rescore_match")}
     bench_by_path = {name: {f"benchmark run ({run})": got[name]
                             for run, got in benchmark["launches"].items()}
                      for name in ("fused_splade_pool", "rescore_match")}
@@ -4562,7 +5309,8 @@ def main() -> int:
                  "training": train_launches["fused_splade_pool"],
                  **{path: got["fused_splade_pool"]
                     for path, got in dp_launches.items()},
-                 **bench_by_path["fused_splade_pool"]},
+                 **bench_by_path["fused_splade_pool"],
+                 **serve9_by_path["fused_splade_pool"]},
              **{k: pool_d[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -4577,10 +5325,12 @@ def main() -> int:
              also_replaces="splade_tpu/ops/rescore_kernel.py:127",
              launches=launches["rescore_match"],
              launches_by_path={"serving": launches["rescore_match"],
-                               **bench_by_path["rescore_match"]},
+                               **bench_by_path["rescore_match"],
+                               **serve9_by_path["rescore_match"]},
              **{k: resc[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
-             shapes=[resc], ptxas=ptxas["rescore_kernel"]),
+             shapes=[resc, serving9["cluster"]["rescore"]],
+             ptxas=ptxas["rescore_kernel"]),
     ]
     # the per-row backward: the match pass (the recompute of both Pallas
     # kernels), then each gradient's gather; a gradient's "ms" is its match
@@ -4684,6 +5434,8 @@ def main() -> int:
         "phase4_triplets_per_s": training["triplets_per_s"],
         "phase4_step_ms": training["step_ms"]}}))
     log(json.dumps({"benchmark": benchmark,
+                    "seconds": time.perf_counter() - t_start}))
+    log(json.dumps({"serving_phase9": serving9,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

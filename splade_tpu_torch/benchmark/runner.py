@@ -6,10 +6,9 @@ defaults and output files (``metrics.json``, ``report.md``, the
 replaced by in-process indexes; hit-rank handles multi-relevant qrels.
 The encoders and the device indexes run on ``--device`` (``cuda`` unless
 the caller asks for the CPU): ``--index gpu`` is the port's
-``ImpactIndex`` and ``--postings-index`` its ``PostingsIndex`` at the
-serving configuration, whose exact rescore is the hand-written kernel on
-the card. The cluster index is not ported yet: ``--cluster-index``
-raises.
+``ImpactIndex``, ``--postings-index`` its ``PostingsIndex`` at the
+serving configuration and ``--cluster-index`` its ``ClusterIndex``; the
+exact rescore of both is the hand-written kernel on the card.
 
 CLI:
     python -m splade_tpu_torch.benchmark.runner --dataset ko-strategyqa \
@@ -43,12 +42,6 @@ from splade_tpu_torch.utils.runtime import DeviceLike, resolve_device
 logger = logging.getLogger(__name__)
 
 
-def refuse_cluster_index() -> None:
-    raise NotImplementedError(
-        "the cluster index is not ported to splade_tpu_torch yet "
-        "(ROADMAP.md §1, 'Cluster index'): run without --cluster-index")
-
-
 def split_encodings(z):
     """A loaded ``--encodings`` npz (lens + concatenated indices and
     values) -> (doc ids, [(indices, values)] one pair a document). Reading
@@ -79,6 +72,24 @@ def serving_postings_index(vocab_size: int, doc_ids, vecs, device):
     return index
 
 
+def benchmark_cluster_index(vocab_size: int, doc_ids, vecs, device):
+    """The ``--cluster-index`` row's index: the cluster-union index over
+    the same encodings, its cluster size clamped so a small fixture still
+    has at least 4 clusters, half the clusters probed (4 to 64), a
+    64-posting side with 128 candidates."""
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
+
+    g = max(2, min(64, len(doc_ids) // 4))
+    index = ClusterIndex(
+        vocab_size=vocab_size, cluster_size=g,
+        n_probes=max(4, min(64, (len(doc_ids) // g) // 2)),
+        posting_cap=64, posting_candidates=128, device=device)
+    for did, (idx, vals) in zip(doc_ids, vecs):
+        index.add(did, idx, vals)
+    index.build()
+    return index
+
+
 class BenchmarkRunner:
     def __init__(
         self,
@@ -96,8 +107,6 @@ class BenchmarkRunner:
         postings_index: bool = False,
         device: DeviceLike = None,
     ):
-        if cluster_index:
-            refuse_cluster_index()
         if index_backend not in ("exact", "gpu"):
             raise ValueError(f"index_backend {index_backend!r}: 'exact' or "
                              "'gpu'")
@@ -111,6 +120,7 @@ class BenchmarkRunner:
         self.top_k = top_k
         self.include_hybrid = include_hybrid
         self.index_backend = index_backend
+        self.cluster_index = cluster_index
         self.postings_index = postings_index
         self.output_dir = Path(output_dir)
         self.searchers: Dict[str, BaseSearcher] = {}
@@ -282,6 +292,15 @@ class BenchmarkRunner:
             logger.info("sparse-encoded %d docs in %.1fs (avg %.1f nnz/doc)",
                         len(doc_ids), time.time() - t0, avg_nnz)
 
+        cluster_idx = None
+        if self.cluster_index and self.sparse_encoder is not None:
+            # the approximate serving path over the same encodings
+            t0 = time.time()
+            cluster_idx = benchmark_cluster_index(vocab, doc_ids, vecs,
+                                                  self.device)
+            logger.info("cluster-union indexed %d docs in %.1fs",
+                        len(doc_ids), time.time() - t0)
+
         postings_idx = None
         if self.postings_index and self.sparse_encoder is not None:
             # the index config that would serve, not only the exact
@@ -305,6 +324,10 @@ class BenchmarkRunner:
             bm25_index=bm25,
             sparse_encoder=self.sparse_encoder, sparse_index=sparse_index,
             dense_encoder=self.dense_encoder, dense_index=dense_index)
+        if cluster_idx is not None:
+            s = NeuralSparseSearcher(self.sparse_encoder, cluster_idx)
+            s.name = "neural_sparse_cluster"
+            self.searchers["neural_sparse_cluster"] = s
         if postings_idx is not None:
             s = NeuralSparseSearcher(self.sparse_encoder, postings_idx)
             s.name = "neural_sparse_postings"
@@ -402,8 +425,9 @@ def main(argv: Optional[list] = None) -> int:
                    help="sparse index backend: exact CPU CSR or the "
                         "device-resident ImpactIndex")
     p.add_argument("--cluster-index", action="store_true",
-                   help="the cluster-union ANN index row: not ported yet, "
-                        "refused")
+                   help="also run neural_sparse through the cluster-union "
+                        "ANN index (adds a neural_sparse_cluster method "
+                        "row)")
     p.add_argument("--postings-index", action="store_true",
                    help="also run neural_sparse through the PRODUCTION "
                         "postings serving config (P=256/C=1000, sort "
@@ -442,8 +466,6 @@ def main(argv: Optional[list] = None) -> int:
                         "(cpu for a run without a card)")
     args = p.parse_args(argv)
     setup_logging()
-    if args.cluster_index:  # refused before a tokenizer or model loads
-        refuse_cluster_index()
     device = resolve_device(args.device)
 
     from splade_tpu_torch.utils import tokenizer as tokenizers
@@ -506,8 +528,8 @@ def main(argv: Optional[list] = None) -> int:
         top_k=args.top_k, include_hybrid=not args.no_hybrid,
         output_dir=args.output_dir or f"outputs/benchmark/{args.dataset}",
         index_backend=args.index, external_dense_encoder=external,
-        bm25_analyzer=bm25_analyzer, postings_index=args.postings_index,
-        device=device)
+        bm25_analyzer=bm25_analyzer, cluster_index=args.cluster_index,
+        postings_index=args.postings_index, device=device)
     if args.encodings and not args.encodings.endswith(".npz"):
         # np.savez_compressed appends .npz; normalize up front so the
         # exists() checks and the save agree on one path

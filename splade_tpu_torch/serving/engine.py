@@ -7,8 +7,9 @@ score) pairs come back. The reference jit-compiles each (batch bucket,
 k tier) shape; PyTorch runs eagerly, so the buckets and tiers here keep
 the set of shapes small for the kernels and the allocator.
 
-Backends: the dense ``ImpactIndex`` and the (two-phase) ``PostingsIndex``.
-The tiered, cluster and mesh-sharded backends wait (ROADMAP.md §1).
+Backends: the dense ``ImpactIndex``, the (two-phase) ``PostingsIndex``,
+the DF-tiered ``TieredPostingsIndex`` and the cluster-union
+``ClusterIndex``. The mesh-sharded backends wait (ROADMAP.md §1).
 """
 
 from __future__ import annotations
@@ -21,10 +22,15 @@ import numpy as np
 import torch
 
 from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+from splade_tpu_torch.ops.cluster_index import (ClusterIndex,
+                                                cluster_search_topk)
 from splade_tpu_torch.ops.impact_index import ImpactIndex, impact_scores
 from splade_tpu_torch.ops.postings_index import (PostingsIndex,
                                                  postings_score_topk,
                                                  postings_two_phase_topk)
+from splade_tpu_torch.ops.tiered_postings import (TieredPostingsIndex,
+                                                  tiered_score_topk,
+                                                  tiered_two_phase_topk)
 from splade_tpu_torch.utils.runtime import DeviceLike, resolve_device
 from splade_tpu_torch.utils.text import quantize_to_tier
 
@@ -110,6 +116,64 @@ def make_fused_postings_search_fn(model, banned, top_t: int, n_docs: int,
     return fused
 
 
+def make_fused_tiered_search_fn(model, banned, top_t: int, n_docs: int,
+                                approx: bool, vocab_size: int,
+                                n_candidates: int, acc_dtype, scoring: str):
+    """Fused encode→search for TieredPostingsIndex-backed serving: the
+    postings contract with the 7-array tiered phase-1 structure (cold
+    tier, hot-slot remap, hot tier).
+
+    Single-phase: (cd, cw, cs, hs, hd, hw, hsc, ids, mask, k). Two-phase:
+    d_terms, d_vals, d_scale before ids. Both -> (scores, doc_indices,
+    q_val, q_idx)."""
+    encode_query = _make_encode_query(model, banned, top_t)
+
+    if n_candidates:
+        def fused2(cd, cw, cs, hs, hd, hw, hsc, d_terms, d_vals, d_scale,
+                   ids, mask, k):
+            q_val, q_idx = encode_query(ids, mask)
+            vals, idxs = tiered_two_phase_topk(
+                cd, cw, cs, hs, hd, hw, hsc, d_terms, d_vals, d_scale,
+                q_idx, q_val, k, n_docs, vocab_size, n_candidates, approx,
+                phase1_dtype=acc_dtype, scoring=scoring)
+            return vals, idxs, q_val, q_idx
+
+        return fused2
+
+    def fused(cd, cw, cs, hs, hd, hw, hsc, ids, mask, k):
+        q_val, q_idx = encode_query(ids, mask)
+        vals, idxs = tiered_score_topk(
+            cd, cw, cs, hs, hd, hw, hsc, q_idx, q_val, k, n_docs, approx,
+            acc_dtype=acc_dtype, scoring=scoring)
+        return vals, idxs, q_val, q_idx
+
+    return fused
+
+
+def make_fused_cluster_search_fn(model, banned, top_t: int, n_docs: int,
+                                 vocab_size: int, n_probes: int,
+                                 posting_candidates: int, with_post: bool,
+                                 posting_scoring: str = "sort"):
+    """Fused encode→cluster-union-search for ClusterIndex-backed serving:
+    (summary, cluster_docs, [post_docs, post_w, p_scale,] d_terms, d_vals,
+    d_scale, ids, mask, k) -> (vals, idxs, q_val, q_idx). Final scores are
+    exact (phase 2 rescores from the doc-major CSR)."""
+    encode_query = _make_encode_query(model, banned, top_t)
+
+    def fused(summary, cluster_docs, *rest):
+        *mid, ids, mask, k = rest
+        post = tuple(mid[:3]) if with_post else None
+        d_terms, d_vals, d_scale = mid[-3:]
+        q_val, q_idx = encode_query(ids, mask)
+        vals, idxs = cluster_search_topk(
+            summary, cluster_docs, post, d_terms, d_vals, d_scale,
+            q_idx, q_val, k, vocab_size, n_probes, n_docs,
+            posting_candidates, posting_scoring=posting_scoring)
+        return vals, idxs, q_val, q_idx
+
+    return fused
+
+
 class ServingEngine:
     """Owns the model on the device and a built index.
 
@@ -159,19 +223,33 @@ class ServingEngine:
                 is_int8=index.quantize_int8)
         else:
             raise NotImplementedError(
-                f"{type(index).__name__} is not served by this slice "
-                "(tiered, cluster and mesh indexes: ROADMAP.md §1)")
+                f"{type(index).__name__} is not served by the port yet "
+                "(the mesh-sharded indexes: ROADMAP.md §1)")
 
     def _build_postings_fused(self) -> None:
         """(Re)build the fused postings fn: the accumulator width is the
-        doc count, so a mutated base segment needs a new fn."""
+        doc count, so a mutated base segment needs a new fn. The index's
+        class picks the fn; ``_built`` is its phase-1 layout, which the
+        engine forwards."""
         if self.index._built is None:
             self.index.build()
         self._postings_n = len(self.index)
         C = min(self.index.rescore_candidates, self._postings_n)
         self._postings_two_phase = bool(C)
         self._postings_C = self.index.max_results() if C else 0
-        self._fused = make_fused_postings_search_fn(
+        if isinstance(self.index, ClusterIndex):
+            self._fused = make_fused_cluster_search_fn(
+                self._model, self._banned, top_t=self.index.query_top_t,
+                n_docs=self._postings_n, vocab_size=self.index.vocab_size,
+                n_probes=self.index.n_probes,
+                posting_candidates=self.index.posting_candidates,
+                with_post=bool(self.index.posting_cap),
+                posting_scoring=self.index.posting_scoring)
+            return
+        make = (make_fused_tiered_search_fn
+                if isinstance(self.index, TieredPostingsIndex)
+                else make_fused_postings_search_fn)
+        self._fused = make(
             self._model, self._banned, top_t=self.index.query_top_t,
             n_docs=self._postings_n, approx=self.index.approx,
             vocab_size=self.index.vocab_size, n_candidates=C,
@@ -334,30 +412,64 @@ def build_engine_from_docs(
     docs: Sequence[Tuple[str, str]],
     int8: bool = True,
     doc_top_k: int = 0,
+    mesh=None,
     index_type: str = "dense",
     n_postings: Optional[int] = None,
     rescore_candidates: Optional[int] = None,
+    cluster_size: int = 64,
+    n_probes: int = 32,
+    hot_terms: int = 2048,
+    hot_postings: int = 8192,
     posting_scoring: str = "auto",
     device: DeviceLike = None,
     **engine_kw,
 ) -> ServingEngine:
     """Encode (doc_id, text) pairs on the device and build a served index.
 
-    index_type: 'dense' ([N, V] matrix index, to a few 10^5 docs) or
+    index_type: 'dense' ([N, V] matrix index, to a few 10^5 docs),
     'postings' (truncated postings; rescore_candidates > 0 adds the
     two-phase exact rescore, paired with a short cap such as
-    n_postings=64). 'tiered' and 'cluster' wait (ROADMAP.md §1)."""
-    if index_type in ("tiered", "cluster"):
+    n_postings=64), 'tiered' (DF-tiered postings: a hot-term continuation
+    tier gives per-term budgets) or 'cluster' (the cluster-summary union
+    index).
+
+    ``n_postings``/``rescore_candidates`` are per-backend: 'postings'
+    defaults to 2048/0 and 'tiered' to 256/0; for 'cluster' they size the
+    union's postings side (posting_cap/posting_candidates, defaults
+    64/128; n_postings=0 leaves the postings side out). ``cluster_size``
+    and ``n_probes`` apply to 'cluster', ``hot_terms`` and
+    ``hot_postings`` to 'tiered', ``posting_scoring`` to all three (the
+    cluster's phase 1b takes auto, sort or scatter). A ``mesh`` (a sharded
+    index) is not ported yet (ROADMAP.md §1)."""
+    if mesh is not None:
         raise NotImplementedError(
-            f"index_type={index_type!r} is not ported yet: the "
-            f"{index_type} index is queued in ROADMAP.md §1")
+            "mesh-sharded indexes are not ported yet (ROADMAP.md §1, "
+            "'Multi-GPU index sharding')")
     dev = resolve_device(device)
     enc = SparseEncoderV33(model, tokenizer, doc_top_k=doc_top_k, device=dev)
-    if index_type == "postings":
+    query_top_t = engine_kw.get("query_top_k", 64) or 32
+    if index_type == "cluster":
+        index = ClusterIndex(
+            len(tokenizer), query_top_t=query_top_t,
+            cluster_size=cluster_size, n_probes=n_probes,
+            posting_cap=64 if n_postings is None else n_postings,
+            # the union's phase 2 always rescores exactly, so 0 here means
+            # the default pool width
+            posting_candidates=rescore_candidates or 128,
+            posting_scoring=posting_scoring, device=dev)
+    elif index_type == "tiered":
+        index = TieredPostingsIndex(
+            len(tokenizer),
+            n_postings=256 if n_postings is None else n_postings,
+            hot_terms=hot_terms, hot_postings=hot_postings,
+            query_top_t=query_top_t,
+            rescore_candidates=rescore_candidates or 0,
+            scoring=posting_scoring, device=dev)
+    elif index_type == "postings":
         index = PostingsIndex(
             len(tokenizer),
             n_postings=2048 if n_postings is None else n_postings,
-            query_top_t=engine_kw.get("query_top_k", 64) or 32,
+            query_top_t=query_top_t,
             rescore_candidates=rescore_candidates or 0,
             scoring=posting_scoring, device=dev)
     elif index_type == "dense":

@@ -14,8 +14,9 @@ Counterpart of ``splade_tpu/serving/server.py``, with the same API
     POST /delete             -> {"ids": [str]} => {"deleted": N}
 
 Requests are coalesced by DynamicBatcher, so concurrent clients share
-device passes. ``--index`` takes ``dense`` and ``postings``; ``--device``
-defaults to ``cuda``.
+device passes. ``--index`` takes ``dense``, ``postings``, ``tiered`` and
+``cluster``; an ``--index-cache`` is served by the class of the kind its
+archive records. ``--device`` defaults to ``cuda``.
 """
 
 from __future__ import annotations
@@ -194,11 +195,50 @@ def create_server(service: SearchService, host: str = "127.0.0.1",
 
 def _cache_overrides(args, index) -> List[str]:
     """CLI shape flags that the loaded --index-cache overrides."""
-    pairs = (("--n-postings", args.n_postings, index.n_postings),
-             ("--rescore", args.rescore or None, index.rescore_candidates),
-             ("--query-top-k", args.query_top_k, index.query_top_t))
-    return [f"{flag} {given} (cache: {kept})" for flag, given, kept in pairs
-            if given is not None and given != kept]
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
+    from splade_tpu_torch.ops.tiered_postings import TieredPostingsIndex
+
+    given = lambda name: getattr(args, name, None)
+    if isinstance(index, ClusterIndex):
+        pairs = (("--n-postings", given("n_postings"), index.posting_cap),
+                 ("--rescore", given("rescore") or None,
+                  index.posting_candidates),
+                 ("--cluster-size", given("cluster_size"),
+                  index.cluster_size),
+                 ("--probes", given("probes"), index.n_probes))
+    else:
+        pairs = (("--n-postings", given("n_postings"), index.n_postings),
+                 ("--rescore", given("rescore") or None,
+                  index.rescore_candidates))
+        if isinstance(index, TieredPostingsIndex):
+            pairs += (("--hot-terms", given("hot_terms"), index.hot_terms),
+                      ("--hot-postings", given("hot_postings"),
+                       index.hot_postings))
+    pairs += (("--query-top-k", given("query_top_k"), index.query_top_t),)
+    return [f"{flag} {value} (cache: {kept})" for flag, value, kept in pairs
+            if value is not None and value != kept]
+
+
+def index_class(kind: str):
+    """The index class that serves an archive of ``kind``."""
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
+    from splade_tpu_torch.ops.postings_index import PostingsIndex
+    from splade_tpu_torch.ops.tiered_postings import TieredPostingsIndex
+
+    return {"postings": PostingsIndex, "tiered": TieredPostingsIndex,
+            "cluster": ClusterIndex}[kind]
+
+
+def sniff_cache_kind(path: str) -> str:
+    """The kind an --index-cache archive records (archives from before the
+    field: postings)."""
+    import numpy as np
+
+    from splade_tpu_torch.ops.postings_index import PostingsIndex
+
+    with np.load(path, allow_pickle=False) as z:
+        kind = PostingsIndex.sniff_kind(z)
+    return "postings" if kind == "?" else kind
 
 
 # ----------------------------------------------------------------- CLI
@@ -210,8 +250,9 @@ def main(argv: Optional[list] = None) -> int:
                    help="JSONL corpus: {\"id\": ..., \"text\"|\"contents\": ...}"
                         " (optional when --index-cache exists)")
     p.add_argument("--index-cache", default=None,
-                   help="persisted postings index: load it if present, "
-                        "else encode + build + save")
+                   help="path to a persisted index (postings, tiered or "
+                        "cluster): load it if present, skipping the corpus "
+                        "encode, else encode + build + save")
     p.add_argument("--tokenizer", default=None)
     p.add_argument("--host", default="0.0.0.0")
     p.add_argument("--port", type=int, default=8080)
@@ -219,21 +260,40 @@ def main(argv: Optional[list] = None) -> int:
                    help="torch device; 'cpu' only when asked for")
     p.add_argument("--int8", action="store_true", default=True)
     p.add_argument("--no-int8", dest="int8", action="store_false")
-    p.add_argument("--index", default=None, choices=["dense", "postings"],
-                   help="dense [N,V] matrix (<~300K docs) or truncated "
-                        "postings. Default: dense, or postings with "
-                        "--index-cache")
+    p.add_argument("--index", default=None,
+                   choices=["dense", "postings", "tiered", "cluster"],
+                   help="dense [N,V] matrix (<~300K docs), truncated "
+                        "postings, DF-tiered postings (per-term budgets "
+                        "for hot-term corpora), or the cluster-summary "
+                        "union index. Default: dense, or the cache's own "
+                        "kind when an --index-cache exists (postings when "
+                        "it does not yet)")
     p.add_argument("--n-postings", type=int, default=None,
-                   help="postings: per-term list cap (default 2048)")
+                   help="postings: per-term list cap (default 2048); "
+                        "tiered: the cold tier's cap (default 256); "
+                        "cluster: the union's posting_cap (default 64, 0 "
+                        "leaves the postings side out)")
     p.add_argument("--rescore", type=int, default=0,
-                   help=">0 with --index postings: two-phase search, this "
-                        "many candidates re-scored exactly")
+                   help=">0 with --index postings or tiered: two-phase "
+                        "search, this many candidates re-scored exactly; "
+                        "with --index cluster: the union's "
+                        "posting_candidates (default 128)")
+    p.add_argument("--cluster-size", type=int, default=64,
+                   help="--index cluster: docs per cluster (G)")
+    p.add_argument("--probes", type=int, default=32,
+                   help="--index cluster: clusters probed per query (L)")
+    p.add_argument("--hot-terms", type=int, default=2048,
+                   help="--index tiered: max hot-tier rows H")
+    p.add_argument("--hot-postings", type=int, default=8192,
+                   help="--index tiered: hot continuation depth P_hot")
     p.add_argument("--posting-scoring", default="auto",
                    choices=("auto", "scatter", "sort", "select",
                             "select_sum"),
-                   help="postings phase-1 aggregation (select/select_sum "
-                        "need --rescore > 0). Applies to fresh builds AND "
-                        "as a load-time override on an --index-cache")
+                   help="phase-1 aggregation of postings and tiered "
+                        "(select/select_sum need --rescore > 0) and of the "
+                        "cluster union's postings side (auto, sort or "
+                        "scatter). Applies to fresh builds AND as a "
+                        "load-time override on an --index-cache")
     p.add_argument("--query-top-k", type=int, default=64)
     p.add_argument("--max-batch-size", type=int, default=32)
     p.add_argument("--max-wait-ms", type=float, default=5.0)
@@ -242,13 +302,16 @@ def main(argv: Optional[list] = None) -> int:
     args = p.parse_args(argv)
 
     from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
-    from splade_tpu_torch.ops.postings_index import PostingsIndex
     from splade_tpu_torch.serving.engine import build_engine_from_docs
     from splade_tpu_torch.utils.runtime import resolve_device
     from splade_tpu_torch.utils.tokenizer import create_tokenizer
 
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    if args.index == "cluster" and args.posting_scoring.startswith("select"):
+        p.error(f"--posting-scoring {args.posting_scoring} does not apply "
+                "to the cluster union's postings side (auto, sort or "
+                "scatter)")
     device = resolve_device(args.device)
     tokenizer = create_tokenizer(args.tokenizer or args.checkpoint)
     enc = SparseEncoderV33.from_any(args.checkpoint, tokenizer, device=device)
@@ -258,15 +321,26 @@ def main(argv: Optional[list] = None) -> int:
     # has no save(), so its cache would never be written
     index_kind = args.index or ("postings" if args.index_cache else "dense")
     if args.index_cache and index_kind == "dense":
-        p.error("--index dense cannot be persisted; use --index postings "
-                "with --index-cache")
+        p.error("--index dense cannot be persisted; use --index postings, "
+                "tiered or cluster with --index-cache")
     if cache_hit:
-        logger.info("loading persisted postings index %s ...",
+        # the archive knows its own kind: dispatch on it, and refuse an
+        # explicit --index of another kind
+        cache_kind = sniff_cache_kind(args.index_cache)
+        if args.index and args.index != cache_kind:
+            p.error(f"--index {args.index} conflicts with {args.index_cache}"
+                    f" (a {cache_kind!r} cache); drop --index or rebuild")
+        if cache_kind == "cluster" and args.posting_scoring.startswith(
+                "select"):
+            p.error(f"--posting-scoring {args.posting_scoring} does not "
+                    "apply to a cluster cache (auto, sort or scatter)")
+        logger.info("loading persisted %s index %s ...", cache_kind,
                     args.index_cache)
         overrides = {"device": device}
         if args.posting_scoring != "auto":
-            overrides["scoring"] = args.posting_scoring
-        index = PostingsIndex.load(args.index_cache, **overrides)
+            overrides["posting_scoring" if cache_kind == "cluster"
+                      else "scoring"] = args.posting_scoring
+        index = index_class(cache_kind).load(args.index_cache, **overrides)
         ignored = _cache_overrides(args, index)
         logger.warning(
             "persisted index config wins (%s); delete the cache to "
@@ -292,6 +366,8 @@ def main(argv: Optional[list] = None) -> int:
             enc.model, tokenizer, docs, int8=args.int8,
             query_top_k=args.query_top_k, index_type=index_kind,
             n_postings=args.n_postings, rescore_candidates=args.rescore,
+            cluster_size=args.cluster_size, n_probes=args.probes,
+            hot_terms=args.hot_terms, hot_postings=args.hot_postings,
             posting_scoring=args.posting_scoring, device=device)
         if args.index_cache:
             engine.index.save(args.index_cache)

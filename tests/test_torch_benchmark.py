@@ -13,7 +13,8 @@ degradation) the port's metrics.json equals the JAX runner's in
 everything but the latency fields; with the port's SparseEncoderV33 on a
 tiny random ModernBERT (the JAX weights through params_from_jax, both in
 f32) the rankings are equal and the scores within 1e-5 of the largest;
-``--cluster-index`` raises."""
+``--cluster-index`` builds the neural_sparse_cluster row with the JAX
+runner's clamps, and its metrics equal the JAX runner's."""
 
 import importlib
 import json
@@ -523,6 +524,8 @@ RUNS = {
                                        dense_encoder=ToyDense()),
     "postings_row": lambda m, tmp: dict(sparse_encoder=ToySparse(),
                                         postings_index=True),
+    "cluster_row": lambda m, tmp: dict(sparse_encoder=ToySparse(),
+                                       cluster_index=True),
     "external_dense": lambda m, tmp: dict(
         sparse_encoder=ToySparse(), dense_encoder=ToyDense(),
         external_dense_encoder=_external(m, tmp, synthetic_benchmark(m))),
@@ -556,6 +559,9 @@ def test_runner_metrics_match_the_reference(run, tmp_path):
         assert methods["bm25"]["recall@1"] == 1.0
         assert methods["neural_sparse"]["recall@1"] == 1.0
         assert "neural_sparse vs bm25" in got["statistical_tests"]
+    elif run == "cluster_row":
+        assert (methods["neural_sparse_cluster"]["recall@1"]
+                == methods["neural_sparse"]["recall@1"] == 1.0)
     elif run == "postings_row":
         assert (methods["neural_sparse_postings"]["recall@1"]
                 == methods["neural_sparse"]["recall@1"] == 1.0)
@@ -634,15 +640,27 @@ def test_encoding_cache_roundtrip_and_refusals(tamper, tmp_path):
 
 
 def test_cluster_index_raises(tmp_path):
-    data = synthetic_benchmark(PORT)
-    with pytest.raises(NotImplementedError, match="Cluster index"):
-        PORT.runner.BenchmarkRunner(data, sparse_encoder=ToySparse(),
-                                    cluster_index=True, device="cpu")
-    f = tmp_path / "val.jsonl"
-    f.write_text(json.dumps({"query": "q", "positive": "p"}))
-    with pytest.raises(NotImplementedError, match="Cluster index"):
-        PORT.runner.main(["--dataset", "triplet-val", "--val-files", str(f),
-                          "--cluster-index", "--device", "cpu"])
+    """--cluster-index no longer raises: the runner builds the port's
+    ClusterIndex on its device with the JAX runner's clamps (at least 4
+    clusters, half of them probed, 4 to 64), and the CLI takes the flag."""
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
+
+    got = {}
+    for m in (PORT, JAX):
+        runner = m.runner.BenchmarkRunner(
+            synthetic_benchmark(m, n=40), sparse_encoder=ToySparse(),
+            cluster_index=True, include_hybrid=False,
+            output_dir=str(tmp_path / m.name), **runner_kw(m))
+        runner.setup()
+        ix = runner.searchers["neural_sparse_cluster"].index
+        got[m.name] = (ix.cluster_size, ix.n_probes, ix.posting_cap,
+                       ix.posting_candidates, ix.n_clusters, len(ix))
+        if m is PORT:
+            port_index = ix
+    ix = port_index
+    assert got["splade_tpu_torch"] == got["splade_tpu"] == (10, 4, 64, 128,
+                                                            4, 40)
+    assert isinstance(ix, ClusterIndex) and ix.device.type == "cpu"
 
 
 def test_index_backend_gpu_is_the_ports_impact_index(tmp_path):

@@ -30,7 +30,13 @@ teacher check, precompute and mining) runs at a tiny size, and fails a run
 in which one query failed or the postings row is off by one document, a
 teacher that ignores the mask or the RoBERTa position offset, a launch
 count short by one and a ranking that differs beyond the index's
-rounding."""
+rounding. Phase 9 (train -> HF export -> serve through the tiered and
+cluster indexes, the server CLI from the export dir) runs at a tiny size
+on a 5-layer model (layer 0, one group, one tail layer), and fails an
+export that drops the tail layer, a cluster search whose dedup keeps a
+duplicate, a rescore launched without the pad row (the block's N one
+short, so pad candidates clamp onto the last document) and a cached server
+run that serves another kind than its archive's."""
 
 import dataclasses
 import json
@@ -575,7 +581,7 @@ def test_train_phase_runs_on_the_cpu(trained):
     assert out["launches"] == dict.fromkeys(
         ("fused_splade_pool", "fused_splade_bwd_match", "fused_splade_bwd_dh",
          "fused_splade_bwd_dw", "splash_attention", "splash_attention_bwd_dq",
-         "splash_attention_bwd_dkv"), 0)  # plain versions on the CPU
+         "splash_attention_bwd_dkv", "rescore_match"), 0)  # plain versions
     assert out["triplets"] == 4 * 2 * 6
 
 
@@ -855,12 +861,13 @@ def test_profile_summary_adds_kernels_that_share_a_cut_name():
     names agree in their first 60 characters are added together (an
     earlier version kept only the last of them and listed the top kernels
     out of order)."""
-    cs = _load_chip_smoke()
+    from splade_tpu_torch.utils.profiling import summarize_spans
+
     long_a = "void at::native::vectorized_elementwise_kernel<4, " + "x" * 40
     long_b = long_a[:60] + "_another_instance"
     spans = [(0.0, 10.0, "gemm"), (5.0, 12.0, long_a), (20.0, 50.0, long_b),
              (50.0, 51.0, "tiny")]
-    busy, top = cs.summarize_spans(spans, n_top=2)
+    busy, top = summarize_spans(spans, n_top=2)
     assert busy == 12.0 + 31.0
     assert list(top.items()) == [(long_a[:60], 0.037), ("gemm", 0.010)]
 
@@ -1017,15 +1024,16 @@ def test_expected_launches_follow_the_code():
     cs = _load_chip_smoke()
     names = ("fused_splade_pool", "fused_splade_bwd_match",
              "fused_splade_bwd_dh", "fused_splade_bwd_dw", "splash_attention",
-             "splash_attention_bwd_dq", "splash_attention_bwd_dkv")
+             "splash_attention_bwd_dq", "splash_attention_bwd_dkv",
+             "rescore_match")
     v33 = ModernBertConfig(remat=True, attention_impl="splash")
     assert cs.expected_launches(v33, 4, 3, 2) == dict(zip(
-        names, (24, 24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12)))
+        names, (24, 24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12, 0)))
     mlm = ModernBertConfig(attention_impl="splash")
     assert cs.expected_launches(mlm, 4, 5, 0) == dict(zip(
-        names, (0, 0, 0, 0, 22 * 20, 22 * 20, 22 * 20)))
+        names, (0, 0, 0, 0, 22 * 20, 22 * 20, 22 * 20, 0)))
     assert cs.expected_launches(ModernBertConfig(remat=True), 4, 3, 2) == dict(
-        zip(names, (24, 24, 24, 24, 0, 0, 0)))
+        zip(names, (24, 24, 24, 24, 0, 0, 0, 0)))
     assert set(cs._launch_counts()) == set(names)
     cs.hold_launches("sound", dict.fromkeys(names, 0),
                      dict.fromkeys(names, 0))
@@ -1456,6 +1464,7 @@ def test_bench_phase_runs_on_the_cpu(bench_phases):
     for name, got in out["rankings"].items():
         assert got["queries"] == 12, name
         assert got["identical"] + got["within_rounding"] == 12, name
+    assert 0 <= out["rankings"]["neural_sparse_cluster"]["recall"] <= 1
     assert out["rankings"]["neural_sparse (exact)"]["identical"] == 12
     assert all(set(v.values()) == {0} for v in out["launches"].values())
     assert out["launches"]["a"].keys() >= {"fused_splade_pool",
@@ -1663,8 +1672,7 @@ def test_bench_launches_follow_the_code_and_a_short_count_fails():
     b = cs.bench_launches(0, 500, 0)
     assert (a["fused_splade_pool"], a["rescore_match"]) == (63 + 500, 500)
     assert (b["fused_splade_pool"], b["rescore_match"]) == (500, 0)
-    assert a.keys() == b.keys() == set(cs._counted_kernels()) | {
-        "rescore_match"}
+    assert a.keys() == b.keys() == set(cs._counted_kernels())
     assert not any(v for k, v in a.items()
                    if k not in ("fused_splade_pool", "rescore_match"))
     cs.hold_launches("run (a)", dict(a), a)
@@ -1704,6 +1712,21 @@ def test_ranking_check_tolerates_rounding_and_catches_a_wrong_document():
             cs.check_rankings("t", {"q": wrong}, qv, ids, csr, "impact", k=3)
 
 
+def test_ranking_check_within_an_approximate_index_candidates():
+    """An index that rescored only some documents: a list missing a
+    document outside its candidates passes (and counts against recall),
+    one missing a candidate does not."""
+    cs = _load_chip_smoke()
+    ids, csr, qv = _ranking_case(cs)
+    without_d0 = [["d1", 1.0], ["d2", 1.0]]
+    out = cs.check_rankings("t", {"q": without_d0}, qv, ids, csr, "impact",
+                            k=3, allowed={"q": {1, 2}})
+    assert out["identical"] == 1 and out["recall"] == pytest.approx(2 / 3)
+    with pytest.raises(SystemExit):
+        cs.check_rankings("t", {"q": without_d0}, qv, ids, csr, "impact",
+                          k=3, allowed={"q": {0, 1, 2}})
+
+
 def test_check_mined_refuses_malformed_rows(tmp_path):
     cs = _load_chip_smoke()
     scored = {"query": "q", "positive": "p", "negatives": ["a", "b"],
@@ -1725,9 +1748,299 @@ def test_check_mined_refuses_malformed_rows(tmp_path):
         cs.check_mined(tmp_path / "s.jsonl", tmp_path / "m.jsonl", 1, 2)
 
 
+# ------------------------------------------------------------ phase 9
+#: the export writes the architecture's window (128), which the saved
+#: model must have for the exported one to encode as it does
+SERVE_CONFIG = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB,
+                                   num_hidden_layers=5, local_attention=128)
+SERVE_TIERED = dict(n_postings=8, hot_terms=16, hot_postings=64,
+                    query_top_t=16, rescore_candidates=50)
+SERVE_CLUSTER = dict(cluster_size=8, n_probes=4, posting_cap=8,
+                     posting_candidates=16, query_top_t=16)
+#: faults phase 9's checks must catch in its subprocesses (_faulty_serve)
+SERVE_FAULTS = ("export_drops_tail", "cache_kind")
+
+
+def _faulty_serve(fault: str, argv) -> int:
+    """``python tests/test_torch_chip_smoke.py serve-worker FAULT ARGS``:
+    ``cli_entry(ARGS)`` with ``fault`` put into the port ("none": as it
+    is): an export that leaves out the last (tail) layer, or a server
+    that takes every --index-cache for a postings archive and serves it
+    as one."""
+    if fault == "export_drops_tail":
+        from splade_tpu_torch.export import hf_export
+
+        read = hf_export.read_checkpoint
+
+        def dropping(ckpt_dir):
+            state, groups, tails = read(ckpt_dir)
+            last = f"model.layers.{3 * groups + tails}."
+            return ({k: v for k, v in state.items()
+                     if not k.startswith(last)}, groups, tails - 1)
+        hf_export.read_checkpoint = dropping
+    elif fault == "cache_kind":
+        from splade_tpu_torch.ops.postings_index import PostingsIndex
+        from splade_tpu_torch.serving import server
+
+        server.sniff_cache_kind = lambda path: "postings"
+        PostingsIndex.sniff_kind = staticmethod(lambda z: "postings")
+        kwargs = PostingsIndex._config_kwargs.__func__
+        PostingsIndex._config_kwargs = classmethod(
+            lambda cls, cfg: kwargs(cls, cfg[:4]))
+    return _load_chip_smoke().cli_entry(argv)
+
+
+def _serve_cli(fault: str) -> list:
+    import sys
+
+    return [sys.executable, str(Path(__file__).resolve()), "serve-worker",
+            fault]
+
+
+def _serve_corpus(cs, seed=11):
+    return cs.zipf_corpus_csr(np.random.default_rng(seed), 400, nnz=20)
+
+
+@pytest.fixture(scope="module")
+def serve_runs(tmp_path_factory):
+    """Phase 9 at a tiny size as it is, the export with its fault, and the
+    server CLI with its fault (on a sound export), all at once."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from splade_tpu_torch.train.checkpoint import save_final_model
+
+    cs = _load_chip_smoke()
+    root = tmp_path_factory.mktemp("serve")
+    model = SpladeEncoder(SERVE_CONFIG, device="cpu").init_weights(3)
+    final = Path(save_final_model(str(root / "run"), model.mlm,
+                                  cs.CharTokenizer(), prefix="mlm."))
+    terms, vals = _serve_corpus(cs)
+    tok = cs.CharTokenizer()
+    texts = cs.hangul_texts(np.random.default_rng(2), 32, 30)
+    cli = lambda fault: _serve_cli(fault) + [
+        "--model-config", json.dumps({"vocab_size": VOCAB})]
+
+    def whole():
+        return cs.serve_phase(
+            torch, tok, np.random.default_rng(11), root / "none", final,
+            terms, vals, "cpu", device="cpu", model_config=SERVE_CONFIG,
+            tiered=SERVE_TIERED, cluster=SERVE_CLUSTER, n_text_docs=24,
+            n_queries=8, cli_docs=40, cli=_serve_cli("none"), timeout_s=150)
+
+    def export_fault():
+        (root / "tail").mkdir()
+        cs.export_check(torch, tok, final, root / "tail" / "hf", texts[:8],
+                        "cpu", cli("export_drops_tail"), SERVE_CONFIG, 150)
+
+    def cache_fault():
+        (root / "kind").mkdir()
+        cs.export_check(torch, tok, final, root / "kind" / "hf", texts[:8],
+                        "cpu", cli("none"), SERVE_CONFIG, 150)
+        cs.server_cli_check(root / "kind", root / "kind" / "hf", texts,
+                            texts[:4], "cpu", cli("cache_kind"), 150)
+
+    def run(fn):
+        try:
+            return fn()
+        except SystemExit as e:
+            return {"failed": str(e)}
+
+    with pytest.MonkeyPatch.context() as mp, ThreadPoolExecutor(3) as pool:
+        mp.setenv("OMP_NUM_THREADS", "1")
+        runs = {"none": pool.submit(run, whole),
+                "export_drops_tail": pool.submit(run, export_fault),
+                "cache_kind": pool.submit(run, cache_fault)}
+        return {k: f.result() for k, f in runs.items()}
+
+
+def test_serve_phase_runs_on_the_cpu(serve_runs):
+    cs = _load_chip_smoke()
+    out = serve_runs["none"]
+    assert "failed" not in out, out.get("failed")
+    exported = out["export"]
+    assert exported["bitwise"] and exported["layers"] == 5
+    assert {"config.json", "model.safetensors",
+            "tokenizer_config.json"} <= set(exported["files"])
+    assert exported["doc_encode_max_rel_diff"] <= 1e-4
+    for name in ("tiered", "cluster"):
+        got = out[name]
+        assert got["docs"] == 424 and 0 <= got["recall_at_10"] <= 1
+        assert got["served"]["requests"] == 16
+        assert set(got["launches"].values()) == {0}  # plain versions here
+        assert got["profile"]["steps"] == 1
+        assert got["profile"]["device_busy_ms"] is None
+    assert out["tiered"]["n_hot"] > 0
+    rescore = out["cluster"]["rescore"]
+    assert rescore["shape"] == "B=8 C=48 M=64 T=16 N=425"
+    assert rescore["pad_candidates"] > 0 and rescore["duplicate_candidates"]
+    assert rescore["max_abs_err"] == 0.0 and rescore["ms"] is None
+    probes = rescore["probes"]
+    assert (probes["probes"], probes["queries"]) == (4, 8)
+    assert probes["clusters"] > 4 and probes["max_gap"] <= cs.PROBE_RTOL
+    cli = out["server_cli"]
+    assert (cli["tiered"]["sniffed"], cli["cluster"]["sniffed"]) == (
+        "tiered", "cluster")
+    assert len(cli["launches"]) == 4 and all(
+        run["rescore_match"] == 0 for run in cli["launches"])
+
+
+@pytest.mark.parametrize("fault, check", [
+    ("export_drops_tail", "the reloaded model is not the saved one"),
+    ("cache_kind", "loaded ['postings']"),
+])
+def test_serve_phase_catches_a_fault_in_its_processes(serve_runs, fault,
+                                                      check):
+    got = serve_runs[fault]
+    assert got and "failed" in got, fault
+    assert check in got["failed"], got["failed"][-2000:]
+
+
+@pytest.fixture(scope="module")
+def cluster_engine():
+    """A ClusterIndex whose 4 probes reach every cluster of its 30
+    documents (so every postings candidate is also a cluster one: the
+    union holds duplicates, and pad slots), served by the tiny model. Its
+    last document is the first query's own vector, which every pad slot
+    would score as if it were that document."""
+    from scipy import sparse
+
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
+
+    cs = _load_chip_smoke()
+    terms, vals = _serve_corpus(cs, seed=5)
+    model = SpladeEncoder(SERVE_CONFIG, device="cpu").init_weights(3).eval()
+    tok = cs.CharTokenizer()
+    queries = cs.hangul_texts(np.random.default_rng(4), 8, 6)
+    enc = SparseEncoderV33(model, tok, device="cpu")
+    index = ClusterIndex(VOCAB, cluster_size=8, n_probes=4, query_top_t=16,
+                         posting_cap=8, posting_candidates=16, device="cpu")
+    index.add_csr([f"d{i}" for i in range(29)], terms[:29], vals[:29])
+    index.add("q0", *enc.encode_queries(queries[:1])[0])
+    index.build()
+    engine = ServingEngine(model, tok, index, query_top_k=64, device="cpu")
+    lens = [len(x) for x in index._doc_idx]
+    csr = sparse.csr_matrix(
+        (np.concatenate(index._doc_val), np.concatenate(index._doc_idx),
+         np.concatenate([[0], np.cumsum(lens)])), shape=(30, VOCAB))
+    return cs, engine, queries, (csr, list(index.doc_ids))
+
+
+def test_cluster_rescore_check_passes_and_catches_a_missing_pad_row(
+        cluster_engine, monkeypatch):
+    from splade_tpu_torch.ops import rescore_kernel
+
+    cs, engine, queries, exact = cluster_engine
+    out = cs.cluster_rescore_check(torch, engine, queries, exact[0])
+    assert out["shape"] == "B=8 C=48 M=64 T=16 N=31"
+    assert out["pad_candidates"] > 0 and out["duplicate_candidates"] > 0
+
+    def without_pad_row(d_terms, d_vals, d_scale, q_idx, q_val, cand):
+        """A launch whose N leaves out the block's last row: candidates
+        clamp into [0, N - 2], as the kernel clamps out-of-range ids."""
+        n = d_terms.shape[0] - 1
+        return rescore_match_plain(d_terms[:n], d_vals[:n], d_scale[:n],
+                                   q_idx, q_val, cand.clamp(max=n - 1))
+
+    monkeypatch.setattr(rescore_kernel, "rescore_match", without_pad_row)
+    with pytest.raises(SystemExit, match="pad or duplicate"):
+        cs.cluster_rescore_check(torch, engine, queries, exact[0])
+
+
+@pytest.fixture(scope="module")
+def probed_engine():
+    """A ClusterIndex of 400 documents in 64 clusters, 4 of them probed a
+    query, served by the tiny model, and its documents as a CSR."""
+    from scipy import sparse
+
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
+
+    cs = _load_chip_smoke()
+    terms, vals = _serve_corpus(cs, seed=6)
+    model = SpladeEncoder(SERVE_CONFIG, device="cpu").init_weights(3).eval()
+    tok = cs.CharTokenizer()
+    index = ClusterIndex(VOCAB, device="cpu", **SERVE_CLUSTER)
+    index.add_csr([f"d{i}" for i in range(len(terms))], terms, vals)
+    index.build()
+    engine = ServingEngine(model, tok, index, query_top_k=64, device="cpu")
+    csr = sparse.csr_matrix(
+        (vals.ravel(), terms.ravel(),
+         np.arange(len(terms) + 1) * terms.shape[1]),
+        shape=(len(terms), VOCAB))
+    return cs, engine, cs.hangul_texts(np.random.default_rng(7), 8, 6), csr
+
+
+def _misses_the_best_cluster(summary_scores):
+    def faulty(q, summary):
+        s = summary_scores(q, summary)
+        return s.scatter(1, s.argmax(1, keepdim=True), float("-inf"))
+    return faulty
+
+
+def _mixes_member_rows(union_candidates, G):
+    def faulty(*args, **kw):
+        qd, cand = union_candidates(*args, **kw)
+        return qd, torch.cat([cand[:, G - 1:G], cand[:, :G - 1],
+                              cand[:, G:]], dim=1)
+    return faulty
+
+
+@pytest.mark.parametrize("fault, check", [
+    (None, None),
+    ("misses_best", "a cluster left out scores"),
+    ("mixed_rows", "cluster probes: a probed row"),
+])
+def test_cluster_probe_check_holds_the_probed_clusters(probed_engine,
+                                                       monkeypatch, fault,
+                                                       check):
+    """Phase 9 (c) holds the probed clusters against a plain reading of
+    the summaries, and fails a summary product whose best cluster is lost
+    before the top-L and a gather that hands the rescore a row mixed from
+    two clusters."""
+    from splade_tpu_torch.ops import cluster_index
+
+    cs, engine, queries, csr = probed_engine
+    if fault is None:
+        probes = cs.cluster_rescore_check(torch, engine, queries,
+                                          csr)["probes"]
+        assert (probes["clusters"], probes["probes"]) == (64, 4)
+        assert probes["max_gap"] <= cs.PROBE_RTOL
+        return
+    if fault == "misses_best":
+        monkeypatch.setattr(cluster_index, "summary_scores",
+                            _misses_the_best_cluster(
+                                cluster_index.summary_scores))
+    else:
+        monkeypatch.setattr(cluster_index, "union_candidates",
+                            _mixes_member_rows(
+                                cluster_index.union_candidates,
+                                engine.index.cluster_size))
+    with pytest.raises(SystemExit, match=check):
+        cs.cluster_rescore_check(torch, engine, queries, csr)
+
+
+def test_serve_index_catches_a_dedup_that_keeps_duplicates(
+        cluster_engine, monkeypatch, tmp_path):
+    from splade_tpu_torch.ops import cluster_index
+
+    cs, engine, queries, exact = cluster_engine
+
+    def keeps_duplicates(cand, scores, k):
+        vals, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+        return vals, cand.gather(1, pos)
+
+    monkeypatch.setattr(cluster_index, "dedup_topk", keeps_duplicates)
+    enc = SparseEncoderV33(engine.encoder.model, engine.tokenizer,
+                           device="cpu")
+    with pytest.raises(SystemExit, match="twice"):
+        cs.serve_index(torch, "cluster", engine.index, enc, engine.tokenizer,
+                       queries, queries[0], exact, tmp_path, "cpu")
+
+
 if __name__ == "__main__":
     import sys
 
     if sys.argv[1] == "bench-worker":
         sys.exit(_faulty_bench(sys.argv[2], sys.argv[3:]))
+    if sys.argv[1] == "serve-worker":
+        sys.exit(_faulty_serve(sys.argv[2], sys.argv[3:]))
     sys.exit(_faulty_worker(sys.argv[2], sys.argv[3]))

@@ -16,7 +16,9 @@ distance; the tiny random XLM-R puts every text near one direction, so the
 distances are small); BM25 is the same Python on the same tokenizer, so its
 lists must be identical. A method's metrics must equal JAX's where its base
 lists rank the same documents in the same order (and, for the linear
-fusions, which blend scores, give them the same scores too)."""
+fusions, which blend scores, give them the same scores too). With
+``--cluster-index`` (sparse rows only) the neural_sparse_cluster row's lists
+are held to the JAX CLI's by the neural_sparse rule."""
 
 import json
 
@@ -213,3 +215,46 @@ def test_teacher_dense_encoder_from_hf_dir(artifact_dirs):
     np.testing.assert_allclose(mat[0], enc.encode(["alpha beta doc"])[0],
                                rtol=1e-5)
     assert not np.allclose(mat[0], mat[1])
+
+
+def test_cli_cluster_index_row_matches_the_jax_runner(artifact_dirs,
+                                                     tmp_path, monkeypatch):
+    """Both CLIs with --cluster-index: the row is there, no query fails,
+    and its lists (every cluster probed at this size, exact rescores) are
+    the JAX row's within the sparse rule."""
+    from splade_tpu.benchmark import runner as jax_runner
+    from splade_tpu_torch.benchmark import runner as port_runner
+
+    tok_dir, sparse_dir, _ = artifact_dirs
+    monkeypatch.setenv("SPLADE_TOKENIZER_PATH", str(tok_dir))
+    val = _val_jsonl(tmp_path)
+    runs = {}
+    for name, mod, extra in (("port", port_runner, ["--device", "cpu"]),
+                             ("jax", jax_runner, [])):
+        kept = []
+        run = mod.BenchmarkRunner.run
+        monkeypatch.setattr(mod.BenchmarkRunner, "run",
+                            lambda self, _run=run, _kept=kept: (
+                                _kept.append(self), _run(self))[1])
+        assert mod.main(["--dataset", "triplet-val", "--val-files", val,
+                         "--checkpoint", str(sparse_dir), "--cluster-index",
+                         "--no-hybrid", "--sample-size", "8",
+                         "--output-dir", str(tmp_path / name)] + extra) == 0
+        metrics = json.loads((tmp_path / name / "metrics.json").read_text())
+        runs[name] = (metrics, kept[0])
+    (got, port), (want, ref) = runs["port"], runs["jax"]
+    assert set(got["methods"]) == set(want["methods"]) == {
+        "bm25", "neural_sparse", "neural_sparse_cluster"}
+    ix = port.searchers["neural_sparse_cluster"].index
+    assert ix.n_probes >= ix.n_clusters  # every cluster probed
+    mine = _lists(port, "neural_sparse_cluster")
+    theirs = _lists(ref, "neural_sparse_cluster")
+    assert all(mine[q] for q in theirs)  # no failed query
+    for q, want_list in theirs.items():
+        if mine[q] == want_list:
+            continue
+        assert len(mine[q]) == len(want_list), q
+        tol = SPARSE_RTOL * max(s for _, s in want_list)
+        np.testing.assert_allclose([s for _, s in mine[q]],
+                                   [s for _, s in want_list], rtol=0,
+                                   atol=tol, err_msg=q)

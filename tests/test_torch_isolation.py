@@ -1,5 +1,6 @@
 """The port stands alone: no file under splade_tpu_torch/, nor chip_smoke.py,
-imports jax, flax, optax or splade_tpu; the package imports without
+imports jax, flax, optax, splade_tpu or safetensors (the port reads and
+writes that format itself); the package imports without
 transformers, safetensors, msgpack and PyYAML (msgpack is imported only
 inside the checkpoint reader's functions); and entry points with no device
 raise when there is no CUDA device instead of carrying on on the CPU."""
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "splade_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "splade_tpu", "safetensors")
 PORT_FILES = sorted((ROOT / "splade_tpu_torch").rglob("*.py")) + [
     ROOT / "chip_smoke.py"]
 
@@ -148,7 +149,9 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
     from splade_tpu_torch.models.modernbert import ModernBertConfig
     from splade_tpu_torch.models.splade import SpladeEncoder
     from splade_tpu_torch.ops.impact_index import ImpactIndex
+    from splade_tpu_torch.ops.cluster_index import ClusterIndex
     from splade_tpu_torch.ops.postings_index import PostingsIndex
+    from splade_tpu_torch.ops.tiered_postings import TieredPostingsIndex
     from splade_tpu_torch.serving.engine import build_engine_from_docs
     from splade_tpu_torch.config import V33Config
     from splade_tpu_torch.serving.server import main
@@ -162,6 +165,8 @@ def test_entry_points_without_a_device_raise_when_no_card(monkeypatch):
     cfg = ModernBertConfig.tiny(num_hidden_layers=1)
     for make in (lambda: resolve_device(None),
                  lambda: PostingsIndex(100),
+                 lambda: TieredPostingsIndex(100),
+                 lambda: ClusterIndex(100),
                  lambda: ImpactIndex(100),
                  lambda: SpladeEncoder(cfg),
                  lambda: build_engine_from_docs(None, None, []),
@@ -192,7 +197,8 @@ BENCHMARK_TIER = [
 #: module -> the optional libraries it may import, inside functions only
 LAZY_IMPORTS = {
     "models/teachers.py": ("transformers",),
-    "models/hf_port.py": ("safetensors",),
+    # reads *.safetensors with the port's own reader: no optional library
+    "models/hf_port.py": (),
     "benchmark/data.py": ("datasets",),
     "benchmark/bm25.py": ("kiwipiepy", "MeCab"),
 }
@@ -204,10 +210,34 @@ def test_the_benchmark_tiers_modules_are_among_the_checked_files(rel):
     assert (ROOT / "splade_tpu" / rel).exists()
 
 
+OPTIONAL_LIBRARIES = ("transformers", "safetensors", "datasets",
+                      "kiwipiepy", "MeCab")
+
+
 @pytest.mark.parametrize("rel", sorted(LAZY_IMPORTS))
 def test_optional_libraries_are_imported_inside_functions(rel):
+    path = ROOT / "splade_tpu_torch" / rel
     for module in LAZY_IMPORTS[rel]:
-        assert _function_level_only(ROOT / "splade_tpu_torch" / rel, module)
+        assert _function_level_only(path, module)
+    others = {m.split(".")[0] for m in _imported_modules(path)} & (
+        set(OPTIONAL_LIBRARIES) - set(LAZY_IMPORTS[rel]))
+    assert not others, f"{rel} imports {others}"
+
+
+#: the twelfth slice's modules: export, profiling, the tiered and cluster
+#: indexes (each beside its counterpart in splade_tpu), and the port's
+#: safetensors reader and writer and export CLI (which have none)
+SERVING_SLICE = ["export/__init__.py", "export/hf_export.py",
+                 "utils/profiling.py", "ops/tiered_postings.py",
+                 "ops/cluster_index.py"]
+
+
+@pytest.mark.parametrize("rel", SERVING_SLICE + ["utils/safetensors_io.py",
+                                                 "export/__main__.py"])
+def test_the_export_and_index_modules_are_among_the_checked_files(rel):
+    assert ROOT / "splade_tpu_torch" / rel in PORT_FILES
+    if rel in SERVING_SLICE:
+        assert (ROOT / "splade_tpu" / rel).exists()
 
 
 def test_package_imports_without_the_benchmarks_optional_libraries():
