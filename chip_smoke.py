@@ -215,9 +215,34 @@ Phases (any failure exits non-zero; nothing is caught):
    run's results (SERVE_RTOL). The launch counts of (b) and (c) are read
    around each path alone.
 
-The last eight lines are the training JSON, the pre-training JSON, the
+10. The mesh-sharded indexes on one card: ``make_mesh(devices=["cuda:0"]
+   * 8)``, eight shards every one on the card, at phase 3's and phase 9's
+   configurations, the seeded 22L/768/50K model of phase 3 and the
+   stand-in tokenizer. (a) A two-phase ``MeshShardedPostingsIndex`` (P=256,
+   C=1,000, T=64) over phase 3's 1,000,000 synthetic documents plus its 256
+   text documents (125,032 a shard); (b) a
+   ``MeshShardedTieredPostingsIndex`` (cold P=256, 2,048 hot terms x 8,192,
+   T=64, C=1,000) and (c) a ``MeshShardedClusterIndex`` (G=64, L=32, a
+   64-posting side of 128 candidates, T=64) over the same documents; (d)
+   ``build_engine_from_docs(mesh=...)``'s int8 row-sharded ``ImpactIndex``
+   over phase 3's 10,000 dense documents. Each served behind the HTTP
+   server as phase 9 serves (``drive``) and held: against the same index's
+   plain path (SERVE_RTOL); (d) against a single-device ``ImpactIndex`` over
+   the same vectors (up to tie order); on (a)-(c) the raw merged top-k of
+   one batched search, every positive score the exact dot product of its
+   query and document's stored weights (MESH_EXACT_RTOL), no id twice or
+   past n, and for (c) no pad document at the whole candidate pool; the
+   rescore kernel on each shard's own candidates against its plain version
+   (for (c) with pads and duplicates); every shard searched with its own
+   card current (``torch.cuda.device``); the launches read around each
+   path alone, one pool forward and 8 rescores a batch ((d): none). Printed
+   for each: host build seconds, device bytes, peak device GB, one warmed
+   B=32 batch under ``profile_fn``, recall@10 against the exact search.
+
+The last nine lines are the training JSON, the pre-training JSON, the
 splash training JSON, the data-parallel JSON, the benchmark JSON, the
-serving JSON of phase 9, the kernels' JSON and the run's JSON.
+serving JSON of phase 9, the mesh JSON of phase 10, the kernels' JSON and
+the run's JSON.
 """
 
 from __future__ import annotations
@@ -4350,18 +4375,22 @@ def no_duplicates(name: str, lists) -> None:
 
 
 def serve_index(torch, name: str, index, enc, tok, queries, doc_text: str,
-                exact, profile_dir, device: str) -> dict:
-    """Phase 9 (b) and (c): ``index`` (built) served behind the HTTP server
-    (``drive``), its launches counted around the path alone and held at
-    one pool forward and one rescore a batch; no result list holding a
-    document twice; recall@10 against the exact search (``exact``: (csr,
-    doc ids)), printed; one warmed B=32 batch under ``profile_fn``.
+                exact, profile_dir, device: str, rescores_per_batch: int = 1,
+                engine=None) -> dict:
+    """Phase 9 (b) and (c), phase 10: ``index`` (built) served behind the
+    HTTP server (``drive``; by ``engine`` where one is given), its launches
+    counted around the path alone and held at one pool forward and
+    ``rescores_per_batch`` rescores a batch (one a shard on a mesh, none
+    for the dense index); no result list holding a document twice;
+    recall@10 against the exact search (``exact``: (csr, doc ids)),
+    printed; one warmed B=32 batch under ``profile_fn``.
     -> (result, the engine)."""
     from splade_tpu_torch.serving.engine import ServingEngine
     from splade_tpu_torch.utils.profiling import profile_fn
 
-    engine = ServingEngine(enc.model, tok, index, query_top_k=64,
-                           device=device)
+    if engine is None:
+        engine = ServingEngine(enc.model, tok, index, query_top_k=64,
+                               device=device)
     n_docs = len(index)  # before drive's /index adds one
     k10 = engine.search_batch(queries, k=10)
     no_duplicates(f"{name} k=10", k10)
@@ -4373,10 +4402,11 @@ def serve_index(torch, name: str, index, enc, tok, queries, doc_text: str,
     served = drive(name, engine, enc.model, queries, doc_text)
     per_batch = {k: v["per_batch"] for k, v in
                  served["kernel_launches"].items()}
-    if device.startswith("cuda") and per_batch != {"fused_splade_pool": 1.0,
-                                                   "rescore_match": 1.0}:
+    want = {"fused_splade_pool": 1.0, "rescore_match": rescores_per_batch}
+    if device.startswith("cuda") and per_batch != want:
         raise SystemExit(f"{name}: launches a batch {per_batch}, expected "
-                         "one pool forward and one rescore")
+                         f"one pool forward and {rescores_per_batch} "
+                         "rescores")
     prof = profile_fn(engine.search_batch, (queries[:32], 100),
                       str(profile_dir), steps=1)
     top = list(prof["top_kernels_ms"].items())
@@ -4394,28 +4424,41 @@ def serve_index(torch, name: str, index, enc, tok, queries, doc_text: str,
                 docs=n_docs), engine
 
 
-def union_rescore_check(torch, d_terms, d_vals, d_scale, q_idx, q_val,
+def union_rescore_stats(torch, d_terms, d_vals, d_scale, q_idx, q_val,
                         cand, got, want) -> dict:
-    """The rescore kernel's scores ``got`` on a cluster union against its
-    plain version's ``want``: within CLUSTER_RESCORE_TOL of max(1, the top
-    score), every pad candidate (doc id n, the block's last row) scoring
-    0, every copy of a duplicated candidate bitwise its first's; the union
-    must hold pad slots and duplicates."""
+    """The rescore kernel's scores ``got`` on a union of candidates against
+    its plain version's ``want``: the largest difference relative to
+    max(1, the top score), the pad candidates (doc id n, the block's last
+    row) and those scoring other than 0, the duplicated candidates and the
+    copies scoring other than their first."""
     B, C = cand.shape
     N, M = d_terms.shape
     T = q_idx.shape[1]
     err = float((got - want).abs().max()) / max(1.0,
                                                 float(want.abs().max()))
     pad = cand == N - 1
-    pad_nonzero = int((got[pad] != 0).sum())
     ids, perm = torch.sort(cand, dim=1, stable=True)
     sc = got.gather(1, perm)
     dup = ids[:, 1:] == ids[:, :-1]
-    dup_unequal = int((dup & (sc[:, 1:] != sc[:, :-1])).sum())
-    out = dict(shape=f"B={B} C={C} M={M} T={T} N={N}", max_abs_err=err,
-               tol=CLUSTER_RESCORE_TOL, pad_candidates=int(pad.sum()),
-               duplicate_candidates=int(dup.sum()),
-               pad_nonzero=pad_nonzero, duplicates_unequal=dup_unequal)
+    return dict(shape=f"B={B} C={C} M={M} T={T} N={N}", max_abs_err=err,
+                tol=CLUSTER_RESCORE_TOL, pad_candidates=int(pad.sum()),
+                duplicate_candidates=int(dup.sum()),
+                pad_nonzero=int((got[pad] != 0).sum()),
+                duplicates_unequal=int(
+                    (dup & (sc[:, 1:] != sc[:, :-1])).sum()))
+
+
+def union_rescore_check(torch, d_terms, d_vals, d_scale, q_idx, q_val,
+                        cand, got, want) -> dict:
+    """``union_rescore_stats`` on a cluster union, held: within
+    CLUSTER_RESCORE_TOL of max(1, the top score), every pad candidate
+    scoring 0, every copy of a duplicated candidate bitwise its first's;
+    the union must hold pad slots and duplicates."""
+    N = d_terms.shape[0]
+    out = union_rescore_stats(torch, d_terms, d_vals, d_scale, q_idx, q_val,
+                              cand, got, want)
+    err, pad_nonzero = out["max_abs_err"], out["pad_nonzero"]
+    dup_unequal = out["duplicates_unequal"]
     log(f"  cluster rescore at {out['shape']} (the union: "
         f"{out['duplicate_candidates']} duplicate candidates, "
         f"{out['pad_candidates']} pad slots = doc id {N - 1}): kernel == "
@@ -4771,6 +4814,414 @@ def serve_phase(torch, tok, rng, workdir, final_dir, syn_terms, syn_vals,
         f" / {tiered_out['served']['p99_ms']:.2f}, cluster "
         f"{cluster_out['served']['p50_ms']:.2f} / "
         f"{cluster_out['served']['p99_ms']:.2f}")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return result
+
+
+# ------------------------------------------------------------ phase 10
+#: phase 10's mesh: eight shards, every one on the card
+MESH_SHARDS = 8
+#: (a) phase 3's two-phase postings configuration; (b) and (c) phase 9's
+MESH_POSTINGS = dict(n_postings=256, query_top_t=64, rescore_candidates=1000)
+#: (a)-(c) each merged score against the exact dot product of the query
+#: and its document's stored weights (f64 on the host), relative to max(1,
+#: the row's top score): f32 sums of at most T products in another order
+MESH_EXACT_RTOL = 1e-5
+#: phase 10's documents of the dense index (d), phase 3's count
+MESH_DENSE_DOCS = 10_000
+
+
+def mesh_fused_batch(torch, engine, queries, k: int) -> tuple:
+    """One batched search through the engine's fused mesh route as
+    ``search_batch`` runs it (the batch padded to its bucket), before any
+    host filter: (merged scores [B, k'], global ids, the query vectors'
+    weights [B, T], term ids) on the host."""
+    from splade_tpu_torch.serving.engine import _bucket_batch
+
+    B = len(queries)
+    padded = list(queries) + [""] * (_bucket_batch(B, engine.batch_pad) - B)
+    ids, mask = engine.encoder.tokenize(padded, engine.query_max_length)
+    with torch.no_grad():
+        vals, idxs, q_val, q_idx = engine._fused(ids, mask, k)
+    return (vals.float().cpu().numpy()[:B], idxs.cpu().numpy()[:B],
+            q_val.float().cpu().numpy()[:B], q_idx.cpu().numpy()[:B])
+
+
+def merged_check(torch, name: str, engine, queries, k: int = 100,
+                 require_positive: bool = False) -> dict:
+    """Phase 10 holds (3) and (4) on the raw merged top-k of one batched
+    search through the engine's mesh route (``mesh_fused_batch``): every id
+    in [0, n); no document twice among a row's positive slots; each
+    positive score the exact dot product of the query vector the route
+    returned and that document's stored weights (its shard's doc-major row:
+    int8 values times the row's scale), within MESH_EXACT_RTOL of max(1,
+    the row's top score), so a merge that names other documents than its
+    scores belong to fails. For the cluster index (``require_positive``),
+    fetched again at the whole candidate pool (``max_results``: every
+    shard's union, pads and zero scores included), every slot that is not
+    positive must be the (0, 0) filler, so no pad document comes back."""
+    index = engine.index
+    n, per, vocab = index._base_n, index._shard_size, index.vocab_size
+
+    def slots(k):
+        vals, idxs, q_val, q_idx = mesh_fused_batch(torch, engine, queries, k)
+        if (idxs < 0).any() or (idxs >= n).any():
+            raise SystemExit(f"{name}: a merged id outside [0, {n})")
+        pos = vals > 0
+        for b in range(len(vals)):
+            got = idxs[b][pos[b]].tolist()
+            if len(got) != len(set(got)):
+                raise SystemExit(f"{name}: a merged row holds a document "
+                                 "twice")
+        return vals, idxs, q_val, q_idx, pos
+
+    stray = pool_other = None
+    if require_positive:
+        vals, idxs, _, _, pos = slots(index.max_results())
+        pool_other = int((~pos).sum())
+        stray = int(((~pos) & ((vals != 0) | (idxs != 0))).sum())
+        if stray:
+            raise SystemExit(f"{name}: {stray} merged slots neither positive "
+                             "nor the (0, 0) filler: a pad document came "
+                             "back")
+    vals, idxs, q_val, q_idx, pos = slots(k)
+    b_ix, s_ix = np.nonzero(pos)
+    g = idxs[b_ix, s_ix]
+    M = index._doc_major[0][0].shape[1]
+    terms = np.empty((len(g), M), np.int64)
+    weights = np.empty((len(g), M), np.float64)
+    for d, (t, v, sc) in enumerate(index._doc_major):
+        sel = g // per == d
+        if sel.any():
+            rows = torch.from_numpy(g[sel] % per).to(t.device)
+            terms[sel] = t[rows].cpu().numpy()
+            weights[sel] = (v[rows].cpu().numpy().astype(np.float64)
+                            * sc[rows].cpu().numpy()[:, None])
+    qd = np.zeros((len(vals), vocab + 1), np.float64)  # column V: pad terms
+    np.add.at(qd, (np.arange(len(vals))[:, None], q_idx.astype(np.int64)),
+              q_val.astype(np.float64))
+    exact = (qd[b_ix[:, None], terms] * weights).sum(1)
+    top = np.maximum(1.0, vals.max(1))
+    err = float((np.abs(vals[b_ix, s_ix] - exact) / top[b_ix]).max(
+        initial=0.0))
+    out = dict(k=k, queries=len(vals), slots=int(pos.sum()),
+               other_slots=int((~pos).sum()), max_rel_err=err,
+               tol=MESH_EXACT_RTOL, pool_k=index.max_results()
+               if require_positive else None, pool_other_slots=pool_other,
+               stray_slots=stray)
+    log(f"  {name}: the merged top-{k} of {len(vals)} queries over "
+        f"{index.n_shards} shards: {out['slots']} positive slots, each the "
+        f"exact dot product of its query and document within {err:.2e} of "
+        f"max(1, top) (tol {MESH_EXACT_RTOL}); ids in [0, {n}), none twice; "
+        f"{out['other_slots']} other slots" + (
+            f"; at the whole pool (k={out['pool_k']}) {pool_other} slots not "
+            "positive, every one the (0, 0) filler" if require_positive
+            else ""))
+    if not err <= MESH_EXACT_RTOL:
+        raise SystemExit(f"{name}: a merged score is not its document's exact "
+                         f"score ({err:.2e} of the top score)")
+    return out
+
+
+def shard_rescore_check(torch, name: str, engine, queries, module,
+                        union: bool = False) -> dict:
+    """Phase 10 hold (5): at one batched search (k=10), the rescore kernel
+    on each shard's own candidates (``module.dispatch_rescore``
+    intercepted: the search goes on with the kernel's scores) against
+    ``rescore_match_plain`` on the same inputs (``union_rescore_stats``),
+    within CLUSTER_RESCORE_TOL of max(1, top score); for the cluster union
+    (``union``) also pad candidates scoring 0 and duplicates' copies bitwise
+    equal, with pads and duplicates present. One rescore a shard. On the
+    card, shard 0's kernel timed in a CUDA graph beside its bound and its
+    plain version."""
+    from splade_tpu_torch.ops import rescore_kernel
+
+    dispatch, calls = module.dispatch_rescore, []
+
+    def compared(d_terms, d_vals, d_scale, q_idx, q_val, cand, *rest, **kw):
+        args = (d_terms, d_vals, d_scale, q_idx, q_val, cand)
+        got = rescore_kernel.rescore_match(*args)
+        calls.append((args, union_rescore_stats(
+            torch, *args, got, rescore_kernel.rescore_match_plain(*args))))
+        return got
+
+    module.dispatch_rescore = compared
+    try:
+        engine.search_batch(queries, k=10)
+    finally:
+        module.dispatch_rescore = dispatch
+    D = engine.index.n_shards
+    if len(calls) != D:
+        raise SystemExit(f"{name}: {len(calls)} rescores in one batch, "
+                         f"expected one a shard ({D})")
+    stats = [out for _, out in calls]
+    out = dict(shards=D, shape=stats[0]["shape"],
+               max_abs_err=max(x["max_abs_err"] for x in stats),
+               tol=CLUSTER_RESCORE_TOL)
+    if union:  # pads (the block's last row) and duplicates of the union
+        out.update({key: sum(x[key] for x in stats) for key in (
+            "pad_candidates", "duplicate_candidates", "pad_nonzero",
+            "duplicates_unequal")})
+    log(f"  {name}: the rescore kernel on each of the {D} shards' candidates "
+        f"({out['shape']} a shard) == rescore_match_plain within "
+        f"{out['max_abs_err']:.2e} of max(1, top score) (tol "
+        f"{CLUSTER_RESCORE_TOL})" + (
+            f"; {out['pad_candidates']} pad slots, {out['pad_nonzero']} "
+            f"scoring other than 0; {out['duplicate_candidates']} duplicates,"
+            f" {out['duplicates_unequal']} copies unequal" if union else ""))
+    if not (out["max_abs_err"] <= CLUSTER_RESCORE_TOL and (not union or (
+            out["pad_nonzero"] == 0 and out["duplicates_unequal"] == 0
+            and out["pad_candidates"] > 0
+            and out["duplicate_candidates"] > 0))):
+        raise SystemExit(f"{name}: the rescore kernel differs from its plain "
+                         "version on a shard, or a pad or duplicate candidate "
+                         "scores wrong")
+    if not calls[0][0][5].is_cuda:
+        return dict(out, ms=None, plain_ms=None, bound_ms=None,
+                    bound_by=None, library_ms=None)
+    timed, _ = time_rescore(torch, *calls[0][0], plain_iters=3)
+    log(f"  {name}: shard 0's rescore kernel {timed['ms']:.5f} ms in a CUDA "
+        f"graph, plain match {timed['plain_ms']:.4f} ms, "
+        f"{rescore_bound_text(timed)}")
+    return dict(out, **timed)
+
+
+def shard_device_check(torch, index, q_idx, q_val, k: int = 10) -> dict:
+    """Each shard's search runs with its own device current: around one
+    search of ``index`` (``_search_fn``, or ``score_topk`` of a dense mesh
+    index), ``torch.cuda.device`` is wrapped with a recorder of the devices
+    entered, and the rescore dispatch of each index module with a recorder
+    of the device current at each rescore. Held: the devices entered, in
+    order, are the mesh's CUDA devices, and the d-th rescore ran while
+    shard d's device was current (None off CUDA). On one card every shard
+    is on it; a mesh over several cards needs it, as the kernel library
+    launches on the current device."""
+    from splade_tpu_torch.ops import cluster_index, postings_index
+    from splade_tpu_torch.ops import tiered_postings
+
+    real, entered, current, rescored = torch.cuda.device, [], [None], []
+
+    class Recorder:
+        def __init__(self, device):
+            self.device, self.inner = torch.device(device), real(device)
+
+        def __enter__(self):
+            entered.append(self.device)
+            self.before, current[0] = current[0], self.device
+            return self.inner.__enter__()
+
+        def __exit__(self, *exc):
+            current[0] = self.before
+            return self.inner.__exit__(*exc)
+
+    modules = (postings_index, tiered_postings, cluster_index)
+    dispatches = [m.dispatch_rescore for m in modules]
+
+    def recording(dispatch):
+        def wrapped(*args, **kw):
+            rescored.append(current[0])
+            return dispatch(*args, **kw)
+        return wrapped
+
+    torch.cuda.device = Recorder
+    for m, dispatch in zip(modules, dispatches):
+        m.dispatch_rescore = recording(dispatch)
+    try:
+        with torch.no_grad():
+            if hasattr(index, "score_topk"):  # the dense mesh index
+                queries = torch.zeros((len(q_idx), index.vocab_size),
+                                      device=q_idx.device)
+                queries.scatter_add_(1, q_idx.long(), q_val.float())
+                index.score_topk(queries, k)
+            else:
+                index._search_fn(q_idx, q_val, k)
+    finally:
+        torch.cuda.device = real
+        for m, dispatch in zip(modules, dispatches):
+            m.dispatch_rescore = dispatch
+    cards = [d for d in index.mesh.devices if d.type == "cuda"]
+    want = [d if d.type == "cuda" else None for d in index.mesh.devices]
+    out = dict(shards=index.mesh.size, entered=[str(d) for d in entered],
+               rescores=len(rescored))
+    if entered != cards:
+        raise SystemExit(f"shard devices: the search entered {entered}, "
+                         f"expected each shard's card in order: {cards}")
+    if rescored and rescored != want:
+        raise SystemExit(f"shard devices: the rescores ran with {rescored} "
+                         f"current, expected {want}")
+    return out
+
+
+def dense_mesh_check(torch, engine, model, tok, queries, device: str) -> dict:
+    """Phase 10 (d) hold (2): the dense engine on the mesh against one
+    device: a single-device ``ImpactIndex`` over the mesh index's own
+    staged vectors (phase 3's documents, as its dense engine indexes them),
+    served by an engine of the same model; batched searches at k=10 and
+    100 (``compare_served``: SERVE_RTOL, tie order free)."""
+    from splade_tpu_torch.ops.impact_index import ImpactIndex
+    from splade_tpu_torch.serving.engine import ServingEngine
+
+    index = engine.index
+    single = ImpactIndex(index.vocab_size, quantize_int8=index.quantize_int8,
+                         device=device)
+    single.add_batch(index.doc_ids, index._docs)
+    single.build()
+    one = ServingEngine(model, tok, single, query_top_k=64, device=device)
+    for k in (10, 100):
+        compare_served(f"mesh dense k={k} (the mesh as served, one device as "
+                       "plain)", engine.search_batch(queries, k=k),
+                       one.search_batch(queries, k=k))
+    return dict(docs=len(single), n_pad=index._n_pad,
+                single_n_pad=single._n_pad)
+
+
+def mesh_phase(torch, model, tok, syn_terms, syn_vals, text_docs,
+               dense_docs, queries, workdir, card: str, devices,
+               postings=MESH_POSTINGS, tiered=TIERED_CONFIG,
+               cluster=CLUSTER_CONFIG) -> dict:
+    """Phase 10: the mesh-sharded indexes (see the module's docstring) on
+    ``make_mesh(devices=devices)``. ``model``: the seeded encoder of phase
+    3; ``syn_terms``/``syn_vals``: phase 3's corpus; ``text_docs``,
+    ``dense_docs``, ``queries``: phase 3's texts. The configs: the CPU
+    rehearsal's tiny ones."""
+    import shutil
+
+    from scipy import sparse
+
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    from splade_tpu_torch.ops import cluster_index, postings_index
+    from splade_tpu_torch.ops import tiered_postings
+    from splade_tpu_torch.parallel import make_mesh
+    from splade_tpu_torch.serving.engine import build_engine_from_docs
+
+    t_phase = time.perf_counter()
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    mesh = make_mesh(devices=devices)
+    home = str(mesh.devices[0])
+    on_card = mesh.devices[0].type == "cuda"
+    enc = SparseEncoderV33(model, tok, device=home)
+
+    def csr_of(doc_idx, doc_val):
+        lens = [len(x) for x in doc_idx]
+        return sparse.csr_matrix(
+            (np.concatenate(doc_val), np.concatenate(doc_idx),
+             np.concatenate([[0], np.cumsum(lens)])),
+            shape=(len(doc_idx), V))
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated() / 1e9 if on_card else None
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+
+    doc_enc = SparseEncoderV33(model, tok, doc_top_k=SERVE_DOC_TOP_K,
+                               device=home)
+    vecs = doc_enc.encode_documents(text_docs)
+    n_syn = len(syn_terms)
+    ids = [f"syn{i}" for i in range(n_syn)] + [
+        f"text{i}" for i in range(len(text_docs))]
+    exact = (csr_of(list(syn_terms) + [i for i, _ in vecs],
+                    list(syn_vals) + [v for _, v in vecs]), ids)
+    result = dict(card=card, shards=mesh.size, devices=[str(d) for d in
+                                                        mesh.devices])
+    for name, cls, config, module in (
+            ("postings", postings_index.MeshShardedPostingsIndex, postings,
+             postings_index),
+            ("tiered", tiered_postings.MeshShardedTieredPostingsIndex, tiered,
+             tiered_postings),
+            ("cluster", cluster_index.MeshShardedClusterIndex, cluster,
+             cluster_index)):
+        t_index = time.perf_counter()
+        reset_peak()
+        index = cls(V, mesh, **config)
+        index.add_csr(ids[:n_syn], syn_terms, syn_vals)
+        index.add_batch(ids[n_syn:], vecs)
+        index.build()
+        build_s = time.perf_counter() - t_index
+        log(f"  mesh {name}: {len(index)} documents over {index.n_shards} "
+            f"shards of {index._shard_size}, {index.config_summary()}"
+            + (f", {index.n_hot} hot rows" if name == "tiered" else "")
+            + (f", {index.n_clusters} clusters" if name == "cluster" else "")
+            + f", truncated {index.truncated_postings} postings, "
+            f"{index.memory_bytes() / 1e6:.0f} MB, host build {build_s:.1f} s")
+        _reset_launch_counts()
+        out, engine = serve_index(
+            torch, f"mesh {name}", index, enc, tok, queries, text_docs[3],
+            exact, workdir / f"profile_{name}", home,
+            rescores_per_batch=mesh.size)
+        launches = _launch_counts()
+        # the query vectors of the engine's route, for the device check
+        _, _, q_val, q_idx = (torch.from_numpy(x).to(home) for x in
+                              mesh_fused_batch(torch, engine, queries, 10))
+        if on_card and not (launches["fused_splade_pool"] > 0
+                            and launches["rescore_match"] > 0
+                            and launches["rescore_match"] % mesh.size == 0):
+            raise SystemExit(f"mesh {name}: launches {launches}, expected "
+                             f"pool forwards and {mesh.size} rescores a "
+                             "search")
+        out.update(build_s=build_s, memory_bytes=index.memory_bytes(),
+                   shard_size=index._shard_size, launches=launches,
+                   peak_device_gb=peak_gb(),
+                   merged=merged_check(torch, f"mesh {name}", engine,
+                                       queries,
+                                       require_positive=name == "cluster"),
+                   rescore=shard_rescore_check(torch, f"mesh {name}", engine,
+                                               queries, module,
+                                               union=name == "cluster"),
+                   devices=shard_device_check(torch, index, q_idx, q_val),
+                   seconds=time.perf_counter() - t_index)
+        if name == "tiered":
+            out["n_hot"] = index.n_hot
+        if name == "cluster":
+            out["n_clusters"] = index.n_clusters
+        log(f"  mesh {name}: peak device "
+            + (f"{out['peak_device_gb']:.2f} GB" if on_card else "not measured")
+            + f"; {out['seconds']:.1f} s")
+        result[name] = out
+        del engine, index
+    del doc_enc
+
+    # (d) the dense index through build_engine_from_docs(mesh=...)
+    t_index = time.perf_counter()
+    reset_peak()
+    dense = build_engine_from_docs(
+        model, tok, [(f"dense{i}", t) for i, t in enumerate(dense_docs)],
+        int8=True, doc_top_k=256, index_type="dense", query_top_k=64,
+        mesh=mesh)
+    build_s = time.perf_counter() - t_index
+    index = dense.index
+    log(f"  mesh dense: {len(index)} documents int8, rows padded to "
+        f"{index._n_pad} in {len(index._mat)} row shards, "
+        f"{index.memory_bytes / 1e6:.0f} MB, built in {build_s:.1f} s "
+        "(the documents' encode included)")
+    exact_dense = (csr_of([i for i, _ in index._docs],
+                          [v for _, v in index._docs]), list(index.doc_ids))
+    _reset_launch_counts()
+    out, engine = serve_index(torch, "mesh dense", index, enc, tok, queries,
+                              dense_docs[5], exact_dense,
+                              workdir / "profile_dense", home,
+                              rescores_per_batch=0, engine=dense)
+    out.update(build_s=build_s, memory_bytes=index.memory_bytes,
+               launches=_launch_counts(), peak_device_gb=peak_gb(),
+               against_one_device=dense_mesh_check(torch, engine, model, tok,
+                                                   queries, home),
+               devices=shard_device_check(torch, index, q_idx, q_val),
+               seconds=time.perf_counter() - t_index)
+    result["dense"] = out
+    del engine, dense, index
+    if on_card:
+        torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  {card}: phase 10 in {result['seconds']:.1f} s; single-query "
+        "/search p50 / p99 ms: " + ", ".join(
+            f"{k} {result[k]['served']['p50_ms']:.2f} / "
+            f"{result[k]['served']['p99_ms']:.2f}"
+            for k in ("postings", "tiered", "cluster", "dense")))
     shutil.rmtree(workdir, ignore_errors=True)
     return result
 
@@ -5274,6 +5725,30 @@ def main() -> int:
         serve_model, syn_terms, syn_vals, card)
     shutil.rmtree(serve_model.parent, ignore_errors=True)
     log(f"[9] done in {serving9['seconds']:.1f} s")
+
+    # ---- 10. the mesh-sharded indexes on one card
+    log(f"[10] the mesh-sharded indexes: {MESH_SHARDS} shards on cuda:0, "
+        "postings, tiered and cluster over phase 3's corpus, the dense "
+        "index over its 10,000 documents, phase 3's seeded model")
+    mesh_model = SpladeEncoder(ModernBertConfig(), pool_impl="kernel",
+                               device="cuda").init_weights(args.seed)
+    mesh_model = mesh_model.to(torch.bfloat16).eval()
+    mesh10 = mesh_phase(
+        torch, mesh_model, tok, syn_terms, syn_vals, pool_docs, dense_docs,
+        queries, Path(__file__).resolve().parent / "build"
+        / "chip_smoke_mesh", card, ["cuda:0"] * MESH_SHARDS)
+    del mesh_model
+    torch.cuda.empty_cache()
+    log(f"[10] done in {mesh10['seconds']:.1f} s")
+    mesh_by_path = {
+        name: {f"mesh {kind} (phase 10)": mesh10[kind]["launches"][name]
+               for kind in ("postings", "tiered", "cluster", "dense")}
+        for name in ("fused_splade_pool", "rescore_match")}
+    for name, paths in mesh_by_path.items():
+        for path, n in paths.items():
+            if n <= 0 and not (name == "rescore_match" and "dense" in path):
+                raise SystemExit(f"kernel {name} was launched no time on "
+                                 f"{path}")
     serve9_by_path = {
         name: {"serving, tiered (phase 9)":
                    serving9["tiered"]["launches"][name],
@@ -5310,7 +5785,8 @@ def main() -> int:
                  **{path: got["fused_splade_pool"]
                     for path, got in dp_launches.items()},
                  **bench_by_path["fused_splade_pool"],
-                 **serve9_by_path["fused_splade_pool"]},
+                 **serve9_by_path["fused_splade_pool"],
+                 **mesh_by_path["fused_splade_pool"]},
              **{k: pool_d[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -5326,10 +5802,13 @@ def main() -> int:
              launches=launches["rescore_match"],
              launches_by_path={"serving": launches["rescore_match"],
                                **bench_by_path["rescore_match"],
-                               **serve9_by_path["rescore_match"]},
+                               **serve9_by_path["rescore_match"],
+                               **mesh_by_path["rescore_match"]},
              **{k: resc[k] for k in ("max_abs_err", "ms", "plain_ms",
                                      "bound_ms", "bound_by", "library_ms")},
-             shapes=[resc, serving9["cluster"]["rescore"]],
+             shapes=[resc, serving9["cluster"]["rescore"]]
+             + [dict(mesh10[kind]["rescore"], path=f"mesh {kind} shard 0")
+                for kind in ("postings", "tiered", "cluster")],
              ptxas=ptxas["rescore_kernel"]),
     ]
     # the per-row backward: the match pass (the recompute of both Pallas
@@ -5436,6 +5915,8 @@ def main() -> int:
     log(json.dumps({"benchmark": benchmark,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"serving_phase9": serving9,
+                    "seconds": time.perf_counter() - t_start}))
+    log(json.dumps({"mesh_phase10": mesh10,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,8 +1,6 @@
-"""Cluster-summary sparse index: SEISMIC-style two-level search, single
-device.
+"""Cluster-summary sparse index: SEISMIC-style two-level search.
 
-Counterpart of ``splade_tpu/ops/cluster_index.py`` (its single-device
-part; the mesh-sharded class waits, ROADMAP.md §1). Documents are grouped
+Counterpart of ``splade_tpu/ops/cluster_index.py``. Documents are grouped
 into small clusters and each cluster keeps ONE summary vector, the
 elementwise max over its members, so
 
@@ -30,6 +28,9 @@ point at; the rescore reads it as a row like any other.
 
 CRUD (delta adds, tombstones, compaction), persistence and the search API
 come from ``PostingsIndex``; build and phases 1-2 differ.
+``MeshShardedClusterIndex`` shards the documents over a ``DeviceMesh``, each
+shard with clusters, summaries, a postings side and a doc-major block of
+its own, and merges the shards' exact partial top-ks.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ import numpy as np
 import torch
 
 from splade_tpu_torch.ops.postings_index import (
-    PostingsIndex, dispatch_rescore, invert_to_postings,
-    postings_score_topk, quantize_postings, sparse_query_dense)
+    DocSharded, PostingsIndex, dispatch_rescore, invert_to_postings,
+    merge_sharded_topk, postings_score_topk, quantize_postings,
+    search_shards, sparse_query_dense)
 from splade_tpu_torch.utils.runtime import DeviceLike
 
 logger = logging.getLogger(__name__)
@@ -393,3 +395,134 @@ class ClusterIndex(PostingsIndex):
                 f"posting_cap={self.posting_cap} "
                 f"posting_candidates={self.posting_candidates} "
                 f"posting_scoring={self.posting_scoring}")
+
+
+class MeshShardedClusterIndex(DocSharded, ClusterIndex):
+    """Doc-sharded cluster-summary index over a ``DeviceMesh``: shard d
+    holds its documents' clusters, summary block, postings side and
+    doc-major block on ``mesh.devices[d]``; a search runs the union search
+    on every shard and merges the exact partial top-ks.
+    Counterpart of ``splade_tpu``'s class of the same name, with its
+    traps:
+
+    - a shard's K comes from the bisection (``2^ceil(log2(docs/G))``, not
+      ``ceil(docs/G)``): the Ks are collected first, then every shard is
+      padded to the widest with pad clusters, all pad document with a zero
+      summary;
+    - doc-major rows are padded to ``per`` (terms V, values 0, scale 1e-6),
+      plus the pad row at local id ``per`` that pad slots point at;
+    - a shard fetches ``min(rescore_candidates, per + 1)``;
+    - the merge requires a positive score: a pad document's global id is the
+      next shard's first real document.
+
+    Probes are per shard, so the candidate pool is D x (L*G + C_p);
+    ``n_clusters`` sums the shards' Ks. ``posting_scoring`` is the base
+    class's (the reference's mesh class has only its auto rule), so a
+    saved cluster archive loads onto a mesh."""
+
+    def __init__(self, vocab_size: int, mesh, cluster_size: int = 64,
+                 n_probes: int = 32, query_top_t: int = 32,
+                 batch_pad: int = 8, approx: bool = True,
+                 posting_cap: int = 64, posting_candidates: int = 128,
+                 posting_scoring: str = "auto"):
+        super().__init__(vocab_size, cluster_size=cluster_size,
+                         n_probes=n_probes, query_top_t=query_top_t,
+                         batch_pad=batch_pad, approx=approx,
+                         posting_cap=posting_cap,
+                         posting_candidates=posting_candidates,
+                         posting_scoring=posting_scoring,
+                         device=mesh.devices[0])
+        self._set_mesh(mesh)
+
+    def max_results(self) -> int:
+        return min(len(self.doc_ids), self.n_shards * self.rescore_candidates)
+
+    def build(self) -> None:
+        n = len(self.doc_ids)
+        if n == 0:
+            raise ValueError("empty index")
+        t0 = time.perf_counter()
+        per, bounds = self._shard_bounds()
+        V, G = self.vocab_size, self.cluster_size
+        M = max((len(x) for x in self._doc_idx), default=1)
+        staged = []
+        for lo, hi in bounds:
+            di, dv = self._doc_idx[lo:hi], self._doc_val[lo:hi]
+            if lo < hi:
+                cluster_of, K = assign_clusters(di, dv, G, V)
+                summary, cluster_docs = build_cluster_arrays(
+                    di, dv, cluster_of, K, G, V, pad_doc=per)
+            else:  # empty tail shard
+                summary = np.zeros((V, 1), np.float32)
+                cluster_docs = np.full((1, G), per, np.int32)
+            terms, q, dscale = self._doc_major_arrays(di, dv, hi - lo, M=M)
+            # rows padded to per, + the pad row (local id per) that pad
+            # cluster slots point at: pad terms, zero values, scale 1e-6
+            pad = per + 1 - (hi - lo)
+            terms = np.concatenate([terms, np.full((pad, M), V, terms.dtype)])
+            q = np.concatenate([q, np.zeros((pad, M), np.int8)])
+            dscale = np.concatenate([dscale,
+                                     np.full((pad,), 1e-6, np.float32)])
+            post = ()
+            if self.posting_cap:
+                pd, pw, _ = invert_to_postings(
+                    di or [np.zeros(0, np.int32)],
+                    dv or [np.zeros(0, np.float32)], V, self.posting_cap)
+                post = (pd, *quantize_postings(pw))
+            staged.append((summary, cluster_docs, post,
+                           (terms.astype(np.int32), q, dscale)))
+        shard_ks = [x[1].shape[0] for x in staged]
+        k_max = max(shard_ks)
+        built, doc_major = [], []
+        for dev, (summary, cluster_docs, post, dm) in zip(self.mesh.devices,
+                                                          staged):
+            K = cluster_docs.shape[0]
+            # bf16 on the device, as the reference stages it (f16's 65504
+            # maximum would overflow large impact sums)
+            summ = torch.zeros((V, k_max), dtype=torch.bfloat16)
+            summ[:, :K] = torch.from_numpy(summary).to(torch.bfloat16)
+            cdocs = np.full((k_max, G), per, np.int32)
+            cdocs[:K] = cluster_docs
+            built.append((summ.to(dev),) + self._place(dev, cdocs, *post))
+            doc_major.append(self._place(dev, *dm))
+        staged.clear()
+        self._built = tuple(built)
+        self._doc_major = tuple(doc_major)
+        self.n_clusters = int(sum(shard_ks))
+        self.truncated_postings = 0
+        self._base_n = n
+        self._delta_cache = None
+        self._make_search()
+        self.build_seconds = time.perf_counter() - t0
+        logger.info(
+            "mesh cluster index: %d docs over %d shards (%d/shard, K<=%d "
+            "each), %.0f MB total, built in %.1fs", n, self.n_shards, per,
+            k_max, self.memory_bytes() / 1e6, self.build_seconds)
+
+    def _make_search(self) -> None:
+        """``_search_fn(q_idx, q_val, k)`` -> (scores, global doc ids): the
+        union search on every shard, then the merge that requires a positive
+        score (the serving engine's mesh route calls it too)."""
+        V, L, C_p = self.vocab_size, self.n_probes, self.posting_candidates
+        per, n = self._shard_size, len(self.doc_ids)
+        scoring = self.posting_scoring
+        with_post = bool(self.posting_cap)
+        k_fetch = min(self.rescore_candidates, per + 1)
+        devices = self.mesh.devices
+
+        def search(q_idx, q_val, k):
+            k_local = min(k, k_fetch)
+
+            def shard_search(summary, cluster_docs, *rest):
+                *arrays, qi, qv = rest
+                post = tuple(arrays[:3]) if with_post else None
+                return cluster_search_topk(
+                    summary, cluster_docs, post, *arrays[-3:], qi, qv,
+                    k_local, V, L, per, C_p, posting_scoring=scoring)
+
+            vals, idxs = search_shards(devices, self.shard_arrays(),
+                                       shard_search, q_idx, q_val)
+            return merge_sharded_topk(vals, idxs, k, per, n,
+                                      require_positive=True)
+
+        self._search_fn = search

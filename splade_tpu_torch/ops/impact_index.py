@@ -1,4 +1,4 @@
-"""Dense impact index on the device, single device.
+"""Dense impact index on the device.
 
 Counterpart of ``splade_tpu/ops/impact_index.py::TpuImpactIndex``: the
 corpus is a dense [N, V] matrix (bf16, f32 or int8 with per-row scales)
@@ -7,6 +7,12 @@ top-k. That product is a plain large matrix product, which the reference
 leaves to XLA, so it is ``torch.matmul`` here (f32 accumulation of the
 bf16-rounded operands, as the reference's dot_general). Right to a few
 10^5 docs; ``PostingsIndex`` serves larger corpora.
+
+With a ``DeviceMesh`` of more than one device the rows are padded to
+``128·D`` and cut into D contiguous row shards, each with its int8 scales
+on its own device; a search scores and ranks each shard on its device and
+merges the partial top-ks on ``mesh.devices[0]`` (the exact top-k, as the
+reference's sharded top-k under GSPMD).
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from splade_tpu_torch.ops.postings_index import on_shard_device
 from splade_tpu_torch.utils.runtime import DeviceLike, resolve_device
 
 logger = logging.getLogger(__name__)
@@ -49,7 +56,7 @@ def impact_scores(queries: torch.Tensor, mat: torch.Tensor, scale,
 class ImpactIndex:
     """Exact sparse-dot-product retrieval from device memory (counterpart
     of ``TpuImpactIndex``, with its batched, single-query and two-phase
-    search; the mesh-sharded layout waits)."""
+    search, on one device or row-sharded over a mesh)."""
 
     def __init__(
         self,
@@ -57,23 +64,30 @@ class ImpactIndex:
         dtype: str = "bfloat16",
         quantize_int8: bool = False,
         batch_pad: int = 8,
+        mesh=None,
         max_docs: int = 100_000,
         device: DeviceLike = None,
     ):
-        """max_docs: hard cap on the corpus size (0 disables): past ~10^5
-        docs the [N, V] layout costs ~100 KB per doc."""
+        """mesh: an optional ``DeviceMesh``; with more than one device the
+        corpus rows are sharded over it (a mesh of one device is no mesh)
+        and the index lives on ``mesh.devices[0]``. max_docs: hard cap on
+        the corpus size a device (0 disables): past ~10^5 docs the [N, V]
+        layout costs ~100 KB per doc."""
+        if mesh is not None and device is None:
+            device = mesh.devices[0]
         self.device = resolve_device(device)
         self.vocab_size = vocab_size
         self.dtype = torch.bfloat16 if dtype == "bfloat16" else torch.float32
         self.quantize_int8 = quantize_int8
         self.batch_pad = batch_pad
-        self.max_docs = max_docs
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.max_docs = max_docs * (self.mesh.size if self.mesh else 1)
         self.doc_ids: List[str] = []
         self.nnz = 0
         # staged CSR, densified once into the final-dtype build buffer
         self._docs: List[Tuple[np.ndarray, np.ndarray]] = []
-        self._mat = None     # device [N_pad, V]
-        self._scale = None   # device [N_pad] (int8) or 1.0
+        self._mat = None     # device [N_pad, V]; a mesh: one row shard each
+        self._scale = None   # device [N_pad] (int8) or 1.0; likewise
         self._n_pad = 0
 
     # ---------------------------------------------------------- build
@@ -120,11 +134,12 @@ class ImpactIndex:
 
     def build(self) -> None:
         """Densify the staged CSR into a final-dtype buffer padded to 128
-        rows and upload it."""
+        rows (128·D on a mesh) and upload it, a row shard a device."""
         n = len(self._docs)
         if n == 0:
             raise ValueError("empty index")
-        self._n_pad = _round_up(n, 128)
+        D = self.mesh.size if self.mesh else 1
+        self._n_pad = _round_up(n, 128 * D)
         if self.quantize_int8:
             # per-row scales: robust to heterogeneous doc magnitudes
             host = np.zeros((self._n_pad, self.vocab_size), np.int8)
@@ -133,16 +148,24 @@ class ImpactIndex:
                 s = max(float(np.abs(val).max(initial=0.0)), 1e-6) / 127.0
                 scale[i] = s
                 host[i, idx] = np.clip(np.round(val / s), -127, 127)
-            self._mat = torch.from_numpy(host).to(self.device)
-            self._scale = torch.from_numpy(scale).to(self.device)
+            mat, scale = torch.from_numpy(host), torch.from_numpy(scale)
         else:
             mat = torch.zeros((self._n_pad, self.vocab_size),
                               dtype=self.dtype)
             for i, (idx, val) in enumerate(self._docs):
                 mat[i, torch.from_numpy(idx).long()] = torch.from_numpy(
                     val).to(self.dtype)
+            scale = None
+        if self.mesh is None:
             self._mat = mat.to(self.device)
-            self._scale = 1.0
+            self._scale = 1.0 if scale is None else scale.to(self.device)
+        else:
+            rows = self._n_pad // D
+            self._mat = tuple(mat[d * rows:(d + 1) * rows].to(dev)
+                              for d, dev in enumerate(self.mesh.devices))
+            self._scale = tuple(
+                1.0 if scale is None else scale[d * rows:(d + 1) * rows].to(dev)
+                for d, dev in enumerate(self.mesh.devices))
         logger.info("impact index: %d docs (%d padded) x %d dims on %s "
                     "(%s%.0f MB)", n, self._n_pad, self.vocab_size,
                     self.device, "int8, " if self.quantize_int8 else "",
@@ -155,21 +178,42 @@ class ImpactIndex:
         batch padded to ``batch_pad`` rows, ``impact_scores`` on the index's
         device, padded corpus rows at -inf, exact top-k; non-finite entries
         are dropped, so a list holds at most len(self) results."""
-        mat, scale, n_valid = self.device_arrays()
         queries = np.asarray(queries, np.float32)
         B = queries.shape[0]
         q = np.zeros((_round_up(max(B, 1), self.batch_pad), self.vocab_size),
                      np.float32)
         q[:B] = queries
         with torch.no_grad():
-            scores = impact_scores(torch.from_numpy(q).to(self.device), mat,
-                                   scale, self.quantize_int8)
-            scores[:, n_valid:] = float("-inf")
-            vals, idxs = torch.topk(scores, min(k, scores.shape[1]), dim=1)
+            vals, idxs = self.score_topk(torch.from_numpy(q).to(self.device),
+                                         k)
         vals, idxs = vals.cpu().numpy()[:B], idxs.cpu().numpy()[:B]
         return [[(self.doc_ids[int(i)], float(v))
                  for v, i in zip(vals[b], idxs[b]) if np.isfinite(v)]
                 for b in range(B)]
+
+    def score_topk(self, queries: torch.Tensor, k: int):
+        """[B, V] queries on the index's device -> the exact top-k (scores
+        [B, k'], row ids [B, k']), k' = min(k, padded rows), padded rows at
+        -inf. On a mesh each row shard is scored and ranked on its own
+        device (``on_shard_device``), and the partial top-ks merge here."""
+        mat, scale, n_valid = self.device_arrays()
+        if self.mesh is None:
+            scores = impact_scores(queries, mat, scale, self.quantize_int8)
+            scores[:, n_valid:] = float("-inf")
+            return torch.topk(scores, min(k, scores.shape[1]), dim=1)
+        rows = self._n_pad // self.mesh.size
+        k_local = min(k, rows)
+        vals, idxs = [], []
+        for d, dev in enumerate(self.mesh.devices):
+            with on_shard_device(dev):
+                scores = impact_scores(queries.to(dev), mat[d], scale[d],
+                                       self.quantize_int8)
+                scores[:, max(n_valid - d * rows, 0):] = float("-inf")
+                v, i = torch.topk(scores, k_local, dim=1)
+            vals.append(v.to(self.device))
+            idxs.append(i.to(self.device) + d * rows)
+        v, pos = torch.topk(torch.cat(vals, 1), min(k, self._n_pad), dim=1)
+        return v, torch.cat(idxs, 1).gather(1, pos)
 
     def search_vector(self, indices: np.ndarray, values: np.ndarray,
                       k: int = 10) -> List[Tuple[str, float]]:
@@ -216,8 +260,8 @@ class ImpactIndex:
         return [(d, s) for d, s in full if d in cand][:k]
 
     def device_arrays(self):
-        """(mat [N_pad, V], scale [N_pad] or 1.0, n_valid): for callers
-        fusing their own compute with the index (the serving engine)."""
+        """(mat [N_pad, V], scale [N_pad] or 1.0, n_valid); on a mesh, mat
+        and scale are tuples of the row shards."""
         if self._mat is None:
             self.build()
         return self._mat, self._scale, len(self.doc_ids)
@@ -229,4 +273,5 @@ class ImpactIndex:
     def memory_bytes(self) -> int:
         if self._mat is None:
             return 0
-        return self._mat.numel() * self._mat.element_size()
+        mats = self._mat if self.mesh else (self._mat,)
+        return sum(m.numel() * m.element_size() for m in mats)

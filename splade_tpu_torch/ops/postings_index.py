@@ -1,7 +1,6 @@
-"""Postings-list sparse index for large corpora, single device.
+"""Postings-list sparse index for large corpora.
 
-Counterpart of ``splade_tpu/ops/postings_index.py`` (its single-device
-part; the mesh-sharded classes wait, ROADMAP.md §1):
+Counterpart of ``splade_tpu/ops/postings_index.py``:
 
 - **Build** (host, numpy or the native builder): per vocab term keep the
   ``n_postings`` highest-impact (doc, weight) pairs, int8 with a per-term
@@ -17,6 +16,16 @@ part; the mesh-sharded classes wait, ROADMAP.md §1):
 Filler contract of phase 1: slots beyond the distinct-doc pool carry val
 -inf and id 0, and two-phase never rescores them.
 
+**Doc sharding** (``MeshShardedPostingsIndex``, on a ``DeviceMesh``):
+shard d holds documents ``[d·per, (d+1)·per)`` on ``mesh.devices[d]`` with
+local ids, its own truncation and doc-major block. A search copies the
+query to each shard's device, searches the shards one after another, each
+under ``on_shard_device`` (the kernel library launches on the thread's
+current card), brings the [B, k_local] partial top-ks back to
+``mesh.devices[0]`` and merges them (``merge_sharded_topk``). The JAX
+package does the same in one process: a ``vmap`` over the stacked shard
+axis, placed by ``NamedSharding``.
+
 ``torch.topk`` replaces both ``lax.top_k`` and ``lax.approx_max_k``: the
 ``approx`` flag is kept for the API, and every top-k here is exact. Ties
 may come out in another order than JAX's lower-index-first.
@@ -24,6 +33,7 @@ may come out in another order than JAX's lower-index-first.
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 from pathlib import Path
@@ -301,6 +311,107 @@ def postings_two_phase_topk(post_docs, post_w, scale, d_terms, d_vals,
                          torch.full_like(scores, _NEG_INF), scores)
     vals, pos = torch.topk(scores, min(k, scores.shape[1]), dim=1)
     return vals, cand.gather(1, pos)
+
+
+# ------------------------------------------------------------------ mesh
+def on_shard_device(device: torch.device):
+    """The context one shard's search runs in: on a CUDA device, that card
+    made the thread's current device (the kernel library launches on the
+    current device, ``ops/_cuda.py``); elsewhere nothing."""
+    if device.type == "cuda":
+        return torch.cuda.device(device)
+    return contextlib.nullcontext()
+
+
+def search_shards(devices, shards, shard_search, q_idx, q_val):
+    """``shard_search(*shards[d], q_idx, q_val)`` for every shard, one after
+    another, under ``on_shard_device(devices[d])`` with the query copied to
+    that device. The [B, k_local] partials come back to ``devices[0]``,
+    stacked into [D, B, k_local] (every shard returns the same width)."""
+    home = devices[0]
+    vals, idxs = [], []
+    for dev, arrays in zip(devices, shards):
+        with on_shard_device(dev):
+            v, i = shard_search(*arrays, q_idx.to(dev), q_val.to(dev))
+        vals.append(v.to(home))
+        idxs.append(i.to(home))
+    return torch.stack(vals), torch.stack(idxs)
+
+
+def merge_sharded_topk(vals, idxs, k: int, shard_size: int, n_docs: int,
+                       require_positive: bool = False):
+    """Merge [D, B, k_local] per-shard partial top-ks into a global
+    [B, min(k, D*k_local)]: local -> global doc ids (+ d·shard_size), one
+    top-k over the D·k_local slots, then ids >= n_docs (a ragged or empty
+    tail shard's pad documents) masked to (0.0, 0). The one owner of the
+    cross-shard merge, shared by the three doc-sharded indexes.
+
+    ``require_positive`` also masks scores <= 0: the cluster index's pad
+    document lives at local id ``shard_size``, whose global id is the next
+    shard's first real document, so only its zero score can filter it."""
+    D, B, k_local = vals.shape
+    offset = torch.arange(D, dtype=torch.int64, device=idxs.device)
+    idxs = idxs.long() + (offset * shard_size)[:, None, None]
+    vals = vals.permute(1, 0, 2).reshape(B, D * k_local)
+    idxs = idxs.permute(1, 0, 2).reshape(B, D * k_local)
+    mvals, mpos = torch.topk(vals, min(k, D * k_local), dim=1)
+    mids = idxs.gather(1, mpos)
+    valid = mids < n_docs
+    if require_positive:
+        valid = valid & (mvals > 0)
+    return (torch.where(valid, mvals, torch.zeros_like(mvals)),
+            torch.where(valid, mids, torch.zeros_like(mids)))
+
+
+def make_mesh_postings_search_fns(mesh, shard_size: int, n_docs: int,
+                                  vocab_size: int, n_candidates: int,
+                                  approx: bool, acc_dtype, scoring: str):
+    """Search bodies of doc-sharded postings, shared by
+    ``MeshShardedPostingsIndex`` and the serving engine's mesh route:
+    ``(search, search_two_phase)``, each ``(shards, q_idx, q_val, k)`` ->
+    (scores, global doc ids), ``shards`` the per-shard array tuples in
+    ``mesh.devices`` order (phase 1, then the doc-major block). A shard
+    returns at most ``min(k, per)`` documents, and ``min(k, per, C)`` when
+    two-phase; each rescores its candidates exactly, so the merged scores
+    are exact."""
+    per, n, V, C = shard_size, n_docs, vocab_size, n_candidates
+
+    def search(shards, q_idx, q_val, k):
+        k_local = min(k, per)
+
+        def shard_search(pd, pw, sc, qi, qv):
+            return postings_score_topk(pd, pw, sc, qi, qv, k_local, per,
+                                       approx, acc_dtype=acc_dtype,
+                                       scoring=scoring)
+
+        vals, idxs = search_shards(mesh.devices, shards, shard_search,
+                                   q_idx, q_val)
+        # sort scoring caps a shard's output at its T*P pool, which can be
+        # below k_local: the merge takes the width actually returned
+        return merge_sharded_topk(vals, idxs, k, per, n)
+
+    def search_two_phase(shards, q_idx, q_val, k):
+        k_local = min(k, per, C)
+
+        def shard_search(pd, pw, sc, dt, dv, ds, qi, qv):
+            return postings_two_phase_topk(
+                pd, pw, sc, dt, dv, ds, qi, qv, k_local, per, V, C, approx,
+                phase1_dtype=acc_dtype, scoring=scoring)
+
+        vals, idxs = search_shards(mesh.devices, shards, shard_search,
+                                   q_idx, q_val)
+        return merge_sharded_topk(vals, idxs, k, per, n)
+
+    return search, search_two_phase
+
+
+def _tensors(tree):
+    """The tensors of nested tuples (a mesh index keeps one tuple a shard)."""
+    if isinstance(tree, (tuple, list)):
+        for x in tree:
+            yield from _tensors(x)
+    elif tree is not None:
+        yield tree
 
 
 # ------------------------------------------------------------------ index
@@ -730,5 +841,119 @@ class PostingsIndex:
     def memory_bytes(self) -> int:
         if self._built is None:
             return 0
-        arrays = list(self._built) + list(self._doc_major or ())
-        return sum(a.numel() * a.element_size() for a in arrays)
+        return sum(a.numel() * a.element_size()
+                   for a in _tensors((self._built, self._doc_major)))
+
+
+class DocSharded:
+    """What the doc-sharded indexes share: the mesh, contiguous shards of
+    ``per = ceil(n / D)`` documents (a tail shard may be short or empty),
+    ``_built`` and ``_doc_major`` kept as one tuple of tensors a shard, on
+    that shard's device, and the largest k a two-phase search honours."""
+
+    def _set_mesh(self, mesh) -> None:
+        self.mesh = mesh
+        self.n_shards = mesh.size
+        self._shard_size = 0  # per, set at build
+
+    def _shard_bounds(self):
+        """(per, [(lo, hi)] a shard) of the staged documents."""
+        n = len(self.doc_ids)
+        per = -(-n // self.n_shards)
+        self._shard_size = per
+        return per, [(min(d * per, n), min((d + 1) * per, n))
+                     for d in range(self.n_shards)]
+
+    @staticmethod
+    def _place(device, *arrays):
+        return tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                     for a in arrays)
+
+    def _shard_doc_major(self, bounds, per: int):
+        """Each shard's doc-major block, [per, M] at the corpus-wide M (pad
+        rows score 0), term ids int32 on the device (see
+        PostingsIndex._build_doc_major)."""
+        M = max((len(x) for x in self._doc_idx), default=1)
+        out = []
+        for dev, (lo, hi) in zip(self.mesh.devices, bounds):
+            t, v, sc = self._doc_major_arrays(
+                self._doc_idx[lo:hi], self._doc_val[lo:hi], per, M=M)
+            out.append(self._place(dev, t.astype(np.int32), v, sc))
+        return tuple(out)
+
+    def shard_arrays(self):
+        """Each shard's arrays in search order: phase 1, then its doc-major
+        block when two-phase."""
+        if self._doc_major is None:
+            return list(self._built)
+        return [b + dm for b, dm in zip(self._built, self._doc_major)]
+
+    def max_results(self) -> int:
+        """Largest k a search honours: each of the D shards rescores at most
+        min(rescore_candidates, per) candidates."""
+        n = len(self.doc_ids)
+        if not self.rescore_candidates:
+            return n
+        per = self._shard_size or -(-n // self.n_shards)
+        return min(n, self.n_shards * min(self.rescore_candidates, per))
+
+
+class MeshShardedPostingsIndex(DocSharded, PostingsIndex):
+    """Doc-sharded postings over a ``DeviceMesh`` (see the module
+    docstring). Counterpart of ``splade_tpu``'s class of the same name:
+    the truncation cap applies per term per shard, so a D-way index
+    truncates no more than one device with the same P
+    (``truncated_postings`` sums the shards); each shard has its own
+    doc-major block at the corpus-wide M. The LSM delta and the tombstones
+    stay on the host and shard-agnostic; ``compact()`` re-shards. It
+    subclasses ``PostingsIndex``, so the engine's routing holds, and
+    ``load(path, mesh=...)`` restores an archive onto a mesh."""
+
+    def __init__(self, vocab_size: int, mesh, n_postings: int = 2048,
+                 query_top_t: int = 32, batch_pad: int = 8,
+                 approx: bool = True, rescore_candidates: int = 0,
+                 phase1_acc: str = "auto", scoring: str = "auto"):
+        super().__init__(vocab_size, n_postings=n_postings,
+                         query_top_t=query_top_t, batch_pad=batch_pad,
+                         approx=approx, rescore_candidates=rescore_candidates,
+                         phase1_acc=phase1_acc, scoring=scoring,
+                         device=mesh.devices[0])
+        self._set_mesh(mesh)
+
+    def build(self) -> None:
+        n = len(self.doc_ids)
+        if n == 0:
+            raise ValueError("empty index")
+        per, bounds = self._shard_bounds()
+        V, P = self.vocab_size, self.n_postings
+        built = []
+        self.truncated_postings = 0
+        for dev, (lo, hi) in zip(self.mesh.devices, bounds):
+            if lo >= hi:  # empty tail shard: zero postings
+                pd = np.zeros((V, P), np.int32)
+                pw = np.zeros((V, P), np.float32)
+                trunc = 0
+            else:
+                pd, pw, trunc = invert_to_postings(
+                    self._doc_idx[lo:hi], self._doc_val[lo:hi], V, P)
+            built.append(self._place(dev, pd, *quantize_postings(pw)))
+            self.truncated_postings += trunc
+        self._built = tuple(built)
+        self._doc_major = (self._shard_doc_major(bounds, per)
+                           if self.rescore_candidates else None)
+        self._base_n = n
+        self._delta_cache = None
+        self._make_search()
+        logger.info(
+            "mesh postings index: %d docs over %d shards (%d/shard), P=%d, "
+            "%.0f MB total", n, self.n_shards, per, P,
+            self.memory_bytes() / 1e6)
+
+    def _make_search(self) -> None:
+        per = self._shard_size
+        C = min(self.rescore_candidates, per) if self.rescore_candidates else 0
+        search, search_two_phase = make_mesh_postings_search_fns(
+            self.mesh, per, len(self.doc_ids), self.vocab_size, C,
+            self.approx, self.acc_dtype(), self.resolved_scoring())
+        fn = search_two_phase if C else search
+        self._search_fn = lambda qi, qv, k: fn(self.shard_arrays(), qi, qv, k)

@@ -1,8 +1,6 @@
-"""DF-tiered postings: per-term posting budgets at rectangular shapes,
-single device.
+"""DF-tiered postings: per-term posting budgets at rectangular shapes.
 
-Counterpart of ``splade_tpu/ops/tiered_postings.py`` (its single-device
-part; the mesh-sharded class waits, ROADMAP.md §1). Uniform truncation
+Counterpart of ``splade_tpu/ops/tiered_postings.py``. Uniform truncation
 keeps under 1% of a hot term's list; fully variable per-term lists are
 ragged. This index keeps two rectangular tiers instead:
 
@@ -18,6 +16,9 @@ A hot term's depth is ``P_cold + P_hot`` while memory stays
 uniform index's aggregations (scatter / sort / select / select_sum), and
 two-phase search re-scores the candidates exactly through the shared
 phase 2 (``dispatch_rescore``: the Hopper rescore kernel on the card).
+``MeshShardedTieredPostingsIndex`` shards the documents over a
+``DeviceMesh`` as ``MeshShardedPostingsIndex`` does, each shard with tiers
+of its own.
 """
 
 from __future__ import annotations
@@ -29,9 +30,9 @@ import numpy as np
 import torch
 
 from splade_tpu_torch.ops.postings_index import (
-    PostingsIndex, _select_sum_topk, _select_topk_candidates,
+    DocSharded, PostingsIndex, _select_sum_topk, _select_topk_candidates,
     _sorted_segment_topk, dispatch_rescore, flatten_csr, invert_flat,
-    quantize_postings)
+    merge_sharded_topk, quantize_postings, search_shards)
 from splade_tpu_torch.utils.runtime import DeviceLike
 
 logger = logging.getLogger(__name__)
@@ -146,6 +147,41 @@ def tiered_two_phase_topk(cold_docs, cold_w, cold_scale, hot_slot,
     return vals, cand.gather(1, pos)
 
 
+def make_mesh_tiered_search_fns(mesh, shard_size: int, n_docs: int,
+                                vocab_size: int, n_candidates: int,
+                                approx: bool, acc_dtype, scoring: str):
+    """Search bodies of doc-sharded TIERED postings: the contract of
+    ``make_mesh_postings_search_fns`` with the 7-array tiered phase 1 a
+    shard (then its doc-major block when two-phase)."""
+    per, n, V, C = shard_size, n_docs, vocab_size, n_candidates
+
+    def search(shards, q_idx, q_val, k):
+        k_local = min(k, per)
+
+        def shard_search(cd, cw, cs, hs, hd, hw, hsc, qi, qv):
+            return tiered_score_topk(cd, cw, cs, hs, hd, hw, hsc, qi, qv,
+                                     k_local, per, approx,
+                                     acc_dtype=acc_dtype, scoring=scoring)
+
+        vals, idxs = search_shards(mesh.devices, shards, shard_search,
+                                   q_idx, q_val)
+        return merge_sharded_topk(vals, idxs, k, per, n)
+
+    def search_two_phase(shards, q_idx, q_val, k):
+        k_local = min(k, per, C)
+
+        def shard_search(cd, cw, cs, hs, hd, hw, hsc, dt, dv, dsc, qi, qv):
+            return tiered_two_phase_topk(
+                cd, cw, cs, hs, hd, hw, hsc, dt, dv, dsc, qi, qv, k_local,
+                per, V, C, approx, phase1_dtype=acc_dtype, scoring=scoring)
+
+        vals, idxs = search_shards(mesh.devices, shards, shard_search,
+                                   q_idx, q_val)
+        return merge_sharded_topk(vals, idxs, k, per, n)
+
+    return search, search_two_phase
+
+
 class TieredPostingsIndex(PostingsIndex):
     """Two-tier DF-budgeted postings index (see the module docstring).
 
@@ -251,3 +287,82 @@ class TieredPostingsIndex(PostingsIndex):
         return vocab, dict(n_postings=P, query_top_t=top_t,
                            rescore_candidates=C, hot_terms=H,
                            hot_postings=Ph)
+
+
+class MeshShardedTieredPostingsIndex(DocSharded, TieredPostingsIndex):
+    """Doc-sharded DF-tiered postings over a ``DeviceMesh``: each shard
+    builds its own tiers (its hot terms follow its own df), searches
+    locally, and the [D, B, k] partial top-ks merge on ``mesh.devices[0]``.
+    Counterpart of ``splade_tpu``'s class of the same name: hot rows are
+    padded to exactly ``hot_terms`` plus the all-zero pad row, and the
+    cold-term slot H repointed to ``hot_terms``, so every shard has one
+    layout; ``n_hot`` sums the shards' realized hot rows."""
+
+    def __init__(self, vocab_size: int, mesh, n_postings: int = 256,
+                 hot_terms: int = 2048, hot_postings: int = 8192,
+                 query_top_t: int = 32, batch_pad: int = 8,
+                 approx: bool = True, rescore_candidates: int = 0,
+                 phase1_acc: str = "auto", scoring: str = "auto"):
+        super().__init__(vocab_size, n_postings=n_postings,
+                         hot_terms=hot_terms, hot_postings=hot_postings,
+                         query_top_t=query_top_t, batch_pad=batch_pad,
+                         approx=approx,
+                         rescore_candidates=rescore_candidates,
+                         phase1_acc=phase1_acc, scoring=scoring,
+                         device=mesh.devices[0])
+        self._set_mesh(mesh)
+
+    def build(self) -> None:
+        n = len(self.doc_ids)
+        if n == 0:
+            raise ValueError("empty index")
+        per, bounds = self._shard_bounds()
+        V, Pc, Hmax, Ph = (self.vocab_size, self.n_postings, self.hot_terms,
+                           self.hot_postings)
+        built = []
+        self.truncated_postings = 0
+        self.n_hot = 0
+        for dev, (lo, hi) in zip(self.mesh.devices, bounds):
+            if lo >= hi:  # empty tail shard: every slot at the pad row
+                cold_docs = np.zeros((V, Pc), np.int32)
+                cold_w = np.zeros((V, Pc), np.float32)
+                hot_slot = np.full(V, Hmax, np.int32)
+                hot_docs = np.zeros((0, Ph), np.int32)
+                hot_w = np.zeros((0, Ph), np.float32)
+                trunc = 0
+            else:
+                (cold_docs, cold_w, hot_slot, hot_docs, hot_w,
+                 trunc) = build_tiered(
+                    self._doc_idx[lo:hi], self._doc_val[lo:hi], V, Pc,
+                    Hmax, Ph)
+            H = hot_docs.shape[0]
+            self.n_hot += H
+            self.truncated_postings += trunc
+            # hot rows padded to exactly Hmax (+ the pad row), the cold-term
+            # slot H repointed to Hmax
+            hot_slot = np.where(hot_slot == H, Hmax, hot_slot)
+            pad = Hmax + 1 - H
+            hot_docs = np.vstack([hot_docs, np.zeros((pad, Ph), np.int32)])
+            hot_w = np.vstack([hot_w, np.zeros((pad, Ph), np.float32)])
+            built.append(self._place(
+                dev, cold_docs, *quantize_postings(cold_w), hot_slot,
+                hot_docs, *quantize_postings(hot_w)))
+        self._built = tuple(built)
+        self._doc_major = (self._shard_doc_major(bounds, per)
+                           if self.rescore_candidates else None)
+        self._base_n = n
+        self._delta_cache = None
+        self._make_search()
+        logger.info(
+            "mesh tiered index: %d docs over %d shards (%d/shard), cold "
+            "P=%d + hot %dx%d/shard, %.0f MB total", n, self.n_shards, per,
+            Pc, Hmax, Ph, self.memory_bytes() / 1e6)
+
+    def _make_search(self) -> None:
+        per = self._shard_size
+        C = min(self.rescore_candidates, per) if self.rescore_candidates else 0
+        search, search_two_phase = make_mesh_tiered_search_fns(
+            self.mesh, per, len(self.doc_ids), self.vocab_size, C,
+            self.approx, self.acc_dtype(), self.resolved_scoring())
+        fn = search_two_phase if C else search
+        self._search_fn = lambda qi, qv, k: fn(self.shard_arrays(), qi, qv, k)

@@ -26,6 +26,12 @@ parameters and its own contiguous rows of every micro-batch:
   (``DataMesh.host_group``), so an agreement each step never waits on the
   card.
 
+The device half of the JAX module, ``make_mesh``, lays a doc-sharded
+index out (``DeviceMesh``): one process, the shards placed on a list of
+devices, as JAX's single-controller mesh places them. Its
+``replicated_sharding`` and ``batch_sharding`` have no counterpart: the
+mesh indexes place each shard's tensors on its device themselves.
+
 Nothing here imports ``splade_tpu`` or ``jax``.
 """
 
@@ -36,7 +42,7 @@ import itertools
 import os
 import time
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -47,6 +53,44 @@ from splade_tpu_torch.utils.runtime import DeviceLike, resolve_device
 BUCKET_ELEMS = 1 << 24
 #: what ``init_distributed`` reads, as torchrun sets it
 LAUNCH_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK")
+
+
+@dataclass(frozen=True)
+class DeviceMesh:
+    """The devices a doc-sharded index stands on, in shard order: shard d
+    lives on ``devices[d]``, and ``devices[0]`` encodes the query and merges
+    the shards' partial top-ks. A device may repeat (eight shards on one
+    card, or on the CPU, as JAX's tests place eight virtual devices on one
+    host). ``axis_names`` names the one axis, for the reader's sake."""
+
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = ("data",)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def make_mesh(num_data: int = -1,
+              devices: Optional[Sequence[DeviceLike]] = None) -> DeviceMesh:
+    """A 1-D mesh over ``devices`` (every visible CUDA device when None),
+    cut to the first ``num_data`` when that is above 0. With no card and no
+    explicit devices it raises, as ``resolve_device`` does; ``num_data``
+    above the device count raises ValueError."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            resolve_device(None)  # raises: no CUDA device
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devs = [resolve_device(d) for d in devices]
+    if num_data and num_data > 0:
+        if num_data > len(devs):
+            raise ValueError(f"requested {num_data} devices, have "
+                             f"{len(devs)}")
+        devs = devs[:num_data]
+    if not devs:
+        raise ValueError("a mesh needs at least one device")
+    return DeviceMesh(tuple(devs))
 
 
 @dataclass(frozen=True)

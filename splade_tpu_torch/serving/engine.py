@@ -1,4 +1,4 @@
-"""Fused encode→search engine, single device.
+"""Fused encode→search engine.
 
 Counterpart of ``splade_tpu/serving/engine.py``. One search batch runs
 ModernBERT encode → banned-token zeroing → query top-k → index scoring →
@@ -7,9 +7,14 @@ score) pairs come back. The reference jit-compiles each (batch bucket,
 k tier) shape; PyTorch runs eagerly, so the buckets and tiers here keep
 the set of shapes small for the kernels and the allocator.
 
-Backends: the dense ``ImpactIndex``, the (two-phase) ``PostingsIndex``,
-the DF-tiered ``TieredPostingsIndex`` and the cluster-union
-``ClusterIndex``. The mesh-sharded backends wait (ROADMAP.md §1).
+Backends: the dense ``ImpactIndex`` (on one device or row-sharded over a
+``DeviceMesh``), the (two-phase) ``PostingsIndex``, the DF-tiered
+``TieredPostingsIndex``, the cluster-union ``ClusterIndex`` and their
+doc-sharded ``MeshSharded*`` forms. On a mesh the engine lives on
+``mesh.devices[0]``: the query is encoded there once, each shard searches
+on its own device, and the partial top-ks merge there. The mesh routes,
+as the single-device ones, return the query vectors, which the LSM delta
+reuses (the reference's mesh route encodes the batch again for it).
 """
 
 from __future__ import annotations
@@ -23,14 +28,16 @@ import torch
 
 from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
 from splade_tpu_torch.ops.cluster_index import (ClusterIndex,
+                                                MeshShardedClusterIndex,
                                                 cluster_search_topk)
-from splade_tpu_torch.ops.impact_index import ImpactIndex, impact_scores
-from splade_tpu_torch.ops.postings_index import (PostingsIndex,
+from splade_tpu_torch.ops.impact_index import ImpactIndex
+from splade_tpu_torch.ops.postings_index import (MeshShardedPostingsIndex,
+                                                 PostingsIndex,
                                                  postings_score_topk,
                                                  postings_two_phase_topk)
-from splade_tpu_torch.ops.tiered_postings import (TieredPostingsIndex,
-                                                  tiered_score_topk,
-                                                  tiered_two_phase_topk)
+from splade_tpu_torch.ops.tiered_postings import (
+    MeshShardedTieredPostingsIndex, TieredPostingsIndex, tiered_score_topk,
+    tiered_two_phase_topk)
 from splade_tpu_torch.utils.runtime import DeviceLike, resolve_device
 from splade_tpu_torch.utils.text import quantize_to_tier
 
@@ -52,20 +59,19 @@ def _encode_sparse(model, banned, ids, mask) -> torch.Tensor:
     return repr_
 
 
-def make_fused_search_fn(model, banned, query_top_k: int, is_int8: bool):
-    """Fused encode→dense-search fn shared by ServingEngine and benches:
-    (mat, scale, ids, mask, n_valid, k) -> (scores [B,k], doc_indices [B,k])."""
+def make_fused_search_fn(model, banned, query_top_k: int, index):
+    """Fused encode→dense-search fn over an ``ImpactIndex`` (one device or
+    a mesh): (ids, mask, k) -> (scores [B,k], doc_indices [B,k]), the
+    padded rows at -inf (``ImpactIndex.score_topk``)."""
 
-    def fused_search(mat, scale, ids, mask, n_valid, k):
+    def fused_search(ids, mask, k):
         repr_ = _encode_sparse(model, banned, ids, mask)
         if query_top_k:
             # keep the query_top_k strongest activations per query
             thr = torch.topk(repr_, query_top_k, dim=1).values[:, -1:]
             repr_ = torch.where(repr_ >= thr.clamp_min(1e-9), repr_,
                                 torch.zeros_like(repr_))
-        scores = impact_scores(repr_, mat, scale, is_int8)
-        scores[:, n_valid:] = float("-inf")
-        return torch.topk(scores, k, dim=1)
+        return index.score_topk(repr_, k)
 
     return fused_search
 
@@ -174,6 +180,53 @@ def make_fused_cluster_search_fn(model, banned, top_t: int, n_docs: int,
     return fused
 
 
+def _mesh_search_fn(model, banned, index):
+    """The mesh routes' one shape: (ids, mask, k) -> (scores, global doc
+    ids, q_val, q_idx); the query encoded once on the engine's device
+    (``mesh.devices[0]``), then the index's own doc-sharded search (each
+    shard on its device, one merge), read at call time so a rebuilt index
+    is searched as it now is."""
+    encode_query = _make_encode_query(model, banned, index.query_top_t)
+
+    def fused(ids, mask, k):
+        q_val, q_idx = encode_query(ids, mask)
+        vals, idxs = index._search_fn(q_idx, q_val, k)
+        return vals, idxs, q_val, q_idx
+
+    return fused
+
+
+def make_fused_mesh_postings_search_fn(model, banned, index):
+    """Fused encode→search over a ``MeshShardedPostingsIndex``: the query
+    encoded once, each shard's phase 1 (and exact rescore) on its device,
+    one merge of the [D, B, k] partials. Counterpart of the reference's
+    ``make_fused_mesh_postings_jit``."""
+    return _mesh_search_fn(model, banned, index)
+
+
+def make_fused_mesh_tiered_search_fn(model, banned, index):
+    """Fused encode→search over a ``MeshShardedTieredPostingsIndex``: the
+    mesh postings contract with each shard's 7-array tiered phase 1.
+    Counterpart of the reference's ``make_fused_mesh_tiered_jit``."""
+    return _mesh_search_fn(model, banned, index)
+
+
+def make_fused_mesh_cluster_search_fn(model, banned, index):
+    """Fused encode→cluster-union search over a
+    ``MeshShardedClusterIndex``: each shard's summaries, union and exact
+    rescore on its device, one merge that requires a positive score.
+    Counterpart of the reference's ``make_fused_mesh_cluster_jit``."""
+    return _mesh_search_fn(model, banned, index)
+
+
+#: mesh index class -> its fused route; the engine asks these first, as the
+#: mesh classes subclass the single-device ones
+MESH_ROUTES = ((MeshShardedClusterIndex, make_fused_mesh_cluster_search_fn),
+               (MeshShardedPostingsIndex, make_fused_mesh_postings_search_fn),
+               (MeshShardedTieredPostingsIndex,
+                make_fused_mesh_tiered_search_fn))
+
+
 class ServingEngine:
     """Owns the model on the device and a built index.
 
@@ -193,6 +246,8 @@ class ServingEngine:
         delta_compact_threshold: int = 1024,
         device: DeviceLike = None,
     ):
+        if device is None and getattr(index, "mesh", None) is not None:
+            device = index.mesh.devices[0]
         self.device = resolve_device(device)
         if index.device != self.device:
             raise ValueError(f"index lives on {index.device}, the engine "
@@ -215,16 +270,15 @@ class ServingEngine:
         self._model = self.encoder.model
         self._banned = self.encoder.banned
         self._postings = isinstance(index, PostingsIndex)
+        self._mesh_route = False
         if self._postings:
             self._build_postings_fused()
         elif isinstance(index, ImpactIndex):
             self._fused = make_fused_search_fn(
-                self._model, self._banned, query_top_k,
-                is_int8=index.quantize_int8)
+                self._model, self._banned, query_top_k, index)
         else:
-            raise NotImplementedError(
-                f"{type(index).__name__} is not served by the port yet "
-                "(the mesh-sharded indexes: ROADMAP.md §1)")
+            raise TypeError(f"{type(index).__name__} is not an index the "
+                            "engine serves")
 
     def _build_postings_fused(self) -> None:
         """(Re)build the fused postings fn: the accumulator width is the
@@ -237,6 +291,13 @@ class ServingEngine:
         C = min(self.index.rescore_candidates, self._postings_n)
         self._postings_two_phase = bool(C)
         self._postings_C = self.index.max_results() if C else 0
+        # the mesh classes first: each subclasses a single-device one
+        for cls, make in MESH_ROUTES:
+            if isinstance(self.index, cls):
+                self._fused = make(self._model, self._banned, self.index)
+                self._mesh_route = True
+                return
+        self._mesh_route = False
         if isinstance(self.index, ClusterIndex):
             self._fused = make_fused_cluster_search_fn(
                 self._model, self._banned, top_t=self.index.query_top_t,
@@ -328,7 +389,10 @@ class ServingEngine:
             _bucket_batch(max(B, 1), self.batch_pad) - B)
         ids, mask = self.encoder.tokenize(padded, self.query_max_length)
         q_cached = None
-        if self._postings:
+        if self._mesh_route:
+            vals, idxs, q_val, q_idx = self._fused(ids, mask, k_eff)
+            q_cached = q_val, q_idx
+        elif self._postings:
             if self._postings_two_phase:
                 vals, idxs, q_val, q_idx = self._fused(
                     *self.index._built, *self.index._doc_major, ids, mask,
@@ -338,8 +402,7 @@ class ServingEngine:
                     *self.index._built, ids, mask, k_eff)
             q_cached = q_val, q_idx
         else:
-            mat, scale, n_valid = self.index.device_arrays()
-            vals, idxs = self._fused(mat, scale, ids, mask, n_valid, k_eff)
+            vals, idxs = self._fused(ids, mask, k_eff)
         vals = vals.float().cpu().numpy()[:B]
         idxs = idxs.cpu().numpy()[:B]
         doc_ids = self.index.doc_ids
@@ -439,12 +502,13 @@ def build_engine_from_docs(
     64/128; n_postings=0 leaves the postings side out). ``cluster_size``
     and ``n_probes`` apply to 'cluster', ``hot_terms`` and
     ``hot_postings`` to 'tiered', ``posting_scoring`` to all three (the
-    cluster's phase 1b takes auto, sort or scatter). A ``mesh`` (a sharded
-    index) is not ported yet (ROADMAP.md §1)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded indexes are not ported yet (ROADMAP.md §1, "
-            "'Multi-GPU index sharding')")
+    cluster's phase 1b takes auto, sort or scatter). A ``mesh``
+    (``DeviceMesh``) reaches the dense index only, as in the reference: its
+    rows shard over the mesh, and the engine lives on ``mesh.devices[0]``;
+    a doc-sharded postings, tiered or cluster index is built with its
+    ``MeshSharded*`` class and handed to ``ServingEngine``."""
+    if mesh is not None and device is None:
+        device = mesh.devices[0]
     dev = resolve_device(device)
     enc = SparseEncoderV33(model, tokenizer, doc_top_k=doc_top_k, device=dev)
     query_top_t = engine_kw.get("query_top_k", 64) or 32
@@ -473,7 +537,8 @@ def build_engine_from_docs(
             rescore_candidates=rescore_candidates or 0,
             scoring=posting_scoring, device=dev)
     elif index_type == "dense":
-        index = ImpactIndex(len(tokenizer), quantize_int8=int8, device=dev)
+        index = ImpactIndex(len(tokenizer), quantize_int8=int8, mesh=mesh,
+                            device=dev)
     else:
         raise ValueError(f"index_type {index_type!r}")
     vecs = enc.encode_documents([t for _, t in docs])

@@ -36,7 +36,13 @@ on a 5-layer model (layer 0, one group, one tail layer), and fails an
 export that drops the tail layer, a cluster search whose dedup keeps a
 duplicate, a rescore launched without the pad row (the block's N one
 short, so pad candidates clamp onto the last document) and a cached server
-run that serves another kind than its archive's."""
+run that serves another kind than its archive's. Phase 10 (the
+mesh-sharded postings, tiered, cluster and dense indexes on eight CPU
+shards) runs at a tiny size, and fails a merge that forgets the shard
+offset, a cluster merge without ``require_positive`` (a pad document comes
+back) and a shard search that does not enter its shard's card (on CPU
+tensors that claim to be CUDA ones, with a stand-in for
+``torch.cuda.device``)."""
 
 import dataclasses
 import json
@@ -2034,6 +2040,158 @@ def test_serve_index_catches_a_dedup_that_keeps_duplicates(
     with pytest.raises(SystemExit, match="twice"):
         cs.serve_index(torch, "cluster", engine.index, enc, engine.tokenizer,
                        queries, queries[0], exact, tmp_path, "cpu")
+
+
+# ------------------------------------------------------------ phase 10
+MESH_POSTINGS = dict(n_postings=8, query_top_t=16, rescore_candidates=50)
+
+
+def _mesh_phase(root: Path):
+    """Phase 10 at a tiny size on eight CPU shards: 400 synthetic and 25
+    text documents (shards of 54, a 47-document tail), 48 dense ones, 8
+    queries, the tiny model."""
+    cs = _load_chip_smoke()
+    cfg = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB)
+    model = SpladeEncoder(cfg, pool_impl="kernel",
+                          device="cpu").init_weights(0).eval()
+    rng = np.random.default_rng(12)
+    terms, vals = cs.zipf_corpus_csr(rng, 400, nnz=20)
+    texts = cs.hangul_texts(rng, 25, 30)
+    dense = cs.hangul_texts(rng, 48, 30)
+    queries = cs.hangul_texts(rng, 8, 6)
+    return cs.mesh_phase(torch, model, cs.CharTokenizer(), terms, vals, texts,
+                         dense, queries, root, "cpu", ["cpu"] * 8,
+                         postings=MESH_POSTINGS, tiered=SERVE_TIERED,
+                         cluster=SERVE_CLUSTER)
+
+
+@pytest.fixture(scope="module")
+def mesh_run(tmp_path_factory):
+    return _mesh_phase(tmp_path_factory.mktemp("mesh"))
+
+
+def test_mesh_phase_runs_on_the_cpu(mesh_run):
+    out = mesh_run
+    assert out["shards"] == 8 and out["devices"] == ["cpu"] * 8
+    for name in ("postings", "tiered", "cluster"):
+        got = out[name]
+        assert got["docs"] == 425 and got["shard_size"] == 54
+        assert got["served"]["requests"] == 16
+        assert set(got["launches"].values()) == {0}  # plain versions here
+        assert got["profile"]["device_busy_ms"] is None
+        assert got["peak_device_gb"] is None and got["memory_bytes"] > 0
+        merged = got["merged"]
+        assert merged["slots"] > 0 and merged["max_rel_err"] <= 1e-6
+        rescore = got["rescore"]
+        assert rescore["shards"] == 8 and rescore["max_abs_err"] == 0.0
+        assert rescore["ms"] is None
+        assert got["devices"] == {"shards": 8, "entered": [], "rescores": 8}
+    assert out["tiered"]["n_hot"] > 0 and out["cluster"]["n_clusters"] >= 8
+    # the cluster's whole pool holds zero slots, each the (0, 0) filler
+    merged = out["cluster"]["merged"]
+    assert merged["pool_other_slots"] > 0 and merged["stray_slots"] == 0
+    rescore = out["cluster"]["rescore"]
+    assert rescore["pad_candidates"] > 0 and rescore["duplicate_candidates"]
+    dense = out["dense"]
+    assert dense["docs"] == 48 and dense["launches"]["rescore_match"] == 0
+    assert dense["against_one_device"]["n_pad"] == 1024
+    assert dense["devices"] == {"shards": 8, "entered": [], "rescores": 0}
+
+
+def _merge_forgets_the_offset(monkeypatch):
+    from splade_tpu_torch.ops import (cluster_index, postings_index,
+                                      tiered_postings)
+
+    merge = postings_index.merge_sharded_topk
+
+    def faulty(vals, idxs, k, shard_size, n_docs, require_positive=False):
+        return merge(vals, idxs, k, 0, n_docs, require_positive)
+
+    for mod in (postings_index, tiered_postings, cluster_index):
+        monkeypatch.setattr(mod, "merge_sharded_topk", faulty)
+
+
+def _cluster_merge_keeps_zero_scores(monkeypatch):
+    from splade_tpu_torch.ops import cluster_index, postings_index
+
+    merge = postings_index.merge_sharded_topk
+    monkeypatch.setattr(cluster_index, "merge_sharded_topk",
+                        lambda *a, require_positive=False: merge(*a))
+
+
+@pytest.mark.parametrize("fault, check", [
+    (_merge_forgets_the_offset, "twice|not its document's exact score"),
+    (_cluster_merge_keeps_zero_scores, "a pad document came back"),
+], ids=["merge_forgets_offset", "cluster_merge_without_require_positive"])
+def test_mesh_phase_catches_a_faulty_merge(tmp_path, monkeypatch, fault,
+                                           check):
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match=check):
+        _mesh_phase(tmp_path)
+
+
+class _CudaDeviceStandIn:
+    """``torch.cuda.device`` where there is no card: enters nothing."""
+
+    def __init__(self, device):
+        self.device = device
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+
+@pytest.mark.parametrize("fault", [False, True],
+                         ids=["sound", "search_outside_its_card"])
+@pytest.mark.parametrize("kind", ["postings", "tiered", "cluster", "dense"])
+def test_shard_device_check_catches_a_search_outside_its_card(
+        monkeypatch, kind, fault):
+    """Phase 10's device check on CPU tensors that claim to be on cuda:0
+    and cuda:1 (a stand-in for torch.cuda.device): each shard's search
+    must enter its card, in shard order, and its rescore run there; a
+    shard search that does not enter its card fails."""
+    import contextlib
+
+    from splade_tpu_torch.ops import cluster_index, impact_index
+    from splade_tpu_torch.ops import tiered_postings
+    from splade_tpu_torch.parallel import DeviceMesh
+    from test_torch_mesh_indexes import _claim_cuda, synth_corpus, synth_queries
+
+    cs = _load_chip_smoke()
+    _claim_cuda(monkeypatch)
+    monkeypatch.setattr(torch.cuda, "device", _CudaDeviceStandIn)
+    mesh = DeviceMesh((torch.device("cuda:0"), torch.device("cuda:1")))
+    V = 500
+    if kind == "dense":
+        index = impact_index.ImpactIndex(V, quantize_int8=True, mesh=mesh)
+    elif kind == "cluster":
+        index = cluster_index.MeshShardedClusterIndex(
+            V, mesh, cluster_size=8, n_probes=2, query_top_t=8)
+    elif kind == "tiered":
+        index = tiered_postings.MeshShardedTieredPostingsIndex(
+            V, mesh, n_postings=4, hot_terms=8, hot_postings=32,
+            query_top_t=8, rescore_candidates=8)
+    else:
+        index = postings_index.MeshShardedPostingsIndex(
+            V, mesh, n_postings=16, query_top_t=8, rescore_candidates=8)
+    for i, (idx, val) in enumerate(synth_corpus()[:40]):
+        index.add(f"d{i}", idx, val)
+    index.build()
+    qi, qv = synth_queries(b=4)
+    if fault:
+        for mod in (postings_index, impact_index):
+            monkeypatch.setattr(mod, "on_shard_device",
+                                lambda device: contextlib.nullcontext())
+        with pytest.raises(SystemExit, match="the search entered"):
+            cs.shard_device_check(torch, index, torch.from_numpy(qi),
+                                  torch.from_numpy(qv))
+        return
+    out = cs.shard_device_check(torch, index, torch.from_numpy(qi),
+                                torch.from_numpy(qv))
+    assert out["entered"] == ["cuda:0", "cuda:1"]
+    assert out["rescores"] == (0 if kind == "dense" else 2)
 
 
 if __name__ == "__main__":

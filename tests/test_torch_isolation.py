@@ -280,3 +280,40 @@ def test_benchmark_entry_points_without_a_device_raise_when_no_card(
                  lambda: TeacherDenseEncoder.from_hf_dir(str(tmp_path))):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             make()
+
+
+#: the thirteenth slice's modules: the device mesh, the doc-sharded
+#: indexes and the engine's mesh routes, each beside its counterpart
+MESH_SLICE = ["parallel/mesh.py", "ops/postings_index.py",
+              "ops/tiered_postings.py", "ops/cluster_index.py",
+              "ops/impact_index.py", "serving/engine.py"]
+
+
+@pytest.mark.parametrize("rel", MESH_SLICE)
+def test_the_mesh_slices_modules_are_among_the_checked_files(rel):
+    assert ROOT / "splade_tpu_torch" / rel in PORT_FILES
+    assert (ROOT / "splade_tpu" / rel).exists()
+
+
+def test_the_mesh_and_its_indexes_raise_when_no_card(monkeypatch):
+    """``make_mesh()`` with no card and no devices raises rather than
+    laying the shards on the CPU; so do the mesh indexes on CUDA devices."""
+    from splade_tpu_torch.ops.cluster_index import MeshShardedClusterIndex
+    from splade_tpu_torch.ops.impact_index import ImpactIndex
+    from splade_tpu_torch.ops.postings_index import MeshShardedPostingsIndex
+    from splade_tpu_torch.ops.tiered_postings import (
+        MeshShardedTieredPostingsIndex)
+    from splade_tpu_torch.parallel import DeviceMesh, make_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cards = DeviceMesh((torch.device("cuda:0"), torch.device("cuda:1")))
+    for make in (lambda: make_mesh(),
+                 lambda: make_mesh(num_data=1),
+                 lambda: MeshShardedPostingsIndex(100, cards),
+                 lambda: MeshShardedTieredPostingsIndex(100, cards),
+                 lambda: MeshShardedClusterIndex(100, cards),
+                 lambda: ImpactIndex(100, mesh=cards)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            make()
+    # asked for explicitly, the CPU is fine
+    assert make_mesh(devices=["cpu"] * 2).size == 2

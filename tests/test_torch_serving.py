@@ -134,22 +134,27 @@ def test_engines_search_encode_and_crud_match_jax(models, kind):
 
 
 def test_warmup_and_unported_backends(models):
-    """Every index of one device is served; the mesh-sharded ones are
-    not ported yet and raise, naming ROADMAP.md."""
+    """Every index is served, the mesh-sharded ones too (a mesh reaches
+    the dense index of build_engine_from_docs, as in the reference); an
+    object that is no index is refused."""
+    from splade_tpu_torch.ops.impact_index import ImpactIndex
+    from splade_tpu_torch.parallel import make_mesh
     from splade_tpu_torch.serving.engine import ServingEngine
 
     _, _, tmodel = models
     _, t = _engines(models, **POSTINGS)
     assert t.warmup(max_batch_size=16) == 2 * len(t.k_tiers)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_engine_from_docs(tmodel, FakeTokenizer(), DOCS, mesh=object(),
-                               index_type="postings", device="cpu")
+    mesh = make_mesh(devices=["cpu"] * 2)
+    dense = build_engine_from_docs(tmodel, FakeTokenizer(), DOCS, mesh=mesh,
+                                   **ENGINE_KW)
+    assert isinstance(dense.index, ImpactIndex) and dense.index.mesh is mesh
+    assert dense.warmup(max_batch_size=16) == 2 * len(dense.k_tiers)
 
-    class ShardedIndex:
+    class NotAnIndex:
         device = torch.device("cpu")
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServingEngine(tmodel, FakeTokenizer(), ShardedIndex(), device="cpu")
+    with pytest.raises(TypeError, match="not an index the engine serves"):
+        ServingEngine(tmodel, FakeTokenizer(), NotAnIndex(), device="cpu")
 
 
 def test_index_cache_load_overrides_and_log(tmp_path):

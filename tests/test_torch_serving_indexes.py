@@ -136,9 +136,14 @@ def test_build_engine_cluster_and_tiered_knobs_threaded(models):
     e4 = build_engine_from_docs(tmodel, FakeTokenizer(), docs,
                                 index_type="postings", **kw)
     assert e4.index.n_postings == 2048
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_engine_from_docs(tmodel, FakeTokenizer(), docs,
-                               mesh=object(), index_type="postings", **kw)
+    # a mesh reaches the dense index only, as in the reference
+    from splade_tpu_torch.ops.postings_index import PostingsIndex
+    from splade_tpu_torch.parallel import make_mesh
+
+    e5 = build_engine_from_docs(tmodel, FakeTokenizer(), docs,
+                                mesh=make_mesh(devices=["cpu"] * 2),
+                                index_type="postings", **kw)
+    assert type(e5.index) is PostingsIndex and e5.index.n_postings == 2048
 
 
 def test_fused_cluster_path_uses_index_scoring_mode(models, monkeypatch):
