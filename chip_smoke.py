@@ -239,10 +239,46 @@ Phases (any failure exits non-zero; nothing is caught):
    for each: host build seconds, device bytes, peak device GB, one warmed
    B=32 batch under ``profile_fn``, recall@10 against the exact search.
 
-The last nine lines are the training JSON, the pre-training JSON, the
+11. The offline data tier feeding V33 training (``data_phase``; alone:
+   ``python -c "import chip_smoke; chip_smoke.data_main()"``). (a) 10,000
+   raw samples written as local JSONL drops under ``$SPLADE_RAW_DATA``
+   (QA, dialog, direct triplets, NLI, STS and classification registry
+   keys), Hangul from the port's ``random_hangul_stems``, with 5% exact and
+   5% near duplicates and 2% English-only rows planted: cut from the
+   reference's 4.84M triplets out of nine datasets. (b)
+   ``PreprocessingPipeline(config, miner=TfidfHardNegativeMiner(top_k=1))
+   .run()`` (collect, convert, clean, dedup, mine, shard; each stage's
+   seconds): every written row parses through ``load_training_data`` and
+   collates through ``TripletCollator``, no negative equals its positive,
+   no (query, positive) twice. (c) ``EncoderHardNegativeMiner`` on the card
+   with an encoder of a few lines (``MiningAdapter``:
+   ``SparseEncoderV33.encode_tensor``, the pool forward kernel, [N, 50,000]
+   f32): ``mine_rank_window`` (ranks [10, 50), k 7 of the top 100) and
+   ``mine_band`` over 1,024 of the pipeline's queries against 8,192
+   positives (1.64 GB on the device), first with the decoder bias shifted
+   by ``sparsify`` (sparse vectors), then as the weights are (dense
+   vectors, crowded cosines); on 64 sampled queries every mined similarity
+   equals a float64 host recomputation's at the same rank within
+   DATA_SIM_TOL (sparse) or twice the product's measured f32 error
+   (dense), no id is the positive, band ids lie in the band, min(in band,
+   k) of them; the pool forward held against its plain version at
+   mining's B = 256, S = 128 and launched once an encode batch. (d) ``compute_idf`` of the train
+   shards' texts in both modes, bitwise an independent count (numpy
+   ``unique`` per document) and through ``<prefix>.bin`` / ``.json`` and
+   ``load_idf``. (e) PMI over the pipeline's positives and the synonym
+   validator over term pairs read from a local ``$SPLADE_TERM_DATA`` cache
+   by the port's collectors (planted pairs valid, apart pairs not, OOV
+   rejected; the pair counts against a direct scan); the information-gain
+   filter at n = 5,000, d = 768 in f64 on the card against the CPU (1e-9)
+   on planted pairs (``ig_pairs``): the trivial half dropped. (f) The V33
+   CLI (phase 7 (a)'s recipe, 22L/768/50K) as one process for 3 steps on
+   the pipeline's train shards: the loader read every train row, finite
+   losses, the launches the code implies.
+
+The last ten lines are the training JSON, the pre-training JSON, the
 splash training JSON, the data-parallel JSON, the benchmark JSON, the
-serving JSON of phase 9, the mesh JSON of phase 10, the kernels' JSON and
-the run's JSON.
+serving JSON of phase 9, the mesh JSON of phase 10, the data tier's JSON
+of phase 11, the kernels' JSON and the run's JSON.
 """
 
 from __future__ import annotations
@@ -259,6 +295,7 @@ import sys
 import threading
 import time
 from pathlib import Path
+from unittest import mock
 
 import numpy as np
 
@@ -3527,15 +3564,9 @@ def bench_triplets(rng, n: int, doc_words=BENCH_DOC_WORDS,
 def sparse_bench_model(torch, tok, texts, queries, seed: int, device: str,
                        over=None, doc_nnz: int = BENCH_DOC_NNZ,
                        query_nnz: int = BENCH_QUERY_NNZ):
-    """The seeded SpladeEncoder in bf16, its decoder bias set to -t: t the
-    largest threshold that leaves at least ``doc_nnz`` maxima a document
-    and ``query_nnz`` a query above it, on average over the sample (a
-    uniform bias moves every maximum m[b, v] of the pool by the same
-    amount, so one t serves both: the smaller of the two thresholds, and
-    the other kind of text gets more nonzeros than its target; a vector's
-    values are log1p(m) where m > 0). -> (model, t, the sample's mean
-    nonzeros a document and a query after the shift)."""
-    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    """The seeded SpladeEncoder in bf16 made sparse by ``sparsify``. ->
+    (model, t, the sample's mean nonzeros a document and a query after the
+    shift)."""
     from splade_tpu_torch.models.modernbert import ModernBertConfig
     from splade_tpu_torch.models.splade import SpladeEncoder
 
@@ -3543,6 +3574,24 @@ def sparse_bench_model(torch, tok, texts, queries, seed: int, device: str,
                               tok.pad_token_id, **(over or {})})
     model = SpladeEncoder(cfg, pool_impl="kernel", device=device)
     model = model.init_weights(seed).to(torch.bfloat16).eval()
+    t, nnz = sparsify(torch, model, tok, texts, queries, device, doc_nnz,
+                      query_nnz)
+    return model, t, nnz
+
+
+def sparsify(torch, model, tok, texts, queries, device: str,
+             doc_nnz: int = BENCH_DOC_NNZ,
+             query_nnz: int = BENCH_QUERY_NNZ) -> tuple:
+    """Set the model's decoder bias to itself - t: t the largest threshold
+    that leaves at least ``doc_nnz`` maxima a document and ``query_nnz`` a
+    query above it, on average over the sample (a uniform bias moves every
+    maximum m[b, v] of the pool by the same amount, so one t serves both:
+    the smaller of the two thresholds, and the other kind of text gets more
+    nonzeros than its target; a vector's values are log1p(m) where m > 0),
+    so that vectors are as sparse as a trained model's. -> (t, the
+    sample's mean nonzeros a document and a query after the shift)."""
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+
     enc = SparseEncoderV33(model, tok, filter_special=False, device=device)
 
     def maxima(sample, max_length):
@@ -3566,7 +3615,7 @@ def sparse_bench_model(torch, tok, texts, queries, seed: int, device: str,
         model.mlm.decoder.bias.sub_(t)
     nnz = {name: float((m > t).sum(1).float().mean())
            for name, m in sample.items()}
-    return model, t, nnz
+    return t, nnz
 
 
 def xlmr_init(torch, config, seed: int, device: str):
@@ -5226,6 +5275,861 @@ def mesh_phase(torch, model, tok, syn_terms, syn_vals, text_docs,
     return result
 
 
+# ------------------------------------------------------------ phase 11
+#: phase 11's raw samples, and the registry key of each task type it writes and
+#: the share of the base samples each gets (the registry has no "pair"
+#: source: ko-triplet-v1's direct triplets stand beside the five others).
+#: NLI takes two raw samples a premise (entailment, contradiction)
+DATA_RAW = 10_000
+DATA_SOURCES = {"korquad": 0.33, "koinstruct": 0.33, "ko-triplet-v1": 0.25,
+                "kornli": 0.045, "korsts": 0.023, "nsmc": 0.022}
+#: planted shares of the raw drop: exact and near duplicates of 1:1 rows,
+#: English-only rows the cleaner drops
+DATA_DUP_SHARE, DATA_JUNK_SHARE = 0.05, 0.02
+#: the pipeline's shard size: a few shards from 10,000 raw samples
+DATA_SHARD_SIZE = 2000
+#: (c) the encoder miner: queries against positives, the reference's
+#: rank window, the sampled queries held against the host, the tokens a
+#: text (every positive fits)
+DATA_MINE = dict(queries=1024, corpus=8192, check=64, rank_lo=10,
+                 rank_hi=50, k=7, search_k=100, max_length=128)
+#: a mined similarity against the host's f64 one at the same rank, on the
+#: sparse pass; the dense pass holds to DATA_F32_FACTOR times the measured
+#: f32 error of the product (a mined id and the host's at one rank each lie
+#: within that error of the rank's f32 similarity)
+DATA_SIM_TOL = 1e-5
+DATA_F32_FACTOR = 2.0
+#: (e) the information-gain filter at the module's stated workload, and
+#: its entropies on the card against the CPU
+DATA_IG = dict(n=5000, d=768)
+DATA_IG_RTOL = 1e-9
+#: (e) term pairs: planted to co-occur, apart (both terms in the corpus,
+#: never planted together), out of the vocabulary; contexts a planted pair
+DATA_TERMS = dict(planted=40, apart=20, oov=10, contexts=25)
+
+
+def hangul_words(rng, stems, lo: int, hi: int) -> str:
+    return " ".join(stems[j] for j in rng.integers(0, len(stems), int(
+        rng.integers(lo, hi))))
+
+
+def hangul_passage(rng, stems, sentences=(2, 5), words=(5, 12)) -> str:
+    return ". ".join(hangul_words(rng, stems, *words) for _ in range(int(
+        rng.integers(*sentences)))) + "."
+
+
+def write_raw_drop(rng, root: Path, n_raw: int, terms: dict) -> dict:
+    """Phase 11 (a): ``n_raw`` raw samples as local JSONL drops
+    (``root/<registry key>.jsonl``, the layout ``load_dataset_samples``
+    reads under ``$SPLADE_RAW_DATA``), Hangul from the port's
+    ``random_hangul_stems``: a base of every task type, then exact
+    duplicates and near duplicates (a sentence mark appended) of 1:1 rows
+    (QA, dialog, triplets), then English-only rows. Term pairs: each
+    planted pair's Korean and English terms as a sentence of their own in
+    ``contexts`` QA passages, each apart pair's English term alone as a
+    sentence in as many. -> what was written and planted."""
+    from splade_tpu_torch.utils.synth import random_hangul_stems
+
+    root.mkdir(parents=True, exist_ok=True)
+    stems = random_hangul_stems(rng, 2000)
+    n_dup = int(n_raw * DATA_DUP_SHARE)
+    n_junk = int(n_raw * DATA_JUNK_SHARE)
+    n_base = n_raw - 2 * n_dup - n_junk
+    counts = {k: int(n_base * share) for k, share in DATA_SOURCES.items()}
+    counts["kornli"] -= counts["kornli"] % 2
+    counts["korquad"] += n_base - sum(counts.values())
+    ascii_word = lambda: "".join(chr(97 + int(c)) for c in rng.integers(
+        0, 26, int(rng.integers(5, 9))))
+    n_pairs = terms["planted"] + terms["apart"] + terms["oov"]
+    ko = [stems[int(i)] for i in rng.choice(len(stems), n_pairs,
+                                            replace=False)]
+    ko[-terms["oov"]:] = random_hangul_stems(rng, terms["oov"],
+                                             seed_words=tuple(stems))[-terms[
+                                                 "oov"]:]
+    en = []
+    while len(en) < n_pairs:
+        w = ascii_word()
+        if w not in en:
+            en.append(w)
+    pairs = list(zip(ko, en))
+    rows = {k: [] for k in DATA_SOURCES}
+    ctx = [hangul_passage(rng, stems) for _ in range(counts["korquad"])]
+    slots = iter(rng.permutation(len(ctx)).tolist())
+    # a planted pair is a sentence of its own two terms; an apart pair's
+    # English term a sentence of its own, so it co-occurs with nothing
+    for a, b in pairs[:terms["planted"]]:
+        for _ in range(terms["contexts"]):
+            i = next(slots)
+            ctx[i] = f"{a} {b}. {ctx[i]}"
+    for _, b in pairs[terms["planted"]:terms["planted"] + terms["apart"]]:
+        for _ in range(terms["contexts"]):
+            i = next(slots)
+            ctx[i] = f"{b}. {ctx[i]}"
+    rows["korquad"] = [{"question": hangul_words(rng, stems, 4, 12) + "?",
+                        "context": c} for c in ctx]
+    rows["koinstruct"] = [{"instruction": hangul_words(rng, stems, 4, 12),
+                           "output": hangul_passage(rng, stems)}
+                          for _ in range(counts["koinstruct"])]
+    rows["ko-triplet-v1"] = [{"query": hangul_words(rng, stems, 4, 12),
+                              "document": hangul_passage(rng, stems),
+                              "hard_negative": hangul_passage(rng, stems)}
+                             for _ in range(counts["ko-triplet-v1"])]
+    for _ in range(counts["kornli"] // 2):
+        premise = hangul_passage(rng, stems, (1, 3))
+        rows["kornli"] += [
+            {"premise": premise, "hypothesis": hangul_words(rng, stems, 4, 12),
+             "label": label} for label in (0, 2)]
+    rows["korsts"] = [{"sentence1": hangul_words(rng, stems, 4, 12),
+                       "sentence2": hangul_words(rng, stems, 4, 12),
+                       "score": round(float(rng.uniform(0, 5)), 2)}
+                      for _ in range(counts["korsts"])]
+    rows["nsmc"] = [{"document": hangul_words(rng, stems, 4, 14),
+                     "label": int(rng.integers(2))}
+                    for _ in range(counts["nsmc"])]
+    # planted duplicates of the 1:1 sources' rows (their keys: the fields
+    # the converters make query and positive of)
+    one_to_one = {"korquad": ("question", "context"),
+                  "koinstruct": ("instruction", "output"),
+                  "ko-triplet-v1": ("query", "document")}
+    picks = [(k, i) for k in one_to_one for i in range(len(rows[k]))]
+    chosen = rng.choice(len(picks), 2 * n_dup, replace=False)
+    exact_keys = []
+    for n, c in enumerate(chosen):
+        k, i = picks[int(c)]
+        row = dict(rows[k][i])
+        qf, pf = one_to_one[k]
+        if n < n_dup:
+            exact_keys.append(f"{row[qf]}\t{row[pf]}")
+        else:
+            row[qf] += " !"
+        rows[k].append(row)
+    rows["korquad"] += [{"question": f"{ascii_word()} {ascii_word()} ?",
+                         "context": " ".join(ascii_word() for _ in range(12))}
+                        for _ in range(n_junk)]
+    for k, rs in rows.items():
+        order = rng.permutation(len(rs))
+        with open(root / f"{k}.jsonl", "w", encoding="utf-8") as f:
+            for i in order:
+                f.write(json.dumps(rs[int(i)], ensure_ascii=False) + "\n")
+    written = {k: len(v) for k, v in rows.items()}
+    assert sum(written.values()) == n_raw, written
+    return dict(written=written, exact_keys=exact_keys, near=n_dup,
+                junk=n_junk, pairs=pairs)
+
+
+def write_term_cache(root: Path, pairs, terms: dict) -> dict:
+    """Phase 11 (e): the term pairs as a local ``$SPLADE_TERM_DATA`` cache
+    in the three layouts the port's collectors read: the planted and apart
+    pairs as a MUSE dictionary (Korean first), the OOV pairs as Wikidata
+    SPARQL bindings and as Wikipedia langlinks payloads (half each)."""
+    (root / "muse").mkdir(parents=True, exist_ok=True)
+    known = pairs[:terms["planted"] + terms["apart"]]
+    oov = pairs[len(known):]
+    (root / "muse" / "ko-en.txt").write_text(
+        "".join(f"{a} {b}\n" for a, b in known), encoding="utf-8")
+    half = len(oov) // 2
+    (root / "wikidata.json").write_text(json.dumps({"results": {"bindings": [
+        {"koLabel": {"value": a}, "enLabel": {"value": b.capitalize()}}
+        for a, b in oov[:half]]}}, ensure_ascii=False), encoding="utf-8")
+    (root / "wikipedia_langlinks.jsonl").write_text("".join(
+        json.dumps({"query": {"pages": {str(i): {
+            "title": a, "langlinks": [{"lang": "en", "*": b}]}}}},
+            ensure_ascii=False) + "\n"
+        for i, (a, b) in enumerate(oov[half:])), encoding="utf-8")
+    return dict(muse=len(known), wikidata=half, wikipedia=len(oov) - half)
+
+
+def timed_stages(pipe, names=("collect", "convert", "clean", "dedup", "mine",
+                              "shard")) -> dict:
+    """Wrap the pipeline instance's stage methods so that ``run()`` records
+    each stage's seconds (the pipeline itself times only the whole)."""
+    seconds = {}
+    for name in names:
+        fn = getattr(pipe, name)
+
+        def stage(*a, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*a, **kw)
+            finally:
+                seconds[_name] = time.perf_counter() - t0
+
+        setattr(pipe, name, stage)
+    return seconds
+
+
+def check_pipeline_output(out_dir: Path, meta: dict, tok, planted) -> tuple:
+    """Phase 11 (b)'s holds on what the pipeline wrote: every row of every
+    shard and of val.jsonl parses through the port's load_training_data
+    (none skipped) and collates through TripletCollator; no row's negative
+    equals its positive; no (query, positive) key twice, so every planted
+    exact duplicate is gone. -> (the counts, the rows: train shards, then
+    val.jsonl)."""
+    from splade_tpu_torch.data import TripletCollator, load_training_data
+
+    files = [str(out_dir / s) for s in meta["shards"]] + [
+        str(out_dir / "val.jsonl")]
+    lines = sum(1 for f in files for line in open(f, encoding="utf-8")
+                if line.strip())
+    data = load_training_data(files)
+    rows = list(data)
+    if not (len(rows) == lines == meta["train"] + meta["val"]
+            == meta["total"]):
+        raise SystemExit(f"pipeline: {len(rows)} rows parsed of {lines} "
+                         f"lines; metadata says {meta['train']} + "
+                         f"{meta['val']} = {meta['total']}")
+    collator = TripletCollator(tok, query_max_length=64, doc_max_length=256)
+    batches = 0
+    for i in range(0, len(rows), 512):
+        enc = collator(rows[i:i + 512])
+        n = len(rows[i:i + 512])
+        if (enc["query_input_ids"].shape != (n, 64)
+                or enc["positive_input_ids"].shape != (n, 256)
+                or enc["negative_input_ids"].shape != (n, 256)):
+            raise SystemExit("pipeline: a batch collated to other shapes")
+        batches += 1
+    own = [r for r in rows if r.get("negative") == r["positive"]
+           or r["positive"] in (r.get("negatives") or [])]
+    keys = [f"{r['query']}\t{r['positive']}" for r in rows]
+    twice = len(keys) - len(set(keys))
+    left = sum(1 for k in set(planted) if keys.count(k) != 1)
+    with_negative = sum(1 for r in rows if r.get("negative")
+                        or r.get("negatives"))
+    out = dict(rows=len(rows), batches=batches, negative_is_positive=len(own),
+               keys_twice=twice, planted_exact=len(planted),
+               planted_exact_not_once=left, with_negative=with_negative)
+    log(f"  (b) held: {len(rows)} rows parse and collate ({batches} "
+        f"batches); a negative equal to its positive: {len(own)}; a "
+        f"(query, positive) twice: {twice}; planted exact duplicates not "
+        f"left exactly once: {left} of {len(planted)}")
+    if own or twice or left or with_negative != meta["with_negative"]:
+        raise SystemExit(f"pipeline: the written rows fail a hold: {out}")
+    return out, rows
+
+
+class MiningAdapter:
+    """Phase 11 (c)'s encoder for EncoderHardNegativeMiner: texts through
+    the stand-in tokenizer at ``max_length`` positions and
+    ``SparseEncoderV33.encode_tensor`` (the pool forward kernel) to [N, V]
+    f32 on the encoder's device. Keeps each call's rows, in order, for the
+    host's recomputation, and the seconds it spent."""
+
+    def __init__(self, torch, enc, max_length: int):
+        self.torch, self.enc, self.max_length = torch, enc, max_length
+        self.rows, self.seconds, self.texts = [], 0.0, 0
+
+    def encode(self, texts):
+        torch = self.torch
+        t0 = time.perf_counter()
+        out = self.enc.encode_tensor(*self.enc.tokenize(texts,
+                                                        self.max_length))
+        if out.is_cuda:
+            torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        self.texts += len(texts)
+        self.rows.append(out)
+        return out
+
+    def take(self, n: int):
+        """The next ``n`` rows recorded, concatenated (f32, host)."""
+        got, have = [], 0
+        while have < n:
+            got.append(self.rows.pop(0))
+            have += len(got[-1])
+        if have != n:
+            raise SystemExit("mining: the encoder's batches do not split "
+                             "at the call's texts")
+        return self.torch.cat(got).float().cpu().numpy()
+
+
+def unit_rows64(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float64)
+    norms = np.linalg.norm(x, axis=1, keepdims=True)
+    norms[norms == 0] = 1.0
+    return x / norms
+
+
+def f32_error(torch, q: np.ndarray, c: np.ndarray, check, sims64,
+              device: str) -> dict:
+    """Phase 11 (c): the largest |f32 - f64| of the sampled queries'
+    similarities (``sims64``, rows ``check`` of ``q`` against ``c``): a
+    numpy f32 product on the host, and the miner's own product on its
+    device (rows normalised as the miner normalises them, the same
+    ``QUERY_CHUNK`` queries a product, so the same f32 sums the miner
+    ranked)."""
+    from splade_tpu_torch.preprocessing.miners import QUERY_CHUNK
+
+    def unit32(x):
+        norms = np.linalg.norm(x, axis=1, keepdims=True)
+        norms[norms == 0] = 1.0
+        return x / norms
+
+    host = float(np.abs(unit32(q[check]) @ unit32(c).T - sims64).max())
+
+    def unit(x):
+        x = torch.as_tensor(x, device=device)
+        norms = torch.linalg.vector_norm(x, dim=1, keepdim=True)
+        return x / torch.where(norms == 0, torch.ones_like(norms), norms)
+
+    qd, cd = unit(q), unit(c)
+    got = torch.cat([(qd[i:i + QUERY_CHUNK] @ cd.T) for i in range(
+        0, len(qd), QUERY_CHUNK)])[torch.as_tensor(check, device=device)]
+    dev = float(np.abs(got.double().cpu().numpy() - sims64).max())
+    return dict(host=host, device=dev)
+
+
+def check_window(mined, sims, corpus, positives, rank_lo: int, rank_hi: int,
+                 k: int, search_k: int, tol: float = DATA_SIM_TOL) -> dict:
+    """Phase 11 (c), rank window: for each sampled query (its row of
+    ``sims``, the host's f64 similarities to every corpus text), the host
+    takes the reference's selection (top ``search_k`` in order, ranks
+    [rank_lo, rank_hi), the positive's text skipped, the first k); every
+    mined id's host similarity must equal the host selection's at the same
+    rank within ``tol`` (ties near in f32 may swap ids), and no mined id
+    may be the positive's text or repeat. Also returns how far the host's
+    similarities move when the window starts one rank later (the largest
+    such move the hold would see)."""
+    worst, shifted, n = 0.0, 0.0, 0
+
+    def select(order, pos, lo, hi):
+        return [int(j) for j in order[lo:hi] if corpus[j] != pos][:k]
+
+    for got, row, pos in zip(mined, sims, positives):
+        order = np.argsort(-row, kind="stable")[:min(search_k + 1, len(row))]
+        want = select(order[:search_k], pos, rank_lo, rank_hi)
+        later = select(order, pos, rank_lo + 1, rank_hi + 1)
+        if len(got) != len(want) or len(set(got)) != len(got):
+            raise SystemExit(f"mining: the rank window gave {len(got)} ids "
+                             f"(distinct {len(set(got))}), the host "
+                             f"{len(want)}")
+        if any(corpus[j] == pos for j in got):
+            raise SystemExit("mining: a mined negative is the positive")
+        if got:
+            worst = max(worst, float(np.abs(row[got] - row[want]).max()))
+        m = min(len(want), len(later))
+        if m:
+            shifted = max(shifted, float(np.abs(row[want[:m]]
+                                                - row[later[:m]]).max()))
+        n += len(got)
+    if worst > tol:
+        raise SystemExit(f"mining: a mined similarity differs from the "
+                         f"host's at its rank by {worst:.3e} > {tol:.3e}")
+    return dict(ids=n, max_sim_diff=worst, tol=tol, one_rank_later=shifted)
+
+
+def check_band(mined, sims, lo: float, hi: float, k: int,
+               tol: float = DATA_SIM_TOL) -> dict:
+    """Phase 11 (c), band: every mined id's host similarity lies in [lo,
+    hi] within ``tol``, each list runs in descending host similarity
+    within ``tol``, and holds min(in band, k) ids, where an id whose host
+    similarity lies within ``tol`` of lo or hi may count as in the band
+    or not."""
+    n = 0
+    for got, row in zip(mined, sims):
+        s = row[got]
+        sure = int(((row >= lo + tol) & (row <= hi - tol)).sum())
+        maybe = int(((row >= lo - tol) & (row <= hi + tol)).sum())
+        if (np.any(s < lo - tol) or np.any(s > hi + tol)
+                or np.any(np.diff(s) > tol)
+                or len(set(got)) != len(got)
+                or not min(sure, k) <= len(got) <= min(maybe, k)):
+            raise SystemExit(f"mining: band ids {got} with host similarities"
+                             f" {s.tolist()} against [{lo}, {hi}] ({sure} to "
+                             f"{maybe} in the band, k {k})")
+        n += len(got)
+    return dict(ids=n, lo=lo, hi=hi, tol=tol)
+
+
+def mining_pass(torch, miner, adapter, queries, corpus, positives, check,
+                mine: dict, sync, tol=None) -> dict:
+    """Phase 11 (c), one pass of ``EncoderHardNegativeMiner``: the rank
+    window, then the band (the 50th-90th percentiles of the sampled
+    queries' positive host similarities) over the same texts, held on the
+    sampled queries ``check`` against the host's f64 similarities from the
+    embeddings the kernel produced. ``tol`` None: ``DATA_F32_FACTOR``
+    times the larger f32 error of ``f32_error`` (a mined id and the host's
+    at one rank each lie within that error of the rank's f32 value)."""
+    nq, nc = len(queries), len(corpus)
+    encode0 = adapter.seconds
+    t0 = time.perf_counter()
+    window = miner.mine_rank_window(
+        queries, corpus, positives, rank_lo=mine["rank_lo"],
+        rank_hi=mine["rank_hi"], k=mine["k"], search_k=mine["search_k"])
+    sync()
+    window_s = time.perf_counter() - t0
+    q_raw, c_raw = adapter.take(nq), adapter.take(nc)
+    nonzeros = dict(queries=float((q_raw > 0).sum(1).mean()),
+                    positives=float((c_raw > 0).sum(1).mean()))
+    t0 = time.perf_counter()
+    sims = unit_rows64(q_raw[check]) @ unit_rows64(c_raw).T
+    host_s = time.perf_counter() - t0
+    err = f32_error(torch, q_raw, c_raw, check, sims, str(miner.device))
+    del q_raw, c_raw
+    if tol is None:
+        tol = DATA_F32_FACTOR * max(err.values())
+    held_window = check_window(
+        [window[i] for i in check], sims, corpus,
+        [positives[i] for i in check], mine["rank_lo"], mine["rank_hi"],
+        mine["k"], mine["search_k"], tol)
+    lo, hi = (float(x) for x in np.percentile(sims[sims > 0], [50.0, 90.0]))
+    t0 = time.perf_counter()
+    band = miner.mine_band(queries, corpus, min_score=lo, max_score=hi,
+                           k=mine["k"])
+    sync()
+    band_s = time.perf_counter() - t0
+    adapter.rows.clear()
+    held_band = check_band([band[i] for i in check], sims, lo, hi, mine["k"],
+                           tol)
+    encode_s = adapter.seconds - encode0
+    top = np.sort(sims, axis=1)[:, ::-1][:, :mine["search_k"]]
+    return dict(nonzeros=nonzeros, encode_s=encode_s,
+                search_s=window_s + band_s - encode_s, window_s=window_s,
+                band_s=band_s, host_s=host_s, f32_err=err, tol=tol,
+                window=held_window, band=held_band,
+                median=float(np.median(sims)),
+                zero=float((sims == 0).mean()),
+                top=(float(top[:, -1].mean()), float(top[:, 0].mean())))
+
+
+def independent_idf(texts, tok, vocab: int, mode: str) -> tuple:
+    """Phase 11 (d)'s reference: the document frequencies from a numpy
+    ``unique`` of each document's ids, then the reference's smoothing."""
+    df = np.zeros(vocab, np.int64)
+    for text in texts:
+        ids = np.asarray(tok(text, add_special_tokens=False)["input_ids"],
+                         np.int64)
+        ids = np.unique(ids)
+        df += np.bincount(ids[(ids >= 0) & (ids < vocab)], minlength=vocab)
+    n = len(texts)
+    if mode == "bm25":
+        idf = np.log(1.0 + (n - df + 0.5) / (df + 0.5))
+    else:
+        idf = np.log(n / (df + 1.0))
+    return idf.astype(np.float32), n, int((df > 0).sum())
+
+
+def check_idf(got, meta, texts, tok, vocab: int, mode: str) -> dict:
+    want, n, nonzero = independent_idf(texts, tok, vocab, mode)
+    if not (got.dtype == want.dtype and np.array_equal(got, want)
+            and meta["num_docs"] == n and meta["df_nonzero"] == nonzero
+            and meta["mode"] == mode and meta["vocab_size"] == vocab):
+        diff = int((got != want).sum()) if got.shape == want.shape else -1
+        raise SystemExit(f"idf ({mode}): {diff} ids differ from the "
+                         f"independent count ({meta} vs {n} documents, "
+                         f"{nonzero} terms)")
+    return dict(num_docs=n, df_nonzero=nonzero)
+
+
+def ig_pairs(rng, n: int, d: int, rank: int = 8, group: int = 4,
+             spread: float = 0.1):
+    """Phase 11 (e)'s pairs: seeded Gaussian embeddings in groups of
+    ``group`` (synonym groups) around N(0, 3^2) centres of a ``rank``-dim
+    subspace of R^d. The first half's targets copy their sources up to
+    N(0, 0.01^2) in all d dims (trivial); the second half's are drawn the
+    same way, independently of their sources, and shuffled. The estimator
+    predicts a target from the targets of its source's nearest sources, so
+    a trivial pair is visible as one where its group-mates are trivial
+    too."""
+    basis = np.linalg.qr(rng.normal(size=(d, rank)))[0].T
+
+    def draw(m):
+        centres = rng.normal(scale=3.0, size=(m // group, rank))
+        return (np.repeat(centres, group, axis=0)
+                + rng.normal(scale=spread, size=(m, rank))) @ basis
+
+    src = draw(n)
+    half = n // 2
+    tgt = src + rng.normal(scale=0.01, size=(n, d))
+    tgt[half:] = draw(n - half)[rng.permutation(n - half)]
+    return src, tgt
+
+
+def check_ig(res_dev, res_cpu, ent_dev, ent_cpu, trivial: int,
+             rtol: float = DATA_IG_RTOL) -> dict:
+    """Phase 11 (e): the entropies on the device within ``rtol`` of the
+    same functions on the CPU; the gains too (of the largest); the same
+    keep/drop decisions but for pairs within ``rtol`` of the threshold; the
+    first ``trivial`` pairs (the planted trivial ones) all dropped and the
+    others kept."""
+    ent_err = max(abs(a - b) / max(abs(b), 1e-300)
+                  for a, b in zip(ent_dev, ent_cpu))
+    g_dev = np.asarray([r.information_gain for r in res_dev])
+    g_cpu = np.asarray([r.information_gain for r in res_cpu])
+    scale = float(np.abs(g_cpu).max())
+    gain_err = float(np.abs(g_dev - g_cpu).max()) / scale
+    thr = float(np.percentile(g_cpu, 50.0))
+    near = np.abs(g_cpu - thr) <= rtol * scale
+    differ = sum(1 for a, b, x in zip(res_dev, res_cpu, near)
+                 if a.keep != b.keep and not x)
+    keep = [r.keep for r in res_dev]
+    trivial_kept = sum(keep[:trivial])
+    other_dropped = sum(not x for x in keep[trivial:])
+    out = dict(entropy_rel_err=ent_err, gain_rel_err=gain_err,
+               decisions_differ=differ, near_threshold=int(near.sum()),
+               trivial_kept=trivial_kept, independent_dropped=other_dropped)
+    if (ent_err > rtol or gain_err > rtol or differ or trivial_kept
+            or other_dropped):
+        raise SystemExit(f"information gain: {out}")
+    return out
+
+
+def data_phase(torch, model, tok, rng, workdir, card: str,
+               device: str = "cuda", n_raw: int = DATA_RAW, mine=None,
+               ig=None, terms=None, sparse_nnz=(BENCH_DOC_NNZ,
+                                                BENCH_QUERY_NNZ),
+               recipe=None, model_config=None,
+               model_over=None, train_steps: int = 3,
+               timeout_s: float = DP_TIMEOUT_S) -> dict:
+    """Phase 11: the offline data tier from raw drops to V33 training (see
+    the module's docstring). ``model``: phase 3's seeded encoder (bf16,
+    the pool kernel), its decoder bias shifted by ``sparsify`` for (c) and
+    put back; the sizes, nonzeros, recipe and model config: the CPU
+    rehearsal's smaller ones."""
+    import shutil
+
+    from splade_tpu_torch.benchmark.encoders import SparseEncoderV33
+    from splade_tpu_torch.information_gain import (InformationGainFilter,
+                                                   _pairwise_sq_dists,
+                                                   kl_entropy)
+    from splade_tpu_torch.pmi import (CooccurrenceBuilder, PMICalculator,
+                                      PPMICalculator, SynonymValidator)
+    from splade_tpu_torch.pmi.cooccurrence import (default_tokenizer,
+                                                   split_sentences)
+    from splade_tpu_torch.preprocessing import (PipelineConfig,
+                                                PreprocessingPipeline)
+    from splade_tpu_torch.preprocessing import term_pairs
+    from splade_tpu_torch.preprocessing.miners import (
+        EncoderHardNegativeMiner, TfidfHardNegativeMiner)
+    from splade_tpu_torch.utils.idf import compute_idf, load_idf, triplet_texts
+
+    mine = mine or DATA_MINE
+    ig = ig or DATA_IG
+    terms = terms or DATA_TERMS
+    recipe = recipe or v33_recipe()
+    if model_config is None:
+        from splade_tpu_torch.models.modernbert import ModernBertConfig
+
+        model_config = ModernBertConfig(remat=True)
+    on_card = device.startswith("cuda")
+    sync = torch.cuda.synchronize if on_card else (lambda: None)
+    t_phase = time.perf_counter()
+    workdir = Path(workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+    workdir.mkdir(parents=True)
+    result = {}
+
+    # (a) the raw drop
+    t0 = time.perf_counter()
+    drop = write_raw_drop(rng, workdir / "raw", n_raw, terms)
+    log(f"  (a) {n_raw} raw samples written as local drops "
+        f"{drop['written']} with {len(drop['exact_keys'])} exact and "
+        f"{drop['near']} near duplicates and {drop['junk']} English-only "
+        f"rows planted, in {time.perf_counter() - t0:.1f} s (cut from the "
+        "reference's 4.84M triplets out of nine datasets, which a smoke "
+        "run has no time for)")
+
+    # (b) the pipeline
+    cfg = PipelineConfig(output_dir=str(workdir / "processed"),
+                         datasets=sorted(DATA_SOURCES),
+                         shard_size=DATA_SHARD_SIZE)
+    pipe = PreprocessingPipeline(cfg, miner=TfidfHardNegativeMiner(top_k=1))
+    stages = timed_stages(pipe)
+    with mock.patch.dict(os.environ, SPLADE_RAW_DATA=str(workdir / "raw")):
+        meta = pipe.run()
+    keys = ("raw_samples", "converted", "after_clean", "after_dedup",
+            "with_negative", "train", "val")
+    log(f"  (b) pipeline: " + ", ".join(f"{k} {meta[k]}" for k in keys)
+        + f", {len(meta['shards'])} shards; seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in stages.items())
+        + f" (run {meta['elapsed_sec']} s)")
+    out_dir = workdir / "processed"
+    held, rows = check_pipeline_output(out_dir, meta, tok,
+                                       drop["exact_keys"])
+    if meta["raw_samples"] != n_raw:
+        raise SystemExit(f"pipeline: collected {meta['raw_samples']} of "
+                         f"{n_raw} raw samples")
+    result["pipeline"] = dict(
+        {k: meta[k] for k in keys}, shards=len(meta["shards"]),
+        stage_s=stages, elapsed_s=meta["elapsed_sec"],
+        near_dropped=meta["after_clean"] - meta["after_dedup"]
+        - len(drop["exact_keys"]), held=held)
+
+    # (c) encoder mining through the pool forward kernel, twice: on vectors
+    # as sparse as a trained model's (phase 8's decoder-bias shift), where
+    # similarities spread and the hold is DATA_SIM_TOL, and on the dense
+    # vectors of random weights, crowded as a dense teacher's, where two
+    # ranks lie within the f32 error and the hold is that error's bound
+    nq, nc = mine["queries"], mine["corpus"]
+    if len(rows) < nc:
+        raise SystemExit(f"mining: {len(rows)} rows, fewer than {nc}")
+    corpus = [r["positive"] for r in rows[:nc]]
+    queries = [r["query"] for r in rows[:nq]]
+    positives = corpus[:nq]
+    check = rng.choice(nq, mine["check"], replace=False)
+    bias = model.mlm.decoder.bias.detach().clone()
+    enc = SparseEncoderV33(model, tok, device=device)
+    adapter = MiningAdapter(torch, enc, mine["max_length"])
+    miner = EncoderHardNegativeMiner(adapter, device=device)
+    passes = {}
+    try:
+        shift, _ = sparsify(torch, model, tok, corpus[:64], queries[:64],
+                            device, *sparse_nnz)
+        # the pool forward against its plain version at mining's shape
+        encode_diff = compare_doc_encode(torch, enc, model, corpus[:512],
+                                         mine["max_length"],
+                                         miner.batch_size, "mining")
+        _reset_launch_counts()
+        passes["sparse"] = mining_pass(torch, miner, adapter, queries,
+                                       corpus, positives, check, mine, sync,
+                                       DATA_SIM_TOL)
+    finally:
+        with torch.no_grad():
+            model.mlm.decoder.bias.copy_(bias)
+    passes["dense"] = mining_pass(torch, miner, adapter, queries, corpus,
+                                  positives, check, mine, sync)
+    launches = _launch_counts()["fused_splade_pool"]
+    batches = 4 * (-(-nq // miner.batch_size) + -(-nc // miner.batch_size))
+    want = batches if on_card else 0
+    for kind, p in passes.items():
+        log(f"  (c) encoder mining, {kind} vectors"
+            + (f" (decoder bias -{shift:.4f})" if kind == "sparse" else "")
+            + f", {nq} queries against {nc} positives at S = "
+            f"{mine['max_length']}: {p['nonzeros']['positives']:.1f} / "
+            f"{p['nonzeros']['queries']:.1f} nonzeros a positive / query; "
+            f"sampled similarities: median {p['median']:.4f}, zero "
+            f"{p['zero']:.1%}, top {mine['search_k']} from {p['top'][0]:.4f}"
+            f" to {p['top'][1]:.4f} (means) (rank window "
+            f"[{mine['rank_lo']}, {mine['rank_hi']}) k {mine['k']} of the "
+            f"top {mine['search_k']}; band [{p['band']['lo']:.6f}, "
+            f"{p['band']['hi']:.6f}], the 50th-90th percentiles of the "
+            f"sampled queries' positive similarities): encode "
+            f"{p['encode_s']:.2f} s ({2 * (nq + nc) / p['encode_s']:.1f} "
+            f"texts/s), search {p['search_s']:.2f} s, host f64 "
+            f"recomputation {p['host_s']:.2f} s; f32 error of the product "
+            f"{p['f32_err']['device']:.3e} on the device, "
+            f"{p['f32_err']['host']:.3e} on the host; held on "
+            f"{mine['check']} sampled queries: window similarities within "
+            f"{p['window']['max_sim_diff']:.3e} of the host's (tol "
+            f"{p['tol']:.3e}; a window one rank later would differ by up to "
+            f"{p['window']['one_rank_later']:.3e}), no positive, band ids "
+            "in the band")
+    log(f"  (c) pool forward launches {launches} (expected {want}, one an "
+        f"encode batch)")
+    if launches != want:
+        raise SystemExit(f"mining: {launches} pool forward launches, "
+                         f"expected {want}")
+    encode_s = sum(p["encode_s"] for p in passes.values())
+    result["mining"] = dict(queries=nq, corpus=nc, texts=adapter.texts,
+                            bias_shift=shift, encode_diff=encode_diff,
+                            encode_s=encode_s,
+                            texts_per_s=adapter.texts / encode_s,
+                            launches=launches, corpus_gb=nc * V * 4 / 1e9,
+                            **passes)
+    del miner, adapter, enc
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # (d) corpus IDF, both modes, and the tool's file layout
+    t0 = time.perf_counter()
+    shards = [str(out_dir / s) for s in meta["shards"]]
+    texts = triplet_texts(shards)
+    result["idf"] = {}
+    for mode in ("bm25", "standard"):
+        idf, idf_meta = compute_idf(texts, tok, V, mode)
+        held_idf = check_idf(idf, idf_meta, texts, tok, V, mode)
+        prefix = str(workdir / f"idf_{mode}")
+        idf.astype("<f4").tofile(prefix + ".bin")
+        Path(prefix + ".json").write_text(json.dumps(idf_meta))
+        back, back_meta = load_idf(prefix)
+        if not (np.array_equal(back, idf) and back_meta == idf_meta):
+            raise SystemExit(f"idf ({mode}): the .bin/.json round trip "
+                             "differs")
+        result["idf"][mode] = held_idf
+    idf_s = time.perf_counter() - t0
+    log(f"  (d) IDF over {len(texts)} texts of the train shards, bm25 and "
+        f"standard: bitwise the independent count and through "
+        f"<prefix>.bin/.json and load_idf ({held_idf['df_nonzero']} terms "
+        f"seen), {idf_s:.2f} s")
+    result["idf"]["seconds"] = idf_s
+
+    # (e) PMI over the pipeline's positives, term pairs from a local cache
+    t0 = time.perf_counter()
+    docs = [r["positive"] for r in rows]
+    cooc = CooccurrenceBuilder(window="sentence", min_count=2).build(docs)
+    calc = PMICalculator(cooc, smoothing=1.0 / len(cooc.vocab))
+    pmi_m, ppmi_m = calc.pmi_matrix(), PPMICalculator(
+        cooc, smoothing=1.0 / len(cooc.vocab)).pmi_matrix()
+    cache = write_term_cache(workdir / "terms", drop["pairs"], terms)
+
+    def refuse(*a, **k):
+        raise SystemExit("term pairs: a collector reached for the network "
+                         "with a local cache")
+
+    with mock.patch.dict(os.environ,
+                         SPLADE_TERM_DATA=str(workdir / "terms")):
+        collected = (term_pairs.collect_muse(refuse)
+                     + term_pairs.collect_wikidata(refuse)
+                     + term_pairs.collect_wikipedia(refuse))
+    unique, rejected = term_pairs.filter_and_deduplicate(collected)
+    validator = SynonymValidator(calc, threshold=0.0)
+    results = validator.validate([(p["ko"], p["en"]) for p in unique])
+    n_plant, n_apart = terms["planted"], terms["apart"]
+    by_pair = {(r.source, r.target): r for r in results}
+    planted = [by_pair[p] for p in drop["pairs"][:n_plant]]
+    apart = [by_pair[p] for p in drop["pairs"][n_plant:n_plant + n_apart]]
+    oov = [by_pair[p] for p in drop["pairs"][n_plant + n_apart:]]
+    # the co-occurrence counts of the term pairs against a direct scan
+    windows = [set(default_tokenizer(s)) for d in docs
+               for s in split_sentences(d)]
+    counts_ok = all(
+        cooc.count(a, b) == sum(1 for w in windows if a in w and b in w)
+        for a, b in drop["pairs"][:n_plant + n_apart]
+        if a in cooc.vocab and b in cooc.vocab)
+    pmi_s = time.perf_counter() - t0
+    report = validator.report(results, str(workdir / "synonyms.md"))
+    log(f"  (e) PMI: vocabulary {len(cooc.vocab)}, {cooc.total_windows} "
+        f"windows, {pmi_m.nnz} observed pairs (PPMI "
+        f"{int((ppmi_m.data > 0).sum())} positive), smoothing 1/V; term pairs from the local cache "
+        f"{cache} -> {len(collected)} collected, {len(unique)} after the "
+        f"filter; valid: planted {sum(r.valid for r in planted)} of "
+        f"{n_plant}, apart {sum(r.valid for r in apart)} of {n_apart}, OOV "
+        f"{sum(r.valid for r in oov)} of {len(oov)}; counts against a "
+        f"direct scan equal: {counts_ok}; {pmi_s:.2f} s")
+    if not (len(unique) == len(drop["pairs"]) and counts_ok
+            and all(r.valid for r in planted)
+            and not any(r.valid for r in apart)
+            and all(r.reason == "oov_rejected" for r in oov)
+            and "Synonym validation" in report):
+        raise SystemExit(f"PMI: the term pairs fail a hold ({rejected})")
+    result["pmi"] = dict(vocab=len(cooc.vocab), windows=cooc.total_windows,
+                         pairs=int(pmi_m.nnz), collected=len(collected),
+                         unique=len(unique), stats=validator.stats(results),
+                         seconds=pmi_s)
+
+    # (e) information gain on the device against the CPU
+    src, tgt = ig_pairs(rng, ig["n"], ig["d"])
+    names = [(f"s{i}", f"t{i}") for i in range(ig["n"])]
+    t0 = time.perf_counter()
+    filt = InformationGainFilter(k=3, percentile=50.0, device=device)
+    res_dev = filt.filter_pairs(names, src, tgt)
+    sync()
+    ig_s = time.perf_counter() - t0
+    ent_dev = [kl_entropy(x, 3, device=device) for x in (src, tgt)]
+    t0 = time.perf_counter()
+    res_cpu = InformationGainFilter(k=3, percentile=50.0,
+                                    device="cpu").filter_pairs(names, src,
+                                                               tgt)
+    ig_cpu_s = time.perf_counter() - t0
+    ent_cpu = [kl_entropy(x, 3, device="cpu") for x in (src, tgt)]
+    held_ig = check_ig(res_dev, res_cpu, ent_dev, ent_cpu, ig["n"] // 2)
+    step_ms = None
+    if on_card:
+        x = torch.as_tensor(tgt, dtype=torch.float64, device=device)
+        step_ms = cuda_ms(torch, lambda: _pairwise_sq_dists(x), iters=5)
+        del x
+    log(f"  (e) information gain, n {ig['n']} d {ig['d']} (f64): "
+        f"entropies {ent_dev[0]:.6f} / {ent_dev[1]:.6f} nats, within "
+        f"{held_ig['entropy_rel_err']:.2e} of the CPU's, gains within "
+        f"{held_ig['gain_rel_err']:.2e}; the planted trivial half dropped, "
+        f"the independent half kept; the filter {ig_s * 1e3:.1f} ms here, "
+        f"{ig_cpu_s * 1e3:.1f} ms on the CPU; the [n, n] distances "
+        + (f"{step_ms:.3f} ms (CUDA events)" if step_ms is not None
+           else "not timed off the card"))
+    result["information_gain"] = dict(held_ig, n=ig["n"], d=ig["d"],
+                                      entropies=ent_dev, filter_ms=ig_s * 1e3,
+                                      cpu_filter_ms=ig_cpu_s * 1e3,
+                                      pairwise_ms=step_ms)
+
+    # (f) V33 training through the CLI on the shards the pipeline wrote
+    result["train"] = data_train(torch, workdir / "train", out_dir, meta,
+                                 recipe, model_config, device, model_over,
+                                 train_steps, timeout_s)
+    result["launches"] = dict(mining=launches,
+                              train=result["train"]["launches"])
+    result["seconds"] = time.perf_counter() - t_phase
+    log(f"  {card}: phase 11 in {result['seconds']:.1f} s")
+    shutil.rmtree(workdir, ignore_errors=True)
+    return result
+
+
+LOADED = re.compile(r"loaded (\d+) triplets from (\d+) files")
+
+
+def data_train(torch, workdir: Path, out_dir: Path, meta: dict, recipe: dict,
+               model_config, device: str, model_over, steps: int,
+               timeout_s: float) -> dict:
+    """Phase 11 (f): ``python -m splade_tpu_torch.train v33`` (through
+    ``--cli``: the stand-in tokenizer) as one process on the recipe with
+    ``train_files`` the pipeline's ``train_shard_*.jsonl``, ``steps``
+    steps. Held: the loader read every train row the pipeline wrote, the
+    losses are finite, the launches are the ones the code implies."""
+    workdir.mkdir(parents=True)
+    cfg = json.loads(json.dumps(recipe))
+    cfg["data"].update(train_files=[str(out_dir / "train_shard_*.jsonl")],
+                       val_files=[])
+    cfg["training"].update(log_every_n_steps=1, max_steps=steps)
+    (workdir / "config.json").write_text(json.dumps(cfg))
+    cmd = [sys.executable, str(Path(__file__).resolve()), "--cli"] + (
+        ["--model-config", json.dumps(model_over)] if model_over else []) + [
+        "v33", "--config", str(workdir / "config.json"), "--output-dir",
+        str(workdir / "run")] + (["--device", "cpu"] if device == "cpu"
+                                 else [])
+    t0 = time.perf_counter()
+    text = run_processes("V33 CLI on the pipeline's shards", [cmd],
+                         [repo_env()], [workdir / "cli.log"], timeout_s)[0]
+    seconds = time.perf_counter() - t0
+    records = [json.loads(line) for line in
+               (workdir / "run" / "metrics.jsonl").read_text().splitlines()]
+    launches = json.loads([line for line in text.splitlines()
+                           if line.startswith("LAUNCHES ")][-1][9:])
+    loaded = LOADED.search((workdir / "run" / "training.log").read_text())
+    accum = cfg["training"]["gradient_accumulation_steps"]
+    want = launches_on(device, expected_launches(model_config, accum, steps,
+                                                 2))
+    losses = [r["loss"] for r in records]
+    rows = int(loaded.group(1)) if loaded else None
+    log(f"  (f) V33 CLI on the pipeline's {len(meta['shards'])} train "
+        f"shards: the loader read {rows} rows of {meta['train']}; {steps} "
+        f"steps, losses {losses}; {seconds:.1f} s")
+    hold_launches("V33 CLI on the pipeline's shards", launches, want)
+    if rows != meta["train"] or len(records) != steps or not all(
+            np.isfinite(x) for x in losses):
+        raise SystemExit("V33 CLI on the pipeline's shards: the loader read "
+                         f"{rows} rows of {meta['train']}, or the losses "
+                         f"{losses} are not {steps} finite ones")
+    return dict(rows=rows, losses=losses, launches=launches,
+                seconds=seconds)
+
+
+def data_main(seed: int = 0) -> dict:
+    """Phase 11 alone on the card: the kernels built, phase 3's seeded
+    22L/768/50K encoder, the stand-in tokenizer, ``data_phase``."""
+    import torch
+
+    from splade_tpu_torch.models.modernbert import ModernBertConfig
+    from splade_tpu_torch.models.splade import SpladeEncoder
+    from splade_tpu_torch.ops import _cuda
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+    log(card)
+    _cuda.library()
+    model = SpladeEncoder(ModernBertConfig(), pool_impl="kernel",
+                          device="cuda").init_weights(seed)
+    model = model.to(torch.bfloat16).eval()
+    out = data_phase(torch, model, CharTokenizer(),
+                     np.random.default_rng([seed, 12]),
+                     Path(__file__).resolve().parent / "build"
+                     / "chip_smoke_data", card)
+    log(json.dumps({"data_phase11": out}))
+    return out
+
+
 def cli_entry(argv) -> int:
     """``python chip_smoke.py --cli [--model-config JSON]
     {v33,mlm,bench,export,serve} ARGS``: the port's training CLI (``python
@@ -5737,9 +6641,27 @@ def main() -> int:
         torch, mesh_model, tok, syn_terms, syn_vals, pool_docs, dense_docs,
         queries, Path(__file__).resolve().parent / "build"
         / "chip_smoke_mesh", card, ["cuda:0"] * MESH_SHARDS)
-    del mesh_model
     torch.cuda.empty_cache()
     log(f"[10] done in {mesh10['seconds']:.1f} s")
+
+    # ---- 11. the offline data tier feeding V33 training
+    log(f"[11] the offline data tier: {DATA_RAW} raw samples -> the "
+        "preprocessing pipeline -> encoder mining through the pool forward "
+        "-> IDF, PMI, information gain -> the V33 CLI on the pipeline's "
+        "shards; phase 3's seeded 22L/768/50K model")
+    data11 = data_phase(torch, mesh_model, tok,
+                        np.random.default_rng([args.seed, 12]),
+                        Path(__file__).resolve().parent / "build"
+                        / "chip_smoke_data", card)
+    del mesh_model
+    torch.cuda.empty_cache()
+    log(f"[11] done in {data11['seconds']:.1f} s")
+    data_by_path = {
+        name: {"data tier, V33 CLI (phase 11)": data11["train"]["launches"][
+            name]} for name in ("fused_splade_pool", "fused_splade_bwd_match",
+                                "fused_splade_bwd_dh", "fused_splade_bwd_dw")}
+    data_by_path["fused_splade_pool"]["data tier, encoder mining (phase 11)"] = (
+        data11["launches"]["mining"])
     mesh_by_path = {
         name: {f"mesh {kind} (phase 10)": mesh10[kind]["launches"][name]
                for kind in ("postings", "tiered", "cluster", "dense")}
@@ -5786,7 +6708,8 @@ def main() -> int:
                     for path, got in dp_launches.items()},
                  **bench_by_path["fused_splade_pool"],
                  **serve9_by_path["fused_splade_pool"],
-                 **mesh_by_path["fused_splade_pool"]},
+                 **mesh_by_path["fused_splade_pool"],
+                 **data_by_path["fused_splade_pool"]},
              **{k: pool_d[k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by",
                                        "library_ms")},
@@ -5829,7 +6752,8 @@ def main() -> int:
             launches=train_launches[name],
             launches_by_path={"training": train_launches[name],
                               **{path: got[name]
-                                 for path, got in dp_launches.items()}},
+                                 for path, got in dp_launches.items()},
+                              **data_by_path[name]},
             **{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms",
                                          "bound_ms", "bound_by",
                                          "library_ms")},
@@ -5917,6 +6841,8 @@ def main() -> int:
     log(json.dumps({"serving_phase9": serving9,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"mesh_phase10": mesh10,
+                    "seconds": time.perf_counter() - t_start}))
+    log(json.dumps({"data_phase11": data11,
                     "seconds": time.perf_counter() - t_start}))
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Text helpers: the k -> tier quantizer shared by the serving engine and
-the postings index, and the Hangul test of the BM25 analyzers
-(counterparts of ``splade_tpu/utils/text.py::quantize_to_tier`` and
-``::is_hangul_char``)."""
+the postings index, and the Hangul tests of the BM25 analyzers and the
+offline data tier (counterparts of ``splade_tpu/utils/text.py``'s
+``quantize_to_tier``, ``is_hangul_char``, ``contains_hangul`` and
+``hangul_count``)."""
 
 from __future__ import annotations
 
@@ -15,6 +16,14 @@ def is_hangul_char(ch: str, include_jamo: bool = False) -> bool:
     if "가" <= ch <= "힣":
         return True
     return include_jamo and "ᄀ" <= ch <= "ᇿ"
+
+
+def contains_hangul(text: str, include_jamo: bool = False) -> bool:
+    return any(is_hangul_char(c, include_jamo) for c in text)
+
+
+def hangul_count(text: str, include_jamo: bool = False) -> int:
+    return sum(1 for c in text if is_hangul_char(c, include_jamo))
 
 
 def quantize_to_tier(k: int, tiers: Sequence[int],

@@ -42,7 +42,12 @@ shards) runs at a tiny size, and fails a merge that forgets the shard
 offset, a cluster merge without ``require_positive`` (a pad document comes
 back) and a shard search that does not enter its shard's card (on CPU
 tensors that claim to be CUDA ones, with a stand-in for
-``torch.cuda.device``)."""
+``torch.cuda.device``). Phase 11 (the offline data tier from raw drops
+through the pipeline, the miners, IDF, PMI and information gain to a V33
+CLI step on the pipeline's shards) runs at a tiny size, and fails a miner
+whose rank window is off by one, an information-gain filter that keeps the
+planted trivial pairs and an IDF that counts a document twice; at its
+committed size the pipeline keeps the rows phase 11's miner needs."""
 
 import dataclasses
 import json
@@ -2192,6 +2197,179 @@ def test_shard_device_check_catches_a_search_outside_its_card(
                                 torch.from_numpy(qv))
     assert out["entered"] == ["cuda:0", "cuda:1"]
     assert out["rescores"] == (0 if kind == "dense" else 2)
+
+
+# ------------------------------------------------------------ phase 11
+DATA_MINE = dict(queries=32, corpus=256, check=16, rank_lo=2, rank_hi=20,
+                 k=5, search_k=30, max_length=64)
+DATA_TERMS = dict(planted=6, apart=4, oov=4, contexts=5)
+DATA_OVER = dict(vocab_size=VOCAB, hidden_size=64, intermediate_size=96,
+                 num_hidden_layers=1, num_attention_heads=4,
+                 local_attention=8)
+
+
+def _data_phase(root: Path):
+    """Phase 11 at a tiny size on the CPU: 400 raw samples, 32 queries
+    against 256 positives, the tiny model (the CLI's one layer), 400
+    information-gain pairs at d = 768, one train step."""
+    cs = _load_chip_smoke()
+    cfg = dataclasses.replace(ModernBertConfig.tiny(), vocab_size=VOCAB)
+    model = SpladeEncoder(cfg, pool_impl="kernel",
+                          device="cpu").init_weights(0).eval()
+    return cs.data_phase(
+        torch, model, cs.CharTokenizer(), np.random.default_rng(0), root,
+        "cpu", device="cpu", n_raw=400, mine=DATA_MINE,
+        ig=dict(n=400, d=768), terms=DATA_TERMS, sparse_nnz=(64, 8),
+        recipe=_tiny_recipe(cs),
+        model_config=ModernBertConfig(**DATA_OVER, remat=True),
+        model_over=DATA_OVER, train_steps=1, timeout_s=150)
+
+
+@pytest.fixture(scope="module")
+def data_run(tmp_path_factory):
+    return _data_phase(tmp_path_factory.mktemp("data") / "w")
+
+
+def test_data_phase_runs_on_the_cpu(data_run):
+    out = data_run
+    pipe = out["pipeline"]
+    assert pipe["raw_samples"] == 400 and pipe["converted"] < 400
+    assert pipe["after_clean"] == pipe["converted"] - 8  # English-only rows
+    # the 20 planted exact and 20 near duplicates go
+    assert pipe["after_clean"] - pipe["after_dedup"] == 40
+    assert pipe["with_negative"] == pipe["after_dedup"]
+    assert set(pipe["stage_s"]) == {"collect", "convert", "clean", "dedup",
+                                    "mine", "shard"}
+    held = pipe["held"]
+    assert held["planted_exact"] == 20 and held["rows"] == pipe["after_dedup"]
+    mining = out["mining"]
+    assert mining["texts"] == 4 * (32 + 256) and mining["launches"] == 0
+    # the pool forward held against its plain version at mining's shape
+    assert 0 <= mining["encode_diff"] <= _load_chip_smoke().SERVE_RTOL
+    for kind in ("sparse", "dense"):
+        run = mining[kind]
+        assert run["window"]["ids"] == 16 * 5 and run["band"]["ids"] > 0
+        assert run["window"]["max_sim_diff"] <= run["tol"]
+        assert 0 < run["nonzeros"]["positives"] <= VOCAB
+    assert mining["sparse"]["window"]["max_sim_diff"] <= 1e-6
+    assert mining["sparse"]["tol"] == 1e-5
+    # the dense pass's hold is twice the larger measured f32 error
+    dense = mining["dense"]
+    assert dense["tol"] == 2 * max(dense["f32_err"].values()) > 0
+    assert (mining["sparse"]["nonzeros"]["positives"]
+            < dense["nonzeros"]["positives"])
+    assert set(out["idf"]) == {"bm25", "standard", "seconds"}
+    pmi = out["pmi"]
+    assert pmi["unique"] == 14 and pmi["stats"]["valid"] == 6
+    assert pmi["stats"]["oov"] >= 4  # an apart stem may be rare here
+    ig = out["information_gain"]
+    assert ig["trivial_kept"] == 0 and ig["independent_dropped"] == 0
+    assert ig["pairwise_ms"] is None  # not timed off the card
+    train = out["train"]
+    assert train["rows"] == pipe["train"] and len(train["losses"]) == 1
+    assert set(train["launches"].values()) == {0}  # plain versions here
+
+
+def test_the_full_drop_leaves_the_miners_corpus(tmp_path, monkeypatch):
+    """At phase 11's committed size the pipeline (a host path, the same on
+    the card) keeps more rows than (c)'s 8,192 positives, drops every
+    planted duplicate and fills every missing negative."""
+    from splade_tpu_torch.preprocessing import (PipelineConfig,
+                                                PreprocessingPipeline)
+    from splade_tpu_torch.preprocessing.miners import TfidfHardNegativeMiner
+
+    cs = _load_chip_smoke()
+    drop = cs.write_raw_drop(np.random.default_rng([0, 12]),
+                             tmp_path / "raw", cs.DATA_RAW, cs.DATA_TERMS)
+    assert sum(drop["written"].values()) == cs.DATA_RAW == 10_000
+    monkeypatch.setenv("SPLADE_RAW_DATA", str(tmp_path / "raw"))
+    meta = PreprocessingPipeline(
+        PipelineConfig(output_dir=str(tmp_path / "out"),
+                       datasets=sorted(cs.DATA_SOURCES),
+                       shard_size=cs.DATA_SHARD_SIZE),
+        miner=TfidfHardNegativeMiner(top_k=1)).run()
+    assert meta["after_dedup"] >= cs.DATA_MINE["corpus"] + 100
+    assert meta["after_clean"] - meta["after_dedup"] == 1000
+    assert meta["with_negative"] == meta["after_dedup"]
+    assert len(meta["shards"]) == 5
+
+
+def _window_off_by_one(monkeypatch):
+    from splade_tpu_torch.preprocessing.miners import EncoderHardNegativeMiner
+
+    mine = EncoderHardNegativeMiner.mine_rank_window
+    monkeypatch.setattr(
+        EncoderHardNegativeMiner, "mine_rank_window",
+        lambda self, q, c, p, rank_lo=10, rank_hi=50, **kw: mine(
+            self, q, c, p, rank_lo=rank_lo + 1, rank_hi=rank_hi + 1, **kw))
+
+
+def _ig_keeps_the_trivial_pairs(monkeypatch):
+    from splade_tpu_torch.information_gain import InformationGainFilter
+
+    filter_pairs = InformationGainFilter.filter_pairs
+
+    def keep_all(self, *a, **kw):
+        out = filter_pairs(self, *a, **kw)
+        for r in out:
+            r.keep = True
+        return out
+
+    monkeypatch.setattr(InformationGainFilter, "filter_pairs", keep_all)
+
+
+def _idf_counts_a_document_twice(monkeypatch):
+    from splade_tpu_torch.utils import idf
+
+    compute = idf.compute_idf
+    monkeypatch.setattr(idf, "compute_idf", lambda texts, *a, **kw: compute(
+        list(texts) + list(texts)[:1], *a, **kw))
+
+
+@pytest.mark.parametrize("fault, check", [
+    (_window_off_by_one, "differs from the host's at its rank"),
+    (_ig_keeps_the_trivial_pairs, "information gain"),
+    (_idf_counts_a_document_twice, "differ from the independent count"),
+], ids=["rank_window_off_by_one", "ig_keeps_trivial", "idf_doc_twice"])
+def test_data_phase_catches_a_fault(tmp_path, monkeypatch, fault, check):
+    """Phase 11's holds fail a miner whose rank window is off by one, an
+    information-gain filter that keeps the planted trivial pairs and an
+    IDF that counts a document twice (each fails before (f) trains)."""
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match=check):
+        _data_phase(tmp_path / "w")
+
+
+@pytest.mark.parametrize("fault", [None, "outside", "unsorted", "short",
+                                   "narrow", "narrow_drops_last",
+                                   "narrow_empty", "narrow_edge"])
+def test_band_check_holds_the_band(fault):
+    """The band hold: ids in the band, in order, and min(in band, k) of
+    them, where only an id within tol of an edge may be left out."""
+    cs = _load_chip_smoke()
+    sims = np.linspace(1.0, 0.0, 101)[None, :]
+    lo, hi, k = 0.3, 0.8, 4
+    got = [[20, 21, 22, 23]]  # 0.8 .. 0.77
+    if fault == "outside":
+        got = [[10, 21, 22, 23]]
+    elif fault == "unsorted":
+        got = [[21, 20, 22, 23]]
+    elif fault == "short":
+        got = [[20, 21]]
+    elif fault is not None:
+        # four ids in the band, fewer than k
+        lo, hi, k = 0.765, 0.805, 6
+        got = {"narrow": [[20, 21, 22, 23]],
+               "narrow_drops_last": [[20, 21, 22]],
+               "narrow_empty": [[]],
+               "narrow_edge": [[20, 21, 22]]}[fault]
+        if fault == "narrow_edge":  # 0.77 within tol of lo: may go
+            lo = 0.77 - 5e-6
+    if fault in (None, "narrow", "narrow_edge"):
+        assert cs.check_band(got, sims, lo, hi, k)["ids"] == len(got[0])
+        return
+    with pytest.raises(SystemExit, match="band ids"):
+        cs.check_band(got, sims, lo, hi, k)
 
 
 if __name__ == "__main__":

@@ -1,7 +1,9 @@
 """The port's config loader reads a ``.json`` config as well as YAML: the
 format ``save_config`` writes by default, and the one a machine without
-PyYAML can give the V33 CLI's ``--config``."""
+PyYAML can give the V33 CLI's ``--config``. The legacy (V22-era) knobs of
+``config/legacy.py`` validate as the reference's."""
 
+import dataclasses
 import json
 
 import pytest
@@ -31,3 +33,37 @@ def test_env_and_overrides_apply_over_a_config_file(tmp_path, suffix):
     want["training"]["learning_rate"] = 2e-5
     want["loss"]["lambda_q"] = 0.5
     assert cfg.to_dict() == want
+
+
+LEGACY_CASES = {
+    "defaults": ({}, {}),
+    "bad_batch_and_loss": ({"batch_size": 0},
+                           {"temperature": -1, "lambda_infonce": 0,
+                            "lambda_margin": 0}),
+    "every_problem": ({"batch_size": -1, "learning_rate": 0,
+                       "num_epochs": 0},
+                      {"lambda_self": -1, "lambda_flops": -0.1,
+                       "margin": 3.0, "curriculum_temperature": 0}),
+    "margin_edges": ({}, {"margin": 2.0, "lambda_min_act": 0.0}),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LEGACY_CASES))
+def test_legacy_config_validates_as_the_reference(case):
+    """config/legacy.py is a copy: the same fields and defaults, and
+    validate() lists the same problems in the same order."""
+    from splade_tpu.config import legacy as ref
+    from splade_tpu_torch.config import legacy as port
+
+    train_kw, loss_kw = LEGACY_CASES[case]
+    got, want = [m.LegacyTrainConfig(loss=m.LegacyLossConfig(**loss_kw),
+                                     **train_kw) for m in (port, ref)]
+    assert dataclasses.asdict(got) == dataclasses.asdict(want)
+    assert got.validate() == want.validate()
+    assert got.loss.validate() == want.loss.validate()
+    if case == "defaults":
+        assert got.validate() == []
+    if case == "bad_batch_and_loss":
+        problems = got.validate()
+        for word in ("batch_size", "temperature", "ranking loss"):
+            assert any(word in p for p in problems), word

@@ -201,6 +201,9 @@ LAZY_IMPORTS = {
     "models/hf_port.py": (),
     "benchmark/data.py": ("datasets",),
     "benchmark/bm25.py": ("kiwipiepy", "MeCab"),
+    # the offline data tier: the HF datasets path and the T5 generator
+    "preprocessing/downloaders.py": ("datasets",),
+    "preprocessing/doc2query.py": ("transformers",),
 }
 
 
@@ -317,3 +320,78 @@ def test_the_mesh_and_its_indexes_raise_when_no_card(monkeypatch):
             make()
     # asked for explicitly, the CPU is fine
     assert make_mesh(devices=["cpu"] * 2).size == 2
+
+
+#: the fourteenth slice's modules: the offline data tier, each beside its
+#: counterpart in splade_tpu
+DATA_TIER = [
+    "preprocessing/__init__.py", "preprocessing/types.py",
+    "preprocessing/config.py", "preprocessing/cleaners.py",
+    "preprocessing/dedup.py", "preprocessing/converters.py",
+    "preprocessing/downloaders.py", "preprocessing/pipeline.py",
+    "preprocessing/miners.py", "preprocessing/term_pairs.py",
+    "preprocessing/doc2query.py", "pmi/__init__.py", "pmi/cooccurrence.py",
+    "pmi/pmi_calculator.py", "pmi/synonym_validator.py",
+    "information_gain.py", "utils/idf.py", "utils/synth.py",
+    "config/legacy.py"]
+
+
+@pytest.mark.parametrize("rel", DATA_TIER)
+def test_the_data_tiers_modules_are_among_the_checked_files(rel):
+    assert ROOT / "splade_tpu_torch" / rel in PORT_FILES
+    assert (ROOT / "splade_tpu" / rel).exists()
+
+
+#: public names of splade_tpu with no counterpart of that name in the
+#: port's module, each with the port's name for it or why there is none
+#: (ROADMAP.md section 3, intended differences)
+RENAMED = {
+    "models/modernbert.py": {"ModernBertBlock": "ModernBertLayer"},
+    "ops/cluster_index.py": {"TpuClusterIndex": "ClusterIndex"},
+    "ops/impact_index.py": {"TpuImpactIndex": "ImpactIndex"},
+    "ops/postings_index.py": {"TpuPostingsIndex": "PostingsIndex"},
+    "ops/fused_splade.py": {"NEG": None},
+    "ops/fused_splade_v2.py": {"NEG": None},
+    "ops/rescore_kernel.py": {"rescore_match_xla": "rescore_match_plain"},
+    "parallel/mesh.py": {"batch_sharding": None,
+                         "replicated_sharding": None},
+    "serving/engine.py": {
+        "make_fused_mesh_postings_jit": "make_fused_mesh_postings_search_fn",
+        "make_fused_mesh_tiered_jit": "make_fused_mesh_tiered_search_fn",
+        "make_fused_mesh_cluster_jit": "make_fused_mesh_cluster_search_fn"},
+    "train/checkpoint.py": {"load_params": "load_model_state",
+                            "wait_for_pending_saves": None},
+    "train/state.py": {"decay_mask": "decays", "no_decay_mask": "decays"},
+    "utils/runtime.py": {"force_cpu_if_requested": "resolve_device",
+                         "setup_jax_cache": None},
+}
+
+
+def _public_names(path: Path) -> set:
+    out = set()
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            out.add(node.name)
+        elif isinstance(node, ast.Assign):
+            out.update(t.id for t in node.targets if isinstance(t, ast.Name))
+    return {n for n in out if not n.startswith("_") and n != "logger"}
+
+
+REFERENCE_MODULES = sorted(
+    str(p.relative_to(ROOT / "splade_tpu"))
+    for p in (ROOT / "splade_tpu").rglob("*.py"))
+
+
+@pytest.mark.parametrize("rel", REFERENCE_MODULES)
+def test_every_reference_module_and_name_has_a_counterpart(rel):
+    """The port does what the JAX package does: every module of splade_tpu
+    has its counterpart at the same path, and every public name there has
+    one of its name or a recorded rename (or a reason for none)."""
+    port = ROOT / "splade_tpu_torch" / rel
+    assert port.exists(), rel
+    renamed = RENAMED.get(rel, {})
+    have = _public_names(port)
+    missing = _public_names(ROOT / "splade_tpu" / rel) - have - set(renamed)
+    assert not missing, f"{rel}: no counterpart of {sorted(missing)}"
+    for name, new in renamed.items():
+        assert name not in have and (new is None or new in have), (rel, name)
