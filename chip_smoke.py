@@ -15,24 +15,28 @@ Phases (any failure exits non-zero; nothing is caught):
    exact rescore at B=32, C=1000, M=64, T=64 over a 1M-document doc-major
    block (against exact_rescore and its plain version, a repeated call
    bitwise equal); the pool's kernels at the training shapes (docs B=128,
-   S=256; queries B=64, S=64) and at B=8, S=200 (a ragged last bitmask
-   word): the forward wrapper against the plain forward, and for the
-   backward (the per-row family's match pass, dh gather and dW gather) the
-   whole kernel route against the whole plain route: (a) small-integer inputs
-   elementwise, (b) the model's own states by norm, (c) the recompute
-   against the forward kernel's maxima, every row with its exact ties
-   counted, a repeated backward bitwise equal; the match pass alone, its
-   bitmask bitwise the plain one on (a) and every maximum found on (b).
-   Times by CUDA events (the match pass and each gather apart and
-   together), the bound from the shapes and this run's matches, and a
-   library yardstick composed of cuBLAS calls where one exists. The
-   row-blocked family (``ops/fused_splade_v2.py``) is held on the same
-   inputs, at row_block 8 and 2, to the same checks and tolerances: forward
+   S=256; queries B=64, S=64), at B=8, S=200 (a ragged last bitmask
+   word) and at B=3, S=40 (an odd batch: row_block 1, as a last partial
+   batch or a lone query runs): the forward wrapper against the plain
+   forward, and for the backward (the per-row family's route: the shared
+   match pass at its row block, the dh gather over ordered vocab ranges
+   and the dW gather) the whole kernel route against the whole plain route:
+   (a) small-integer inputs elementwise, (b) the model's own states by
+   norm, (c) the recompute against the forward kernel's maxima, every row
+   with its exact ties counted, a repeated backward bitwise equal; the
+   match pass alone, its bitmask bitwise the plain one on (a), bitwise the
+   match pass's at row_block 1 and 8 (B where 8 does not divide it) on (a)
+   and (b), and every maximum found on (b). Times by CUDA events (the
+   match pass and each gather apart and together), the bound from the
+   shapes and this run's matches, and a library yardstick composed of
+   cuBLAS calls where one exists. The row-blocked family
+   (``ops/fused_splade_v2.py``) is held on the same inputs, at row_block 8
+   and 2 where they divide B, to the same checks and tolerances: forward
    against its plain version with m and pos bitwise equal to the per-row
    kernel's; backward checks (a), (b), (c), a repeated backward bitwise
-   equal; its match pass alone, its bitmask bitwise the per-row match
-   pass's on (a) and (b) and the plain one's on (a), every maximum found;
-   its times (the match pass, each gather, each gradient's kernels and the
+   equal; its match pass alone, its bitmask bitwise the per-row family's
+   on (a) and (b) and the plain one's on (a), every maximum found; its
+   times (the match pass, each gather, each gradient's kernels and the
    whole backward) beside the per-row family's, the bound, the plain
    version, the cuBLAS composition and the recomputing kernels this
    design replaced (PERF.md). These training shapes are the
@@ -380,6 +384,9 @@ TRAIN_POOL_SHAPES = ((128, 256), (64, 64))
 # a backward shape whose S is not a multiple of the bitmask's 32-position
 # words (the last word of every row is ragged)
 BWD_RAGGED = (8, 200)
+# an odd batch, which the per-row family's match pass runs at row_block 1
+# (a last partial batch, a lone query), with a ragged last word
+BWD_ODD = (3, 40)
 # splash attention kernels vs plain versions on the same bf16 operands, with
 # the same lse fed to both backward routes (the kernels' delta is their own,
 # the plain route's the plain reduction: within SPLASH_DELTA_RTOL of each
@@ -1092,10 +1099,10 @@ def recompute_check(torch, h, w, bias, mask, m, dh1) -> dict:
                 ok=counts_ok and padded_zero and worst <= RECOMPUTE_RTOL)
 
 
-def pool_families() -> dict:
+def pool_families(B: int) -> dict:
     """name -> its public pool function, its forward and dh wrappers and
     its row_block (None for the per-row family): the per-row family and the
-    row-blocked one at each of V2_ROW_BLOCKS."""
+    row-blocked one at each of V2_ROW_BLOCKS that divides the batch B."""
     from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_dh,
                                                    fused_splade_maxima,
                                                    fused_splade_pool)
@@ -1105,7 +1112,7 @@ def pool_families() -> dict:
 
     fams = {"v1": dict(pool=fused_splade_pool, maxima=fused_splade_maxima,
                        dh=fused_splade_bwd_dh, row_block=None)}
-    for rb in V2_ROW_BLOCKS:
+    for rb in (rb for rb in V2_ROW_BLOCKS if B % rb == 0):
         fams[f"v2 rb={rb}"] = dict(
             pool=lambda *a, rb=rb: fused_splade_pool_v2(*a, rb),
             maxima=lambda *a, rb=rb: fused_splade_maxima_v2(*a, rb),
@@ -1125,16 +1132,19 @@ def match_bit_counts(torch, match, S: int):
 
 def match_check(torch, h, w, bias, mask, m, g_pre, exact: bool,
                 row_block=None) -> dict:
-    """A match pass on its own, through its wrapper: the per-row family's
-    (``row_block`` None) or the row-blocked family's at ``row_block``. With
-    the forward kernel's maxima m every column of a valid row whose g is
-    not 0 must hold at least one bit (the recompute reaches the forward's
-    maximum bit for bit; one ulp off, it would find almost none), and no
-    bit may stand on an invalid position, a position past S or a g = 0
-    column. On exact inputs (every score exact in f32 in any order) the
-    bitmask must equal the plain match's bit for bit, every exact tie
-    included. The row-blocked bitmask must equal the per-row match pass's
-    bit for bit on any inputs: both keep the same products."""
+    """The match pass on its own, through a family's wrapper: the per-row
+    family's (``row_block`` None: the row block it routes to) or the
+    row-blocked family's at ``row_block``. With the forward kernel's maxima
+    m every column of a valid row whose g is not 0 must hold at least one
+    bit (the recompute reaches the forward's maximum bit for bit; one ulp
+    off, it would find almost none), and no bit may stand on an invalid
+    position, a position past S or a g = 0 column. On exact inputs (every
+    score exact in f32 in any order) the bitmask must equal the plain
+    match's bit for bit, every exact tie included. On any inputs the
+    bitmask must be the same at every row block: the per-row family's
+    equals the row-blocked wrapper's at row_block 1 and 8 (B where 8 does
+    not divide it), and the row-blocked family's equals the per-row
+    family's, all keeping the same products."""
     from splade_tpu_torch.ops.fused_splade import (fused_splade_bwd_match,
                                                    fused_splade_bwd_match_plain)
     from splade_tpu_torch.ops.fused_splade_v2 import fused_splade_bwd_match_v2
@@ -1165,14 +1175,20 @@ def match_check(torch, h, w, bias, mask, m, g_pre, exact: bool,
         out["bits_differing"] = int(match_bit_counts(
             torch, got ^ want, S).sum())
         del want
-    if row_block is not None:
-        per_row = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
-        out["bits_differing_per_row"] = int(match_bit_counts(
-            torch, got ^ per_row, S).sum())
-        del per_row
+    others = ({"per_row": lambda: fused_splade_bwd_match(
+        h, w, bias, mask, m, g_pre)} if row_block is not None else
+        {f"rb={rb}": lambda rb=rb: fused_splade_bwd_match_v2(
+            h, w, bias, mask, m, g_pre, rb)
+         for rb in (1, 8 if B % 8 == 0 else B)})
+    out["bits_differing_from"] = {}
+    for name, other in others.items():
+        bits = other()
+        out["bits_differing_from"][name] = int(match_bit_counts(
+            torch, got ^ bits, S).sum())
+        del bits
     out["ok"] = (out["found"] and out["stray"] == 0
                  and out.get("bits_differing", 0) == 0
-                 and out.get("bits_differing_per_row", 0) == 0)
+                 and not any(out["bits_differing_from"].values()))
     return out
 
 
@@ -1189,13 +1205,15 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     family must be bitwise equal, and the row-blocked forward's maxima the
     per-row kernel's. Every family's match pass is also held alone
     (``match_check``: bitwise the plain bitmask on (a), every maximum found
-    on (b), the row-blocked bitmask bitwise the per-row one on both). Then
+    on (b), bitwise the same at every row block on both). The per-row
+    family's backward is the routed one: the shared match pass at
+    ``routed_row_block`` and the gathers over ``dh_splits``. Then
     the times of all kernels on the same inputs: each family's match pass,
     dh gather and dW gather apart, each gradient's kernels together and the
     whole backward, the plain backward, a cuBLAS composition and the bound.
     Returns {family: {"match": ..., "dh": ..., "dw": ...}}."""
     from splade_tpu_torch.ops.fused_splade import (PER_ROW, _bwd_operands,
-                                                   fold_cotangent,
+                                                   dh_splits, fold_cotangent,
                                                    fused_splade_bwd_match_plain,
                                                    fused_splade_bwd_plain,
                                                    fused_splade_maxima,
@@ -1203,7 +1221,8 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                                                    launch_gather,
                                                    launch_match,
                                                    launch_match_gather,
-                                                   match_words)
+                                                   match_words,
+                                                   routed_row_block)
     from splade_tpu_torch.ops.fused_splade_v2 import (
         ROW_BLOCKED, fused_splade_bwd_match_v2_plain, fused_splade_bwd_v2_plain)
 
@@ -1221,7 +1240,7 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     gen = torch.Generator(device="cuda").manual_seed(B * S)
     gout = torch.randn((B, V), device="cuda", generator=gen)
     names = ("dh", "dw", "dbias")
-    families = pool_families()
+    families = pool_families(B)
 
     # (a) exactly representable inputs, (b) the model's states: the plain
     # route once, every family's kernel route against it, twice
@@ -1313,9 +1332,8 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 f"{x['ties']} extra bits (ties)"
                 + (f", bits differing from the plain bitmask "
                    f"{x['bits_differing']}" if "bits_differing" in x else "")
-                + (f", from the per-row match pass's "
-                   f"{x['bits_differing_per_row']}"
-                   if "bits_differing_per_row" in x else "")
+                + "".join(f", from the {other} bitmask's {n}"
+                          for other, n in x["bits_differing_from"].items())
                 for k, x in zip(("a", "b"), matches)))
         if not (c["err_fwd"] <= POOL_TOL
                 and max(c["err_a"].values()) <= BWD_EXACT_RTOL
@@ -1356,7 +1374,7 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 warmup=1),
             backward_ms=cuda_ms(torch, lambda: launch_match_gather(
                 fam, ops, ext, ("dh", "dw")), iters=5, warmup=1),
-            splits=list(fam.dh_splits(B, S, H, V)))
+            row_block=ext[0], splits=list(dh_splits(B, S, H, V)))
         for which in ("dh", "dw"):
             t[which] = dict(
                 gather_ms=cuda_ms(torch, lambda: gather(which), iters=5,
@@ -1374,7 +1392,8 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                          iters=5, warmup=1)
         ops = _bwd_operands(h, w, bias, mask, m_k, g_pre)
         ops_never = _bwd_operands(h, w, bias, mask, never, g_pre)
-        times = {"v1": dict(family_times(PER_ROW, []), forward_ms=fwd_ms)}
+        times = {"v1": dict(family_times(PER_ROW, [routed_row_block(h)]),
+                            forward_ms=fwd_ms)}
         plain_ms = {None: cuda_ms(torch, lambda: fused_splade_bwd_plain(
             hf, wf, bias, maskf, m_p, g_p), iters=2, warmup=1)}
         match_plain_ms = {None: cuda_ms(
@@ -1434,6 +1453,7 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
                 no_match_is="the match pass and the gather with maxima no "
                             "score reaches",
                 v1_ms=times["v1"][which]["ms"], dh_splits=tf["splits"],
+                match_row_block=tf["row_block"],
                 forward_ms=fwd_ms, family_forward_ms=tf["forward_ms"],
                 plain_ms=plain_ms[rb], plain_computes="dh and dw together",
                 library_ms=library_ms[which], bound_ms=bound_ms,
@@ -1460,15 +1480,16 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
     for name, fam in families.items():
         rb, tf = fam["row_block"], times[name]
         ca, cb = checks[name]["match_a"], checks[name]["match_b"]
-        differ = (ca["bits_differing"] + ca.get("bits_differing_per_row", 0)
-                  + cb.get("bits_differing_per_row", 0))
+        differ = (ca["bits_differing"]
+                  + sum(ca["bits_differing_from"].values())
+                  + sum(cb["bits_differing_from"].values()))
         result[name]["match"] = dict(
             shape=f"B={B} S={S} H={H} V={V}", row_block=rb,
+            match_row_block=tf["row_block"],
             max_abs_err=float(differ > 0),
             bits_differing_exact=ca["bits_differing"],
-            bits_differing_per_row=(None if rb is None else
-                                    {"a": ca["bits_differing_per_row"],
-                                     "b": cb["bits_differing_per_row"]}),
+            bits_differing_from={"a": ca["bits_differing_from"],
+                                 "b": cb["bits_differing_from"]},
             checks={"match_a": ca, "match_b": cb},
             ms=tf["match_ms"], no_match_ms=tf["match_no_match_ms"],
             v1_ms=times["v1"]["match_ms"], plain_ms=match_plain_ms[rb],
@@ -1477,7 +1498,9 @@ def check_pool_backward(torch, model, tok, rng, B: int, S: int) -> dict:
         log(f"  pool backward {name} match pass B={B} S={S}: "
             f"{tf['match_ms']:.3f} ms ({tf['match_no_match_ms']:.3f} with "
             f"maxima nothing reaches; the per-row forward {fwd_ms:.3f}, the "
-            f"per-row match pass {times['v1']['match_ms']:.3f}), plain "
+            f"per-row family's match pass at row_block "
+            f"{times['v1']['row_block']} {times['v1']['match_ms']:.3f}), "
+            f"row_block {tf['row_block']}, plain "
             f"{match_plain_ms[rb]:.3f} ms, bound {m_bound:.3f} ms ({m_by}), "
             f"bitmask {mb / 1e6:.1f} MB; dh gather "
             f"{tf['dh']['gather_ms']:.3f} ms (hidden slices, vocab splits "
@@ -1792,7 +1815,8 @@ def drive(name: str, engine, model, queries, doc_text: str) -> dict:
 #: the port's own kernels among a trace's device spans, by function name
 PORT_KERNEL = re.compile(r"((?:fused_splade|splash|rescore)\w*_kernel)")
 #: the per-row pool backward's kernels (the match pass and the gathers)
-POOL_BACKWARD = ("fused_splade_bwd_match_kernel", "fused_splade_bwd_dh_kernel",
+POOL_BACKWARD = ("fused_splade_v2_bwd_match_kernel",
+                 "fused_splade_bwd_dh_kernel",
                  "fused_splade_bwd_dw_kernel")
 
 
@@ -6405,6 +6429,10 @@ def main() -> int:
     bwd_r = check_pool_backward(torch, model, tok,
                                 np.random.default_rng([args.seed, 5]),
                                 *BWD_RAGGED)
+    # and at an odd batch (row_block 1), from a stream of its own too
+    bwd_o = check_pool_backward(torch, model, tok,
+                                np.random.default_rng([args.seed, 8]),
+                                *BWD_ODD)
     torch.cuda.empty_cache()
     # the attention kernels at the training micro-batches (packed query rows
     # at 256 positions, as the V33 step has them) and at a ragged length;
@@ -6514,7 +6542,7 @@ def main() -> int:
         f"launches on the path {v2_launches}")
     # the path's launches are at shapes, and at a row_block, that phase 2
     # held against the plain versions
-    from splade_tpu_torch.ops.fused_splade_v2 import pick_row_block
+    from splade_tpu_torch.ops.fused_splade import pick_row_block
     hold_launches("MLM pre-training path", pretraining["launches"],
                   expected_launches(ModernBertConfig(),
                                     mlm_recipe()["grad_accum"],
@@ -6734,18 +6762,23 @@ def main() -> int:
                 for kind in ("postings", "tiered", "cluster")],
              ptxas=ptxas["rescore_kernel"]),
     ]
-    # the per-row backward: the match pass (the recompute of both Pallas
-    # kernels), then each gradient's gather; a gradient's "ms" is its match
-    # pass and gather together, the function its bound and library time are
-    # of ("gather_ms" and "match_ms" beside it)
-    for name, which, line, also in (
-            ("fused_splade_bwd_match", "match", 93, 111),
-            ("fused_splade_bwd_dh", "dh", 93, None),
-            ("fused_splade_bwd_dw", "dw", 111, None)):
-        shapes = [x["v1"][which] for x in (bwd_d, bwd_q, bwd_r)]
+    # the per-row backward: the match pass both families share (the
+    # recompute of both Pallas kernels), then each gradient's gather; a
+    # gradient's "ms" is its match pass and gather together, the function
+    # its bound and library time are of ("gather_ms" and "match_ms" beside
+    # it)
+    for name, which, line, also, source in (
+            ("fused_splade_bwd_match", "match", 93, 111,
+             "fused_splade_v2_bwd.cu"),
+            ("fused_splade_bwd_dh", "dh", 93, None, "fused_splade_bwd.cu"),
+            ("fused_splade_bwd_dw", "dw", 111, None, "fused_splade_bwd.cu")):
+        shapes = [x["v1"][which] for x in (bwd_d, bwd_q, bwd_r, bwd_o)]
         kernels.append(dict(
             name=name, route="cuda",
-            source="splade_tpu_torch/csrc/fused_splade_bwd.cu",
+            source=f"splade_tpu_torch/csrc/{source}",
+            **({"match_source":
+                "splade_tpu_torch/csrc/fused_splade_v2_bwd.cu"}
+               if which != "match" else {}),
             replaces=f"splade_tpu/ops/fused_splade.py:{line}",
             **({"also_replaces": f"splade_tpu/ops/fused_splade.py:{also}"}
                if also else {}),
@@ -6761,8 +6794,8 @@ def main() -> int:
             shapes=shapes))
     # the row-blocked family: the headline numbers are row_block 8 at the
     # document shape; every shape and row_block stands under "shapes", the
-    # per-row kernels' time on the same inputs beside each ("v1_ms"). Its
-    # backward is its own match pass and the per-row family's gathers: a
+    # per-row family's time on the same inputs beside each ("v1_ms"). Its
+    # backward is the shared match pass and gathers at its own row block: a
     # gradient's "ms" is the match pass and its gather together, as above
     keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
             "library_ms")

@@ -1,18 +1,22 @@
-"""Where the per-row pool backward's dh gather spends its time, on the card.
+"""Where the pool backward's dh gather spends its time, on the card.
 
     python scripts/profile_dh_gather.py
 
 Builds an instrumented copy of the dh gather from
 ``splade_tpu_torch/csrc/fused_splade_bwd.cu`` (clock64 stamps around its
 phases; the arithmetic is the kernel's own) into ``build/profile_dh_gather/``
-and runs it on the match pass's bitmask at the training shapes (documents
-B=128 S=256, queries B=64 S=64; H=768, V=50,000; model-like random inputs,
-a fully padded row), at one hidden slice and at three. Thread 0 of every
-block records the cycles of its whole run and of three phases: the scan and
+and runs it on the bitmask of the per-row family's match pass (the shared
+one, at ``routed_row_block``) at the training shapes (documents B=128
+S=256, queries B=64 S=64), a ragged length (B=8 S=200) and an odd batch
+(B=3 S=40, row_block 1); H=768, V=50,000; model-like random inputs, a fully
+padded row. Each shape runs at (hidden slices, vocab ranges) (1, 1), (3, 1)
+and the rule both families take (``dh_splits``). Thread 0 of every block
+records the cycles of its whole run and of three phases: the scan and
 compaction of each chunk's mask words into the list, the wait for a batch's
 first W row, and the adds into the shared-memory sums. Prints the card, the
 per-block means and the cycles per listed match, and checks the
-instrumented kernel's dh against the plain gather.
+instrumented kernel's dh (its ranges' partials added in order) against the
+plain gather.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ sys.path.insert(0, str(ROOT))
 from splade_tpu_torch.ops import _cuda  # noqa: E402
 from splade_tpu_torch.ops import fused_splade as fs  # noqa: E402
 
-SHAPES = ((128, 256), (64, 64))
+SHAPES = ((128, 256), (64, 64), (8, 200), (3, 40))
 H, V = 768, 50_000
 
 
@@ -39,8 +43,8 @@ def instrumented_source() -> str:
     a C entry that launches it with a [blocks, 6] int64 record buffer."""
     src = (_cuda.CSRC / "fused_splade_bwd.cu").read_text()
     head = src[:src.index("namespace {")]
-    body = src[src.index("// ---- 2. the dh gather"):
-               src.index("// ---- 3. the dW gather")]
+    body = src[src.index("// ---- the dh gather"):
+               src.index("// ---- the dW gather")]
     edits = [
         ("int S, int H, int V, int J, int slice, int range) {",
          "int S, int H, int V, int J, int slice, int range, "
@@ -64,8 +68,8 @@ def instrumented_source() -> str:
          "        t_add += clock64() - tc;\n"),
         ("  __syncthreads();  // the sums are complete",
          "  if (threadIdx.x == 0) {\n"
-         "    long long* o = prof + ((size_t)blockIdx.y * gridDim.x + "
-         "blockIdx.x) * 6;\n"
+         "    long long* o = prof + (((size_t)blockIdx.z * gridDim.y + "
+         "blockIdx.y) * gridDim.x + blockIdx.x) * 6;\n"
          "    o[0] = clock64() - t0; o[1] = t_scan; o[2] = t_wait;\n"
          "    o[3] = t_add; o[4] = n_ent; o[5] = 0;\n  }\n"
          "  __syncthreads();  // the sums are complete"),
@@ -79,7 +83,7 @@ def instrumented_source() -> str:
 }  // namespace
 extern "C" int profile_dh(const void* match, const void* w, const void* g,
                           void* dh, int B, int S, int H, int V, int splits,
-                          void* prof, void* stream) {
+                          int vocab_splits, void* prof, void* stream) {
   const int groups = (H + DH_WARP_COLS - 1) / DH_WARP_COLS;
   const int slice = (groups + splits - 1) / splits * DH_WARP_COLS;
   const int width = slice < H ? slice : H;
@@ -88,15 +92,15 @@ extern "C" int profile_dh(const void* match, const void* w, const void* g,
   cudaFuncSetAttribute((const void*)fused_splade_bwd_dh_kernel,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   const int J = (S + 31) / 32;
-  dim3 grid(B * J, (H + slice - 1) / slice);
+  const int range = ((V + 31) / 32 + vocab_splits - 1) / vocab_splits * 32;
+  dim3 grid(B * J, (H + slice - 1) / slice, vocab_splits);
   fused_splade_bwd_dh_kernel<<<grid, threads, bytes, (cudaStream_t)stream>>>(
       (const uint32_t*)match, (const __nv_bfloat16*)w, (const float*)g,
-      (float*)dh, S, H, V, J, slice, (V + 31) / 32 * 32, (long long*)prof);
+      (float*)dh, S, H, V, J, slice, range, (long long*)prof);
   return (int)cudaGetLastError();
 }
 '''
-    return (head.replace('#include "fused_splade_tile.cuh"\n', "")
-            + "namespace {\nconstexpr int MAX_H = 768;\n" + body + entry)
+    return head + "namespace {\nconstexpr int MAX_H = 768;\n" + body + entry
 
 
 def build() -> ctypes.CDLL:
@@ -110,7 +114,7 @@ def build() -> ctypes.CDLL:
                    capture_output=True)
     dll = ctypes.CDLL(str(lib))
     P, I = ctypes.c_void_p, ctypes.c_int
-    dll.profile_dh.argtypes = [P, P, P, P, I, I, I, I, I, P, P]
+    dll.profile_dh.argtypes = [P, P, P, P, I, I, I, I, I, I, P, P]
     dll.profile_dh.restype = ctypes.c_int
     return dll
 
@@ -137,17 +141,18 @@ def main() -> int:
             torch.randn(B, V, device="cuda", generator=gen), m)
         match = fs.fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
         want = fs.fused_splade_gather_dh_plain(match, w, g_pre, S)
-        for splits in (1, 3):
-            dh = torch.empty(B, S, H, device="cuda")
+        for splits, vocab in dict.fromkeys(
+                ((1, 1), (3, 1), fs.dh_splits(B, S, H, V))):
+            dh = torch.empty(vocab, B, S, H, device="cuda")
             width = -(-(-(-H // 128)) // splits) * 128  # the C entry's slice
             slices = -(-H // width)
-            prof = torch.zeros(B * fs.match_words(S) * slices, 6,
+            prof = torch.zeros(vocab * B * fs.match_words(S) * slices, 6,
                                dtype=torch.int64, device="cuda")
             stream = torch.cuda.current_stream().cuda_stream
             run = lambda: _cuda.check(dll.profile_dh(
                 match.data_ptr(), w.data_ptr(), g_pre.data_ptr(),
-                dh.data_ptr(), B, S, H, V, splits, prof.data_ptr(), stream),
-                "profile_dh")
+                dh.data_ptr(), B, S, H, V, splits, vocab, prof.data_ptr(),
+                stream), "profile_dh")
             run()
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -155,15 +160,17 @@ def main() -> int:
             run()
             end.record()
             torch.cuda.synchronize()
-            err = float((dh - want).abs().max() / want.abs().max())
+            got = fs.add_partials(dh.clone())
+            err = float((got - want).abs().max() / want.abs().max())
             total, scan, wait, add, n = prof.double().mean(0).tolist()[:5]
-            print(f"B={B} S={S} hidden slices {splits}: "
-                  f"{start.elapsed_time(end):.3f} ms (instrumented), dh vs "
-                  f"plain {err:.2e}; per block {total:.0f} cycles over "
-                  f"{n:.0f} listed matches: scan and list {scan / total:.1%},"
-                  f" W wait {wait / total:.1%}, adds {add / total:.1%}; "
-                  f"cycles a match: scan {scan / n:.1f}, wait {wait / n:.1f}"
-                  f", adds {add / n:.1f}")
+            n = max(n, 1.0)
+            print(f"B={B} S={S} hidden slices {splits}, vocab ranges "
+                  f"{vocab}: {start.elapsed_time(end):.3f} ms "
+                  f"(instrumented), dh vs plain {err:.2e}; per block "
+                  f"{total:.0f} cycles over {n:.0f} listed matches: scan and "
+                  f"list {scan / total:.1%}, W wait {wait / total:.1%}, adds "
+                  f"{add / total:.1%}; cycles a match: scan {scan / n:.1f}, "
+                  f"wait {wait / n:.1f}, adds {add / n:.1f}")
             if not err <= 1e-5:
                 raise SystemExit("the instrumented dh gather disagrees")
     return 0

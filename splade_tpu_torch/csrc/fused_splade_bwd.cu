@@ -14,261 +14,40 @@
 // Ties get duplicate gradient, as in the Pallas kernels. dbias = sum_b g is
 // the wrapper's.
 //
-// "Match once, gather twice": three kernels.
-// 1. splade_fused_pool_bwd_match recomputes every score of the batch once and
-//    writes the argmax set as a bitmask match[b, j, v] (uint32, [B, ceil(S/32),
-//    V]): bit r of word j is set when valid position 32j + r has score ==
-//    m[b, v] and g[b, v] != 0. No bit for an invalid position, a g = 0 column
-//    or a column past V. Every word is written (zeros for a tile it skips),
-//    so no separate zeroing pass is needed.
-// 2. splade_fused_pool_bwd_dh gathers, for each set bit, g[b, v] W[v, :] into
-//    row 32j + r of dh[b]. The row-blocked family (fused_splade_v2_bwd.cu)
-//    writes the same bitmask and launches the same two gathers.
-// 3. splade_fused_pool_bwd_dw gathers, for each set bit, g[b, v] h[b, 32j+r, :]
-//    into dW[v].
+// "Match once, gather twice": a match pass, then two gathers.
+// 1. The match pass is the row-blocked family's, splade_fused_pool_v2_bwd_match
+//    (fused_splade_v2_bwd.cu), which both pool families launch: it recomputes
+//    every score of the batch once and writes the argmax set as a bitmask
+//    match[b, j, v] (uint32, [B, ceil(S/32), V]): bit r of word j is set when
+//    valid position 32j + r has score == m[b, v] and g[b, v] != 0. No bit for
+//    an invalid position, a g = 0 column or a column past V; every word is
+//    written.
+// 2. splade_fused_pool_bwd_dh (this file) gathers, for each set bit,
+//    g[b, v] W[v, :] into row 32j + r of dh[b], each word row's vocabulary
+//    cut into ordered ranges where word rows are few.
+// 3. splade_fused_pool_bwd_dw (this file) gathers, for each set bit,
+//    g[b, v] h[b, 32j+r, :] into dW[v].
 //
-// What bounds it: the recompute, 2*valid*H*V bf16 operations on the tensor
-// cores (1.3 ms at the document batch B=128 S=256), plus one f32 row of H
-// multiply-adds a match on the CUDA cores. The kernels this replaces each
-// recomputed the whole [B*S, V] score matrix in 32-wide chunks, streaming W
-// (or h) about 1,000 times, and added each match serially into one row's
-// registers. Here:
-// - the match pass recomputes once, in 128 x 128 tiles (8 warps, each 64 x 32
-//   of 4 x 2 fragments, every A fragment used against 2 B fragments), with a
-//   3-stage cp.async pipeline and blocks ordered in groups of 16 row tiles so
-//   that concurrent blocks share their h and W tiles in L2;
-// - the gathers read only the bitmask, g and the matched rows (matches x H x
-//   2 bytes, 9.8 GB at the document batch if every (b, v) matches) and keep
-//   many rows' loads in flight; the dh gather is bound by its per-match
-//   steps instead (see its kernel).
-//
-// The scores keep the forward's per-element arithmetic
-// (fused_splade_tile.cuh): bf16 WMMA 16x16x16 products accumulated in f32,
-// the k-slices of 16 in ascending order from a zeroed accumulator up to H
-// rounded to the forward's 64-wide k-step, then + bias in f32. The tile
-// shape, the warp tiling and the staging do not change that sequence, so the
-// equality with m holds bit for bit where the forward took its maximum.
+// What bounds the gathers: they read only the bitmask, g and the matched
+// rows (matches x H x 2 bytes, 9.8 GB at the document batch if every (b, v)
+// matches) and keep many rows' loads in flight; the dh gather is bound by
+// its per-match steps instead (see its kernel). The recompute is the match
+// pass's (2*valid*H*V bf16 operations on the tensor cores).
 //
 // Blocks run in no order, so no float sum crosses blocks, and there are no
 // float atomics: every dh and dW element has one owner thread that adds its
-// matches in ascending (v) resp. (b, j, r) order, so a repeated backward is
-// bitwise identical. The bitmask's bits each have one writer.
+// matches in ascending (v) resp. (b, j, r) order (dh's vocab ranges each
+// into their own partial, added in range order by the wrapper), so a
+// repeated backward is bitwise identical.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <limits.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include "fused_splade_tile.cuh"
 
 namespace {
 
 constexpr int MAX_H = 768;  // hidden columns a gather block owns (a slice)
 
-// ---- 1. the match pass ------------------------------------------------------
-constexpr int MT = 256;                // 8 warps
-constexpr int M_BM = 128, M_BN = 128;  // rows (4 mask words) x vocab columns
-constexpr int M_BK = 32;               // hidden slice of one pipeline stage
-constexpr int M_STAGES = 3;
-constexpr int M_LDS = M_BK + 8;  // 80-byte rows: conflict-free fragment loads
-constexpr int M_LDC = M_BN + 4;  // f32 row stride of the score tile
-constexpr int WORDS = M_BM / 32;
-constexpr int WARP_FR = 4, WARP_FC = 2;  // fragments a warp: 64 rows x 32 cols
-constexpr int GROUP = 16;                // row tiles of one block group
-constexpr int STAGE_ELEMS = (M_BM + M_BN) * M_LDS;
-constexpr int PIPE_BYTES = M_STAGES * STAGE_ELEMS * 2;
-constexpr int SCORE_BYTES = M_BM * M_LDC * 4;
-constexpr int M_SMEM = PIPE_BYTES > SCORE_BYTES ? PIPE_BYTES : SCORE_BYTES;
-constexpr int M_CHUNKS = M_BM * (M_BK / 8) / MT;  // 16-byte copies a thread
-static_assert(M_BM == M_BN && M_CHUNKS * MT == M_BM * (M_BK / 8),
-              "A and B stages split evenly over the threads");
-static_assert((M_BM / (16 * WARP_FR)) * (M_BN / (16 * WARP_FC)) == MT / 32,
-              "one warp per 64 x 32 piece of the tile");
-static_assert(splade_tile::BK % M_BK == 0, "whole forward k-steps");
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           bool pred) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = pred ? 16 : 0;  // 0: nothing is read, 16 zero bytes land
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(src), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__global__ void __launch_bounds__(MT, 2)
-fused_splade_bwd_match_kernel(const __nv_bfloat16* __restrict__ h,
-                              const __nv_bfloat16* __restrict__ w,
-                              const float* __restrict__ bias,
-                              const float* __restrict__ mask,
-                              const float* __restrict__ m,
-                              const float* __restrict__ g,
-                              uint32_t* __restrict__ match, int B, int S,
-                              int H, int V, int J) {
-  using namespace nvcuda;
-  extern __shared__ __align__(128) unsigned char smem[];
-  __shared__ float m_s[WORDS][M_BN], g_s[WORDS][M_BN], bias_s[M_BN];
-  __shared__ bool valid_s[M_BM];
-  __nv_bfloat16* pipe = reinterpret_cast<__nv_bfloat16*>(smem);
-  const float* Cs = reinterpret_cast<const float*>(smem);
-
-  // grouped block order: GROUP row tiles walk the column tiles together
-  const int n_row_tiles = (B * J + WORDS - 1) / WORDS;
-  const int n_col_tiles = (V + M_BN - 1) / M_BN;
-  const int in_group = GROUP * n_col_tiles;
-  const int first = (int)(blockIdx.x / in_group) * GROUP;
-  const int size = min(n_row_tiles - first, GROUP);
-  const int rt = first + (int)(blockIdx.x % in_group) % size;
-  const int ct = (int)(blockIdx.x % in_group) / size;
-  const int gw0 = rt * WORDS;  // first (b, j) word of the tile
-  const int v0 = ct * M_BN;
-  const int BJ = B * J;
-  const int tid = threadIdx.x;
-
-  bool my_valid = false, my_live = false;
-  if (tid < M_BM) {
-    const int gw = gw0 + tid / 32;
-    if (gw < BJ) {
-      const int b = gw / J, s = (gw % J) * 32 + tid % 32;
-      my_valid = s < S && mask[(size_t)b * S + s] > 0.f;
-    }
-    valid_s[tid] = my_valid;
-  }
-  if (tid < M_BN) bias_s[tid] = (v0 + tid < V && bias) ? bias[v0 + tid] : 0.f;
-  for (int i = tid; i < WORDS * M_BN; i += MT) {
-    const int wd = i / M_BN, c = i % M_BN, gw = gw0 + wd;
-    float mv = 0.f, gv = 0.f;
-    if (gw < BJ && v0 + c < V) {
-      const size_t at = (size_t)(gw / J) * V + v0 + c;
-      mv = m[at];
-      gv = g[at];
-    }
-    m_s[wd][c] = mv;
-    g_s[wd][c] = gv;
-    my_live |= gv != 0.f;
-  }
-  const bool any_g = __syncthreads_or(my_live);
-  const bool any_valid = __syncthreads_or(my_valid);
-  if (!(any_g && any_valid)) {  // G is 0 on this tile: its words are 0
-    for (int i = tid; i < WORDS * M_BN; i += MT) {
-      const int gw = gw0 + i / M_BN, c = i % M_BN;
-      if (gw < BJ && v0 + c < V) match[(size_t)gw * V + v0 + c] = 0u;
-    }
-    return;
-  }
-
-  // this thread's 16-byte copies: A rows (h) and B rows (W) of the tile
-  const __nv_bfloat16* a_src[M_CHUNKS];
-  const __nv_bfloat16* b_src[M_CHUNKS];
-  bool a_ok[M_CHUNKS], b_ok[M_CHUNKS];
-#pragma unroll
-  for (int it = 0; it < M_CHUNKS; ++it) {
-    const int row = (tid + it * MT) / (M_BK / 8);
-    const int gw = gw0 + row / 32;
-    const int s = (gw % J) * 32 + row % 32;
-    a_ok[it] = gw < BJ && s < S;
-    a_src[it] = a_ok[it] ? h + ((size_t)(gw / J) * S + s) * H : h;
-    b_ok[it] = v0 + row < V;
-    b_src[it] = b_ok[it] ? w + (size_t)(v0 + row) * H : w;
-  }
-  // the forward's k-loop runs whole 64-wide steps past H on zeros: so does this
-  const int k_steps = (H + splade_tile::BK - 1) / splade_tile::BK *
-                      (splade_tile::BK / M_BK);
-  auto load_stage = [&](int stage, int ks) {
-    __nv_bfloat16* As = pipe + stage * STAGE_ELEMS;
-    __nv_bfloat16* Bs = As + M_BM * M_LDS;
-#pragma unroll
-    for (int it = 0; it < M_CHUNKS; ++it) {
-      const int i = tid + it * MT;
-      const int row = i / (M_BK / 8), q = i % (M_BK / 8);
-      const int k = ks * M_BK + q * 8;
-      const bool in = k < H;
-      cp_async16(As + row * M_LDS + q * 8, in ? a_src[it] + k : h,
-                 in && a_ok[it]);
-      cp_async16(Bs + row * M_LDS + q * 8, in ? b_src[it] + k : w,
-                 in && b_ok[it]);
-    }
-  };
-
-  const int warp = tid >> 5;
-  const int wr = warp / (M_BN / (16 * WARP_FC));  // 0..1: 64-row half
-  const int wc = warp % (M_BN / (16 * WARP_FC));  // 0..3: 32-column quarter
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[WARP_FR][WARP_FC];
-#pragma unroll
-  for (int i = 0; i < WARP_FR; ++i)
-#pragma unroll
-    for (int j = 0; j < WARP_FC; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-#pragma unroll
-  for (int st = 0; st < M_STAGES - 1; ++st) {
-    if (st < k_steps) load_stage(st, st);
-    cp_async_commit();
-  }
-  for (int ks = 0; ks < k_steps; ++ks) {
-    cp_async_wait<M_STAGES - 2>();
-    __syncthreads();  // stage ks landed; stage ks-1 is free for the refill
-    if (ks + M_STAGES - 1 < k_steps)
-      load_stage((ks + M_STAGES - 1) % M_STAGES, ks + M_STAGES - 1);
-    cp_async_commit();
-    const __nv_bfloat16* As = pipe + (ks % M_STAGES) * STAGE_ELEMS;
-    const __nv_bfloat16* Bs = As + M_BM * M_LDS;
-#pragma unroll
-    for (int kk = 0; kk < M_BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> af[WARP_FR];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> bf[WARP_FC];
-#pragma unroll
-      for (int i = 0; i < WARP_FR; ++i)
-        wmma::load_matrix_sync(af[i], As + (wr * 64 + i * 16) * M_LDS + kk,
-                               M_LDS);
-#pragma unroll
-      for (int j = 0; j < WARP_FC; ++j)  // B = W_tile^T: W rows read as [k, v]
-        wmma::load_matrix_sync(bf[j], Bs + (wc * 32 + j * 16) * M_LDS + kk,
-                               M_LDS);
-#pragma unroll
-      for (int i = 0; i < WARP_FR; ++i)
-#pragma unroll
-        for (int j = 0; j < WARP_FC; ++j)
-          wmma::mma_sync(acc[i][j], af[i], bf[j], acc[i][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncthreads();  // every product is done: the scores may overwrite the stages
-  float* Cw = reinterpret_cast<float*>(smem);
-#pragma unroll
-  for (int i = 0; i < WARP_FR; ++i)
-#pragma unroll
-    for (int j = 0; j < WARP_FC; ++j)
-      wmma::store_matrix_sync(Cw + (wr * 64 + i * 16) * M_LDC + wc * 32 + j * 16,
-                              acc[i][j], M_LDC, wmma::mem_row_major);
-  __syncthreads();
-
-  // one word a (mask word, column): 32 rows compared with m, + bias in f32
-  for (int i = tid; i < WORDS * M_BN; i += MT) {
-    const int wd = i / M_BN, c = i % M_BN, gw = gw0 + wd;
-    if (gw >= BJ || v0 + c >= V) continue;
-    const float mc = m_s[wd][c], bc = bias_s[c];
-    uint32_t bits = 0u;
-    if (g_s[wd][c] != 0.f) {
-#pragma unroll 8
-      for (int r = 0; r < 32; ++r) {
-        const int row = wd * 32 + r;
-        if (valid_s[row] && Cs[row * M_LDC + c] + bc == mc) bits |= 1u << r;
-      }
-    }
-    match[(size_t)gw * V + v0 + c] = bits;
-  }
-}
-
-// ---- 2. the dh gather -------------------------------------------------------
+// ---- the dh gather -------------------------------------------------------
 constexpr int DH_COLS = 4;        // hidden columns a thread: one 8-byte W load
 constexpr int DH_WARP_COLS = 32 * DH_COLS;  // hidden columns a warp (128)
 constexpr int DH_CW = 4;          // mask words a thread a chunk
@@ -361,10 +140,9 @@ __device__ __forceinline__ void dh_apply(const DhBatch& t, float* acc_s,
 }
 
 // A block owns one (b, j) word row, one slice of the hidden columns and one
-// range of the vocabulary (the whole of it for the per-row family; the
-// row-blocked family splits it where word rows are few, so that more blocks
-// share the serial walk of a word row's matches); its
-// f32 sums for the word's 32 rows and the slice's columns live in shared
+// range of the vocabulary (the wrapper splits it where word rows are few, so
+// that more blocks share the serial walk of a word row's matches); its f32
+// sums for the word's 32 rows and the slice's columns live in shared
 // memory ([32][width], 96 KB at the full 768 columns, opted in dynamically),
 // each thread owning 4 columns of all 32 rows. The block walks
 // match[b, j, vb:ve] in chunks of DH_CW words a thread, read coalesced with the
@@ -463,7 +241,7 @@ fused_splade_bwd_dh_kernel(const uint32_t* __restrict__ match,
           *reinterpret_cast<const float4*>(acc_s + r * width + c);
 }
 
-// ---- 3. the dW gather -------------------------------------------------------
+// ---- the dW gather -------------------------------------------------------
 constexpr int DW_WARPS = 8;            // vocab columns a block, one a warp
 constexpr int DW_KJ = MAX_H / 256;     // 16-byte h slices a lane (3)
 constexpr int DW_UNROLL = 4;           // h rows in flight a warp
@@ -585,33 +363,10 @@ cudaError_t opt_in(const void* kernel, int bytes) {
 
 }  // namespace
 
-// h [B,S,H] bf16, w [V,H] bf16, bias [V] f32 or null, mask [B,S] f32,
-// m and g [B,V] f32, out match [B, ceil(S/32), V] uint32, every word written.
-// H % 8 == 0 and 16-byte aligned rows are checked by the wrapper.
-extern "C" int splade_fused_pool_bwd_match(const void* h, const void* w,
-                                           const void* bias, const void* mask,
-                                           const void* m, const void* g,
-                                           void* match, int B, int S, int H,
-                                           int V, void* stream) {
-  if (H % 8) return (int)cudaErrorInvalidValue;
-  const int J = (S + 31) / 32;
-  const long long tiles = ((long long)B * J + WORDS - 1) / WORDS *
-                          ((V + M_BN - 1) / M_BN);
-  if (tiles > INT_MAX) return (int)cudaErrorInvalidValue;
-  cudaError_t err = opt_in((const void*)fused_splade_bwd_match_kernel, M_SMEM);
-  if (err != cudaSuccess) return (int)err;
-  fused_splade_bwd_match_kernel<<<(unsigned)tiles, MT, M_SMEM,
-                                  (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)h, (const __nv_bfloat16*)w, (const float*)bias,
-      (const float*)mask, (const float*)m, (const float*)g, (uint32_t*)match,
-      B, S, H, V, J);
-  return (int)cudaGetLastError();
-}
-
-// match [B, ceil(S/32), V] uint32 (either family's match pass), w [V,H]
-// bf16, g [B,V] f32, out dh [vocab_splits, B, S, H] f32, every element
-// written. The hidden columns are cut into `splits` slices of whole
-// 128-column groups (the wrapper's dh_hidden_splits); the vocabulary into
+// match [B, ceil(S/32), V] uint32 (the match pass's), w [V,H] bf16, g [B,V]
+// f32, out dh [vocab_splits, B, S, H] f32, every element written. The hidden
+// columns are cut into `splits` slices of whole 128-column groups (the
+// wrapper's min_hidden_slices: one up to H = 768); the vocabulary into
 // `vocab_splits` ranges of ceil(ceil(V/32) / vocab_splits) * 32 columns, range
 // z summing its matches into partial z (zeros for a range past V), which the
 // wrapper adds in range order. H % 8 == 0; a slice is at most 768 columns.

@@ -78,7 +78,7 @@
 // row_block), each W tile crosses from L2 into shared memory once per batch
 // range, and a range's live groups may fill only part of a 128-row tile.
 //
-// The backward's match passes find each argmax by equality with this
+// The backward's match pass finds each argmax by equality with this
 // kernel's m, so each score keeps the arithmetic of fused_splade_tile.cuh:
 // bf16 products in k-slices of 16, ascending from a zeroed f32 accumulator up
 // to H rounded to whole 64-wide steps, one HMMA.16816 a slice, then + bias in
@@ -326,4 +326,13 @@ extern "C" int splade_fused_pool_v2_fwd(const void* h, const void* w,
 // batch rows a block (a size, not an error code).
 extern "C" int splade_fused_pool_v2_fwd_shared_bytes(int S, int RB) {
   return shared_bytes(S, RB);
+}
+
+// Static shared memory of the forward kernel, held beside the dynamic part
+// (-1 if the runtime cannot say).
+extern "C" int splade_fused_pool_v2_fwd_static_bytes() {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, fused_splade_fwd_kernel) != cudaSuccess)
+    return -1;
+  return (int)attr.sharedSizeBytes;
 }

@@ -1,8 +1,7 @@
 // The score arithmetic of the fused SPLADE pool, shared by every kernel that
 // computes its scores: the walk (fused_splade_walk.cuh) under the pool
-// forward of both families (fused_splade_fwd.cu) and the row-blocked match
-// pass (fused_splade_v2_bwd.cu), and the per-row match pass
-// (fused_splade_bwd.cu).
+// forward of both families (fused_splade_fwd.cu) and the match pass that both
+// families' backward runs (fused_splade_v2_bwd.cu).
 //
 // The backward finds each column's argmax by equality with the maxima m that
 // the forward wrote, so it must recompute every score with exactly the
@@ -15,9 +14,8 @@
 // half. So the per-element sequence does not depend on the tile's shape, on
 // which warp owns a fragment, on how the operands reached shared memory or on
 // which of the two the code issues: the walk issues mma.sync on fragments
-// loaded by ldmatrix (mma_sm90.cuh), the per-row match pass WMMA products
-// from its own cp.async ring, slice by slice in the same order, and every
-// score stays bitwise the forward's.
+// loaded by ldmatrix (mma_sm90.cuh), slice by slice in the same order, and
+// every score stays bitwise the forward's.
 #pragma once
 
 namespace splade_tile {

@@ -21,17 +21,19 @@
 // recomputed every score through WMMA chunks staged in shared memory in f32,
 // padding included, at one block an SM (a 97 KB resident W tile), and added
 // every match into an H-wide f32 row in device memory, one after the other:
-// 33-166x their bound. Here the family runs "match once, gather twice", as
-// the per-row family does (fused_splade_bwd.cu):
+// 33-166x their bound. Here the backward runs "match once, gather twice":
 // 1. splade_fused_pool_v2_bwd_match (this file) recomputes every score once
-//    and writes the argmax set as the per-row match pass's bitmask
-//    match[b, j, v] (uint32, [B, ceil(S/32), V]): bit r of word j is set when
-//    valid position 32j + r has score == m[b, v] and g[b, v] != 0. Every word
-//    is written (zeros where nothing is computed), so nothing zeroes it first.
-// 2. The per-row family's dh and dW gathers read it (fused_splade_bwd.cu);
-//    the dh gather splits each word row's vocabulary into ordered ranges
-//    where word rows are few, each range's sums its own partial, added in
-//    range order by the wrapper.
+//    and writes the argmax set as a bitmask match[b, j, v] (uint32,
+//    [B, ceil(S/32), V]): bit r of word j is set when valid position 32j + r
+//    has score == m[b, v] and g[b, v] != 0. Every word is written (zeros
+//    where nothing is computed), so nothing zeroes it first. Both pool
+//    families launch it: the per-row family (fused_splade_pool, the V33
+//    path) at the largest row block that divides B and fits, this one at
+//    its own row_block.
+// 2. The dh and dW gathers of fused_splade_bwd.cu read it; the dh gather
+//    splits each word row's vocabulary into ordered ranges where word rows
+//    are few, each range's sums its own partial, added in range order by the
+//    wrapper.
 // One recompute serves both gradients, where the replaced kernels ran two.
 //
 // The match pass: a block owns one tile of 128 vocab columns and the live
@@ -55,8 +57,8 @@
 // Bits must not move: each score keeps fused_splade_tile.cuh's sequence
 // (k-slices of 16 ascending from a zeroed f32 accumulator up to H rounded to
 // whole 64-wide steps, one HMMA.16816 a slice, then + bias in f32), so the
-// bitmask is bitwise the per-row match pass's on the same inputs and m, at
-// every row_block, and the match holds against either family's forward.
+// bitmask is the same bit for bit at every row_block, and the match holds
+// against either family's forward.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <limits.h>
@@ -188,6 +190,17 @@ fused_splade_v2_bwd_match_kernel(const __nv_bfloat16* __restrict__ h,
 // number.
 extern "C" int splade_fused_pool_v2_bwd_shared_bytes(int S, int RB) {
   return shared_bytes(S, RB);
+}
+
+// Static shared memory of the match pass, which a block holds beside the
+// dynamic part: the two together must fit the card's opt-in limit. -1 if the
+// runtime cannot say.
+extern "C" int splade_fused_pool_v2_bwd_static_bytes() {
+  cudaFuncAttributes attr;
+  if (cudaFuncGetAttributes(&attr, fused_splade_v2_bwd_match_kernel) !=
+      cudaSuccess)
+    return -1;
+  return (int)attr.sharedSizeBytes;
 }
 
 // h [B,S,H] bf16, w [V,H] bf16, bias [V] f32 or null, mask [B,S] f32,

@@ -1,7 +1,8 @@
 // The walk of the fused SPLADE pool's register-resident kernels, shared by
-// the pool forward of both families (fused_splade_fwd.cu) and the row-blocked
-// family's match pass (fused_splade_v2_bwd.cu): what they compute from the
-// scores differs (maxima, argmax bits), how they reach the scores does not.
+// the pool forward of both families (fused_splade_fwd.cu) and the match pass
+// of both families' backward (fused_splade_v2_bwd.cu): what they compute from
+// the scores differs (maxima, argmax bits), how they reach the scores does
+// not.
 //
 // A block of 4 warps owns one tile of BN = 128 vocab columns and the live
 // 16-row groups of a range of batch rows: 16 positions of one batch row, at
@@ -19,8 +20,8 @@
 // Each score keeps the arithmetic of fused_splade_tile.cuh: bf16 products
 // in k-slices of 16, ascending from a zeroed f32 accumulator up to H
 // rounded to whole 64-wide steps, one HMMA.16816 a slice. The epilogue adds
-// the bias in f32. So every kernel that walks this way, and the per-row
-// match pass's WMMA products, compute every score bit for bit alike.
+// the bias in f32. So every kernel that walks this way computes every score
+// bit for bit alike.
 //
 // Fragment layout (mma_sm90.cuh): with g = lane / 4 and c = 2 * (lane % 4),
 // acc[i][j] of the warp (wm, wn) holds rows g and g + 8 of its fragment row i

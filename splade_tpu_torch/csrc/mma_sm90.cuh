@@ -1,7 +1,7 @@
 // Register-level pieces of the hand-written sm_90 kernels that run bf16
 // tensor-core products on mma.sync fragments (the splash attention forward
 // and backward, splash_attention_fwd.cu and splash_attention_bwd.cu, and the
-// fused SPLADE pool forward and the row-blocked match pass, through
+// fused SPLADE pool forward and the backward's match pass, through
 // fused_splade_walk.cuh): the m16n8k16 product with
 // its documented fragment layout, ldmatrix loads of its operands from
 // shared memory, cp.async copies, ex2 and paired stores. Nothing here knows

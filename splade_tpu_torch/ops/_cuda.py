@@ -48,8 +48,6 @@ SIGNATURES: Dict[str, List] = {
     # the same launch with its blocks in the other order (measurement only)
     "splade_fused_pool_fwd_batch_first": [_P, _P, _P, _P, _P, _P,
                                           _I, _I, _I, _I, _P],
-    "splade_fused_pool_bwd_match": [_P, _P, _P, _P, _P, _P, _P,
-                                    _I, _I, _I, _I, _P],
     # ... B, S, H, V, hidden slices, vocab splits, stream
     "splade_fused_pool_bwd_dh": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                  _P],
@@ -65,6 +63,9 @@ SIGNATURES: Dict[str, List] = {
     # code
     "splade_fused_pool_v2_fwd_shared_bytes": [_I, _I],
     "splade_fused_pool_v2_bwd_shared_bytes": [_I, _I],
+    # () -> bytes of the kernel's static shared memory, -1 if unknown
+    "splade_fused_pool_v2_fwd_static_bytes": [],
+    "splade_fused_pool_v2_bwd_static_bytes": [],
     "splade_splash_attn_fwd": [_P] * 6 + _SPLASH_TAIL,
     # the pointers, then whether each gradient is written in bf16 (else f32)
     "splade_splash_attn_bwd_dq": [_P] * 9 + [_I] + _SPLASH_TAIL,

@@ -23,17 +23,21 @@ Backward: the forward saves m (the [B, V] maxima), h, w, bias and mask, as
 ``g_pre = g · 1/(1+m)`` where m > 0 else 0, ``dbias = Σ_b g_pre``, and the
 token weights' cotangent is ignored (they are monitoring-only). The
 gradients themselves are ``G = 1[masked == m] · g_pre``, ``dh = G @ W`` and
-``dW = Gᵀ @ h``, computed by three kernels (``csrc/fused_splade_bwd.cu``,
-replacing ``_bwd_dh_kernel`` at ``fused_splade.py:93`` and ``_bwd_dw_kernel``
-at ``:111``): a match pass recomputes every score of the batch once and
-writes the argmax set as a bitmask ``match[b, j, v]`` (bit r of word j:
-valid position 32j + r reaches m[b, v], and g_pre[b, v] != 0), then a dh
-gather and a dW gather read it. The autograd backward runs the match pass
-once and the gathers it needs; the row-blocked family
-(``ops/fused_splade_v2.py``) writes the same bitmask with its own match pass
-and launches the same gathers. Ties get duplicate gradient, as in the Pallas
-kernels (autograd through ``amax``, the streamed path's gradient, splits
-them instead). dh and dW come back in the dtypes of h and w.
+``dW = Gᵀ @ h``, computed by three kernels that replace ``_bwd_dh_kernel``
+at ``fused_splade.py:93`` and ``_bwd_dw_kernel`` at ``:111``: a match pass
+recomputes every score of the batch once and writes the argmax set as a
+bitmask ``match[b, j, v]`` (bit r of word j: valid position 32j + r
+reaches m[b, v], and g_pre[b, v] != 0), then a dh gather and a dW gather
+(``csrc/fused_splade_bwd.cu``) read it. Both kernel families run one match
+pass, the row-blocked family's (``csrc/fused_splade_v2_bwd.cu``, on the
+register-resident walk): this family launches it at ``routed_row_block``,
+the largest of 8, 4, 2, 1 that divides B and whose shared memory fits. The
+dh gather cuts each word row's vocabulary into ordered ranges where word
+rows are few (``dh_splits``) and the ranges' f32 partials are added in
+order. The autograd backward runs the match pass once and the gathers it
+needs. Ties get duplicate gradient, as in the Pallas kernels (autograd
+through ``amax``, the streamed path's gradient, splits them instead). dh
+and dW come back in the dtypes of h and w.
 
 On CUDA tensors the wrappers launch the kernels or raise; on CPU tensors
 they run the plain versions ``fused_splade_pool_plain``,
@@ -63,12 +67,32 @@ GATHER_SLICE_COLS = 768
 #: hidden columns of one warp of the dh gather (32 threads x 4); a slice of
 #: the hidden width is a whole number of them
 GATHER_COLS = 128
-#: blocks the dh gather aims at: two a multiprocessor of an H100, which the
-#: full-width slice's 96 KB of shared-memory sums allows; with fewer (b, word)
-#: rows it cuts the hidden width into slices
-DH_GATHER_BLOCKS = 264
 #: the gathers' C entries, which both kernel families launch
 GATHER_ENTRY = "splade_fused_pool_bwd_"
+#: the match pass's C entry, which both kernel families launch
+MATCH_ENTRY = "splade_fused_pool_v2_bwd_match"
+#: vocab columns of a block of the walk (the forward and the match pass)
+TILE_COLS = 128
+#: positions of a tile of the walk: 8 groups of 16
+TILE_ROWS = 128
+#: shared memory one block may opt into on an H100, static and dynamic
+MAX_SHARED_BYTES = 232_448
+#: static shared memory of the walk kernels (the forward and the match pass):
+#: a few flags, rounded up to the 128-byte alignment of the dynamic part.
+#: The mirror of what the built kernels report (``_shared_bytes``)
+STATIC_SHARED_BYTES = 128
+#: the walk's cp.async ring: 4 stages of 128 h rows and 128 W rows, 32 + 8
+#: bf16 each
+RING_BYTES = 4 * 256 * 40 * 2
+#: blocks the dh gather aims at, counting its vocab splits. Each block owns
+#: a word row's full hidden width (one slice up to H = 768: 96 KB of sums,
+#: two blocks an SM; wider, the fewest slices) and one vocab range; more,
+#: shorter ranges spread a word row's serial walk of matches over more
+#: blocks. Chosen on an H100 with scripts/bench_v2_backward.py: 4 ranges at
+#: the document batch (1,024 word rows), the most (16) at the query batch
+#: (128).
+DH_SPLIT_BLOCKS = 4096
+MAX_VOCAB_SPLITS = 16
 
 
 def match_words(S: int) -> int:
@@ -83,16 +107,23 @@ def min_hidden_slices(H: int) -> int:
     return -(-groups // (GATHER_SLICE_COLS // GATHER_COLS))
 
 
-def dh_hidden_splits(B: int, S: int, H: int) -> int:
-    """How many slices of whole GATHER_COLS-column groups the dh gather cuts
-    the hidden width into: 1 at the document batch, several at the query
-    batch, never fewer than ``min_hidden_slices``. Each slice's sums are its
-    own, so nothing is added afterwards."""
-    rows = max(B * match_words(S), 1)
-    groups = max(-(-H // GATHER_COLS), 1)
-    want = max(min_hidden_slices(H),
-               min(groups, -(-DH_GATHER_BLOCKS // rows)))
-    return -(-groups // -(-groups // want))
+def dh_vocab_splits_v2(B: int, S: int, V: int) -> int:
+    """How many ordered vocab ranges the dh gather cuts each word row's
+    vocabulary into: enough that its blocks (word rows x ranges) reach
+    DH_SPLIT_BLOCKS, at most one per 32 columns and MAX_VOCAB_SPLITS. A
+    split is only taken while the B·ceil(S/32) word rows are fewer than
+    DH_SPLIT_BLOCKS, so the [splits, B, S, H] f32 partials hold at most
+    about DH_SPLIT_BLOCKS·32·H·4 bytes beyond dh itself: 403 MB at H = 768,
+    302 MB at the document batch."""
+    want = -(-DH_SPLIT_BLOCKS // max(B * match_words(S), 1))
+    return max(1, min(want, -(-V // 32), MAX_VOCAB_SPLITS))
+
+
+def dh_splits(B: int, S: int, H: int, V: int) -> Tuple[int, int]:
+    """(hidden slices, vocab ranges) of the dh gather, for both kernel
+    families: the fewest slices of the hidden width (one up to H = 768) and
+    ``dh_vocab_splits_v2`` ranges."""
+    return min_hidden_slices(H), dh_vocab_splits_v2(B, S, V)
 
 
 def vocab_ranges(V: int, splits: int) -> list:
@@ -276,6 +307,93 @@ def _bwd_operands(h, w, bias, mask, m, g_pre) -> BwdOperands:
     return BwdOperands(hb, wb, bias_f, maskf, m32, g32)
 
 
+def pick_row_block(B: int) -> int:
+    """The largest of 8, 4, 2, 1 that divides B."""
+    return next(rb for rb in (8, 4, 2, 1) if B % rb == 0)
+
+
+def resolve_row_block(B: int, row_block: int) -> int:
+    if row_block < 0 or (row_block and B % row_block):
+        # a block that does not divide B would leave the tail rows
+        # uncomputed (no output, dropped gradients): refuse instead
+        raise ValueError(
+            f"row_block={row_block} must divide batch {B} "
+            "(or pass 0 to pick a dividing block automatically)")
+    return row_block or pick_row_block(B)
+
+
+def fwd_shared_bytes(S: int, row_block: int) -> int:
+    """Dynamic shared memory of the row-blocked forward at sequence length
+    S: the ring, the row block's column keys, the row maxima of a tile's two
+    column halves, the bias and the list of 16-row groups. A mirror of
+    ``shared_bytes`` in ``fused_splade_fwd.cu``, which the launch path asks
+    instead (``_check``); a test on the card holds the two equal."""
+    G = -(-S // 16)
+    return (RING_BYTES + row_block * TILE_COLS * 4 + 2 * TILE_ROWS * 4
+            + TILE_COLS * 4 + row_block * G * 8)
+
+
+def match_shared_bytes(S: int, row_block: int) -> int:
+    """Dynamic shared memory of the match pass at sequence length S: the
+    ring, m for the row block's rows and the tile's columns, the bias, the
+    list of 16-row groups and the row and group flags. A mirror of
+    ``shared_bytes`` in ``fused_splade_v2_bwd.cu``, as above."""
+    G = -(-S // 16)
+    return (RING_BYTES + row_block * TILE_COLS * 4 + TILE_COLS * 4
+            + row_block * G * 8 + row_block * 4 + row_block * G)
+
+
+def _shared_bytes(h, RB: int, backward: bool) -> Tuple[int, int]:
+    """(dynamic, static) shared memory a block of the match pass
+    (``backward``) or of the row-blocked forward takes at h's sequence
+    length and row block RB: the built kernels' own numbers for a CUDA
+    tensor (their C entries report them), the mirrors on the CPU."""
+    S = h.shape[1]
+    kernel = "bwd" if backward else "fwd"
+    if h.is_cuda:
+        lib = _cuda.library()
+        static = getattr(lib, f"splade_fused_pool_v2_{kernel}_static_bytes")()
+        if static < 0:
+            raise _cuda.KernelLaunchError(
+                f"the {kernel} walk kernel's attributes are unreadable")
+        return (getattr(lib, f"splade_fused_pool_v2_{kernel}_shared_bytes")(
+            S, RB), static)
+    return ((match_shared_bytes if backward else fwd_shared_bytes)(S, RB),
+            STATIC_SHARED_BYTES)
+
+
+def _check(h, row_block: int, backward: bool) -> int:
+    """The row block the walk kernels run at, refused where the forward's
+    or the match pass's shared memory would not fit: both keep a row per
+    batch row of the block and list its 16-row groups, so a large row block
+    at a long sequence overflows. The hidden width bounds neither (both
+    stream it)."""
+    B, S, _ = h.shape
+    RB = resolve_row_block(B, row_block)
+    need, static = _shared_bytes(h, RB, backward)
+    if need + static > MAX_SHARED_BYTES:
+        what = (f"the match pass stages m for {RB} batch rows and lists "
+                f"their 16-row groups at S={S}" if backward else
+                f"the forward keeps column maxima for {RB} batch rows and "
+                f"lists their 16-row groups at S={S}")
+        raise ValueError(
+            f"row_block {RB} at S={S} needs {need} bytes of dynamic shared "
+            f"memory a block beside {static} static (at most "
+            f"{MAX_SHARED_BYTES} in all): {what}")
+    return RB
+
+
+def routed_row_block(h) -> int:
+    """The row block this module's family runs the match pass at: the
+    largest of 8, 4, 2, 1 that divides B and whose shared memory fits (rb 8
+    up to S = 32,384, rb 1 up to S = 265,536, past which ``_check``
+    refuses)."""
+    B = h.shape[0]
+    rb = next((rb for rb in (8, 4, 2) if B % rb == 0
+               and sum(_shared_bytes(h, rb, True)) <= MAX_SHARED_BYTES), 1)
+    return _check(h, rb, True)
+
+
 @dataclasses.dataclass(frozen=True)
 class KernelFamily:
     """What differs between the pool's kernel families: the per-row one of
@@ -284,14 +402,13 @@ class KernelFamily:
     preparation, the empty batch and the tie, dbias and autocast rules are
     written once."""
 
-    #: the C entries are <prefix>_fwd and <prefix>_bwd_match; the gathers'
-    #: (GATHER_ENTRY) are shared
-    prefix: str
-    #: (hb, row_block, backward) -> the ints the forward and match C entries
-    #: take after V; raises ValueError for what the kernels cannot take
+    #: the forward's C entry; the match pass's (MATCH_ENTRY) and the
+    #: gathers' (GATHER_ENTRY) are shared
+    fwd_entry: str
+    #: (hb, row_block, backward) -> the ints the forward (backward False)
+    #: or match (True) C entry takes after V; raises ValueError for what the
+    #: kernels cannot take
     block_args: Callable
-    #: (B, S, H, V) -> (hidden slices, vocab splits) of the dh gather
-    dh_splits: Callable
     #: the plain versions, taking row_block as their last argument
     plain_fwd: Callable
     plain_match: Callable
@@ -313,7 +430,7 @@ def _launch_fwd(fam: KernelFamily, h, w, bias, mask, row_block
                          dtype=torch.int32, device=dev)
     if B == 0 or S == 0 or V == 0:
         return torch.full_like(m, NEG), float_from_key(pos_key)
-    entry = fam.prefix + "_fwd"
+    entry = fam.fwd_entry
     code = getattr(_cuda.library(), entry)(
         hb.data_ptr(), wb.data_ptr(),
         bias_f.data_ptr() if bias_f is not None else None,
@@ -341,18 +458,17 @@ def _launch_bwd(fam: KernelFamily, which, h, w, bias, mask, m, g_pre,
 
 def launch_match(fam: KernelFamily, ops: BwdOperands, extra=()
                  ) -> torch.Tensor:
-    """The family's match pass (``extra``: its block arguments): the
-    bitmask [B, ceil(S/32), V] (int32 holding the kernel's uint32 words),
-    every word written by the kernel."""
+    """The match pass (``extra``: the family's block arguments, its row
+    block), counted as the family's: the bitmask [B, ceil(S/32), V] (int32
+    holding the kernel's uint32 words), every word written by the kernel."""
     B, S, H, V = ops.dims
     match = torch.empty((B, match_words(S), V), dtype=torch.int32,
                         device=ops.hb.device)
-    entry = fam.prefix + "_bwd_match"
-    code = getattr(_cuda.library(), entry)(
+    code = getattr(_cuda.library(), MATCH_ENTRY)(
         ops.ptr("hb"), ops.ptr("wb"), ops.ptr("bias"), ops.ptr("mask"),
         ops.ptr("m"), ops.ptr("g"), match.data_ptr(), B, S, H, V, *extra,
         _cuda.stream_ptr(ops.hb))
-    _cuda.check(code, entry)
+    _cuda.check(code, MATCH_ENTRY)
     fam.counted["match"].launches += 1
     return match
 
@@ -361,8 +477,8 @@ def launch_gather(fam: KernelFamily, which: str, match: torch.Tensor,
                   x: torch.Tensor, g32: torch.Tensor, S: int) -> torch.Tensor:
     """The dh gather ("dh": x is bf16 w, out [B,S,H]) or the dW gather
     ("dw": x is bf16 h, out [V,H]) from a bitmask [B, ceil(S/32), V], f32,
-    every element written by the kernel; dh's partials over the family's
-    vocab splits are added in order."""
+    every element written by the kernel; dh's partials over the vocab
+    ranges of ``dh_splits`` are added in order."""
     B, J, V = match.shape
     H = x.shape[-1]
     if (J != match_words(S) or match.dtype != torch.int32
@@ -372,7 +488,7 @@ def launch_gather(fam: KernelFamily, which: str, match: torch.Tensor,
                          f"{tuple(g32.shape)} and {tuple(x.shape)} do not "
                          f"agree for the {which} gather at S={S}")
     match = match.contiguous()
-    splits = fam.dh_splits(B, S, H, V) if which == "dh" else ()
+    splits = dh_splits(B, S, H, V) if which == "dh" else ()
     out = torch.empty(((splits[1], B, S, H) if which == "dh" else (V, H)),
                       dtype=torch.float32, device=x.device)
     entry = GATHER_ENTRY + which
@@ -490,8 +606,9 @@ def family_pool(fam: KernelFamily, h, w, bias, mask, row_block=None
 
 # the plain versions are looked up when called, not when the family is made
 PER_ROW = KernelFamily(
-    prefix="splade_fused_pool", block_args=lambda *_: [],
-    dh_splits=lambda B, S, H, _V: (dh_hidden_splits(B, S, H), 1),
+    fwd_entry="splade_fused_pool_fwd",
+    block_args=lambda hb, _rb, backward: (
+        [routed_row_block(hb)] if backward else []),
     plain_fwd=lambda h, w, bias, mask, _rb: fused_splade_pool_plain(
         h, w, bias, mask),
     plain_match=lambda *args: fused_splade_bwd_match_plain(*args[:6]),
@@ -505,8 +622,9 @@ def fused_splade_maxima(h, w, bias, mask) -> Tuple[torch.Tensor, torch.Tensor]:
 
 
 def fused_splade_bwd_match(h, w, bias, mask, m, g_pre) -> torch.Tensor:
-    """The argmax bitmask, int32 [B, ceil(S/32), V]: the match pass on a
-    CUDA tensor, ``fused_splade_bwd_match_plain`` on a CPU tensor."""
+    """The argmax bitmask, int32 [B, ceil(S/32), V]: the match pass at
+    ``routed_row_block`` on a CUDA tensor, ``fused_splade_bwd_match_plain``
+    on a CPU tensor."""
     return family_match(PER_ROW, h, w, bias, mask, m, g_pre)
 
 

@@ -18,15 +18,17 @@ streaming 32-wide k-slices of h and W, so the hidden width does not bound
 it; the row block's column keys and group list must fit one block's shared
 memory (``fwd_shared_bytes``). The backward
 (``csrc/fused_splade_v2_bwd.cu``, replacing ``_bwd_dh_kernel`` at ``:65``
-and ``_bwd_dw_kernel`` at ``:87``) is "match once, gather twice", as the
-per-row family's: a match pass in which a block owns one vocab tile and the
-live 16-row groups of ``row_block`` batch rows recomputes every score once
-into the per-row family's argmax bitmask ``[B, ceil(S/32), V]``; then the
-per-row family's dh gather (its vocabulary split into ordered ranges where
-word rows are few, the ranges' partial sums added in order) and dW gather
-read it. Every score goes through ``csrc/fused_splade_tile.cuh``'s
-arithmetic, so this family's ``m`` and bitmask equal the per-row family's
-bit for bit and either backward may recompute either forward.
+and ``_bwd_dw_kernel`` at ``:87``) is "match once, gather twice": a match
+pass in which a block owns one vocab tile and the live 16-row groups of
+``row_block`` batch rows recomputes every score once into the argmax
+bitmask ``[B, ceil(S/32), V]``; then the dh gather (its vocabulary split
+into ordered ranges where word rows are few, the ranges' partial sums added
+in order) and the dW gather of ``csrc/fused_splade_bwd.cu`` read it. The
+per-row family (``ops/fused_splade.py``) runs this same match pass and the
+same gathers, at its own row block; only the forwards differ. Every score
+goes through ``csrc/fused_splade_tile.cuh``'s arithmetic, so this family's
+``m`` equals the per-row forward's bit for bit, the bitmask is the same at
+every row block, and either backward may recompute either forward.
 
 ``row_block=0`` picks the largest of 8, 4, 2, 1 that divides B; a
 ``row_block`` that does not divide B raises ``ValueError``. (The JAX
@@ -48,79 +50,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from splade_tpu_torch.ops import _cuda
 from splade_tpu_torch.ops.fused_splade import (PLAIN_TILE, KernelFamily,
-                                               family_bwd, family_match,
-                                               family_maxima, family_pool,
+                                               _check, family_bwd,
+                                               family_match, family_maxima,
+                                               family_pool,
                                                fused_splade_bwd_match_plain,
-                                               match_words, min_hidden_slices)
+                                               resolve_row_block)
 from splade_tpu_torch.ops.splade_pool import NEG
-
-#: vocab columns of a block of the walk (the forward and the match pass)
-TILE_COLS = 128
-#: positions of a tile of the walk: 8 groups of 16
-TILE_ROWS = 128
-#: dynamic shared memory one block may opt into on an H100
-MAX_SHARED_BYTES = 232_448
-#: the walk's cp.async ring: 4 stages of 128 h rows and 128 W rows, 32 + 8
-#: bf16 each
-RING_BYTES = 4 * 256 * 40 * 2
-#: blocks the dh gather aims at, counting its vocab splits. Each block owns
-#: a word row's full hidden width (one slice up to H = 768: 96 KB of sums,
-#: two blocks an SM; wider, the fewest slices) and one vocab range; more, shorter ranges spread a word row's serial
-#: walk of matches over more blocks. Chosen on an H100 with
-#: scripts/bench_v2_backward.py: 4 ranges at the document batch (1,024 word
-#: rows), the most (16) at the query batch (128).
-DH_SPLIT_BLOCKS = 4096
-MAX_VOCAB_SPLITS = 16
-
-
-def pick_row_block(B: int) -> int:
-    """The largest of 8, 4, 2, 1 that divides B."""
-    return next(rb for rb in (8, 4, 2, 1) if B % rb == 0)
-
-
-def resolve_row_block(B: int, row_block: int) -> int:
-    if row_block < 0 or (row_block and B % row_block):
-        # a block that does not divide B would leave the tail rows
-        # uncomputed (no output, dropped gradients): refuse instead
-        raise ValueError(
-            f"row_block={row_block} must divide batch {B} "
-            "(or pass 0 to pick a dividing block automatically)")
-    return row_block or pick_row_block(B)
-
-
-def fwd_shared_bytes(S: int, row_block: int) -> int:
-    """Dynamic shared memory of the forward at sequence length S: the ring,
-    the row block's column keys, the row maxima of a tile's two column
-    halves, the bias and the list of 16-row groups. A mirror of
-    ``shared_bytes`` in ``fused_splade_fwd.cu``, which the launch path asks
-    instead (``_check``); a test on the card holds the two equal."""
-    G = -(-S // 16)
-    return (RING_BYTES + row_block * TILE_COLS * 4 + 2 * TILE_ROWS * 4
-            + TILE_COLS * 4 + row_block * G * 8)
-
-
-def match_shared_bytes(S: int, row_block: int) -> int:
-    """Dynamic shared memory of the match pass at sequence length S: the
-    ring, m for the row block's rows and the tile's columns, the bias, the
-    list of 16-row groups and the row and group flags. A mirror of
-    ``shared_bytes`` in ``fused_splade_v2_bwd.cu``, as above."""
-    G = -(-S // 16)
-    return (RING_BYTES + row_block * TILE_COLS * 4 + TILE_COLS * 4
-            + row_block * G * 8 + row_block * 4 + row_block * G)
-
-
-def dh_vocab_splits_v2(B: int, S: int, V: int) -> int:
-    """How many ordered vocab ranges the dh gather cuts each word row's
-    vocabulary into: enough that its blocks (word rows x ranges) reach
-    DH_SPLIT_BLOCKS, at most one per 32 columns and MAX_VOCAB_SPLITS. A
-    split is only taken while the B·ceil(S/32) word rows are fewer than
-    DH_SPLIT_BLOCKS, so the [splits, B, S, H] f32 partials hold at most
-    about DH_SPLIT_BLOCKS·32·H·4 bytes beyond dh itself: 403 MB at H = 768,
-    302 MB at the document batch (the replaced kernel's held 906 MB)."""
-    want = -(-DH_SPLIT_BLOCKS // max(B * match_words(S), 1))
-    return max(1, min(want, -(-V // 32), MAX_VOCAB_SPLITS))
 
 
 def _row_block_scores(xf, w, bias, valid, v0):
@@ -215,40 +151,11 @@ def fused_splade_bwd_match_v2_plain(
         g_pre[b0:b0 + RB]) for b0 in range(0, B, RB)])
 
 
-def _check(h, row_block: int, backward: bool) -> int:
-    """The row block the kernels run at, refused where the forward's or the
-    match pass's shared memory would not fit: both keep a row per batch row
-    of the block and list its 16-row groups, so a large row block at a long
-    sequence overflows. The hidden width bounds neither (both stream it).
-    For a CUDA tensor the sizes are the built kernels' own (their C entries
-    report them); the mirrors stand in on the CPU."""
-    B, S, H = h.shape
-    RB = resolve_row_block(B, row_block)
-    lib = _cuda.library() if h.is_cuda else None
-    if backward:
-        need = (lib.splade_fused_pool_v2_bwd_shared_bytes(S, RB) if lib
-                else match_shared_bytes(S, RB))
-        what = (f"the match pass stages m for {RB} batch rows and lists "
-                f"their 16-row groups at S={S}")
-    else:
-        need = (lib.splade_fused_pool_v2_fwd_shared_bytes(S, RB) if lib
-                else fwd_shared_bytes(S, RB))
-        what = (f"the forward keeps column maxima for {RB} batch rows and "
-                f"lists their 16-row groups at S={S}")
-    if need > MAX_SHARED_BYTES:
-        raise ValueError(
-            f"row_block {RB} at S={S} needs {need} bytes of shared memory a "
-            f"block (at most {MAX_SHARED_BYTES}): {what}")
-    return RB
-
-
 # the plain versions are looked up when called, not when the family is made
 ROW_BLOCKED = KernelFamily(
-    prefix="splade_fused_pool_v2",
+    fwd_entry="splade_fused_pool_v2_fwd",
     block_args=lambda hb, row_block, backward: [
         _check(hb, row_block, backward)],
-    dh_splits=lambda B, S, H, V: (min_hidden_slices(H),
-                                  dh_vocab_splits_v2(B, S, V)),
     plain_fwd=lambda *args: fused_splade_pool_v2_plain(*args),
     plain_match=lambda *args: fused_splade_bwd_match_v2_plain(*args),
     plain_bwd=lambda *args: fused_splade_bwd_v2_plain(*args))

@@ -520,8 +520,9 @@ def _stray_bit(match):
 def test_match_check_holds_the_bitmask(monkeypatch, fault, exact):
     """Phase 2's check of the match pass alone passes the plain bitmask
     (every maximum found, no stray bit, bitwise the plain one on exact
-    inputs) and fails one that loses a column's maximum or sets a bit on a
-    padded position."""
+    inputs, bitwise the row-blocked wrapper's at row_block 1 and at B) and
+    fails one that loses a column's maximum or sets a bit on a padded
+    position."""
     from splade_tpu_torch.ops import fused_splade
 
     cs = _load_chip_smoke()
@@ -538,10 +539,15 @@ def test_match_check_holds_the_bitmask(monkeypatch, fault, exact):
     assert out["ok"] == (fault is None), out
     assert out["columns"] == int(((g_pre != 0)
                                   & (mask.sum(1, keepdim=True) > 0)).sum())
+    # B = 4: 8 does not divide it, so the whole batch is the larger block
+    assert set(out["bits_differing_from"]) == {"rb=1", "rb=4"}
     if fault is None:
         assert out["stray"] == 0 and out["found"]
         assert out.get("bits_differing", 0) == 0
+        assert not any(out["bits_differing_from"].values())
         assert out["ties"] > 0  # row 0's repeated position: every tie kept
+    else:
+        assert all(out["bits_differing_from"].values())
 
 
 def test_recipe_is_configs_train_v33_yaml():
@@ -669,8 +675,8 @@ def test_pool_family_checks_run_on_the_cpu(family):
     from splade_tpu_torch.ops.fused_splade import fused_splade_maxima
 
     cs = _load_chip_smoke()
-    fam = cs.pool_families()[family]
-    assert set(cs.pool_families()) == {"v1"} | {
+    fam = cs.pool_families(8)[family]
+    assert set(cs.pool_families(8)) == {"v1"} | {
         f"v2 rb={rb}" for rb in cs.V2_ROW_BLOCKS}
     h, w, bias, mask, gout = _family_case()
     got = cs._kernel_route(torch, fam["pool"], h, w, bias, mask, gout)
@@ -693,6 +699,65 @@ def test_pool_family_checks_run_on_the_cpu(family):
     assert not lost["ok"]
 
 
+def _odd_batch_case(S=40, H=64, V=300):
+    """chip_smoke.BWD_ODD's batch at a small width: small integers (exact
+    scores, many ties), a ragged last bitmask word, holes in row 0 and a
+    fully padded last row."""
+    g = torch.Generator().manual_seed(4)
+    B = 3
+    ints = lambda *shape: torch.randint(-2, 3, shape, generator=g).float()
+    mask = (torch.arange(S)[None] < torch.tensor([S, 23, 0])[:, None]).long()
+    mask[0, 1::5] = 0
+    return (ints(B, S, H), ints(V, H), ints(V), mask,
+            torch.randn(B, V, generator=g))
+
+
+def _drop_row_zero(match):
+    """a match pass that loses every bit of batch row 0"""
+    match = match.clone()
+    match[0] = 0
+    return match
+
+
+@pytest.mark.parametrize("fault", [None, "drop_row_zero"])
+def test_pool_family_checks_at_the_odd_batch(monkeypatch, fault):
+    """Phase 2's B=3 S=40 shape (BWD_ODD) on the CPU: only the per-row
+    family runs there (8 and 2 do not divide 3) and its match pass routes
+    to row_block 1. Checks (a) and (c) pass, and the match pass alone
+    equals the plain bitmask and the row-blocked wrapper's at row_block 1
+    and 3; a match pass that loses a batch row fails it."""
+    from splade_tpu_torch.ops import fused_splade
+
+    cs = _load_chip_smoke()
+    B, S = cs.BWD_ODD
+    assert set(cs.pool_families(B)) == {"v1"}
+    h, w, bias, mask, gout = _odd_batch_case(S)
+    assert h.shape[:2] == (B, S)
+    assert fused_splade.routed_row_block(h) == 1
+    fam = cs.pool_families(B)["v1"]
+    got = cs._kernel_route(torch, fam["pool"], h, w, bias, mask, gout)
+    want = cs._plain_route(torch, h, w, bias, mask, gout)
+    for g, r in zip(got, want):
+        assert float((g - r).abs().max()) <= cs.BWD_EXACT_RTOL * float(
+            r.abs().max())
+    assert float(got[0][-1].abs().max()) == 0.0  # the fully padded row
+    m, _ = fused_splade.fused_splade_maxima(h, w, bias, mask)
+    ones = (mask.sum(1, keepdim=True) > 0).float().expand_as(m)
+    rc = cs.recompute_check(torch, h, w, bias, mask, m,
+                            fam["dh"](h, w, bias, mask, m, ones))
+    assert rc["ok"] and rc["ties"] > 0, rc
+    if fault:
+        real = fused_splade.fused_splade_bwd_match
+        monkeypatch.setattr(fused_splade, "fused_splade_bwd_match",
+                            lambda *a: _drop_row_zero(real(*a)))
+    g_pre = fused_splade.fold_cotangent(gout, m)
+    out = cs.match_check(torch, h, w, bias, mask, m, g_pre, True)
+    assert set(out["bits_differing_from"]) == {"rb=1", "rb=3"}
+    assert out["ok"] == (fault is None), out
+    if fault:
+        assert out["bits_differing"] > 0 and not out["found"]
+
+
 def _drop_each_blocks_last_row(match, rb):
     """a row-blocked match pass that loses the last batch row of each row
     block"""
@@ -712,7 +777,7 @@ def _split_backward(lose_a_partial):
         match = v2.fused_splade_bwd_match_v2_plain(h, w, bias, mask, m, g_pre,
                                                    row_block)
         S, V = h.shape[1], w.shape[0]
-        splits = v2.dh_vocab_splits_v2(h.shape[0], S, V)
+        splits = fs.dh_vocab_splits_v2(h.shape[0], S, V)
         parts = [fs.fused_splade_gather_dh_plain(
             match[:, :, vb:ve], w[vb:ve], g_pre[:, vb:ve], S)
             for vb, ve in fs.vocab_ranges(V, splits)]
@@ -735,7 +800,7 @@ def test_pool_family_checks_catch_a_faulty_row_blocked_backward(
 
     cs = _load_chip_smoke()
     assert rb in cs.V2_ROW_BLOCKS
-    fam = cs.pool_families()[f"v2 rb={rb}"]
+    fam = cs.pool_families(8)[f"v2 rb={rb}"]
     monkeypatch.setattr(fused_splade_v2, "fused_splade_bwd_v2_plain",
                         _split_backward(fault == "lose_a_partial"))
     if fault == "drop_rows":
@@ -751,7 +816,8 @@ def test_pool_family_checks_catch_a_faulty_row_blocked_backward(
         out = cs.match_check(torch, *inputs, mask, m, g_pre, exact, rb)
         assert out["ok"] == (fault != "drop_rows"), out
         if fault == "drop_rows":
-            assert out["bits_differing_per_row"] > 0 and not out["found"]
+            assert (out["bits_differing_from"]["per_row"] > 0
+                    and not out["found"])
     h, w, bias, mask, gout = _family_case()
     got = cs._kernel_route(torch, fam["pool"], h, w, bias, mask, gout)
     want = cs._plain_route(torch, h, w, bias, mask, gout)
@@ -863,7 +929,7 @@ def test_port_kernel_times_are_summed_by_function_name():
     assert cs.port_kernels_ms(spans) == {"fused_splade_bwd_dh_kernel": 2.0,
                                          "splash_fwd_kernel": 0.25}
     assert set(cs.POOL_BACKWARD) <= {
-        "fused_splade_bwd_match_kernel", "fused_splade_bwd_dh_kernel",
+        "fused_splade_v2_bwd_match_kernel", "fused_splade_bwd_dh_kernel",
         "fused_splade_bwd_dw_kernel"}
 
 

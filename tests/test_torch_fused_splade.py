@@ -21,7 +21,8 @@ from splade_tpu.ops.splade_pool import splade_pool_streamed as jax_streamed
 from splade_tpu_torch.models.hf_port import params_from_jax
 from splade_tpu_torch.models.modernbert import ModernBertConfig
 from splade_tpu_torch.models.splade import SpladeEncoder
-from splade_tpu_torch.ops.fused_splade import (PLAIN_TILE, dh_hidden_splits,
+from splade_tpu_torch.ops.fused_splade import (PLAIN_TILE, dh_splits,
+                                               dh_vocab_splits_v2,
                                                float_from_key, float_key,
                                                fold_cotangent,
                                                fused_splade_bwd_dh,
@@ -204,26 +205,29 @@ def test_backward_wrappers_on_cpu_are_the_plain_version():
     assert bias_leaf.grad.dtype == torch.float32
 
 
-@pytest.mark.parametrize("B,S,H,splits", [
-    (128, 256, 768, 1),   # the document batch: 1024 (b, word) rows fill the card
-    (64, 64, 768, 3),     # the query batch: 128 rows, the hidden width in 3
-    (8, 200, 768, 3),     # a ragged last word still counts as a row
-    (4, 64, 768, 6),      # never more slices than 128-column groups
-    (1, 16, 64, 1),       # one group: one slice
-    (0, 0, 768, 6),       # an empty batch launches nothing; the rule holds
-    (128, 256, 1024, 2),  # wider than 768: never a slice wider than that
-    (64, 64, 1024, 3),
-    (128, 256, 2048, 3),
+@pytest.mark.parametrize("B,S,H,hidden,vocab", [
+    (128, 256, 768, 1, 4),    # the document batch: 1024 (b, word) rows
+    (64, 64, 768, 1, 16),     # the query batch: 128 rows, the most ranges
+    (8, 200, 768, 1, 16),     # a ragged last word still counts as a row
+    (4, 64, 768, 1, 16),      # never more ranges than MAX_VOCAB_SPLITS
+    (1, 16, 64, 1, 16),       # one group: one slice
+    (0, 0, 768, 1, 16),       # an empty batch launches nothing; the rule holds
+    (128, 256, 1024, 2, 4),   # wider than 768: never a slice wider than that
+    (64, 64, 1024, 2, 16),
+    (128, 256, 2048, 3, 4),
 ])
-def test_dh_hidden_splits(B, S, H, splits):
-    """The dh gather cuts the hidden width, never the vocabulary, into whole
-    128-column slices until about DH_GATHER_BLOCKS blocks fill the card:
-    no partial sums are left to add."""
-    assert dh_hidden_splits(B, S, H) == splits
+def test_dh_splits_of_the_routed_backward(B, S, H, hidden, vocab):
+    """Both kernel families' dh gather takes one rule at V = 50,000: the
+    fewest whole 128-column slices of the hidden width (one up to 768, none
+    wider than that) and ordered vocab ranges where word rows are few, the
+    ranges' partials added in order."""
+    V = 50_000
+    assert dh_splits(B, S, H, V) == (hidden, vocab)
+    assert vocab == dh_vocab_splits_v2(B, S, V)
     groups = -(-H // 128)
-    assert 1 <= splits <= groups
-    slice_cols = -(-groups // splits) * 128
-    assert -(-H // slice_cols) == splits  # every slice holds columns
+    assert 1 <= hidden <= groups
+    slice_cols = -(-groups // hidden) * 128
+    assert -(-H // slice_cols) == hidden  # every slice holds columns
     assert min(slice_cols, H) <= 768
 
 

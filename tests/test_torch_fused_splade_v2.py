@@ -17,15 +17,14 @@ import torch
 
 from splade_tpu.ops.fused_splade_v2 import fused_splade_pool_v2 as jax_v2
 from splade_tpu_torch.ops.fused_splade import (
-    dh_hidden_splits, fold_cotangent, fused_splade_bwd_match_plain, fused_splade_bwd_plain,
+    dh_splits, dh_vocab_splits_v2, fold_cotangent,
+    fused_splade_bwd_match_plain, fused_splade_bwd_plain,
     fused_splade_gather_dh_plain, fused_splade_pool, fused_splade_pool_plain,
-    vocab_ranges)
+    fwd_shared_bytes, match_shared_bytes, pick_row_block, vocab_ranges)
 from splade_tpu_torch.ops.fused_splade_v2 import (
-    dh_vocab_splits_v2, fused_splade_bwd_dh_v2, fused_splade_bwd_dw_v2,
-    fused_splade_bwd_match_v2, fused_splade_bwd_match_v2_plain,
-    fused_splade_bwd_v2_plain, fused_splade_maxima_v2, fused_splade_pool_v2,
-    fused_splade_pool_v2_plain, fwd_shared_bytes, match_shared_bytes,
-    pick_row_block)
+    fused_splade_bwd_dh_v2, fused_splade_bwd_dw_v2, fused_splade_bwd_match_v2,
+    fused_splade_bwd_match_v2_plain, fused_splade_bwd_v2_plain,
+    fused_splade_maxima_v2, fused_splade_pool_v2, fused_splade_pool_v2_plain)
 
 # tiny shapes: more intra-op threads only contend with the other test
 # workers for the host's cores
@@ -183,7 +182,7 @@ def test_v2_dh_vocab_splits_and_shared_memory(B, S, V, splits):
     it: 2048 runs); the backward refuses a sequence whose 16-row groups the
     match pass cannot list, never a hidden width: past 768 the gathers cut
     it into slices."""
-    from splade_tpu_torch.ops import fused_splade_v2
+    from splade_tpu_torch.ops import fused_splade
 
     assert dh_vocab_splits_v2(B, S, V) == splits
     ranges = vocab_ranges(V, splits)
@@ -197,22 +196,22 @@ def test_v2_dh_vocab_splits_and_shared_memory(B, S, V, splits):
     shaped = lambda *shape: torch.zeros(()).expand(*shape)  # no storage
     rb = pick_row_block(B)
     for backward in (False, True):
-        assert fused_splade_v2._check(shaped(B, S, 768), rb, backward) == rb
-        assert fused_splade_v2._check(shaped(B, 4, 2048), rb, backward) == rb
-    assert fused_splade_v2._check(shaped(B, 4, 1024), rb, True) == rb
-    family = fused_splade_v2.ROW_BLOCKED
-    assert family.dh_splits(B, S, 768, V) == (1, splits)
-    assert family.dh_splits(B, S, 1024, V) == (2, splits)
+        assert fused_splade._check(shaped(B, S, 768), rb, backward) == rb
+        assert fused_splade._check(shaped(B, 4, 2048), rb, backward) == rb
+    assert fused_splade._check(shaped(B, 4, 1024), rb, True) == rb
+    assert dh_splits(B, S, 768, V) == (1, splits)
+    assert dh_splits(B, S, 1024, V) == (2, splits)
     # the match pass lists every 16-row group of its row block
     with pytest.raises(ValueError, match="match pass"):
-        fused_splade_v2._check(shaped(B, 1 << 17, 768), B, True)
+        fused_splade._check(shaped(B, 1 << 17, 768), B, True)
 
 
 @pytest.mark.parametrize("S,rb,need", [
     (1, 1, 83_976),
     (256, 8, 88_576),      # the document batch at the default row block
     (64, 16, 92_160),      # what the per-row family owns a block at S=64
-    (512, 194, 232_448),   # exactly one block's limit
+    (512, 193, 231_680),   # the most that fits beside the static 128
+    (512, 194, 232_448),   # one block's limit, but not with the static part
     (512, 195, 233_216),
     (512, 256, 280_064),
 ])
@@ -220,20 +219,54 @@ def test_v2_forward_shared_memory_and_its_refusal(S, rb, need):
     """The forward's shared memory (the walk's ring of 81,920 bytes, a row
     of 128 column keys a batch row, two rows of 128 row maxima, 128 biases
     and one int2 a 16-row group) at sequence length S and row block rb:
-    ``_check`` takes a row block whose layout fits one block's 232,448
-    bytes, whatever the hidden width, and refuses a larger one with a
-    message that says why."""
-    from splade_tpu_torch.ops import fused_splade_v2
+    ``_check`` takes a row block whose layout, beside the kernel's 128
+    bytes of static shared memory, fits one block's 232,448 bytes, whatever
+    the hidden width, and refuses a larger one with a message that says
+    why."""
+    from splade_tpu_torch.ops import fused_splade
 
     assert fwd_shared_bytes(S, rb) == need
     h = torch.zeros(()).expand(rb, S, 2048)  # no storage
-    if need <= fused_splade_v2.MAX_SHARED_BYTES:
-        assert fused_splade_v2._check(h, rb, False) == rb
+    total = need + fused_splade.STATIC_SHARED_BYTES
+    if total <= fused_splade.MAX_SHARED_BYTES:
+        assert fused_splade._check(h, rb, False) == rb
     else:
         with pytest.raises(ValueError,
                            match=f"row_block {rb} at S={S} needs {need} "
                                  "bytes.*forward keeps column maxima"):
-            fused_splade_v2._check(h, rb, False)
+            fused_splade._check(h, rb, False)
+
+
+@pytest.mark.parametrize("B,S,rb", [
+    (128, 256, 8),      # the document batch
+    (64, 64, 8),        # the query batch
+    (8, 200, 8),
+    (6, 40, 2),
+    (3, 40, 1),         # an odd batch: row_block 1
+    (1, 16, 1),         # a lone row
+    (8, 32_384, 8),     # the longest sequence row_block 8 holds
+    (8, 32_385, 4),     # one more: the next smaller row block that fits
+    (8, 65_697, 2),
+    (8, 132_305, 1),
+    (1, 265_536, 1),    # the longest sequence row_block 1 holds
+])
+def test_routed_row_block_is_the_largest_that_fits(B, S, rb):
+    """The per-row family runs the shared match pass at the largest of 8,
+    4, 2, 1 that divides B and whose shared memory fits one block, so a long
+    sequence steps down instead of being refused; past what row_block 1
+    holds the refusal is ``_check``'s."""
+    from splade_tpu_torch.ops import fused_splade
+
+    h = torch.zeros(()).expand(B, S, 768)  # no storage
+    assert fused_splade.routed_row_block(h) == rb
+    assert fused_splade.PER_ROW.block_args(h, None, True) == [rb]
+    assert fused_splade.PER_ROW.block_args(h, None, False) == []
+    assert (match_shared_bytes(S, rb) + fused_splade.STATIC_SHARED_BYTES
+            <= fused_splade.MAX_SHARED_BYTES)
+    if S == 265_536:
+        with pytest.raises(ValueError, match="match pass"):
+            fused_splade.routed_row_block(
+                torch.zeros(()).expand(B, S + 1, 768))
 
 
 def _exact_match_case(seed, B, S, H=24, V=300):
@@ -327,21 +360,25 @@ class _RecordingLibrary:
         return call
 
 
-@pytest.mark.parametrize("family,row_block,extra", [
-    ("PER_ROW", None, ()),
-    ("ROW_BLOCKED", 0, (4,)),       # B = 4: the automatic row block
-    ("ROW_BLOCKED", 2, (2,)),
-    ("ROW_BLOCKED", 1, (1,)),
+@pytest.mark.parametrize("family,B,row_block,fwd_extra,match_extra", [
+    ("PER_ROW", 4, None, (), (4,)),      # the match pass at pick_row_block(B)
+    ("PER_ROW", 3, None, (), (1,)),      # an odd batch: row_block 1
+    ("PER_ROW", 1, None, (), (1,)),      # a lone row
+    ("ROW_BLOCKED", 4, 0, (4,), (4,)),   # B = 4: the automatic row block
+    ("ROW_BLOCKED", 4, 2, (2,), (2,)),
+    ("ROW_BLOCKED", 4, 1, (1,), (1,)),
 ])
 def test_launchers_count_where_they_launch_and_nowhere_else(
-        monkeypatch, family, row_block, extra):
+        monkeypatch, family, B, row_block, fwd_extra, match_extra):
     """Both families go through one set of launchers: each adds one to its
     kernel's count after the C entry returned, never for an empty batch;
     the entry's name and its integer arguments (B, S, H, V, the row block,
     the dh gather's hidden slices and vocab splits) are the family's: the
     row-blocked forward hands its row block to the walk's C entry. Each
-    backward call runs the family's match pass once and then the gathers
-    asked for, which both families share."""
+    backward call runs the one match pass both families share
+    (``splade_fused_pool_v2_bwd_match``, the per-row family at
+    ``pick_row_block(B)``) once and then the gathers asked for, which both
+    families share too."""
     from splade_tpu_torch.ops import _cuda, fused_splade, fused_splade_v2
 
     fam = getattr(fused_splade_v2 if family == "ROW_BLOCKED" else fused_splade,
@@ -351,7 +388,7 @@ def test_launchers_count_where_they_launch_and_nowhere_else(
     monkeypatch.setattr(_cuda, "stream_ptr", lambda t: 0)
     for fn in fam.counted.values():
         monkeypatch.setattr(fn, "launches", 0)
-    B, S, H, V = 4, 16, 32, 300
+    S, H, V = 16, 32, 300
     h, w, bias, mask = (torch.from_numpy(x) for x in _case(5, B, S, H, V))
     m, g = torch.zeros(B, V), torch.ones(B, V)
     count = lambda: {k: fn.launches for k, fn in fam.counted.items()}
@@ -372,20 +409,21 @@ def test_launchers_count_where_they_launch_and_nowhere_else(
     out = fused_splade._launch_bwd(fam, ("dh", "dw"), h, w, bias, mask, m, g,
                                    row_block)
     assert set(out) == {"dh", "dw"} and out["dh"].shape == (B, S, H)
-    hidden, vocab = fam.dh_splits(B, S, H, V)
-    if family == "PER_ROW":  # hidden slices, the whole vocabulary
-        assert (hidden, vocab) == (dh_hidden_splits(B, S, H), 1)
-    else:  # the whole hidden width, ordered vocab ranges
-        assert (hidden, vocab) == (1, dh_vocab_splits_v2(B, S, V)) == (1, 10)
+    # the whole hidden width, ordered vocab ranges, for both families
+    hidden, vocab = dh_splits(B, S, H, V)
+    assert (hidden, vocab) == (1, dh_vocab_splits_v2(B, S, V)) == (1, 10)
     # the forward: 6 pointers, then the ints and the stream
     assert [(e, a[6:-1]) for e, a in lib.calls[:1]] == [
-        (fam.prefix + "_fwd", (B, S, H, V, *extra))]
+        (fam.fwd_entry, (B, S, H, V, *fwd_extra))]
     # one match pass a backward call, then the gathers asked for
     assert count() == dict(fwd=1, match=3, dh=2, dw=2)
     # the match pass: 7 pointers; the gathers: 4
     ints = [(e, a[7 if e.endswith("_match") else 4:-1])
             for e, a in lib.calls[1:]]
-    match = (fam.prefix + "_bwd_match", (B, S, H, V, *extra))
+    match = ("splade_fused_pool_v2_bwd_match", (B, S, H, V, *match_extra))
     dh = ("splade_fused_pool_bwd_dh", (B, S, H, V, hidden, vocab))
     dw = ("splade_fused_pool_bwd_dw", (B, S, H, V))
     assert ints == [match, dh, match, dw, match, dh, dw]
+    # no other C entry: the match pass is the shared one for both families
+    assert {e for e, _ in lib.calls} == {fam.fwd_entry, match[0], dh[0],
+                                         dw[0]}

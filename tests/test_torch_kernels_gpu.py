@@ -269,9 +269,10 @@ def test_fused_pool_backward_recomputes_the_forward(cuda, B, S, H, V):
     assert out["ok"], out
 
 
-# ---- the per-row backward's three kernels, one at a time -----------------
+# ---- the per-row backward's match pass and gathers, one at a time ------
 MATCH_SHAPES = BWD_SHAPES + [
     (8, 200, 768, 50000),    # S not a multiple of 32: a ragged last word
+    (3, 40, 768, 50000),     # an odd batch (row_block 1), a ragged last word
 ]
 
 
@@ -487,12 +488,14 @@ def test_v2_backward_recomputes_either_forward(cuda, B, S, H, V, rb):
 @pytest.mark.parametrize("exact", [True, False], ids=["exact", "model"])
 def test_v2_match_pass_equals_the_per_row_one_bitwise(cuda, B, S, H, V, rb,
                                                       exact):
-    """The row-blocked match pass's bitmask equals the per-row match
-    pass's bit for bit on the same inputs and maxima, at every row block:
-    both keep fused_splade_tile.cuh's products. Exact inputs also equal
-    the plain row-blocked bitmask; on model-like inputs (holes in the mask,
-    ragged lengths, a padded row, g = 0 columns) every maximum is found.
-    A repeated call is bitwise equal and each call counts one launch."""
+    """The match pass's bitmask is the same bit for bit at every row block:
+    at ``rb`` it equals row_block 1's and the per-row family's (its routed
+    row block, ``routed_row_block``) on the same inputs and maxima, as
+    every score keeps fused_splade_tile.cuh's products. Exact inputs also
+    equal the plain row-blocked bitmask; on model-like inputs (holes in the
+    mask, ragged lengths, a padded row, g = 0 columns) every maximum is
+    found. A repeated call is bitwise equal and each call counts one
+    launch."""
     h, w, bias, mask, gout = _bwd_case(B, S, H, V, seed=B + S + rb,
                                        device=cuda, exact=exact)
     mask[0, 1::7] = 0  # holes inside a row
@@ -504,8 +507,12 @@ def test_v2_match_pass_equals_the_per_row_one_bitwise(cuda, B, S, H, V, rb,
     torch.cuda.synchronize()
     assert fused_splade_bwd_match_v2.launches == before + 1
     assert got.shape == (B, match_words(S), V) and got.dtype == torch.int32
+    assert torch.equal(got, fused_splade_bwd_match_v2(h, w, bias, mask, m,
+                                                      g_pre, 1))
+    before = fused_splade_bwd_match.launches
     assert torch.equal(got, fused_splade_bwd_match(h, w, bias, mask, m,
                                                    g_pre))
+    assert fused_splade_bwd_match.launches == before + 1
     if exact:
         assert torch.equal(got, fused_splade_bwd_match_v2_plain(
             h, w, bias, mask, m, g_pre, rb))
@@ -519,6 +526,31 @@ def test_v2_match_pass_equals_the_per_row_one_bitwise(cuda, B, S, H, V, rb,
                                                       g_pre, rb))
 
 
+@pytest.mark.parametrize("B,S,rb", [
+    (8, 32384, 8),   # the longest sequence row_block 8's shared memory holds
+    (8, 32385, 4),   # one more: the next smaller row block
+    (6, 40, 2),
+    (3, 40, 1),
+])
+def test_routed_match_pass_takes_the_largest_row_block_that_fits(cuda, B, S,
+                                                                 rb):
+    """The per-row family's match pass runs at the largest of 8, 4, 2, 1
+    that divides B and whose shared memory the built kernel reports as
+    fitting, so it refuses no shape the row block 8 cannot hold; its bitmask
+    equals the plain one on exact inputs."""
+    from splade_tpu_torch.ops.fused_splade import routed_row_block
+
+    H, V = 64, 300
+    h, w, bias, mask, gout = _bwd_case(B, S, H, V, seed=S + rb, device=cuda,
+                                       exact=True)
+    assert routed_row_block(h.to(torch.bfloat16)) == rb
+    m, _ = fused_splade_maxima(h, w, bias, mask)
+    g_pre = fold_cotangent(gout, m)
+    got = fused_splade_bwd_match(h, w, bias, mask, m, g_pre)
+    assert torch.equal(got, fused_splade_bwd_match_plain(h, w, bias, mask, m,
+                                                         g_pre))
+
+
 @pytest.mark.parametrize("B,S", [(64, 64), (128, 256), (8, 200)])
 @pytest.mark.parametrize("vocab_splits", [1, 3, 16])
 def test_dh_gather_vocab_splits_equal_plain(cuda, B, S, vocab_splits):
@@ -527,7 +559,7 @@ def test_dh_gather_vocab_splits_equal_plain(cuda, B, S, vocab_splits):
     range), and bitwise the same when repeated."""
     from splade_tpu_torch.ops import _cuda
     from splade_tpu_torch.ops.fused_splade import (add_partials,
-                                                   dh_hidden_splits)
+                                                   min_hidden_slices)
 
     H, V = 768, 50000
     h, w, _, _, gout = _bwd_case(B, S, H, V, seed=B + S, device=cuda,
@@ -540,7 +572,7 @@ def test_dh_gather_vocab_splits_equal_plain(cuda, B, S, vocab_splits):
     def run():
         _cuda.check(_cuda.library().splade_fused_pool_bwd_dh(
             match.data_ptr(), wb.data_ptr(), gout.data_ptr(),
-            parts.data_ptr(), B, S, H, V, dh_hidden_splits(B, S, H),
+            parts.data_ptr(), B, S, H, V, min_hidden_slices(H),
             vocab_splits, torch.cuda.current_stream().cuda_stream),
             "splade_fused_pool_bwd_dh")
         return add_partials(parts.clone())
@@ -556,13 +588,17 @@ def test_dh_gather_vocab_splits_equal_plain(cuda, B, S, vocab_splits):
 @pytest.mark.parametrize("rb", [1, 2, 4, 8])
 def test_v2_shared_bytes_mirror_equals_the_kernels(cuda, S, rb):
     """``fwd_shared_bytes`` and ``match_shared_bytes`` mirror the layouts
-    the two ``.cu`` files compute for themselves; the launch path asks the
-    built kernels."""
+    the two ``.cu`` files compute for themselves, and
+    ``STATIC_SHARED_BYTES`` the kernels' static shared memory; the launch
+    path asks the built kernels."""
     from splade_tpu_torch.ops import _cuda
-    from splade_tpu_torch.ops.fused_splade_v2 import (fwd_shared_bytes,
-                                                      match_shared_bytes)
+    from splade_tpu_torch.ops.fused_splade import (STATIC_SHARED_BYTES,
+                                                   fwd_shared_bytes,
+                                                   match_shared_bytes)
 
     lib = _cuda.library()
+    assert lib.splade_fused_pool_v2_fwd_static_bytes() == STATIC_SHARED_BYTES
+    assert lib.splade_fused_pool_v2_bwd_static_bytes() == STATIC_SHARED_BYTES
     assert fwd_shared_bytes(S, rb) == (
         lib.splade_fused_pool_v2_fwd_shared_bytes(S, rb))
     assert match_shared_bytes(S, rb) == (
