@@ -1,0 +1,8 @@
+"""Share of the traced training steps' window in which no device
+operation ran."""
+
+from perfbench.core.readers import idle_pct
+
+
+def read(ctx):
+    return idle_pct(ctx) if ctx.get("kind") in ("v33", "mlm") else None
