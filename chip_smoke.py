@@ -51,7 +51,13 @@ Phases (any failure exits non-zero; nothing is caught):
    backward as the autograd.Function runs it: the dq kernel with delta,
    then dk/dv), bounds from the allowed pairs, and one
    ``scaled_dot_product_attention`` call with the same mask as the library
-   yardstick (timed here, called nowhere in the port).
+   yardstick (timed here, called nowhere in the port). The RoPE pair of the
+   splash route (``ops/rope.py``) at the same micro-batches (V33's tables
+   gathered by packed positions, MLM's shared) and at B=3 S=40 with a row
+   of padding: the forward bitwise the eager chain's cast to bf16 and its
+   plain version, the backward bitwise its plain version and within one
+   bf16 rounding of f64, dv's slot bitwise; times of each kernel, its
+   plain version and the eager chain it replaced, and bounds from bytes.
 3. The serving path at full width (22 layers, 768 hidden, 50K vocab) with
    seeded random weights and a character-level stand-in tokenizer: a
    two-phase PostingsIndex over 1,000,000 synthetic documents plus a few
@@ -106,7 +112,8 @@ Phases (any failure exits non-zero; nothing is caught):
    evaluation, ``from_checkpoint`` and a served engine, all on the splash
    route) through the attention kernels. The launch counts must be the ones
    the code implies (V33 with layer recompute: 22 x 2 forward, 22 dq, 22
-   dk/dv a micro-batch; MLM: 22 of each), one micro-batch's loss and
+   dk/dv a micro-batch; MLM: 22 of each; the RoPE pair as often as the
+   attention's forward and dq kernels), one micro-batch's loss and
    gradients are held against the sdpa route on the same weights and batch,
    and throughput, step time, idle share and peak memory are printed
    beside phase 4's and 5's.
@@ -426,6 +433,17 @@ SPLASH_TRAIN_RTOL = 1e-2
 # for the worst tensor there and 0.008 in the MLM step; a backward whose dv
 # never arrives moves the attention weights' gradients by their whole size
 SPLASH_TRAIN_GRAD_RTOL = (1e-3, 0.3)
+# the RoPE kernel pair of the splash route (ops/rope.py) at the training
+# micro-batches: V33's with tables gathered by the packed positions ([B, S,
+# D]), MLM's with tables the batch shares ([S, D]); and an odd batch and
+# length whose last row is all padding (position 0 throughout). The forward
+# rounds the eager chain's f32 result once, so it is bitwise the cast the
+# attention made of it; the backward is bitwise its plain version and within
+# one bf16 rounding (2^-8 of each value, ROPE_F64_ATOL near 0) of the f64
+# rotation
+ROPE_SHAPES = ((144, 256, "packed"), (32, 512, "shared"))
+ROPE_ODD = (3, 40, "packed")
+ROPE_F64_ATOL = 1e-6
 
 
 def log(msg: str) -> None:
@@ -1565,8 +1583,8 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
     gradients that come back through ``splash_attention``'s
     autograd.Function equal to the wrappers' own, and a repeated backward
     bitwise equal. Then times by CUDA events, with the gradients in the
-    dtypes the training paths give them (q and k come out of RoPE in f32
-    under autocast, v in bf16: dq and dk f32, dv bf16): each kernel, the
+    dtypes the training paths give them (q and k come out of the RoPE
+    kernel in bf16 under autocast, v in bf16: all three bf16): each kernel, the
     dq kernel computing delta alone, the whole backward as the Function
     runs it, the plain versions', one ``scaled_dot_product_attention`` call
     with the same boolean mask as the library yardstick (forward, and its
@@ -1639,7 +1657,7 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
 
     import torch.nn.functional as F
     lib_mask = allowed[:, None]
-    f32, bf16 = torch.float32, torch.bfloat16
+    bf16 = torch.bfloat16
 
     def library_grads():
         ql, kl, vl = (t.detach().requires_grad_() for t in (q, k, v))
@@ -1648,8 +1666,8 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
 
     def whole_backward():  # as _SplashAttention.backward runs it
         _, dl = sa.splash_attention_bwd_dq(q, k, v, seg, hw, d_out, out, lse,
-                                           f32)
-        sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse, dl, f32,
+                                           bf16)
+        sa.splash_attention_bwd_dkv(q, k, v, seg, hw, d_out, lse, dl, bf16,
                                     bf16)
 
     with torch.no_grad():
@@ -1657,9 +1675,9 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
             fwd=cuda_ms(torch, lambda: sa.splash_attention_forward(
                 q, k, v, seg, hw), iters=20),
             dq=cuda_ms(torch, lambda: sa.splash_attention_bwd_dq(
-                q, k, v, seg, hw, d_out, out, lse, f32), iters=20),
+                q, k, v, seg, hw, d_out, out, lse, bf16), iters=20),
             dkv=cuda_ms(torch, lambda: sa.splash_attention_bwd_dkv(
-                q, k, v, seg, hw, d_out, lse, delta, f32, bf16), iters=20))
+                q, k, v, seg, hw, d_out, lse, delta, bf16, bf16), iters=20))
         delta_only_ms = cuda_ms(torch, lambda: sa.splash_attention_bwd_dq(
             q, k, v, seg, hw, d_out, out, lse, None), iters=20)
         whole_ms = cuda_ms(torch, whole_backward, iters=20)
@@ -1676,11 +1694,11 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
     seg_bytes = B * S * 4
     work = dict(  # (bytes: inputs once, outputs once; bf16 operations)
         fwd=(4 * tensor * 2 + row + seg_bytes, 4.0 * D * pairs * N),
-        # q, k, v, dO, out, lse, seg in; dq (f32) and delta out
-        dq=(5 * tensor * 2 + row + seg_bytes + tensor * 4 + row,
+        # q, k, v, dO, out, lse, seg in; dq (bf16) and delta out
+        dq=(5 * tensor * 2 + row + seg_bytes + tensor * 2 + row,
             6.0 * D * pairs * N),
-        # q, k, v, dO, lse, delta, seg in; dk (f32) and dv (bf16) out
-        dkv=(4 * tensor * 2 + 2 * row + seg_bytes + tensor * (4 + 2),
+        # q, k, v, dO, lse, delta, seg in; dk and dv (bf16) out
+        dkv=(4 * tensor * 2 + 2 * row + seg_bytes + tensor * (2 + 2),
              8.0 * D * pairs * N))
     for name in ("fwd", "dq", "dkv"):
         moved, ops = work[name]
@@ -1691,7 +1709,7 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
             bound_ms=bound_ms, bound_by=bound_by, bytes_moved=moved, ops=ops)
         if name != "fwd":
             result[name].update(
-                grad_dtypes="dq f32, dk f32, dv bf16",
+                grad_dtypes="dq, dk and dv bf16",
                 plain_computes="dq, dk and dv together",
                 library_computes="dq, dk and dv together (the call's "
                                  "backward: forward + backward minus forward)",
@@ -1708,6 +1726,149 @@ def check_splash(torch, rng, B: int, S: int, half_window: int, packed: bool,
         f"{whole_ms:.4f} ms against the library's {lib_bwd:.4f} ms ("
         + (f"{whole_ms / lib_bwd:.2f}x" if lib_bwd else "library not timed")
         + ")")
+    return result
+
+
+def rope_case(torch, rng, B: int, S: int, tables: str,
+              N: int = SPLASH_HEADS, D: int = SPLASH_HEAD_DIM,
+              device: str = "cuda"):
+    """What the encoder hands the RoPE pair on the splash route: the bf16
+    QKV product [B, S, 3, N, D] and f32 cos/sin tables of theta 10,000,
+    [S, D] for "shared", or for "packed" [B, S, D] gathered by each row's
+    positions (the last B // 9 rows hold 4 packed segments whose positions
+    restart at 0, the last row is all padding, position 0); and seeded bf16
+    dq, dk, dv strided as the attention hands them back ([B, N, S, D]
+    storage seen as [B, S, N, D])."""
+    from splade_tpu_torch.models.modernbert import rope_cos_sin
+
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 31)))
+    randn = lambda *shape: torch.randn(shape, device=device,
+                                       generator=gen).to(torch.bfloat16)
+    qkv = randn(B, S, 3, N, D)
+    cos, sin = (t.to(device) for t in rope_cos_sin(S, D, 10000.0))
+    if tables == "packed":
+        pos = torch.arange(S, device=device).repeat(B, 1)
+        rows = max(B // 9, 1)
+        pos[B - rows:] %= max(S // 4, 1)
+        pos[-1] = 0
+        cos, sin = cos[pos], sin[pos]
+    dq, dk, dv = (randn(B, N, S, D).transpose(1, 2) for _ in range(3))
+    return qkv, cos, sin, dq, dk, dv
+
+
+def rope_chain_forward(torch, qkv, cos, sin, cast: bool = True):
+    """The eager chain the forward kernel replaced: q, k, v cut from the
+    product, ``apply_rope`` on q and k with the f32 tables (f32 results),
+    with ``cast`` each cast to bf16 as the attention took it."""
+    from splade_tpu_torch.models.modernbert import apply_rope
+
+    q, k, v = qkv.unbind(2)
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    if cast:
+        q, k = q.to(torch.bfloat16), k.to(torch.bfloat16)
+    return q, k, v
+
+
+def rope_bytes(B: int, S: int, N: int, D: int, tables: str) -> tuple:
+    """(forward, backward) least bytes: the kernels' inputs read once and
+    outputs written once. Forward: q and k of the product in, q and k
+    rotated out, bf16; backward: dq, dk, dv in, the [B, S, 3, N, D]
+    gradient out, bf16; both: the f32 cos and sin rows (one a position for
+    shared tables, one a token for gathered ones)."""
+    t = B * S * N * D * 2
+    table = 2 * (B if tables == "packed" else 1) * S * D * 4
+    return 4 * t + table, 6 * t + table
+
+
+def check_rope(torch, rng, B: int, S: int, tables: str,
+               N: int = SPLASH_HEADS, D: int = SPLASH_HEAD_DIM,
+               device: str = "cuda", timed: bool = True) -> dict:
+    """The RoPE kernel pair against the eager chain it replaced and its
+    plain versions at one shape: the forward bitwise the chain's cast and
+    its plain version; the backward bitwise its plain version, within one
+    bf16 rounding of the f64 rotation, the dv slot bitwise dv, and a repeat
+    bitwise equal. Then times by CUDA events each kernel, its plain version
+    and the eager chain (the backward's: autograd through the chain from
+    the f32 dq and dk and bf16 dv the attention gave before), and the bound
+    from ``rope_bytes``. Returns {"fwd": ..., "bwd": ...}."""
+    from splade_tpu_torch.ops import rope
+
+    qkv, cos, sin, dq, dk, dv = rope_case(torch, rng, B, S, tables, N, D,
+                                          device)
+    bf16 = torch.bfloat16
+    with torch.no_grad():
+        out = rope.rope_qkv_fwd(qkv, cos, sin)
+        out_p = rope.rope_qkv_fwd_plain(qkv, cos, sin)
+        cq, ck, _ = rope_chain_forward(torch, qkv, cos, sin)
+        got = rope.rope_qkv_bwd(dq, dk, dv, cos, sin, bf16)
+        again = rope.rope_qkv_bwd(dq, dk, dv, cos, sin, bf16)
+        got_p = rope.rope_qkv_bwd_plain(dq, dk, dv, cos, sin, bf16)
+        want = rope.rope_qkv_bwd_plain(dq.double(), dk.double(), dv.double(),
+                                       cos.double(), sin.double(),
+                                       torch.float64)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    diff = lambda a, b: float((a.double() - b.double()).abs().max())
+    chain_err = max(diff(out[0], cq), diff(out[1], ck))
+    fwd_err = diff(out, out_p)
+    bwd_err = diff(got, got_p)
+    err64 = (got.double() - want).abs()
+    f64_err = float(err64.max())
+    rounding = float((err64 / (want.abs() * 2.0 ** -8 + ROPE_F64_ATOL)).max())
+    dv_bitwise = bool(torch.equal(got[:, :, 2], dv))
+    repeat_bitwise = bool(torch.equal(got, again))
+    label = f"rope B={B} S={S} N={N} D={D} {tables} tables"
+    log(f"  {label}: forward against the chain's cast {chain_err:.2e}, "
+        f"against its plain version {fwd_err:.2e}; backward against its "
+        f"plain version {bwd_err:.2e}, against f64 {f64_err:.2e} "
+        f"({rounding:.3f} of one bf16 rounding); dv slot bitwise: "
+        f"{dv_bitwise}; repeated backward bitwise equal: {repeat_bitwise}")
+    if not (chain_err == 0.0 and fwd_err == 0.0 and bwd_err == 0.0
+            and rounding <= 1.0 and dv_bitwise and repeat_bitwise):
+        raise SystemExit(f"RoPE kernels disagree ({label})")
+    shape = dict(shape=f"B={B} S={S} N={N} D={D}", tables=tables)
+    result = dict(
+        fwd=dict(shape, max_abs_err=fwd_err, chain_max_abs_err=chain_err),
+        bwd=dict(shape, max_abs_err=bwd_err, f64_max_abs_err=f64_err,
+                 f64_share_of_one_rounding=rounding))
+    if not timed:
+        return result
+
+    leaf = qkv.detach().requires_grad_()
+    chain = rope_chain_forward(torch, leaf, cos, sin, cast=False)
+    # the attention's gradients before: f32 dq and dk of its f32 operands
+    # (it cast them inside its own node) and bf16 dv, back through the chain
+    cotangents = (dq.float(), dk.float(), dv)
+
+    def chain_backward():
+        torch.autograd.grad(chain, leaf, cotangents, retain_graph=True)
+
+    with torch.no_grad():
+        ms = dict(
+            fwd=cuda_ms(torch, lambda: rope.rope_qkv_fwd(qkv, cos, sin),
+                        iters=50, warmup=3),
+            fwd_plain=cuda_ms(torch, lambda: rope.rope_qkv_fwd_plain(
+                qkv, cos, sin), iters=10),
+            fwd_chain=cuda_ms(torch, lambda: rope_chain_forward(
+                torch, qkv, cos, sin), iters=10),
+            bwd=cuda_ms(torch, lambda: rope.rope_qkv_bwd(
+                dq, dk, dv, cos, sin, bf16), iters=50, warmup=3),
+            bwd_plain=cuda_ms(torch, lambda: rope.rope_qkv_bwd_plain(
+                dq, dk, dv, cos, sin, bf16), iters=10))
+    ms["bwd_chain"] = cuda_ms(torch, chain_backward, iters=10)
+    for name, moved in zip(("fwd", "bwd"), rope_bytes(B, S, N, D, tables)):
+        bound_ms, bound_by = bound(moved, 0.0, H100_BF16_FLOPS)
+        result[name].update(
+            ms=ms[name], plain_ms=ms[f"{name}_plain"],
+            chain_ms=ms[f"{name}_chain"], library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, bytes_moved=moved,
+            roofline_pct=100 * bound_ms / ms[name])
+        log(f"  {label} {name}: kernel {ms[name]:.4f} ms, plain "
+            f"{ms[f'{name}_plain']:.4f} ms, eager chain "
+            f"{ms[f'{name}_chain']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {moved / 1e6:.1f} MB; "
+            f"{100 * bound_ms / ms[name]:.1f}% of it)")
     return result
 
 
@@ -2159,8 +2320,9 @@ def device_gb_in_use(torch, device: str):
 def _counted_kernels() -> dict:
     """name -> the wrapper whose ``launches`` counts that kernel, for the
     kernels a training or serving path can launch: the per-row pool family,
-    the splash attention and the exact rescore."""
-    from splade_tpu_torch.ops import (fused_splade, rescore_kernel,
+    the splash attention, the RoPE pair of its route and the exact
+    rescore."""
+    from splade_tpu_torch.ops import (fused_splade, rescore_kernel, rope,
                                       splash_attention)
 
     return {"fused_splade_pool": fused_splade.fused_splade_pool,
@@ -2172,6 +2334,8 @@ def _counted_kernels() -> dict:
                 splash_attention.splash_attention_bwd_dq,
             "splash_attention_bwd_dkv":
                 splash_attention.splash_attention_bwd_dkv,
+            "rope_qkv_fwd": rope.rope_qkv_fwd,
+            "rope_qkv_bwd": rope.rope_qkv_bwd,
             "rescore_match": rescore_kernel.rescore_match}
 
 
@@ -2192,7 +2356,9 @@ def expected_launches(model_config, accum: int, steps: int,
     the backward's match pass once with its two gathers;
     with attention_impl "splash" every layer launches the attention forward
     once (twice under layer recompute, whose backward re-runs it) and each
-    backward kernel once; with "sdpa" none; the rescore never."""
+    backward kernel once, and, since the recipes compute in bf16, the RoPE
+    forward and backward as often as the attention's forward and dq
+    kernels; with "sdpa" none; the rescore never."""
     layers = (model_config.num_hidden_layers
               if model_config.attention_impl == "splash" else 0)
     micro = accum * steps
@@ -2204,6 +2370,9 @@ def expected_launches(model_config, accum: int, steps: int,
             * micro,
             "splash_attention_bwd_dq": layers * micro,
             "splash_attention_bwd_dkv": layers * micro,
+            "rope_qkv_fwd": layers * (2 if model_config.remat else 1)
+            * micro,
+            "rope_qkv_bwd": layers * micro,
             "rescore_match": 0}
 
 
@@ -6445,6 +6614,12 @@ def main() -> int:
     splash_ragged = [check_splash(torch, splash_rng, *SPLASH_RAGGED, hw,
                                   packed=False, timed=False)
                      for hw in SPLASH_WINDOWS]
+    # the RoPE pair of the splash route at the same micro-batches and at an
+    # odd shape, from a stream of its own too
+    rope_rng = np.random.default_rng([args.seed, 13])
+    rope_checks = [check_rope(torch, rope_rng, B, S, tables)
+                   for B, S, tables in ROPE_SHAPES]
+    rope_checks.append(check_rope(torch, rope_rng, *ROPE_ODD, timed=False))
     torch.cuda.empty_cache()
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
 
@@ -6851,6 +7026,27 @@ def main() -> int:
             shapes=shapes,
             **({"ptxas": ptxas["splash_fwd_kernel"]} if which == "fwd"
                else {})))
+    # the RoPE pair of the splash route: no TPU kernel (XLA fuses the JAX
+    # package's plain rotation); it replaces the port's eager chain. The
+    # headline numbers are the V33 micro-batch; every shape under "shapes"
+    for name, which in (("rope_qkv_fwd", "fwd"), ("rope_qkv_bwd", "bwd")):
+        shapes = [x[which] for x in rope_checks]
+        by_path = {"V33 training, splash": splash_training["launches"][name],
+                   "MLM pre-training, splash":
+                       splash_pretraining["launches"][name]}
+        kernels.append(dict(
+            name=name, route="cuda", source="splade_tpu_torch/csrc/rope.cu",
+            replaces=None,
+            replaces_chain="splade_tpu_torch/models/modernbert.py:126",
+            launches=sum(by_path.values()),
+            launches_by_path={**by_path,
+                              **{path: got[name]
+                                 for path, got in dp_launches.items()}},
+            **{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "chain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+            max_abs_err_all=max(x["max_abs_err"] for x in shapes),
+            shapes=shapes))
     for entry in kernels:
         if entry["launches"] <= 0:
             raise SystemExit(f"kernel {entry['name']} was launched no time on "

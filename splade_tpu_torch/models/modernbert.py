@@ -17,7 +17,11 @@ segment ids (padding and packing) inside the kernel and never write the
 [B, N, S, S] scores to device memory; no bias tensors are built on that
 route. JAX takes it only on a TPU and only when S % 128 == 0; the port's
 kernels take every S and run wherever the model does (on CPU tensors the
-wrapper computes its plain version). The model
+wrapper computes its plain version). On that route, on the card, a bf16
+QKV product with f32 tables (training under autocast) is rotated by the
+kernel pair of ``ops/rope.py``: q and k come out bf16, as the attention
+kernels read them, and its backward writes the product's whole gradient;
+everywhere else ``apply_rope`` rotates q and k. The model
 computes in the dtype of its parameters (bf16 when serving on the card, f32
 in the parity tests). Training keeps f32 parameters and computes in bf16
 under ``torch.autocast``, the counterpart of JAX's ``dtype: bfloat16``;
@@ -42,6 +46,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from splade_tpu_torch.ops.rope import fused_rope_applies, rope_qkv
 from splade_tpu_torch.ops.splash_attention import (segment_ids_with_padding,
                                                    splash_attention)
 
@@ -160,9 +165,14 @@ class ModernBertAttention(nn.Module):
                 seg: Optional[torch.Tensor] = None) -> torch.Tensor:
         B, S, H = x.shape
         qkv = self.Wqkv(x).view(B, S, 3, self.n_heads, self.head_dim)
-        q, k, v = qkv.unbind(2)                           # [B, S, N, D]
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+        if seg is not None and fused_rope_applies(qkv, cos, sin):
+            # the splash route on the card: q and k rotated into bf16 by
+            # one kernel, the product's gradient written by one more
+            q, k, v = rope_qkv(qkv, cos, sin)             # [B, S, N, D]
+        else:
+            q, k, v = qkv.unbind(2)                       # [B, S, N, D]
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
         if seg is not None:
             # splash route: seg carries padding and packing, attn_bias unused
             out = splash_attention(q.transpose(1, 2), k.transpose(1, 2),

@@ -70,6 +70,11 @@ SIGNATURES: Dict[str, List] = {
     # the pointers, then whether each gradient is written in bf16 (else f32)
     "splade_splash_attn_bwd_dq": [_P] * 9 + [_I] + _SPLASH_TAIL,
     "splade_splash_attn_bwd_dkv": [_P] * 9 + [_I, _I] + _SPLASH_TAIL,
+    # qkv, cos, sin, out, then B, S, N, D, the tables' batch stride, stream
+    "splade_rope_qkv_fwd": [_P] * 4 + [_I] * 4 + [_L, _P],
+    # dq, dk, dv, cos, sin, dqkv, the strides of dq, dk and dv (batch row,
+    # position, head), then B, S, N, D, the tables' batch stride, stream
+    "splade_rope_qkv_bwd": [_P] * 6 + [_L] * 9 + [_I] * 4 + [_L, _P],
 }
 
 

@@ -598,7 +598,8 @@ def test_train_phase_runs_on_the_cpu(trained):
     assert out["launches"] == dict.fromkeys(
         ("fused_splade_pool", "fused_splade_bwd_match", "fused_splade_bwd_dh",
          "fused_splade_bwd_dw", "splash_attention", "splash_attention_bwd_dq",
-         "splash_attention_bwd_dkv", "rescore_match"), 0)  # plain versions
+         "splash_attention_bwd_dkv", "rope_qkv_fwd", "rope_qkv_bwd",
+         "rescore_match"), 0)  # plain versions
     assert out["triplets"] == 4 * 2 * 6
 
 
@@ -1097,20 +1098,113 @@ def test_splash_case_has_padding_packing_and_a_padded_row():
     assert bool(full.diagonal(dim1=1, dim2=2).all())  # every token sees itself
 
 
+def _rope_fwd_bf16_tables(monkeypatch):
+    """A forward that reads the tables rounded to bf16."""
+    from splade_tpu_torch.ops import rope
+
+    monkeypatch.setattr(rope, "rope_qkv_fwd", lambda qkv, c, s: (
+        rope.rope_qkv_fwd_plain(qkv, c.bfloat16(), s.bfloat16())))
+
+
+def _rope_fwd_turned_back(monkeypatch):
+    """A forward that turns by -theta (the backward's rotation)."""
+    from splade_tpu_torch.ops import rope
+
+    monkeypatch.setattr(rope, "rope_qkv_fwd", lambda qkv, c, s: (
+        rope.rope_qkv_fwd_plain(qkv, c, -s)))
+
+
+def _rope_bwd_turned_forward(monkeypatch):
+    """A backward that applies the forward's rotation, not its transpose."""
+    from splade_tpu_torch.ops import rope
+
+    real = rope.rope_qkv_bwd_plain
+    monkeypatch.setattr(rope, "rope_qkv_bwd", lambda dq, dk, dv, c, s, dt: (
+        real(dq, dk, dv, c, -s, dt)))
+
+
+def _rope_bwd_drops_dv(monkeypatch):
+    """A backward that leaves dv's slot zero."""
+    from splade_tpu_torch.ops import rope
+
+    real = rope.rope_qkv_bwd_plain
+
+    def bwd(dq, dk, dv, c, s, dt):
+        out = real(dq, dk, dv, c, s, dt)
+        out[:, :, 2] = 0
+        return out
+
+    monkeypatch.setattr(rope, "rope_qkv_bwd", bwd)
+
+
+@pytest.mark.parametrize("fault", [None, _rope_fwd_bf16_tables,
+                                   _rope_fwd_turned_back,
+                                   _rope_bwd_turned_forward,
+                                   _rope_bwd_drops_dv],
+                         ids=["sound", "fwd_bf16_tables", "fwd_turned_back",
+                              "bwd_turned_forward", "bwd_drops_dv"])
+@pytest.mark.parametrize("B,S,tables", [(18, 32, "packed"), (3, 40, "shared")])
+def test_rope_check_catches_a_faulty_rotation(monkeypatch, fault, B, S,
+                                              tables):
+    """check_rope at a tiny size (2 heads of 16): on the CPU the wrappers
+    run the plain versions, so the sound reading is 0 against them and
+    within one bf16 rounding of f64; a faulty forward or backward in the
+    wrappers' place must stop the run."""
+    cs = _load_chip_smoke()
+    args = (torch, np.random.default_rng(S), B, S, tables)
+    kw = dict(N=2, D=16, device="cpu", timed=False)
+    if fault is None:
+        out = cs.check_rope(*args, **kw)
+        assert set(out) == {"fwd", "bwd"}
+        assert out["fwd"]["max_abs_err"] == out["fwd"]["chain_max_abs_err"] \
+            == out["bwd"]["max_abs_err"] == 0.0
+        assert 0.0 < out["bwd"]["f64_share_of_one_rounding"] <= 1.0
+        return
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match="RoPE kernels disagree"):
+        cs.check_rope(*args, **kw)
+
+
+def test_rope_case_gathers_packed_positions_and_a_padded_row():
+    """The packed tables are the shared ones gathered by positions that
+    restart in the packed rows and stay 0 in the last row; the gradients
+    are strided as the attention's [B, N, S, D] views."""
+    from splade_tpu_torch.models.modernbert import rope_cos_sin
+
+    cs = _load_chip_smoke()
+    qkv, cos, sin, dq, dk, dv = cs.rope_case(
+        torch, np.random.default_rng(0), 18, 32, "packed", 2, 16, "cpu")
+    assert qkv.shape == (18, 32, 3, 2, 16) and qkv.dtype == torch.bfloat16
+    assert cos.shape == sin.shape == (18, 32, 16)
+    table_cos, _ = rope_cos_sin(32, 16, 10000.0)
+    assert torch.equal(cos[0], table_cos)                   # a document row
+    assert torch.equal(cos[16, 8:16], table_cos[:8])        # a packed row
+    assert bool((cos[17] == table_cos[0]).all())            # the padded row
+    assert dq.shape == (18, 32, 2, 16) and dq.stride(1) == 16
+    assert not dv.is_contiguous() and dv.dtype == torch.bfloat16
+    fwd, bwd = cs.rope_bytes(144, 256, 12, 64, "packed")
+    t = 144 * 256 * 12 * 64 * 2
+    assert (fwd, bwd) == (4 * t + 2 * 144 * 256 * 64 * 4,
+                          6 * t + 2 * 144 * 256 * 64 * 4)
+    assert cs.rope_bytes(32, 512, 12, 64, "shared")[0] == (
+        4 * 32 * 512 * 12 * 64 * 2 + 2 * 512 * 64 * 4)
+
+
 def test_expected_launches_follow_the_code():
     cs = _load_chip_smoke()
     names = ("fused_splade_pool", "fused_splade_bwd_match",
              "fused_splade_bwd_dh", "fused_splade_bwd_dw", "splash_attention",
              "splash_attention_bwd_dq", "splash_attention_bwd_dkv",
-             "rescore_match")
+             "rope_qkv_fwd", "rope_qkv_bwd", "rescore_match")
     v33 = ModernBertConfig(remat=True, attention_impl="splash")
     assert cs.expected_launches(v33, 4, 3, 2) == dict(zip(
-        names, (24, 24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12, 0)))
+        names, (24, 24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12, 22 * 2 * 12,
+                22 * 12, 0)))
     mlm = ModernBertConfig(attention_impl="splash")
     assert cs.expected_launches(mlm, 4, 5, 0) == dict(zip(
-        names, (0, 0, 0, 0, 22 * 20, 22 * 20, 22 * 20, 0)))
+        names, (0, 0, 0, 0, 22 * 20, 22 * 20, 22 * 20, 22 * 20, 22 * 20, 0)))
     assert cs.expected_launches(ModernBertConfig(remat=True), 4, 3, 2) == dict(
-        zip(names, (24, 24, 24, 24, 0, 0, 0, 0)))
+        zip(names, (24, 24, 24, 24, 0, 0, 0, 0, 0, 0)))
     assert set(cs._launch_counts()) == set(names)
     cs.hold_launches("sound", dict.fromkeys(names, 0),
                      dict.fromkeys(names, 0))

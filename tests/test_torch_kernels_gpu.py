@@ -1027,3 +1027,172 @@ def test_model_on_the_splash_route_matches_the_sdpa_route(cuda):
     assert torch.isfinite(splash).all()
     valid = mask.bool()
     assert _rel(splash[valid], sdpa[valid]) <= 2e-2
+
+
+# ---- the RoPE kernel pair of the splash route ------------------------------
+#: (B, S, tables): the V33 micro-batch (tables gathered by packed positions),
+#: the MLM one (tables the batch shares), one odd short row, and two rows of
+#: which the second is all padding (position 0 throughout)
+ROPE_SHAPES = [(144, 256, "packed"), (32, 512, "shared"), (1, 40, "shared"),
+               (2, 40, "packed")]
+
+
+def _rope_case(B, S, tables, device, N=12, seed=0):
+    from splade_tpu_torch.models.modernbert import rope_cos_sin
+
+    g = torch.Generator().manual_seed(seed)
+    qkv = torch.randn(B, S, 3, N, 64, generator=g).to(torch.bfloat16)
+    cos, sin = rope_cos_sin(S, 64, 10000.0)
+    if tables == "packed":
+        pos = torch.randint(0, S, (B, S), generator=g)
+        if B == 2:
+            pos[1] = 0
+        cos, sin = cos[pos], sin[pos]
+    return [t.to(device) for t in (qkv, cos, sin)]
+
+
+@pytest.mark.parametrize("B,S,tables", ROPE_SHAPES)
+def test_rope_forward_is_bitwise_the_cast_of_the_eager_chain(cuda, B, S,
+                                                             tables):
+    """q and k as the attention was given them before: the eager f32 chain
+    (apply_rope on the product's bf16 views, f32 tables) cast to bf16."""
+    from splade_tpu_torch.models.modernbert import apply_rope
+    from splade_tpu_torch.ops import rope
+
+    qkv, cos, sin = _rope_case(B, S, tables, cuda)
+    before = rope.rope_qkv_fwd.launches
+    q, k, v = rope.rope_qkv(qkv, cos, sin)
+    torch.cuda.synchronize()
+    assert rope.rope_qkv_fwd.launches == before + 1
+    assert q.is_contiguous() and k.is_contiguous()
+    assert q.dtype == k.dtype == torch.bfloat16
+    assert v.data_ptr() == qkv[:, :, 2].data_ptr()
+    cq, ck, _ = qkv.unbind(2)
+    assert torch.equal(q, apply_rope(cq, cos, sin).to(torch.bfloat16))
+    assert torch.equal(k, apply_rope(ck, cos, sin).to(torch.bfloat16))
+    assert torch.equal(q, rope.rope_qkv_fwd_plain(qkv, cos, sin)[0])
+
+
+@pytest.mark.parametrize("B,S,tables", ROPE_SHAPES)
+def test_rope_backward_within_one_rounding_of_f64(cuda, B, S, tables):
+    """The product's gradient from bf16 dq, dk and dv (strided as the
+    attention's [B, N, S, D] views hand them back): dq and dk rotated back
+    within one bf16 rounding of the f64 rotation, and bitwise its plain
+    version; dv copied into its slot bitwise; a repeat bitwise equal."""
+    from splade_tpu_torch.ops import rope
+
+    qkv, cos, sin = _rope_case(B, S, tables, cuda, seed=1)
+    dq, dk = qkv[:, :, 0].contiguous(), qkv[:, :, 1].contiguous()
+    dv = qkv[:, :, 2]
+    before = rope.rope_qkv_bwd.launches
+    got = rope.rope_qkv_bwd(dq, dk, dv, cos, sin, torch.bfloat16)
+    again = rope.rope_qkv_bwd(dq, dk, dv, cos, sin, torch.bfloat16)
+    torch.cuda.synchronize()
+    assert rope.rope_qkv_bwd.launches == before + 2
+    assert got.shape == (B, S, 3, 12, 64) and got.dtype == torch.bfloat16
+    assert torch.equal(got, again)
+    want = rope.rope_qkv_bwd_plain(dq.double(), dk.double(), dv.double(),
+                                   cos.double(), sin.double(), torch.float64)
+    err = (got.double() - want).abs()
+    assert bool((err <= want.abs() * 2.0 ** -8 + 1e-6).all())
+    assert torch.equal(got[:, :, 2], dv)
+    plain = rope.rope_qkv_bwd_plain(dq, dk, dv, cos, sin, torch.bfloat16)
+    assert torch.equal(got, plain)
+
+
+def test_rope_pair_is_adjoint_and_gradcheck_takes_the_plain_path(cuda):
+    """The backward kernel is the transpose of the forward's rotation:
+    <R x, g> = <x, R^T g> within the bf16 roundings of both; on an f64
+    product on the card the model's route keeps the plain chain, through
+    which ``gradcheck`` passes."""
+    from splade_tpu_torch.models.modernbert import apply_rope
+    from splade_tpu_torch.ops import rope
+
+    qkv, cos, sin = _rope_case(4, 72, "packed", cuda, seed=2)
+    gq, gk, _ = _rope_case(4, 72, "packed", cuda, seed=3)[0].unbind(2)
+    fwd = rope.rope_qkv_fwd(qkv, cos, sin).double()
+    bwd = rope.rope_qkv_bwd(gq, gk, gq, cos, sin, torch.bfloat16).double()
+    lhs = float((fwd[0] * gq.double()).sum() + (fwd[1] * gk.double()).sum())
+    rhs = float((qkv[:, :, :2].double() * bwd[:, :, :2]).sum())
+    scale = float(fwd.abs().sum() + bwd.abs().sum()) / fwd.numel()
+    assert abs(lhs - rhs) <= 2.0 ** -8 * scale * fwd[0].numel() ** 0.5 * 4
+    small = _rope_case(2, 5, "packed", cuda, N=2, seed=4)
+    x = small[0].double().requires_grad_()
+    c, s = small[1].double(), small[2].double()
+    assert not rope.fused_rope_applies(x, c, s)
+
+    def chain(t):
+        q, k, v = t.unbind(2)
+        return apply_rope(q, c, s), apply_rope(k, c, s), v
+
+    assert torch.autograd.gradcheck(chain, (x,))
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_rope_counters_follow_the_splash_calls(cuda, remat):
+    """A narrow encoder with 64-wide heads on the splash route, f32
+    parameters under bf16 autocast as training runs it: one RoPE forward a
+    splash forward (twice a layer under recompute) and one backward a dq
+    kernel; its output bitwise the chain's route and its gradients within
+    bf16 rounding of them. Without autocast (f32 q and k) the RoPE
+    kernels are not taken, and on the CPU nothing is counted."""
+    from splade_tpu_torch.models import modernbert
+    from splade_tpu_torch.models.modernbert import (ModernBertConfig,
+                                                    ModernBertForMaskedLM)
+    from splade_tpu_torch.ops import rope
+
+    cfg = ModernBertConfig.tiny(hidden_size=128, num_attention_heads=2,
+                                intermediate_size=192, local_attention=16,
+                                attention_impl="splash", remat=remat)
+    torch.manual_seed(0)
+    model = ModernBertForMaskedLM(cfg).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(3, 500, (6, 100), generator=g)
+    lens = torch.randint(5, 101, (6, 1), generator=g)
+    mask = (torch.arange(100)[None] < lens).long()
+    fns = (rope.rope_qkv_fwd, rope.rope_qkv_bwd, sa.splash_attention,
+           sa.splash_attention_bwd_dq)
+
+    def run(dev, autocast=True, fused=True):
+        real = modernbert.fused_rope_applies
+        if not fused:
+            modernbert.fused_rope_applies = lambda *a: False
+        m = model.to(dev)
+        m.zero_grad()
+        before = [fn.launches for fn in fns]
+        try:
+            with torch.autocast("cuda", dtype=torch.bfloat16,
+                                enabled=autocast):
+                h = m.encode(ids.to(dev), mask.to(dev))
+                h.float().square().mean().backward()
+        finally:
+            modernbert.fused_rope_applies = real
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in m.named_parameters() if p.grad is not None}
+        return (h.detach().float().cpu(), grads,
+                [fn.launches - n for fn, n in zip(fns, before)])
+
+    L = cfg.num_hidden_layers
+    h, grads, counts = run(cuda)
+    assert counts == [L * (2 if remat else 1), L, L * (2 if remat else 1), L]
+    h_chain, grads_chain, counts_chain = run(cuda, fused=False)
+    assert counts_chain == [0, 0, L * (2 if remat else 1), L]
+    assert torch.equal(h, h_chain)
+    for name, ref in grads_chain.items():
+        assert _rel(grads[name], ref) <= 2e-2, (name, _rel(grads[name], ref))
+    _, _, counts_f32 = run(cuda, autocast=False)
+    assert counts_f32[:2] == [0, 0] and counts_f32[2] > 0
+    _, _, counts_cpu = run(torch.device("cpu"))
+    assert counts_cpu == [0, 0, 0, 0]
+
+
+def test_rope_empty_batch_launches_and_counts_nothing(cuda):
+    from splade_tpu_torch.ops import rope
+
+    qkv, cos, sin = _rope_case(2, 40, "shared", cuda)
+    before = (rope.rope_qkv_fwd.launches, rope.rope_qkv_bwd.launches)
+    out = rope.rope_qkv_fwd(qkv[:0], cos, sin)
+    g = out[0]
+    dqkv = rope.rope_qkv_bwd(g, g, g, cos, sin, torch.bfloat16)
+    assert out.shape == (2, 0, 40, 12, 64) and dqkv.shape == (0, 40, 3, 12, 64)
+    assert (rope.rope_qkv_fwd.launches, rope.rope_qkv_bwd.launches) == before
