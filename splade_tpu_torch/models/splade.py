@@ -1,6 +1,8 @@
-"""SPLADE-max encoder: ModernBERT backbone + vocabulary max-pooling.
+"""SPLADE-max encoder: a ModernBERT or DeepSeek-V3 backbone + vocabulary
+max-pooling.
 
-Counterpart of ``splade_tpu/models/splade.py``. ``forward`` returns
+Counterpart of ``splade_tpu/models/splade.py``; the DeepSeek-V3 backbone
+(``models/deepseek_v3.py``) is the port's own addition. ``forward`` returns
 (sparse_repr [B, V] f32, token_weights [B, S] f32); ``encode`` is the
 inference shortcut; ``forward_packed_qd`` is the training forward with the
 packed query tower; ``top_k_tokens`` is the debug decode.
@@ -8,11 +10,14 @@ packed query tower; ``top_k_tokens`` is the debug decode.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Tuple, Union
 
 import torch
 from torch import nn
 
+from splade_tpu_torch.models import deepseek_v3
+from splade_tpu_torch.models.deepseek_v3 import (DeepseekV3Config,
+                                                 DeepseekV3ForCausalLM)
 from splade_tpu_torch.models.modernbert import (ModernBertConfig,
                                                 ModernBertForMaskedLM)
 from splade_tpu_torch.ops.fused_splade import fused_splade_pool
@@ -21,10 +26,14 @@ from splade_tpu_torch.ops.splade_pool import (splade_pool_from_logits,
 from splade_tpu_torch.utils.runtime import DeviceLike, resolve_device
 
 POOL_IMPLS = ("logits", "streamed", "kernel")
+BackboneConfig = Union[ModernBertConfig, DeepseekV3Config]
 
 
 class SpladeEncoder(nn.Module):
-    """SPLADE-max model over a ModernBERT MLM backbone.
+    """SPLADE-max model over a backbone: ModernBERT's MLM model (the MLM
+    head transform, the tied decoder with its bias) or DeepSeek-V3's
+    decoder (no head transform, the untied LM head without a bias),
+    chosen by the config's type.
 
     pool_impl:
         'kernel'   — the hand-written Hopper kernel (ops/fused_splade.py),
@@ -35,7 +44,7 @@ class SpladeEncoder(nn.Module):
         'logits'   — reference-shaped full-logits path (parity oracle).
     """
 
-    def __init__(self, config: ModernBertConfig, pool_impl: str = "kernel",
+    def __init__(self, config: BackboneConfig, pool_impl: str = "kernel",
                  pool_tile: int = 6250, with_token_weights: bool = True,
                  device: DeviceLike = None):
         super().__init__()
@@ -45,17 +54,22 @@ class SpladeEncoder(nn.Module):
         self.pool_impl = pool_impl
         self.pool_tile = pool_tile
         self.with_token_weights = with_token_weights
+        backbone = (DeepseekV3ForCausalLM
+                    if isinstance(config, DeepseekV3Config)
+                    else ModernBertForMaskedLM)
         with torch.device(resolve_device(device)):
-            self.mlm = ModernBertForMaskedLM(config)
+            self.mlm = backbone(config)
 
     @property
     def device(self) -> torch.device:
-        return self.mlm.decoder.weight.device
+        return next(self.parameters()).device
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> "SpladeEncoder":
         """Seeded random weights (normal 0.02, unit norms, zero biases),
-        drawn by a generator on the model's device."""
+        drawn by a generator on the model's device; a DeepSeek-V3 router's
+        correction bias (a buffer) normal with std
+        ``deepseek_v3.CORRECTION_BIAS_STD``."""
         g = torch.Generator(device=self.device).manual_seed(seed)
         for name, p in self.named_parameters():
             if name.endswith("norm.weight"):
@@ -64,6 +78,9 @@ class SpladeEncoder(nn.Module):
                 p.zero_()
             else:
                 p.normal_(0.0, 0.02, generator=g)
+        for name, b in self.named_buffers():
+            if name.endswith("e_score_correction_bias"):
+                b.normal_(0.0, deepseek_v3.CORRECTION_BIAS_STD, generator=g)
         return self
 
     def forward(self, input_ids: torch.Tensor, attention_mask: torch.Tensor
@@ -73,7 +90,9 @@ class SpladeEncoder(nn.Module):
 
     def _pool(self, transformed: torch.Tensor, attention_mask: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[B, S, H] head-transformed states -> (sparse [B, V], token_w [B, S])."""
+        """[B, S, H] head-transformed states -> (sparse [B, V], token_w [B, S]).
+        The vocabulary projection's bias is the backbone's (None for
+        DeepSeek-V3)."""
         if self.pool_impl == "logits":
             return splade_pool_from_logits(
                 self.mlm.project_vocab(transformed), attention_mask)

@@ -62,6 +62,7 @@ def _pool_case(B, S, H, V, seed, device):
     (4, 64, 768, 50000),     # query encode width, ragged last vocab tile
     (3, 100, 64, 1000),      # S not a multiple of the 64-row chunk
     (2, 256, 768, 50000),    # document encode length
+    (4, 256, 2048, 128256),  # the DeepSeek-V3 backbone: H 2,048, V 128,256
 ])
 def test_fused_pool_kernel_matches_plain(cuda, B, S, H, V):
     h, w, bias, mask = _pool_case(B, S, H, V, seed=B * S, device=cuda)
@@ -202,6 +203,7 @@ BWD_SHAPES = [
     (64, 64, 768, 50000),   # the training step's query batch
     (128, 256, 768, 50000),  # the training step's documents (64 + 64)
     (8, 64, 1024, 5000),    # wider than a gather slice: H cut in slices
+    (4, 256, 2048, 128256),  # the DeepSeek-V3 backbone: three slices
 ]
 
 
