@@ -58,6 +58,13 @@ Phases (any failure exits non-zero; nothing is caught):
    plain version, the backward bitwise its plain version and within one
    bf16 rounding of f64, dv's slot bitwise; times of each kernel, its
    plain version and the eager chain it replaced, and bounds from bytes.
+   The add + LayerNorm pair of the encoder's residual adds
+   (``ops/add_norm.py``) at the same micro-batches' rows of 768 and at odd
+   rows and widths, in its three forms (a layer's site, the final norm, the
+   embedding's norm): r' bitwise the eager add, n within one bf16 rounding
+   of f64, the backward within ADD_NORM_RTOL of the f64 plain version and a
+   repeat bitwise; times of each kernel, its plain version and the eager
+   chain, and bounds from bytes.
 3. The serving path at full width (22 layers, 768 hidden, 50K vocab) with
    seeded random weights and a character-level stand-in tokenizer: a
    two-phase PostingsIndex over 1,000,000 synthetic documents plus a few
@@ -444,6 +451,19 @@ SPLASH_TRAIN_GRAD_RTOL = (1e-3, 0.3)
 ROPE_SHAPES = ((144, 256, "packed"), (32, 512, "shared"))
 ROPE_ODD = (3, 40, "packed")
 ROPE_F64_ATOL = 1e-6
+# the fused residual add + LayerNorm pair (ops/add_norm.py) at the training
+# micro-batches' rows of 768 (V33's 144 x 256, MLM's 32 x 512), and at odd
+# row counts at 768 and at the smallest and largest widths the kernels take.
+# The add is bitwise the eager mixed add; n lies within one bf16 rounding
+# (2^-8 of its value; ADD_NORM_ATOL near 0) of the f64 norm of the same r',
+# as the eager chain's cast does; the f32 outputs (the final norm's n, dr)
+# within ADD_NORM_RTOL of f64, relative to the largest value of the row's
+# tensor (f32 sums over 768 in another order), and gamma's gradient within
+# ADD_NORM_RTOL of f64 relative to its largest value
+ADD_NORM_SHAPES = ((144, 256), (32, 512))
+ADD_NORM_ODD = ((3, 37, 768), (5, 11, 256), (2, 29, 1024))
+ADD_NORM_ATOL = 1e-6
+ADD_NORM_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1872,6 +1892,173 @@ def check_rope(torch, rng, B: int, S: int, tables: str,
     return result
 
 
+def add_norm_case(torch, rng, B: int, S: int, H: int = 768,
+                  device: str = "cuda"):
+    """What the encoder hands the add + LayerNorm pair at a site under
+    autocast: the f32 residual [B, S, H] (values of the size a residual
+    stream reaches), the bf16 branch, an f32 weight near 1; and the
+    backward's bf16 dn and f32 gradient of r' from above."""
+    gen = torch.Generator(device=device).manual_seed(
+        int(rng.integers(1 << 31)))
+    randn = lambda *shape: torch.randn(shape, device=device, generator=gen)
+    r = randn(B, S, H) * 4.0 + randn(B, S, 1)
+    b = randn(B, S, H).to(torch.bfloat16)
+    w = 1.0 + 0.1 * randn(H)
+    dn = randn(B, S, H).to(torch.bfloat16)
+    d_above = randn(B, S, H) * 0.1
+    return r, b, w, dn, d_above
+
+
+def add_norm_chain(torch, r, b, w, eps: float, out_dtype):
+    """The eager chain the pair replaced: the mixed add (f32), the f32
+    LayerNorm, and the cast of its output to ``out_dtype`` that the next
+    product made (none for f32)."""
+    import torch.nn.functional as F
+
+    x = r if b is None else r + b
+    return x, F.layer_norm(x, (x.shape[-1],), w, None, eps).to(out_dtype)
+
+
+def add_norm_bytes(B: int, S: int, H: int) -> tuple:
+    """(forward, backward) least bytes of a layer's site: forward b (bf16)
+    and r (f32) in, r' (f32) and n (bf16) out, 12 bytes an element; mean
+    and rstd 8 bytes a row; the weight. Backward dn (bf16), r' and the
+    residual gradient from above (f32) in, dr (f32) and db (bf16) out, 16
+    bytes an element; mean and rstd; the weight; the gamma partials written
+    and read once (a row of H a block) and gamma's gradient."""
+    from splade_tpu_torch.ops.add_norm import BWD_ROWS_PER_BLOCK
+
+    rows = B * S
+    partials = -(-rows // BWD_ROWS_PER_BLOCK) * H * 4
+    return (12 * rows * H + 8 * rows + 4 * H,
+            16 * rows * H + 8 * rows + 4 * H + 2 * partials + 4 * H)
+
+
+def check_add_norm(torch, rng, B: int, S: int, H: int = 768,
+                   device: str = "cuda", timed: bool = True) -> dict:
+    """The add + LayerNorm pair against the eager chain it replaced and its
+    plain versions at one shape, in each of its three forms: a layer's site
+    (bf16 branch, bf16 n), the final norm (bf16 branch, f32 n) and the
+    embedding's norm (no branch, f32 n). Forward: r' bitwise the eager add,
+    n within one bf16 rounding (or ADD_NORM_RTOL) of the f64 norm of that r'
+    and of the chain's output, mean and rstd near the plain version's.
+    Backward: dr and gamma's gradient within ADD_NORM_RTOL of the f64 plain
+    backward, db bitwise dr's cast, and a repeat bitwise equal. Then times by
+    CUDA events of each kernel, its plain version and the eager chain (the
+    backward's: autograd through the chain from the same dn and gradient of
+    r'), and the bound from ``add_norm_bytes``. Returns {"fwd": ...,
+    "bwd": ...} of the layer's site."""
+    from splade_tpu_torch.ops import add_norm as an
+
+    eps = 1e-5
+    bf16, f32, f64 = torch.bfloat16, torch.float32, torch.float64
+    r, b, w, dn, d_above = add_norm_case(torch, rng, B, S, H, device)
+    diff = lambda a, c: float((a.double() - c.double()).abs().max())
+    rel = lambda a, c: diff(a, c) / max(float(c.double().abs().max()), 1e-30)
+    label = f"add + LayerNorm B={B} S={S} H={H}"
+    errs = {}
+    with torch.no_grad():
+        for form, branch, out_dtype in (("layer", b, bf16), ("final", b, f32),
+                                        ("embedding", None, f32)):
+            r_out, n, stats = an.add_layernorm_fwd(r, branch, w, eps,
+                                                   out_dtype)
+            chain_r, chain_n = add_norm_chain(torch, r, branch, w, eps,
+                                              out_dtype)
+            _, n64, st64 = an.add_layernorm_fwd_plain(
+                chain_r.double(), None, w.double(), eps, f64)
+            g = dn if out_dtype == bf16 else dn.float()
+            above = d_above if branch is not None else None
+            branch_dtype = None if branch is None else bf16
+            got = an.add_layernorm_bwd(g, r_out, stats, w, above,
+                                       branch_dtype)
+            again = an.add_layernorm_bwd(g, r_out, stats, w, above,
+                                         branch_dtype)
+            want = an.add_layernorm_bwd_plain(
+                g.double(), chain_r.double(), st64, w.double(),
+                None if above is None else above.double(), None)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            if out_dtype == bf16:
+                one = n64.abs() * 2.0 ** -8 + ADD_NORM_ATOL
+                n_err = float(((n.double() - n64).abs() / one).max())
+                chain_err = float(((chain_n.double() - n64).abs()
+                                   / one).max())
+            else:
+                n_err = rel(n, n64) / ADD_NORM_RTOL
+                chain_err = rel(chain_n, n64) / ADD_NORM_RTOL
+            e = dict(
+                residual_bitwise=bool(torch.equal(r_out, chain_r)),
+                n_share_of_tol=n_err, chain_n_share_of_tol=chain_err,
+                n_vs_chain_max_abs=diff(n, chain_n),
+                stats_rel=max(rel(stats[0], st64[0]), rel(stats[1], st64[1])),
+                dr_rel=rel(got[0], want[0]), dr_max_abs=diff(got[0], want[0]),
+                dweight_rel=rel(got[2], want[2]),
+                db_bitwise=(got[1] is None
+                            or bool(torch.equal(got[1], got[0].to(bf16)))),
+                repeat_bitwise=all(
+                    x is None or bool(torch.equal(x, y))
+                    for x, y in zip(got, again)))
+            errs[form] = e
+            log(f"  {label} {form}: r' bitwise the eager add "
+                f"{e['residual_bitwise']}; n {n_err:.3f} of its tolerance "
+                f"against f64 (the eager chain {chain_err:.3f}), "
+                f"{e['n_vs_chain_max_abs']:.2e} from the chain; stats "
+                f"{e['stats_rel']:.1e}; backward dr {e['dr_rel']:.1e}, "
+                f"dgamma {e['dweight_rel']:.1e} of f64; db the cast of dr "
+                f"{e['db_bitwise']}; repeat bitwise {e['repeat_bitwise']}")
+            if not (e["residual_bitwise"] and n_err <= 1.0
+                    and e["stats_rel"] <= ADD_NORM_RTOL
+                    and e["dr_rel"] <= ADD_NORM_RTOL
+                    and e["dweight_rel"] <= ADD_NORM_RTOL
+                    and e["db_bitwise"] and e["repeat_bitwise"]):
+                raise SystemExit(f"add + LayerNorm kernels disagree ({label}, "
+                                 f"{form})")
+    shape = dict(shape=f"B={B} S={S} H={H}")
+    result = dict(fwd=dict(shape, **{f: errs[f] for f in errs}),
+                  bwd=dict(shape))
+    result["fwd"]["max_abs_err"] = errs["layer"]["n_vs_chain_max_abs"]
+    result["bwd"]["max_abs_err"] = errs["layer"]["dr_max_abs"]
+    if not timed:
+        return result
+
+    leaf_r = r.detach().requires_grad_()
+    leaf_b = b.detach().requires_grad_()
+    leaf_w = w.detach().requires_grad_()
+    chain = add_norm_chain(torch, leaf_r, leaf_b, leaf_w, eps, bf16)
+
+    def chain_backward():
+        torch.autograd.grad(chain, (leaf_r, leaf_b, leaf_w), (d_above, dn),
+                            retain_graph=True)
+
+    with torch.no_grad():
+        r_out, _, stats = an.add_layernorm_fwd(r, b, w, eps, bf16)
+        ms = dict(
+            fwd=cuda_ms(torch, lambda: an.add_layernorm_fwd(
+                r, b, w, eps, bf16), iters=50, warmup=3),
+            fwd_plain=cuda_ms(torch, lambda: an.add_layernorm_fwd_plain(
+                r, b, w, eps, bf16), iters=10),
+            fwd_chain=cuda_ms(torch, lambda: add_norm_chain(
+                torch, r, b, w, eps, bf16), iters=10),
+            bwd=cuda_ms(torch, lambda: an.add_layernorm_bwd(
+                dn, r_out, stats, w, d_above, bf16), iters=50, warmup=3),
+            bwd_plain=cuda_ms(torch, lambda: an.add_layernorm_bwd_plain(
+                dn, r_out, stats, w, d_above, bf16), iters=10))
+    ms["bwd_chain"] = cuda_ms(torch, chain_backward, iters=10)
+    for name, moved in zip(("fwd", "bwd"), add_norm_bytes(B, S, H)):
+        bound_ms, bound_by = bound(moved, 0.0, H100_BF16_FLOPS)
+        result[name].update(
+            ms=ms[name], plain_ms=ms[f"{name}_plain"],
+            chain_ms=ms[f"{name}_chain"], library_ms=None,
+            bound_ms=bound_ms, bound_by=bound_by, bytes_moved=moved,
+            roofline_pct=100 * bound_ms / ms[name])
+        log(f"  {label} {name}: kernel {ms[name]:.4f} ms, plain "
+            f"{ms[f'{name}_plain']:.4f} ms, eager chain "
+            f"{ms[f'{name}_chain']:.4f} ms, bound {bound_ms:.4f} ms "
+            f"({bound_by}: {moved / 1e6:.1f} MB; "
+            f"{100 * bound_ms / ms[name]:.1f}% of it)")
+    return result
+
+
 # ------------------------------------------------------------ phase 3
 def _http(addr, method, path, payload=None):
     conn = http.client.HTTPConnection(*addr, timeout=600)
@@ -2322,8 +2509,8 @@ def _counted_kernels() -> dict:
     kernels a training or serving path can launch: the per-row pool family,
     the splash attention, the RoPE pair of its route and the exact
     rescore."""
-    from splade_tpu_torch.ops import (fused_splade, rescore_kernel, rope,
-                                      splash_attention)
+    from splade_tpu_torch.ops import (add_norm, fused_splade, rescore_kernel,
+                                      rope, splash_attention)
 
     return {"fused_splade_pool": fused_splade.fused_splade_pool,
             "fused_splade_bwd_match": fused_splade.fused_splade_bwd_match,
@@ -2336,6 +2523,8 @@ def _counted_kernels() -> dict:
                 splash_attention.splash_attention_bwd_dkv,
             "rope_qkv_fwd": rope.rope_qkv_fwd,
             "rope_qkv_bwd": rope.rope_qkv_bwd,
+            "add_layernorm_fwd": add_norm.add_layernorm_fwd,
+            "add_layernorm_bwd": add_norm.add_layernorm_bwd,
             "rescore_match": rescore_kernel.rescore_match}
 
 
@@ -2358,10 +2547,19 @@ def expected_launches(model_config, accum: int, steps: int,
     once (twice under layer recompute, whose backward re-runs it) and each
     backward kernel once, and, since the recipes compute in bf16, the RoPE
     forward and backward as often as the attention's forward and dq
-    kernels; with "sdpa" none; the rescore never."""
+    kernels; with "sdpa" none; on either route, at a width the add +
+    LayerNorm kernels take, their forward once a site (the embedding's norm,
+    each residual add with its norm: 2 L + 1) and again for the 2 L - 1
+    sites inside the layers under layer recompute, and their backward once
+    a site; the rescore never."""
+    from splade_tpu_torch.ops.add_norm import KERNEL_WIDTHS
+
     layers = (model_config.num_hidden_layers
               if model_config.attention_impl == "splash" else 0)
     micro = accum * steps
+    L = model_config.num_hidden_layers
+    sites = 2 * L + 1 if model_config.hidden_size in KERNEL_WIDTHS else 0
+    inner = sites - 2 if model_config.remat and sites else 0
     return {"fused_splade_pool": pool_per_micro * micro,
             "fused_splade_bwd_match": pool_per_micro * micro,
             "fused_splade_bwd_dh": pool_per_micro * micro,
@@ -2373,6 +2571,8 @@ def expected_launches(model_config, accum: int, steps: int,
             "rope_qkv_fwd": layers * (2 if model_config.remat else 1)
             * micro,
             "rope_qkv_bwd": layers * micro,
+            "add_layernorm_fwd": (sites + inner) * micro,
+            "add_layernorm_bwd": sites * micro,
             "rescore_match": 0}
 
 
@@ -6620,6 +6820,14 @@ def main() -> int:
     rope_checks = [check_rope(torch, rope_rng, B, S, tables)
                    for B, S, tables in ROPE_SHAPES]
     rope_checks.append(check_rope(torch, rope_rng, *ROPE_ODD, timed=False))
+    # the add + LayerNorm pair at the same micro-batches' rows and at odd
+    # rows and widths, from a stream of its own too
+    add_norm_rng = np.random.default_rng([args.seed, 14])
+    add_norm_checks = [check_add_norm(torch, add_norm_rng, B, S)
+                       for B, S in ADD_NORM_SHAPES]
+    add_norm_checks += [check_add_norm(torch, add_norm_rng, B, S, H,
+                                       timed=False)
+                        for B, S, H in ADD_NORM_ODD]
     torch.cuda.empty_cache()
     log(f"[2] done in {time.perf_counter() - t0:.1f} s")
 
@@ -7037,7 +7245,32 @@ def main() -> int:
         kernels.append(dict(
             name=name, route="cuda", source="splade_tpu_torch/csrc/rope.cu",
             replaces=None,
-            replaces_chain="splade_tpu_torch/models/modernbert.py:126",
+            replaces_chain="splade_tpu_torch/models/modernbert.py:135",
+            launches=sum(by_path.values()),
+            launches_by_path={**by_path,
+                              **{path: got[name]
+                                 for path, got in dp_launches.items()}},
+            **{k: shapes[0][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                         "chain_ms", "bound_ms", "bound_by",
+                                         "library_ms")},
+            max_abs_err_all=max(x["max_abs_err"] for x in shapes),
+            shapes=shapes))
+    # the add + LayerNorm pair of the encoder's residual adds: no TPU kernel
+    # either; it replaces the port's eager add, LayerNorm and cast on both
+    # attention routes
+    for name, which in (("add_layernorm_fwd", "fwd"),
+                        ("add_layernorm_bwd", "bwd")):
+        shapes = [x[which] for x in add_norm_checks]
+        by_path = {"V33 training": train_launches[name],
+                   "MLM pre-training": pretraining["launches"][name],
+                   "V33 training, splash": splash_training["launches"][name],
+                   "MLM pre-training, splash":
+                       splash_pretraining["launches"][name]}
+        kernels.append(dict(
+            name=name, route="cuda",
+            source="splade_tpu_torch/csrc/add_layernorm.cu",
+            replaces=None,
+            replaces_chain="splade_tpu_torch/models/modernbert.py:160",
             launches=sum(by_path.values()),
             launches_by_path={**by_path,
                               **{path: got[name]

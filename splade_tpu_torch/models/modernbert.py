@@ -26,12 +26,18 @@ computes in the dtype of its parameters (bf16 when serving on the card, f32
 in the parity tests). Training keeps f32 parameters and computes in bf16
 under ``torch.autocast``, the counterpart of JAX's ``dtype: bfloat16``;
 autocast keeps the residual stream and the LayerNorm outputs in f32 where
-JAX rounds them to bf16 (ROADMAP.md §3). ``config.remat`` recomputes each
-layer in the backward pass (``torch.utils.checkpoint``); JAX's
-``dots_no_batch`` policy has no torch counterpart, so whole layers are
-recomputed, with the same numbers. The head transform and the vocab
-projection are separate methods, so the SPLADE pool can fuse the projection
-with the seq-max.
+JAX rounds them to bf16 (ROADMAP.md §3). Each residual add is taken
+together with the norm after it (``add_norm``): a layer takes and returns
+(residual, pending), the MLP's output left pending until the next layer's
+attention norm or the final norm adds it. Training under autocast on the
+card does each such site with the kernel pair of ``ops/add_norm.py``, which
+writes the f32 residual and the norm's bf16 operand of the next product in
+one pass, and everything else keeps the eager add and ``nn.LayerNorm``.
+``config.remat`` recomputes each layer in the backward pass
+(``torch.utils.checkpoint``); JAX's ``dots_no_batch`` policy has no torch
+counterpart, so whole layers are recomputed, with the same numbers. The
+head transform and the vocab projection are separate methods, so the
+SPLADE pool can fuse the projection with the seq-max.
 """
 
 from __future__ import annotations
@@ -46,6 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from splade_tpu_torch.ops.add_norm import (add_layer_norm,
+                                           fused_add_norm_applies)
 from splade_tpu_torch.ops.rope import fused_rope_applies, rope_qkv
 from splade_tpu_torch.ops.splash_attention import (segment_ids_with_padding,
                                                    splash_attention)
@@ -148,6 +156,25 @@ def _norm(config: ModernBertConfig) -> nn.LayerNorm:
     return nn.LayerNorm(config.hidden_size, eps=config.norm_eps, bias=False)
 
 
+def add_norm(norm: nn.Module, residual: torch.Tensor,
+             branch: Optional[torch.Tensor], operand: bool = True
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(residual + branch, norm of it); with no branch (residual, norm of
+    it). Where ``fused_add_norm_applies`` (training under autocast on the
+    card) one kernel does both, the norm in the branch's dtype (bf16) when
+    ``operand`` (it feeds a product, which casts it so) and else in the
+    residual's (f32), as the eager norm gives it; elsewhere the eager add
+    and ``norm``."""
+    if fused_add_norm_applies(norm, residual, branch):
+        out_dtype = (branch.dtype if operand and branch is not None
+                     else residual.dtype)
+        return add_layer_norm(residual, branch, norm.weight, norm.eps,
+                              out_dtype)
+    if branch is not None:
+        residual = residual + branch
+    return residual, norm(residual)
+
+
 class ModernBertAttention(nn.Module):
     def __init__(self, config: ModernBertConfig, layer_id: int):
         super().__init__()
@@ -210,9 +237,15 @@ class ModernBertLayer(nn.Module):
         self.mlp_norm = _norm(config)
         self.mlp = ModernBertMLP(config)
 
-    def forward(self, x, attn_bias, cos, sin, seg=None):
-        x = x + self.attn(self.attn_norm(x), attn_bias, cos, sin, seg)
-        return x + self.mlp(self.mlp_norm(x))
+    def forward(self, x, pending, attn_bias, cos, sin, seg=None):
+        """(residual, pending) -> (residual, pending): the residual stream
+        before the pending branch, the previous layer's MLP output (None
+        before layer 0), which this layer adds ahead of its attention norm;
+        its own MLP output is left pending for the next norm."""
+        x, h = add_norm(self.attn_norm, x, pending)
+        x, h = add_norm(self.mlp_norm, x,
+                        self.attn(h, attn_bias, cos, sin, seg))
+        return x, self.mlp(h)
 
 
 class _Embeddings(nn.Module):
@@ -272,7 +305,8 @@ class ModernBertForMaskedLM(nn.Module):
         S = input_ids.shape[1]
         dev = input_ids.device
         emb = self.model.embeddings
-        x = emb.norm(emb.tok_embeddings(input_ids))
+        _, x = add_norm(emb.norm, emb.tok_embeddings(input_ids), None,
+                        operand=False)
         if cfg.attention_impl == "splash":
             # padding and packing both ride the kernels' segment ids; the
             # [B, 1, S, S] bias tensors are not built
@@ -297,14 +331,16 @@ class ModernBertForMaskedLM(nn.Module):
             g_cos, g_sin = g_cos[positions], g_sin[positions]
             l_cos, l_sin = l_cos[positions], l_sin[positions]
         remat = cfg.remat and torch.is_grad_enabled()
+        pending = None
         for i, layer in enumerate(self.model.layers):
             args = ((pad_bias, g_cos, g_sin, seg) if cfg.is_global_layer(i)
                     else (local_bias, l_cos, l_sin, seg))
             if remat:
-                x = checkpoint(layer, x, *args, use_reentrant=False)
+                x, pending = checkpoint(layer, x, pending, *args,
+                                        use_reentrant=False)
             else:
-                x = layer(x, *args)
-        return self.model.final_norm(x)
+                x, pending = layer(x, pending, *args)
+        return add_norm(self.model.final_norm, x, pending, operand=False)[1]
 
     def head_transform(self, hidden: torch.Tensor) -> torch.Tensor:
         """MLM prediction head (dense -> gelu -> norm), pre-projection."""

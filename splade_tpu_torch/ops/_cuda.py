@@ -75,6 +75,12 @@ SIGNATURES: Dict[str, List] = {
     # dq, dk, dv, cos, sin, dqkv, the strides of dq, dk and dv (batch row,
     # position, head), then B, S, N, D, the tables' batch stride, stream
     "splade_rope_qkv_bwd": [_P] * 6 + [_L] * 9 + [_I] * 4 + [_L, _P],
+    # r, b, gamma, r_out, n, stats, then rows, H, rows a block, eps,
+    # whether n is bf16 (else f32), stream
+    "splade_add_layernorm_fwd": [_P] * 6 + [_L, _I, _I, _F, _I, _P],
+    # dn, r', stats, gamma, d_above, dr, db, partial, dgamma, then rows, H,
+    # rows a block, whether dn is bf16 (else f32), stream
+    "splade_add_layernorm_bwd": [_P] * 9 + [_L, _I, _I, _I, _P],
 }
 
 

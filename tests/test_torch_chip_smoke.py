@@ -599,7 +599,8 @@ def test_train_phase_runs_on_the_cpu(trained):
         ("fused_splade_pool", "fused_splade_bwd_match", "fused_splade_bwd_dh",
          "fused_splade_bwd_dw", "splash_attention", "splash_attention_bwd_dq",
          "splash_attention_bwd_dkv", "rope_qkv_fwd", "rope_qkv_bwd",
-         "rescore_match"), 0)  # plain versions
+         "add_layernorm_fwd", "add_layernorm_bwd", "rescore_match"),
+        0)  # plain versions
     assert out["triplets"] == 4 * 2 * 6
 
 
@@ -1165,6 +1166,108 @@ def test_rope_check_catches_a_faulty_rotation(monkeypatch, fault, B, S,
         cs.check_rope(*args, **kw)
 
 
+def _add_norm_fwd_rounds_the_residual(monkeypatch):
+    """A forward that keeps r' in bf16, as the chain never did."""
+    from splade_tpu_torch.ops import add_norm as an
+
+    real = an.add_layernorm_fwd_plain
+
+    def fwd(r, b, w, eps, dt):
+        r_out, n, stats = real(r, b, w, eps, dt)
+        return r_out.bfloat16().float(), n, stats
+
+    monkeypatch.setattr(an, "add_layernorm_fwd", fwd)
+
+
+def _add_norm_fwd_drops_gamma(monkeypatch):
+    """A forward that writes the normalised row without the weight."""
+    from splade_tpu_torch.ops import add_norm as an
+
+    real = an.add_layernorm_fwd_plain
+    monkeypatch.setattr(an, "add_layernorm_fwd", lambda r, b, w, eps, dt: (
+        real(r, b, torch.ones_like(w), eps, dt)))
+
+
+def _add_norm_bwd_drops_the_residual_gradient(monkeypatch):
+    """A backward that forgets the gradient of r' from above."""
+    from splade_tpu_torch.ops import add_norm as an
+
+    real = an.add_layernorm_bwd_plain
+    monkeypatch.setattr(an, "add_layernorm_bwd", lambda dn, x, st, w, da, bd: (
+        real(dn, x, st, w, None, bd)))
+
+
+def _add_norm_bwd_drops_a_projection(monkeypatch):
+    """A backward without the mean(g * xh) term of LayerNorm's gradient."""
+    from splade_tpu_torch.ops import add_norm as an
+
+    real = an.add_layernorm_bwd_plain
+
+    def bwd(dn, x, st, w, da, bd):
+        dr, db, dw = real(dn, x, st, w, da, bd)
+        mean, rstd = (t.to(x.dtype)[..., None] for t in st)
+        xh = (x - mean) * rstd
+        g = dn.to(x.dtype) * w
+        dr = dr + rstd * xh * (g * xh).mean(-1, keepdim=True)
+        return dr, None if db is None else dr.to(db.dtype), dw
+
+    monkeypatch.setattr(an, "add_layernorm_bwd", bwd)
+
+
+def _add_norm_bwd_sums_dn_for_gamma(monkeypatch):
+    """A backward whose weight gradient sums dn, not dn * xh."""
+    from splade_tpu_torch.ops import add_norm as an
+
+    real = an.add_layernorm_bwd_plain
+
+    def bwd(dn, x, st, w, da, bd):
+        dr, db, _ = real(dn, x, st, w, da, bd)
+        return dr, db, dn.float().reshape(-1, x.shape[-1]).sum(0)
+
+    monkeypatch.setattr(an, "add_layernorm_bwd", bwd)
+
+
+@pytest.mark.parametrize("fault", [
+    None, _add_norm_fwd_rounds_the_residual, _add_norm_fwd_drops_gamma,
+    _add_norm_bwd_drops_the_residual_gradient,
+    _add_norm_bwd_drops_a_projection, _add_norm_bwd_sums_dn_for_gamma],
+    ids=["sound", "fwd_rounds_residual", "fwd_drops_gamma",
+         "bwd_drops_residual_gradient", "bwd_drops_projection",
+         "bwd_sums_dn_for_gamma"])
+@pytest.mark.parametrize("B,S,H", [(3, 37, 768), (2, 9, 256)])
+def test_add_norm_check_catches_a_faulty_pair(monkeypatch, fault, B, S, H):
+    """check_add_norm at a small size: on the CPU the wrappers run the
+    plain versions, so the sound reading holds r' bitwise, n within one
+    bf16 rounding of f64 and the backward within ADD_NORM_RTOL; a faulty
+    forward or backward in the wrappers' place must stop the run."""
+    cs = _load_chip_smoke()
+    args = (torch, np.random.default_rng(S), B, S, H)
+    kw = dict(device="cpu", timed=False)
+    if fault is None:
+        out = cs.check_add_norm(*args, **kw)
+        assert set(out) == {"fwd", "bwd"}
+        for form in ("layer", "final", "embedding"):
+            e = out["fwd"][form]
+            assert e["residual_bitwise"] and e["repeat_bitwise"]
+            assert 0.0 < e["n_share_of_tol"] <= 1.0
+            assert e["dr_rel"] <= cs.ADD_NORM_RTOL
+        return
+    fault(monkeypatch)
+    with pytest.raises(SystemExit, match="add \\+ LayerNorm kernels disagree"):
+        cs.check_add_norm(*args, **kw)
+
+
+def test_add_norm_bytes_count_each_tensor_once():
+    cs = _load_chip_smoke()
+    from splade_tpu_torch.ops.add_norm import BWD_ROWS_PER_BLOCK
+
+    rows, H = 144 * 256, 768
+    fwd, bwd = cs.add_norm_bytes(144, 256, H)
+    assert fwd == 12 * rows * H + 8 * rows + 4 * H
+    assert bwd == (16 * rows * H + 8 * rows + 8 * H
+                   + 2 * 4 * H * (rows // BWD_ROWS_PER_BLOCK))
+
+
 def test_rope_case_gathers_packed_positions_and_a_padded_row():
     """The packed tables are the shared ones gathered by positions that
     restart in the packed rows and stay 0 in the last row; the gradients
@@ -1195,16 +1298,25 @@ def test_expected_launches_follow_the_code():
     names = ("fused_splade_pool", "fused_splade_bwd_match",
              "fused_splade_bwd_dh", "fused_splade_bwd_dw", "splash_attention",
              "splash_attention_bwd_dq", "splash_attention_bwd_dkv",
-             "rope_qkv_fwd", "rope_qkv_bwd", "rescore_match")
+             "rope_qkv_fwd", "rope_qkv_bwd", "add_layernorm_fwd",
+             "add_layernorm_bwd", "rescore_match")
+    # the add + LayerNorm sites of an encode: the embedding's norm and the
+    # 2 L residual adds; under recompute the 2 L - 1 inside the layers again
+    sites, inner = 2 * 22 + 1, 2 * 22 - 1
     v33 = ModernBertConfig(remat=True, attention_impl="splash")
     assert cs.expected_launches(v33, 4, 3, 2) == dict(zip(
         names, (24, 24, 24, 24, 22 * 2 * 12, 22 * 12, 22 * 12, 22 * 2 * 12,
-                22 * 12, 0)))
+                22 * 12, (sites + inner) * 12, sites * 12, 0)))
     mlm = ModernBertConfig(attention_impl="splash")
     assert cs.expected_launches(mlm, 4, 5, 0) == dict(zip(
-        names, (0, 0, 0, 0, 22 * 20, 22 * 20, 22 * 20, 22 * 20, 22 * 20, 0)))
+        names, (0, 0, 0, 0, 22 * 20, 22 * 20, 22 * 20, 22 * 20, 22 * 20,
+                sites * 20, sites * 20, 0)))
     assert cs.expected_launches(ModernBertConfig(remat=True), 4, 3, 2) == dict(
-        zip(names, (24, 24, 24, 24, 0, 0, 0, 0, 0, 0)))
+        zip(names, (24, 24, 24, 24, 0, 0, 0, 0, 0, (sites + inner) * 12,
+                    sites * 12, 0)))
+    # a width the add + LayerNorm kernels are not built for keeps the chain
+    assert cs.expected_launches(ModernBertConfig.tiny(remat=True), 4, 3,
+                                2) == dict(zip(names, (24,) * 4 + (0,) * 8))
     assert set(cs._launch_counts()) == set(names)
     cs.hold_launches("sound", dict.fromkeys(names, 0),
                      dict.fromkeys(names, 0))

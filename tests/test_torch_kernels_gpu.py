@@ -1198,3 +1198,233 @@ def test_rope_empty_batch_launches_and_counts_nothing(cuda):
     dqkv = rope.rope_qkv_bwd(g, g, g, cos, sin, torch.bfloat16)
     assert out.shape == (2, 0, 40, 12, 64) and dqkv.shape == (0, 40, 3, 12, 64)
     assert (rope.rope_qkv_fwd.launches, rope.rope_qkv_bwd.launches) == before
+
+
+# ---- the fused residual add + LayerNorm pair -------------------------------
+#: (B, S, H): the V33 micro-batch's rows, the MLM one's, an odd row count,
+#: and the smallest and largest widths the kernels are built for
+ADD_NORM_SHAPES = [(144, 256, 768), (32, 512, 768), (3, 37, 768),
+                   (5, 11, 256), (2, 29, 1024)]
+#: form -> (a bf16 branch, n's dtype): a layer's site, the final norm, the
+#: embedding's norm
+ADD_NORM_FORMS = {"layer": (True, torch.bfloat16),
+                  "final": (True, torch.float32),
+                  "embedding": (False, torch.float32)}
+ADD_NORM_EPS = 1e-5
+#: f32 outputs against f64, relative to the tensor's largest value: f32
+#: sums of a row (or, for gamma's gradient, of every row) in another order
+ADD_NORM_RTOL = 1e-5
+
+
+def _add_norm_case(B, S, H, form, device, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    r = torch.randn(B, S, H, generator=g) * 4.0 + torch.randn(B, S, 1,
+                                                             generator=g)
+    b = torch.randn(B, S, H, generator=g).to(torch.bfloat16)
+    w = 1.0 + 0.1 * torch.randn(H, generator=g)
+    dn = torch.randn(B, S, H, generator=g).to(ADD_NORM_FORMS[form][1])
+    d_above = torch.randn(B, S, H, generator=g) * 0.1
+    if not ADD_NORM_FORMS[form][0]:
+        b = d_above = None
+    return [None if t is None else t.to(device)
+            for t in (r, b, w, dn, d_above)]
+
+
+def _within_one_bf16_rounding(got, want):
+    err = (got.double() - want.double()).abs()
+    return bool((err <= want.double().abs() * 2.0 ** -7 + 1e-6).all())
+
+
+@pytest.mark.parametrize("form", list(ADD_NORM_FORMS))
+@pytest.mark.parametrize("B,S,H", ADD_NORM_SHAPES)
+def test_add_norm_forward_against_the_eager_chain(cuda, B, S, H, form):
+    """r' bitwise the eager mixed add; n within one bf16 ulp of the eager
+    chain's cast (an f32 n within ADD_NORM_RTOL of the chain's); mean and
+    rstd within ADD_NORM_RTOL of the f64 plain version; one launch."""
+    import torch.nn.functional as F
+
+    from splade_tpu_torch.ops import add_norm as an
+
+    r, b, w, _, _ = _add_norm_case(B, S, H, form, cuda)
+    n_dtype = ADD_NORM_FORMS[form][1]
+    before = an.add_layernorm_fwd.launches
+    r_out, n, stats = an.add_layernorm_fwd(r, b, w, ADD_NORM_EPS, n_dtype)
+    torch.cuda.synchronize()
+    assert an.add_layernorm_fwd.launches == before + 1
+    x = r if b is None else r + b
+    assert torch.equal(r_out, x)
+    chain = F.layer_norm(x, (H,), w, None, ADD_NORM_EPS).to(n_dtype)
+    assert n.dtype == n_dtype
+    if n_dtype == torch.bfloat16:
+        assert _within_one_bf16_rounding(n, chain)
+    else:
+        assert _rel(n, chain) <= ADD_NORM_RTOL
+    _, _, st64 = an.add_layernorm_fwd_plain(x.double(), None, w.double(),
+                                            ADD_NORM_EPS, torch.float64)
+    assert _rel(stats[0], st64[0]) <= ADD_NORM_RTOL
+    assert _rel(stats[1], st64[1]) <= ADD_NORM_RTOL
+
+
+@pytest.mark.parametrize("form", list(ADD_NORM_FORMS))
+@pytest.mark.parametrize("B,S,H", ADD_NORM_SHAPES)
+def test_add_norm_backward_against_its_plain_version(cuda, B, S, H, form):
+    """dr and gamma's gradient within ADD_NORM_RTOL of the f64 plain
+    backward, db bitwise dr's cast to bf16, a repeat bitwise equal; and
+    against autograd through the eager chain from the same cotangents."""
+    import torch.nn.functional as F
+
+    from splade_tpu_torch.ops import add_norm as an
+
+    r, b, w, dn, d_above = _add_norm_case(B, S, H, form, cuda, seed=1)
+    branch_dtype = None if b is None else torch.bfloat16
+    r_out, n, stats = an.add_layernorm_fwd(r, b, w, ADD_NORM_EPS, dn.dtype)
+    before = an.add_layernorm_bwd.launches
+    got = an.add_layernorm_bwd(dn, r_out, stats, w, d_above, branch_dtype)
+    again = an.add_layernorm_bwd(dn, r_out, stats, w, d_above, branch_dtype)
+    torch.cuda.synchronize()
+    assert an.add_layernorm_bwd.launches == before + 2
+    for x, y in zip(got, again):
+        assert (x is None and y is None) or torch.equal(x, y)
+    dr, db, dw = got
+    want = an.add_layernorm_bwd_plain(
+        dn.double(), r_out.double(), stats.double(), w.double(),
+        None if d_above is None else d_above.double(), None)
+    assert dr.dtype == dw.dtype == torch.float32
+    assert _rel(dr, want[0]) <= ADD_NORM_RTOL
+    assert _rel(dw, want[2]) <= ADD_NORM_RTOL
+    assert (db is None) == (b is None)
+    if db is not None:
+        assert torch.equal(db, dr.to(torch.bfloat16))
+    leaves = [t.detach().requires_grad_() for t in (r, w)] + (
+        [] if b is None else [b.detach().requires_grad_()])
+    x = leaves[0] if b is None else leaves[0] + leaves[2]
+    chain = F.layer_norm(x, (H,), leaves[1], None, ADD_NORM_EPS).to(dn.dtype)
+    outs, cots = (([chain], [dn]) if b is None
+                  else ([x, chain], [d_above, dn]))
+    grads = torch.autograd.grad(outs, leaves, cots)
+    assert _rel(dr, grads[0]) <= 2 * ADD_NORM_RTOL
+    assert _rel(dw, grads[1]) <= 2 * ADD_NORM_RTOL
+    if db is not None:
+        assert _within_one_bf16_rounding(db, grads[2])
+
+
+def test_add_norm_empty_batch_launches_and_counts_nothing(cuda):
+    from splade_tpu_torch.ops import add_norm as an
+
+    r, b, w, dn, d_above = _add_norm_case(2, 5, 768, "layer", cuda)
+    before = (an.add_layernorm_fwd.launches, an.add_layernorm_bwd.launches)
+    r_out, n, stats = an.add_layernorm_fwd(r[:0], b[:0], w, ADD_NORM_EPS,
+                                           torch.bfloat16)
+    dr, db, dw = an.add_layernorm_bwd(dn[:0], r_out, stats, w, d_above[:0],
+                                      torch.bfloat16)
+    assert n.shape == dr.shape == db.shape == (0, 5, 768)
+    assert torch.equal(dw, torch.zeros_like(dw))
+    assert (an.add_layernorm_fwd.launches,
+            an.add_layernorm_bwd.launches) == before
+
+
+def test_add_norm_counters_follow_the_sites(cuda):
+    """One V33 micro-batch (144 rows of 256, the 22-layer encoder at 768)
+    under layer recompute and bf16 autocast, as training runs it: the
+    forward launched once a site (the embedding's norm and the 2 L residual
+    adds with their norms) and again for the 2 L - 1 sites inside the
+    layers, the backward once a site; finite output and gradients, near the
+    eager route's."""
+    from splade_tpu_torch.models import modernbert
+    from splade_tpu_torch.models.modernbert import (ModernBertConfig,
+                                                    ModernBertForMaskedLM)
+    from splade_tpu_torch.ops import add_norm as an
+
+    cfg = ModernBertConfig(remat=True, attention_impl="splash")
+    torch.manual_seed(0)
+    model = ModernBertForMaskedLM(cfg).to(cuda)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(3, cfg.vocab_size - 1, (144, 256), generator=g)
+    lens = torch.randint(64, 257, (144, 1), generator=g)
+    mask = (torch.arange(256)[None] < lens).long()
+
+    def run(fused=True):
+        real = modernbert.fused_add_norm_applies
+        if not fused:
+            modernbert.fused_add_norm_applies = lambda *a: False
+        model.zero_grad()
+        before = (an.add_layernorm_fwd.launches,
+                  an.add_layernorm_bwd.launches)
+        try:
+            with torch.autocast("cuda", dtype=torch.bfloat16):
+                h = model.encode(ids.to(cuda), mask.to(cuda))
+                (h.float().square().mean() * 1e3).backward()
+        finally:
+            modernbert.fused_add_norm_applies = real
+        torch.cuda.synchronize()
+        grads = torch.cat([p.grad.detach().float().flatten()
+                           for p in model.parameters() if p.grad is not None])
+        return (h.detach().float(), grads,
+                (an.add_layernorm_fwd.launches - before[0],
+                 an.add_layernorm_bwd.launches - before[1]))
+
+    L = cfg.num_hidden_layers
+    sites, inner = 2 * L + 1, 2 * L - 1
+    h, grads, counts = run()
+    assert counts == (sites + inner, sites)
+    assert h.dtype == torch.float32
+    assert bool(torch.isfinite(h).all()) and bool(torch.isfinite(grads).all())
+    h_eager, grads_eager, counts_eager = run(fused=False)
+    assert counts_eager == (0, 0)
+    assert _rel(h, h_eager) <= 2e-2
+    assert float((grads - grads_eager).norm()
+                 / grads_eager.norm()) <= 5e-2
+
+
+def test_add_norm_takes_only_autocast_training(cuda):
+    """A narrow encoder at H = 256, 4 layers: under bf16 autocast every
+    LayerNorm site takes the kernels and the output and gradients lie
+    within bf16 rounding of the eager route's; f32 without autocast and
+    bf16 serving (bf16 parameters, no autocast) keep the eager chain, as
+    does the CPU."""
+    from splade_tpu_torch.models import modernbert
+    from splade_tpu_torch.models.modernbert import (ModernBertConfig,
+                                                    ModernBertForMaskedLM)
+    from splade_tpu_torch.ops import add_norm as an
+
+    cfg = ModernBertConfig.tiny(hidden_size=256, num_attention_heads=4,
+                                intermediate_size=384, local_attention=16)
+    torch.manual_seed(0)
+    model = ModernBertForMaskedLM(cfg)
+    g = torch.Generator().manual_seed(0)
+    ids = torch.randint(3, 500, (6, 100), generator=g)
+    lens = torch.randint(5, 101, (6, 1), generator=g)
+    mask = (torch.arange(100)[None] < lens).long()
+
+    def run(dev, dtype=torch.float32, autocast=True, fused=True):
+        real = modernbert.fused_add_norm_applies
+        if not fused:
+            modernbert.fused_add_norm_applies = lambda *a: False
+        m = model.to(dev, dtype)
+        m.zero_grad()
+        before = (an.add_layernorm_fwd.launches,
+                  an.add_layernorm_bwd.launches)
+        try:
+            with torch.autocast("cuda", dtype=torch.bfloat16,
+                                enabled=autocast):
+                h = m.encode(ids.to(dev), mask.to(dev))
+                h.float().square().mean().backward()
+        finally:
+            modernbert.fused_add_norm_applies = real
+        grads = {n: p.grad.detach().float().cpu()
+                 for n, p in m.named_parameters() if p.grad is not None}
+        return (h.detach().float().cpu(), grads,
+                (an.add_layernorm_fwd.launches - before[0],
+                 an.add_layernorm_bwd.launches - before[1]))
+
+    sites = 2 * cfg.num_hidden_layers + 1
+    h, grads, counts = run(cuda)
+    assert counts == (sites, sites)
+    h_eager, grads_eager, counts_eager = run(cuda, fused=False)
+    assert counts_eager == (0, 0)
+    assert _rel(h, h_eager) <= 2e-2
+    for name, ref in grads_eager.items():
+        assert _rel(grads[name], ref) <= 5e-2, (name, _rel(grads[name], ref))
+    assert run(cuda, autocast=False)[2] == (0, 0)
+    assert run(cuda, torch.bfloat16, autocast=False)[2] == (0, 0)
+    assert run(torch.device("cpu"))[2] == (0, 0)
